@@ -1,0 +1,54 @@
+"""Carry parameters between the JAX package and the port.
+
+The JAX package's parameter trees are dicts of arrays; the port's are
+dicts of tensors in the same ``x @ W`` layout (no transpose to
+``nn.Linear``'s ``[out, in]``), so the same names hold the same numbers.
+float8 leaves (``w1_q``/``w2_q`` of ``weight_dtype="fp8"``) travel as
+their bytes: numpy has no float8 of its own.
+
+Only host arrays cross: pass ``numpy.asarray(leaf)`` of each JAX leaf
+(or the leaves themselves, which numpy converts); nothing here imports
+JAX.
+"""
+
+import numpy
+import torch
+
+from .device import resolve_device
+
+__all__ = ["params_from_jax", "params_to_jax"]
+
+_FP8_NAME = "float8_e4m3fn"
+
+
+def _tensor(arr, device):
+    arr = numpy.array(arr)                 # a writable host copy
+    if arr.dtype.name == _FP8_NAME:
+        raw = torch.from_numpy(arr.view(numpy.uint8))
+        return raw.view(torch.float8_e4m3fn).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_jax(tree, device=None):
+    """``{name: array}`` (f32 leaves, int8 and float8 quantized leaves,
+    their f32 scales) -> ``{name: tensor}`` on ``device`` (default:
+    the card)."""
+    dev = resolve_device(device)
+    return {name: _tensor(leaf, dev) for name, leaf in tree.items()}
+
+
+def params_to_jax(params, fp8_dtype=None):
+    """``{name: tensor}`` -> ``{name: numpy array}``, the inverse of
+    :func:`params_from_jax`.  float8 leaves come back as their uint8
+    bytes, or viewed as ``fp8_dtype`` (a numpy float8_e4m3fn dtype, as
+    ``ml_dtypes`` provides it) when one is given."""
+    out = {}
+    for name, t in params.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.float8_e4m3fn:
+            raw = t.view(torch.uint8).numpy()
+            out[name] = raw.view(fp8_dtype) if fp8_dtype is not None \
+                else raw
+        else:
+            out[name] = t.numpy()
+    return out

@@ -1,0 +1,140 @@
+"""Weight-quantized GEMM: a CUDA kernel and its plain version.
+
+The serving half of ``veles_tpu/znicz/gemm.py`` (the compensated
+training GEMM, ``precise_matmul``, is still to be ported).  Weights are
+static at serve time, so they quantize ONCE — symmetric, one f32 scale
+per output channel — and :func:`quantized_matmul` streams int8 or
+float8-e4m3 bytes, upcasts each tile to f32 on the card and folds the
+channel scales into the output after the K loop.  That is exact up to
+the weight quantization itself, because per-output-channel scales factor
+out of the K contraction.
+
+CUDA tensors launch ``csrc/quantized_matmul.cu`` (kernel K3); CPU
+tensors take :func:`quantized_matmul_reference`.
+``quantized_matmul.launches`` counts the kernel launches.
+"""
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+__all__ = ["quantize_weight", "quantized_matmul",
+           "quantized_matmul_reference", "fp8_dtype", "DEFAULT_BLOCK_K"]
+
+#: K tile of the JAX kernel; the plain version accumulates K in tiles of
+#: this depth, as the JAX reference does
+DEFAULT_BLOCK_K = 256
+
+#: largest-magnitude finite value of float8_e4m3fn: per-channel scales
+#: target it the way int8 targets 127
+_FP8_E4M3_MAX = 448.0
+
+_SRC = "quantized_matmul"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def fp8_dtype():
+    """The fp8 storage dtype of the weight path."""
+    return torch.float8_e4m3fn
+
+
+def _quantize(w, dtype, dim):
+    """Symmetric quantization of ``w`` with one scale per slice along
+    every axis but ``dim`` (the contraction axis)."""
+    w = w.to(torch.float32)
+    amax = w.abs().amax(dim=dim)
+    scale_shape = list(w.shape)
+    scale_shape[dim] = 1
+    if dtype == "int8":
+        scales = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        q = torch.clamp(torch.round(w / scales.reshape(scale_shape)),
+                        -127, 127)
+        return q.to(torch.int8), scales
+    if dtype == "fp8":
+        scales = torch.where(amax > 0, amax / _FP8_E4M3_MAX,
+                             torch.ones_like(amax))
+        return (w / scales.reshape(scale_shape)).to(fp8_dtype()), scales
+    raise ValueError("unknown weight dtype %r (want 'int8'|'fp8')"
+                     % (dtype,))
+
+
+def quantize_weight(w, dtype="int8"):
+    """Symmetric per-output-channel quantization of a ``[K, N]`` weight.
+
+    Returns ``(w_q, scales)``: ``w_q`` in ``dtype`` (``"int8"`` or
+    ``"fp8"``), ``scales`` f32 ``[N]`` with ``scale[n] = max|w[:, n]| /
+    qmax`` (1.0 for an all-zero column).  int8 rounds half to even, so
+    the bytes equal the JAX package's for the same input.
+    """
+    if w.ndim != 2:
+        raise ValueError("quantize_weight wants [K, N], got %r"
+                         % (tuple(w.shape),))
+    return _quantize(w, dtype, dim=0)
+
+
+def quantized_matmul(a, w_q, scales):
+    """``a @ dequant(w_q)`` with the dequant inside the kernel.
+
+    ``a``: f32 [M, K]; ``w_q``: int8 or float8_e4m3fn [K, N] with f32
+    ``scales`` [N] from :func:`quantize_weight`.  Returns f32 [M, N].
+    CUDA tensors run the kernel (every operand contiguous, on one
+    card); CPU tensors run :func:`quantized_matmul_reference`.
+    """
+    if a.ndim != 2 or w_q.ndim != 2:
+        raise ValueError("want a [M, K] and w_q [K, N], got %r and %r"
+                         % (tuple(a.shape), tuple(w_q.shape)))
+    m, k = a.shape
+    k2, n = w_q.shape
+    if k != k2:
+        raise ValueError("shape mismatch %r @ %r"
+                         % (tuple(a.shape), tuple(w_q.shape)))
+    if tuple(scales.shape) != (n,):
+        raise ValueError("scales shape %r != (N,) == (%d,)"
+                         % (tuple(scales.shape), n))
+    if w_q.dtype not in (torch.int8, fp8_dtype()):
+        raise ValueError("w_q must be int8 or float8_e4m3fn, got %s"
+                         % w_q.dtype)
+    if a.device.type == "cpu":
+        return quantized_matmul_reference(a, w_q, scales)
+    for name, t in (("a", a), ("w_q", w_q), ("scales", scales)):
+        if t.device != a.device:
+            raise ValueError("%s is on %s, a on %s"
+                             % (name, t.device, a.device))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    for name, t in (("a", a), ("scales", scales)):
+        if t.dtype != torch.float32:
+            raise ValueError("%s must be float32, got %s" % (name, t.dtype))
+    if m == 0 or n == 0 or k == 0:
+        raise ValueError("empty operand: a %r, w_q %r"
+                         % (tuple(a.shape), tuple(w_q.shape)))
+    symbol = ("vt_quantized_matmul_int8" if w_q.dtype == torch.int8
+              else "vt_quantized_matmul_fp8")
+    fn = _build.function(_SRC, symbol, [_P] * 4 + [_I] * 3 + [_P])
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
+                  out.data_ptr(), m, n, k, _build.stream_ptr(a.device))
+    _build.check(_SRC, code, "quantized_matmul kernel")
+    quantized_matmul.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+quantized_matmul.launches = 0
+
+
+def quantized_matmul_reference(a, w_q, scales):
+    """Plain PyTorch version of :func:`quantized_matmul`, staged like
+    the JAX reference: K-tile-sequential partial products of depth
+    ``DEFAULT_BLOCK_K``, the scales folded in after the loop."""
+    a = a.to(torch.float32)
+    k = a.shape[1]
+    bk = min(DEFAULT_BLOCK_K, k)
+    acc = torch.zeros((a.shape[0], w_q.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, k, bk):
+        acc = acc + a[:, k0:k0 + bk] @ w_q[k0:k0 + bk].to(torch.float32)
+    return acc * scales.to(torch.float32)[None, :]
