@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -8,12 +8,16 @@ Phases (any failure raises and the script exits non-zero):
 1. Environment: the card's name and power limit, torch and CUDA
    versions; build every kernel of ``veles_tpu_torch/csrc`` with nvcc.
 2. Kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, at the shapes the main path gives it and at
-   serving-realistic shapes, timed with CUDA events beside the least
-   time the card could take (``bound_ms``) and, where one PyTorch call
-   computes the same function, that call (``library_ms``).
-   Tolerances: paged attention ``max|kernel - plain| <= 1e-5``; the
-   quantized GEMM ``max|kernel - plain| <= 1e-5 * max|plain|``.
+   the card, at the shapes the main paths give it and at realistic
+   shapes, timed with CUDA events beside the least time the card could
+   take (``bound_ms``) and, where one PyTorch call computes the same
+   function, that call (``library_ms``).  Tolerances: paged attention
+   ``max|kernel - plain| <= 1e-5``; the quantized GEMM
+   ``max|kernel - plain| <= 1e-5 * max|plain|``; the compensated GEMM
+   (K4, levels 0/1/2) ``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)``;
+   against the exact product, level 1 must beat level 0 by 1e4x on a
+   cancellation case, and level 2 must beat level 1 by 1e4x on a case
+   where Neumaier's own carry rounds off.
 3. End to end, over real HTTP: the port's ``InferenceServer`` serving
    the flagship decode model at the README's decode-quickstart widths
    (stages=2, experts=4, d=64, heads=4, hidden=128, vocab=1024; server
@@ -24,10 +28,21 @@ Phases (any failure raises and the script exits non-zero):
    equals the same model run by the port on the CPU (plain versions).
    Each run resets the kernels' launch counts just before it and reads
    them just after; every kernel must have launched in its run.
-4. Where the time goes: each configuration's burst once more under
-   ``torch.profiler`` (after every untraced measurement): the share of
-   the burst's wall time the card is busy, and the top kernels.
-5. The ``kernels`` JSON line, the card's line, and the result line.
+4. Training (slice 2): the MNIST sample through ``create_workflow()``
+   → ``initialize()`` → ``run()`` on the card at the gate's settings
+   (784-100-10, minibatch 60, 25 epochs, fail_iterations 12, loader
+   seed 3, weights seed 42, the committed digits fixture), with plain
+   matmuls and with ``precise_gemm`` 1 and 2 (every All2All matmul,
+   forward and backward, on K4).  Each run's best validation error must
+   be <= 1.48 %; K4 launches are counted from 0 over each run, per train
+   and per eval step.  The first epoch of the ``precise_gemm=1`` run is
+   held against the same epoch run by the port on the CPU: n_err of each
+   class within 1, weights within ``max|card - cpu| <= 1e-4``.
+5. Where the time goes: each serving configuration's burst and one
+   training epoch of each matmul mode once more under ``torch.profiler``
+   (after every untraced measurement): the share of the wall time the
+   card is busy, and the top kernels.
+6. The ``kernels`` JSON line, the card's line, and the result line.
 
 Imports nothing of JAX or of the JAX package.  ``--json PATH`` writes
 every number to PATH as well.
@@ -35,6 +50,7 @@ every number to PATH as well.
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -214,6 +230,147 @@ def kernel_phase(torch, pa, gemm, dev):
     return out
 
 
+# -- phase 2, K4: the compensated GEMM ----------------------------------------
+
+#: (label, M, K, N, layout) of every K4 call of an MNIST train step at
+#: minibatch 60 (784-100-10); "at" = a is a transposed view, "bt" = b is
+K4_MAIN_SHAPES = (("fwd 60x784 @ 784x100", 60, 784, 100, ""),
+                  ("fwd 60x100 @ 100x10", 60, 100, 10, ""),
+                  ("bwd dx g @ W2^T", 60, 10, 100, "bt"),
+                  ("bwd dW2 h^T @ g", 100, 60, 10, "at"),
+                  ("bwd dW1 x^T @ g", 784, 60, 100, "at"))
+#: the JAX package's realistic precise-GEMM shape (bench.py)
+K4_REALISTIC = (4096, 4096, 4096)
+#: compensation flops per output element per K tile, beyond the 2MNK
+#: multiply-adds: level 0 one add, level 1 TwoSum (6) + carry (1),
+#: level 2 two TwoSums + carry; plus the final fold (2)
+K4_COMP_OPS = {0: 1, 1: 7, 2: 13}
+
+
+def _k4_operands(torch, dev, m, k, n, layout, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if "at" in layout:
+        a = torch.randn((k, m), generator=gen, device=dev).t()
+    else:
+        a = torch.randn((m, k), generator=gen, device=dev)
+    if "bt" in layout:
+        b = torch.randn((n, k), generator=gen, device=dev).t()
+    else:
+        b = torch.randn((k, n), generator=gen, device=dev)
+    return a, b
+
+
+def _measure_k4(torch, gemm, dev, level, label, m, k, n, layout, seed,
+                iters=20):
+    a, b = _k4_operands(torch, dev, m, k, n, layout, seed)
+    out = gemm.precise_matmul(a, b, level)
+    ref = gemm.precise_matmul_reference(a, b, level)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float((a.abs() @ b.abs()).max())
+    if not err <= 1e-6 * scale:
+        raise AssertionError("K4 level %d %s: max|kernel - plain| = %g > "
+                             "1e-6 * %g" % (level, label, err, scale))
+    tiles = -(-k // gemm.DEFAULT_BLOCK_K)
+    flops = 2 * m * n * k + m * n * (tiles * K4_COMP_OPS[level] + 2)
+    bound_ms, bound_by = _bound((m * k + k * n + m * n) * 4, flops)
+    rec = {"shape": "M=%d K=%d N=%d %s" % (m, k, n, layout or "row-major"),
+           "label": label, "level": level, "max_abs_err": err,
+           "ms": _cuda_ms(torch, lambda: gemm.precise_matmul(a, b, level),
+                          iters=iters),
+           "plain_ms": _cuda_ms(
+               torch, lambda: gemm.precise_matmul_reference(a, b, level),
+               iters=iters),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": _cuda_ms(torch, lambda: torch.matmul(a, b),
+                                  iters=iters)}
+    _log("kernel precise_matmul level %d [%s: %s] max_err=%.3g (scale %.3g)"
+         " kernel_ms=%.4f plain_ms=%.4f bound_ms=%.5f (%s) library_ms=%.4f "
+         "(torch.matmul, TF32 off)"
+         % (level, label, rec["shape"], err, scale, rec["ms"],
+            rec["plain_ms"], bound_ms, bound_by, rec["library_ms"]))
+    return rec
+
+
+def _k4_errors(torch, gemm, dev, a, b, exact):
+    """max|K4 - exact| of each level."""
+    err = {}
+    for level in (0, 1, 2):
+        out = gemm.precise_matmul(torch.tensor(a, device=dev),
+                                  torch.tensor(b, device=dev), level)
+        err[level] = float(numpy.abs(out.cpu().numpy() - exact).max())
+    return err
+
+
+def _k4_cancellation(torch, gemm, dev):
+    """Two cases against the exact product.  Level 1: huge +/-3e7 K
+    tiles bracket small ones; plain accumulation of the tile partials
+    loses the small tiles, compensation recovers them (the JAX
+    package's tests/test_precise_gemm.py criterion).  Level 2: a 2**40
+    tile, ten triples of tiles x, y, -x (x in [1, 2), y ~ 1e-9), a
+    -2**40 tile; Neumaier's carry rounds every y away, Klein's second
+    carry keeps them (one nonzero per tile and power-of-two columns
+    make every tile partial exact; the exact sum is ``math.fsum``)."""
+    rng = numpy.random.RandomState(1)
+    bk = gemm.DEFAULT_BLOCK_K
+    row = numpy.zeros(4 * bk, numpy.float32)
+    row[:bk] = 3e7
+    row[bk:2 * bk] = rng.uniform(-1, 1, bk)
+    row[2 * bk:3 * bk] = -3e7
+    row[3 * bk:] = rng.uniform(-1, 1, bk)
+    a = numpy.tile(row[None, :], (8, 1))
+    b = numpy.ones((4 * bk, 8), numpy.float32)
+    err = _k4_errors(torch, gemm, dev, a, b,
+                     a.astype(numpy.float64) @ b.astype(numpy.float64))
+    _log("kernel precise_matmul cancellation: max|out - f64| level 0 %.4g, "
+         "level 1 %.4g, level 2 %.4g" % (err[0], err[1], err[2]))
+    if not (err[0] > 0.1 and err[1] < err[0] / 1e4 and
+            err[2] <= err[1] * 1.01):
+        raise AssertionError("K4 compensation does not hold: %r" % err)
+
+    rng = numpy.random.RandomState(2)
+    reps = 10
+    tiles = 2 + 3 * reps
+    a = numpy.zeros((8, tiles * bk), numpy.float32)
+    for i in range(8):
+        vals = [2.0 ** 40]
+        for _ in range(reps):
+            x = rng.uniform(1, 2)
+            vals += [x, rng.uniform(2.0 ** -31, 2.0 ** -30), -x]
+        vals.append(-2.0 ** 40)
+        for t, v in enumerate(vals):
+            a[i, t * bk + rng.randint(bk)] = v
+    cols = 2.0 ** numpy.arange(8, dtype=numpy.float32)
+    b = numpy.tile(cols[None, :], (tiles * bk, 1))
+    exact = numpy.array([math.fsum(r) for r in a.astype(numpy.float64)])
+    exact = exact[:, None] * cols[None, :].astype(numpy.float64)
+    klein = _k4_errors(torch, gemm, dev, a, b, exact)
+    _log("kernel precise_matmul second carry: max|out - exact| level 0 "
+         "%.4g, level 1 %.4g, level 2 %.4g (max|exact| %.4g)"
+         % (klein[0], klein[1], klein[2], float(numpy.abs(exact).max())))
+    if not (klein[1] > 0.5 * float(numpy.abs(exact).max()) and
+            klein[2] < klein[1] / 1e4):
+        raise AssertionError("K4 level 2 does not keep its second carry: "
+                             "%r" % klein)
+    return {"cancellation": err, "second_carry": klein}
+
+
+def k4_phase(torch, gemm, dev):
+    """-> {level: {"main": [records], "realistic": [record]}},
+    cancellation errors."""
+    out = {}
+    for level in (0, 1, 2):
+        out[level] = {
+            "main": [_measure_k4(torch, gemm, dev, level, label, m, k, n,
+                                 layout, seed=10 * level + i)
+                     for i, (label, m, k, n, layout)
+                     in enumerate(K4_MAIN_SHAPES)],
+            "realistic": [_measure_k4(torch, gemm, dev, level, "bench",
+                                      *K4_REALISTIC, "", seed=99,
+                                      iters=5)]}
+    return out, _k4_cancellation(torch, gemm, dev)
+
+
 # -- phase 3: end to end over HTTP --------------------------------------------
 
 def _prompts():
@@ -331,7 +488,176 @@ def e2e_run(pa, gemm, card, label, kv_dtype, weight_dtype):
     return rec
 
 
-# -- phase 4: where the time goes ----------------------------------------------
+# -- phase 4: training, MNIST on the unit engine ------------------------------
+
+#: the MNIST gate's settings (the JAX package's tests/test_samples_gates.py)
+GATE_ERROR_PT = 1.48
+GATE_LOADER = {"minibatch_size": 60, "n_train": None, "n_valid": None}
+GATE_DECISION = {"max_epochs": 25, "fail_iterations": 12, "silent": True}
+FIRST_EPOCH_WEIGHT_ATOL = 1e-4
+
+
+def _mnist_workflow(precise, device="cuda", epochs=None):
+    """The gate's workflow with ``root.common.engine.precise_gemm`` set
+    to ``precise``, initialized on ``device`` (the card unless the CPU
+    is asked for, whatever ``$VELES_BACKEND`` says)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.samples import mnist
+    prng.get().seed(42)
+    decision = dict(GATE_DECISION)
+    if epochs is not None:
+        decision["max_epochs"] = epochs
+    saved = root.common.engine.get("precise_gemm", 0)
+    root.common.engine.precise_gemm = precise
+    try:
+        wf = mnist.create_workflow(
+            loader=dict(GATE_LOADER, prng=RandomGenerator().seed(3)),
+            decision=decision)
+    finally:
+        root.common.engine.precise_gemm = saved
+    wf.initialize(device=Device(backend=device))
+    if wf.fused_step._dev_.type != device:
+        raise AssertionError("the workflow runs on %s, not %s"
+                             % (wf.fused_step._dev_, device))
+    if [f.precise_gemm for f in wf.forwards] != [precise] * 2:
+        raise AssertionError("precise_gemm did not reach the layers")
+    return wf
+
+
+def _instrument(wf, gemm):
+    """Record each epoch's end time and first-epoch state, and K4
+    launches per minibatch class (wrappers on this workflow's units)."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    rec = {"epoch_end": [], "first_epoch": None,
+           "steps": {TRAIN: 0, VALID: 0}, "k4": {TRAIN: 0, VALID: 0}}
+    step, decision = wf.fused_step, wf.decision
+    step_run, epoch_end = step.run, decision._on_epoch_end
+
+    def run():
+        before = gemm.precise_matmul.launches
+        cls = step.minibatch_class
+        step_run()
+        rec["steps"][cls] += 1
+        rec["k4"][cls] += gemm.precise_matmul.launches - before
+
+    def on_epoch_end():
+        rec["epoch_end"].append(time.perf_counter())
+        if rec["first_epoch"] is None:
+            rec["first_epoch"] = {
+                "n_err": list(decision.epoch_n_err),
+                "weights": [{k: numpy.array(v)
+                             for k, v in f.host_params.items()}
+                            for f in wf.forwards]}
+        epoch_end()
+
+    step.run = run
+    decision._on_epoch_end = on_epoch_end
+    return rec
+
+
+def train_run(torch, gemm, card, precise):
+    """The gate's training run on the card; -> record."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    t_init = time.perf_counter()
+    wf = _mnist_workflow(precise)
+    init_s = time.perf_counter() - t_init
+    if wf.loader.provenance not in ("fixture", "real"):
+        raise AssertionError("digits came from %r" % wf.loader.provenance)
+    rec = _instrument(wf, gemm)
+    gemm.precise_matmul.launches = 0
+    t0 = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = gemm.precise_matmul.launches
+    res = wf.gather_results()
+    ends = [t0] + rec["epoch_end"]
+    epoch_s = [b - a for a, b in zip(ends, ends[1:])]
+    n_train = wf.loader.class_lengths[TRAIN]
+    steps = rec["steps"]
+    out = {"label": "precise_gemm=%d" % precise if precise else "plain",
+           "precise_gemm": precise, "card": card, "init_s": init_s,
+           "seconds": seconds, "epochs": len(epoch_s),
+           "epoch_s": epoch_s, "epoch_s_median": statistics.median(epoch_s),
+           "train_images_s": [n_train / t for t in epoch_s],
+           "train_images_s_median": n_train / statistics.median(epoch_s),
+           "best_validation_error_pt": res["best_validation_error_pt"],
+           "best_epoch": res["best_epoch"],
+           "train_steps": steps[TRAIN], "eval_steps": steps[VALID],
+           "k4_launches": launches,
+           "k4_per_train_step": rec["k4"][TRAIN] / max(steps[TRAIN], 1),
+           "k4_per_eval_step": rec["k4"][VALID] / max(steps[VALID], 1),
+           "first_epoch": rec["first_epoch"]}
+    _log("train %s: best validation error %.2f%% (epoch %d) in %d epochs, "
+         "%.3f s; epoch wall s first %.4f median %.4f; train images/s "
+         "median %.0f (first epoch %.0f); %d train + %d eval steps; K4 "
+         "launches %d (%.2f per train step, %.2f per eval step); init %.3f"
+         " s [%s]"
+         % (out["label"], out["best_validation_error_pt"], out["best_epoch"],
+            out["epochs"], seconds, epoch_s[0], out["epoch_s_median"],
+            out["train_images_s_median"], out["train_images_s"][0],
+            steps[TRAIN], steps[VALID], launches, out["k4_per_train_step"],
+            out["k4_per_eval_step"], init_s, card))
+    _log("train %s: epoch wall s %s" % (
+        out["label"], " ".join("%.4f" % t for t in epoch_s)))
+    if not res["best_validation_error_pt"] <= GATE_ERROR_PT:
+        raise AssertionError("%s: best validation error %.2f%% > %.2f%%"
+                             % (out["label"],
+                                res["best_validation_error_pt"],
+                                GATE_ERROR_PT))
+    if precise and (out["k4_per_train_step"] != 5 or
+                    out["k4_per_eval_step"] != 2):
+        raise AssertionError("%s: K4 launches per train / eval step %r / "
+                             "%r, want 5 / 2" % (
+                                 out["label"], out["k4_per_train_step"],
+                                 out["k4_per_eval_step"]))
+    if not precise and launches:
+        raise AssertionError("the plain-matmul run launched K4")
+    return out
+
+
+def first_epoch_on_the_cpu(card_run, gemm):
+    """The ``precise_gemm`` run's first epoch, again by the port on the
+    CPU from the same seeds: n_err within 1, weights within the stated
+    tolerance."""
+    wf = _mnist_workflow(card_run["precise_gemm"], device="cpu", epochs=1)
+    rec = _instrument(wf, gemm)
+    t0 = time.perf_counter()
+    wf.run()
+    seconds = time.perf_counter() - t0
+    cpu, gpu = rec["first_epoch"], card_run["first_epoch"]
+    n_err_diff = [abs(a - b) for a, b in zip(cpu["n_err"], gpu["n_err"])]
+    w_diff = max(float(numpy.abs(c[k] - g[k]).max())
+                 for c, g in zip(cpu["weights"], gpu["weights"]) for k in c)
+    _log("train %s first epoch, card vs CPU: n_err card %s cpu %s, "
+         "max|w_card - w_cpu| = %.3g (limit %g); CPU epoch %.3f s"
+         % (card_run["label"], gpu["n_err"], cpu["n_err"], w_diff,
+            FIRST_EPOCH_WEIGHT_ATOL, seconds))
+    if max(n_err_diff) > 1 or not w_diff <= FIRST_EPOCH_WEIGHT_ATOL:
+        raise AssertionError("first epoch on the card differs from the CPU")
+    return {"n_err_card": gpu["n_err"], "n_err_cpu": cpu["n_err"],
+            "max_weight_diff": w_diff, "cpu_seconds": seconds}
+
+
+def trace_train(torch, card, precise):
+    """One epoch of the gate's workflow under ``torch.profiler``: the
+    share of the epoch's wall time the card is busy."""
+    from torch.profiler import ProfilerActivity, profile
+    wf = _mnist_workflow(precise, epochs=1)
+    label = "train precise_gemm=%d" % precise if precise else "train plain"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wf.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return _trace_record(prof, label, card, seconds)
+
+
+# -- phase 5: where the time goes ---------------------------------------------
 
 def trace_run(torch, card, label, kv_dtype, weight_dtype):
     """The same burst once more under ``torch.profiler``, through the
@@ -357,9 +683,24 @@ def trace_run(torch, card, label, kv_dtype, weight_dtype):
             seconds = time.perf_counter() - t0
     finally:
         sched.close()
-    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
-                        for e in prof.key_averages()
-                        if e.self_device_time_total > 0), reverse=True)
+    return _trace_record(prof, label, card, seconds)
+
+
+def device_rows(events):
+    """(device us, count, name) of the rows of ``key_averages()`` that
+    ran on the card (kernels, copies, sets), longest first.  A host op
+    row (``aten::mm``, an autograd Function) also carries, as its self
+    device time, the time of the kernels it launched: counting both
+    would count each kernel twice."""
+    import torch
+    return sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and
+                   e.self_device_time_total > 0), reverse=True)
+
+
+def _trace_record(prof, label, card, seconds):
+    by_kernel = device_rows(prof.key_averages())
     busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
     if busy_ms <= 0:
         raise AssertionError("%s: the traced run ran nothing on the card"
@@ -378,6 +719,81 @@ def trace_run(torch, card, label, kv_dtype, weight_dtype):
                                           e["count"]) for e in rec["top"]),
             card))
     return rec
+
+
+#: name in the kernels line: (id in PERF.md's table, source, TPU kernel)
+KERNEL_META = {
+    "paged_attention_f32": (
+        "K1", "csrc/paged_attention.cu",
+        "veles_tpu/znicz/paged_attention.py:113 (_decode_kernel)"),
+    "paged_attention_int8": (
+        "K2", "csrc/paged_attention.cu",
+        "veles_tpu/znicz/paged_attention.py:167 (_decode_kernel_quant)"),
+    "quantized_matmul_int8": (
+        "K3", "csrc/quantized_matmul.cu",
+        "veles_tpu/znicz/gemm.py:261 (quantized_matmul kernel)"),
+    "quantized_matmul_fp8": (
+        "K3", "csrc/quantized_matmul.cu",
+        "veles_tpu/znicz/gemm.py:261 (quantized_matmul kernel)"),
+    "precise_matmul_l1": (
+        "K4", "csrc/precise_matmul.cu",
+        "veles_tpu/znicz/gemm.py:126 (_matmul_impl kernel, level 1)"),
+    "precise_matmul_l2": (
+        "K4", "csrc/precise_matmul.cu",
+        "veles_tpu/znicz/gemm.py:126 (_matmul_impl kernel, level 2)"),
+}
+
+
+def serving_launches(runs):
+    """Each slice-1 kernel's launches over the serving runs."""
+    by_label = {r["label"]: r for r in runs}
+    launches = {
+        "paged_attention_f32": sum(
+            r["launches"]["paged_attention"] for r in runs
+            if r["kv_dtype"] == "f32"),
+        "paged_attention_int8":
+            by_label["int8-kv"]["launches"]["paged_attention"],
+        "quantized_matmul_int8":
+            by_label["int8-weights"]["launches"]["quantized_matmul"],
+        "quantized_matmul_fp8":
+            by_label["fp8-weights"]["launches"]["quantized_matmul"],
+    }
+    if by_label["f32"]["launches"]["quantized_matmul"]:
+        raise AssertionError("the f32 model launched the quantized GEMM")
+    return launches
+
+
+def kernels_line(kernels, k4, launches):
+    """The ``kernels`` JSON line: every kernel of ``KERNEL_META``, as
+    measured in phase 2, with its launches on its main path.  K4's
+    level 0 is no main path's (``precise_gemm=0`` means plain
+    matmuls): its numbers ride inside the level-1 entry."""
+    main = {name: rec["main"] for name, rec in kernels.items()}
+    realistic = {name: rec["realistic"] for name, rec in kernels.items()}
+    for level in (1, 2):
+        main["precise_matmul_l%d" % level] = k4[level]["main"][0]
+        realistic["precise_matmul_l%d" % level] = \
+            k4[level]["main"][1:] + k4[level]["realistic"]
+    out = []
+    for name, (kid, src, replaces) in KERNEL_META.items():
+        if name not in main:
+            raise AssertionError("kernel %s was not measured" % name)
+        if launches.get(name, 0) <= 0:
+            raise AssertionError("kernel %s never launched on its main "
+                                 "path" % name)
+        rec = main[name]
+        entry = {"name": name, "id": kid, "route": "cuda",
+                 "source": "veles_tpu_torch/" + src, "replaces": replaces,
+                 "launches": launches[name],
+                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                 "bound_by": rec["bound_by"],
+                 "library_ms": rec["library_ms"], "shape": rec["shape"],
+                 "realistic": realistic[name]}
+        if name == "precise_matmul_l1":
+            entry["level0"] = k4[0]
+        out.append(entry)
+    return {"kernels": out}
 
 
 def main():
@@ -410,70 +826,39 @@ def main():
             if "Used" in line or "spill" in line:
                 _log("  %s: %s" % (name, line.strip()))
 
+    record = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
     kernels = kernel_phase(torch, pa, gemm, dev)
-
+    k4, record["k4_compensation"] = k4_phase(torch, gemm, dev)
+    record["k4"] = k4
     runs = [e2e_run(pa, gemm, card, label, kv, wd)
             for label, kv, wd in CONFIGS]
-    by_label = {r["label"]: r for r in runs}
-    launches = {
-        "paged_attention_f32": sum(
-            r["launches"]["paged_attention"] for r in runs
-            if r["kv_dtype"] == "f32"),
-        "paged_attention_int8":
-            by_label["int8-kv"]["launches"]["paged_attention"],
-        "quantized_matmul_int8":
-            by_label["int8-weights"]["launches"]["quantized_matmul"],
-        "quantized_matmul_fp8":
-            by_label["fp8-weights"]["launches"]["quantized_matmul"],
-    }
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError("kernel %s never launched on the main "
-                                 "path" % name)
-    if by_label["f32"]["launches"]["quantized_matmul"]:
-        raise AssertionError("the f32 model launched the quantized GEMM")
-
-    meta = {   # name: (id in PERF.md's table, source, TPU kernel)
-        "paged_attention_f32": (
-            "K1", "csrc/paged_attention.cu",
-            "veles_tpu/znicz/paged_attention.py:113 (_decode_kernel)"),
-        "paged_attention_int8": (
-            "K2", "csrc/paged_attention.cu",
-            "veles_tpu/znicz/paged_attention.py:167 (_decode_kernel_quant)"),
-        "quantized_matmul_int8": (
-            "K3", "csrc/quantized_matmul.cu",
-            "veles_tpu/znicz/gemm.py:261 (quantized_matmul kernel)"),
-        "quantized_matmul_fp8": (
-            "K3", "csrc/quantized_matmul.cu",
-            "veles_tpu/znicz/gemm.py:261 (quantized_matmul kernel)"),
-    }
-    line = {"kernels": []}
-    for name, (kid, src, replaces) in meta.items():
-        main_rec = kernels[name]["main"]
-        line["kernels"].append({
-            "name": name, "id": kid, "route": "cuda",
-            "source": "veles_tpu_torch/" + src, "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"],
-            "plain_ms": main_rec["plain_ms"],
-            "bound_ms": main_rec["bound_ms"],
-            "bound_by": main_rec["bound_by"],
-            "library_ms": main_rec["library_ms"],
-            "shape": main_rec["shape"],
-            "realistic": kernels[name]["realistic"]})
-    traces = [trace_run(torch, card, *config) for config in CONFIGS]
-    record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "kernels": line["kernels"],
-              "e2e": runs, "traces": traces,
-              "seconds": time.perf_counter() - t_start}
+    launches = serving_launches(runs)
+    record["e2e"] = runs
+    train = [train_run(torch, gemm, card, precise) for precise in (0, 1, 2)]
+    record["first_epoch_vs_cpu"] = first_epoch_on_the_cpu(train[1], gemm)
+    for run in train:
+        run.pop("first_epoch")
+        if run["precise_gemm"]:
+            launches["precise_matmul_l%d" % run["precise_gemm"]] = \
+                run["k4_launches"]
+    record["training"] = train
+    line = kernels_line(kernels, k4, launches)
+    record["kernels"] = line["kernels"]
+    record["traces"] = (
+        [trace_run(torch, card, *config) for config in CONFIGS] +
+        [trace_train(torch, card, precise) for precise in (0, 1)])
+    record["seconds"] = time.perf_counter() - t_start
+    _log("chip_smoke: every phase in %.1f s" % record["seconds"])
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)
     _log(json.dumps(line))
     _log(_card_line())
-    print(json.dumps({"ok": True, "device": {
+    result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}
+    print(json.dumps(result), flush=True)
     return 0
 
 

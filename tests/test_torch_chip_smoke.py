@@ -1,0 +1,85 @@
+"""The bookkeeping of ``chip_smoke.py`` that needs no card.
+
+- The traced busy time counts each kernel once.  ``key_averages()``
+  lists a host op (``aten::mm``, an autograd Function such as
+  ``_PreciseMatmul``) with the time of the kernels it launched as its
+  own self device time, and lists those kernels again as device rows;
+  summing every row counted each kernel twice.
+- The ``kernels`` line holds every kernel of the main paths, refuses
+  one that never launched there or was never measured, and carries K4's level 0 (on no main
+  path: ``precise_gemm=0`` means plain matmuls) inside the level-1
+  entry.
+"""
+
+import os
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
+
+
+class _Row:
+    def __init__(self, key, us, count, device):
+        self.key, self.self_device_time_total, self.count = key, us, count
+        self.device_type = device
+
+
+def test_device_busy_counts_each_kernel_once():
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    rows = [_Row("_PreciseMatmul", 22.8, 468, cpu),
+            _Row("_PreciseMatmulBackward", 4.1, 400, cpu),
+            _Row("precise_matmul_kernel<1>", 26.9, 868, cuda),
+            _Row("aten::mm", 5.4, 1068, cpu),
+            _Row("sgemm", 5.4, 1068, cuda),
+            _Row("Memcpy HtoD", 0.2, 234, cuda),
+            _Row("aten::empty", 0.0, 99, cpu)]
+    got = chip_smoke.device_rows(rows)
+    assert [k for _, _, k in got] == ["precise_matmul_kernel<1>", "sgemm",
+                                      "Memcpy HtoD"]
+    assert sum(t for t, _, _ in got) == pytest.approx(32.5)
+
+
+def _rec(ms):
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": 2 * ms,
+            "bound_ms": ms / 10, "bound_by": "bytes", "library_ms": None,
+            "shape": "M=60 K=784 N=100"}
+
+
+def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
+    slice1 = ("paged_attention_f32", "paged_attention_int8",
+              "quantized_matmul_int8", "quantized_matmul_fp8")
+    kernels = {name: {"main": _rec(0.1), "realistic": [_rec(0.4)]}
+               for name in slice1}
+    k4 = {level: {"main": [_rec(0.08 + level), _rec(0.07)],
+                  "realistic": [_rec(7.0)]} for level in (0, 1, 2)}
+    launches = dict({name: 64 for name in slice1},
+                    precise_matmul_l1=26700, precise_matmul_l2=26700)
+    line = chip_smoke.kernels_line(kernels, k4, launches)
+    names = [e["name"] for e in line["kernels"]]
+    assert names == list(slice1) + ["precise_matmul_l1",
+                                    "precise_matmul_l2"]
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    for entry in line["kernels"]:
+        assert keys <= set(entry) and entry["launches"] > 0
+    l1 = line["kernels"][4]
+    assert l1["ms"] == 1.08 and l1["level0"] is k4[0]
+    assert l1["source"] == "veles_tpu_torch/csrc/precise_matmul.cu"
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.kernels_line(kernels, k4,
+                                dict(launches, precise_matmul_l2=0))
+    # a measured kernel whose main path left no count fails the run
+    missing = dict(launches)
+    del missing["quantized_matmul_fp8"]
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.kernels_line(kernels, k4, missing)
+    # and so does a kernel of the path that was never measured
+    unmeasured = dict(kernels)
+    del unmeasured["paged_attention_int8"]
+    with pytest.raises(AssertionError, match="not measured"):
+        chip_smoke.kernels_line(unmeasured, k4, launches)

@@ -4,6 +4,9 @@
   afterwards ``sys.modules`` holds no ``jax`` and no ``veles_tpu`` /
   ``veles_tpu.*`` (matched by exact name: ``veles_tpu_torch`` itself
   begins with ``veles_tpu``).
+- The digits fixture of the MNIST sample is read by path from
+  ``veles_tpu/fixtures/digits``: loading it imports nothing of
+  ``veles_tpu`` either.
 - ``chip_smoke.py`` imports neither, read from its source.
 - Every entry point called without ``device`` on a machine without CUDA
   raises instead of running on the CPU (CUDA is hidden with
@@ -36,7 +39,12 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
         "    veles_tpu_torch.__path__, 'veles_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "from veles_tpu_torch import datasets\n"
+        "_, (images, _), provenance = datasets.load_digits_idx(60, 60)\n"
         "print(json.dumps({'imported': names,\n"
+        "                  'fixture': datasets.fixture_dir(),\n"
+        "                  'provenance': provenance,\n"
+        "                  'valid_images': len(images),\n"
         "                  'modules': sorted(sys.modules)}))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -46,6 +54,18 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
     assert "veles_tpu_torch.serving.server" in report["imported"]
     assert "veles_tpu_torch.znicz.samples.flagship" in report["imported"]
     assert "veles_tpu_torch.convert" in report["imported"]
+    for name in ("config", "mutable", "units", "workflow", "plumbing",
+                 "memory", "backends", "accelerated_units", "prng",
+                 "datasets", "normalization", "loader.base",
+                 "loader.fullbatch", "znicz.nn_units", "znicz.all2all",
+                 "znicz.gd", "znicz.solvers", "znicz.evaluator",
+                 "znicz.decision", "znicz.fused", "znicz.standard_workflow",
+                 "znicz.samples.mnist"):
+        assert "veles_tpu_torch." + name in report["imported"], name
+    assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
+                                             "digits")
+    assert report["provenance"] == "fixture"
+    assert report["valid_images"] == 60
     assert [m for m in report["modules"] if _foreign(m)] == []
 
 

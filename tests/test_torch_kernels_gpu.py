@@ -10,7 +10,9 @@ On a machine with a card, run them without the JAX test configuration:
 Tolerances: paged attention ``max|kernel - plain| <= 1e-5`` (another
 summation order and ``expf``); the quantized GEMM
 ``max|kernel - plain| <= 1e-5 * max|plain|`` (per-element f32 FMA
-chains against cuBLAS's blocked sums).
+chains against cuBLAS's blocked sums); the precise GEMM
+``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)`` (the same K tiles,
+each summed in another order than cuBLAS's).
 """
 
 import numpy
@@ -136,3 +138,149 @@ def test_quantized_matmul_refuses_what_the_kernel_cannot_take(cuda):
         gemm.quantized_matmul(a.double(), w_q, s)
     with pytest.raises(ValueError):        # weights on the host
         gemm.quantized_matmul(a, w_q.cpu(), s)
+
+
+def _precise_inputs(dev, m, k, n, seed):
+    rng = numpy.random.RandomState(seed)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=torch.float32,
+                     device=dev)
+    b = torch.tensor(rng.standard_normal((k, n)), dtype=torch.float32,
+                     device=dev)
+    return a, b
+
+
+@pytest.mark.parametrize("shape", [(60, 784, 100), (60, 100, 10),
+                                   (784, 60, 100), (1, 513, 1),
+                                   (130, 70, 190), (257, 1000, 65)])
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_precise_matmul_matches_plain(cuda, shape, level):
+    m, k, n = shape
+    a, b = _precise_inputs(cuda, m, k, n, seed=m + k + n)
+    scale = float((a.abs() @ b.abs()).max())
+    # row-major operands, then both transposed (strided views)
+    for x, y in ((a, b), (a.t().contiguous().t(), b.t().contiguous().t())):
+        before = gemm.precise_matmul.launches
+        out = gemm.precise_matmul(x, y, level)
+        torch.cuda.synchronize()
+        assert gemm.precise_matmul.launches == before + 1
+        ref = gemm.precise_matmul_reference(x, y, level)
+        assert out.shape == (m, n)
+        assert float((out - ref).abs().max()) <= 1e-6 * scale
+
+
+def test_precise_matmul_backward_is_the_kernel(cuda):
+    a, b = _precise_inputs(cuda, 60, 784, 100, seed=1)
+    w = b.clone().requires_grad_(True)
+    before = gemm.precise_matmul.launches
+    y = gemm.precise_matmul(a, w, 1)
+    (y * y).sum().backward()            # a needs no gradient: one call
+    torch.cuda.synchronize()
+    assert gemm.precise_matmul.launches == before + 2
+    want = gemm.precise_matmul_reference(a.t(), 2 * y.detach(), 1)
+    scale = float((a.abs().t() @ (2 * y.detach()).abs()).max())
+    assert float((w.grad - want).abs().max()) <= 1e-6 * scale
+
+
+def test_precise_matmul_compensation_on_the_card(cuda):
+    """Huge +/-3e7 tiles bracket small ones: level 1 recovers what plain
+    accumulation of the tile partials loses (tests/test_precise_gemm.py)."""
+    rng = numpy.random.RandomState(1)
+    row = numpy.zeros(1024, numpy.float32)
+    row[0:256] = 3e7
+    row[256:512] = rng.uniform(-1, 1, 256)
+    row[512:768] = -3e7
+    row[768:] = rng.uniform(-1, 1, 256)
+    a = numpy.tile(row[None, :], (8, 1))
+    b = numpy.ones((1024, 8), numpy.float32)
+    exact = a.astype(numpy.float64) @ b.astype(numpy.float64)
+    err = {}
+    for level in (0, 1, 2):
+        out = gemm.precise_matmul(torch.tensor(a, device=cuda),
+                                  torch.tensor(b, device=cuda), level)
+        err[level] = numpy.abs(out.cpu().numpy() - exact).max()
+    assert err[0] > 0.1, err
+    assert err[1] < err[0] / 1e4, err
+    assert err[2] <= err[1] * 1.01, err
+
+
+def test_precise_matmul_klein_second_carry_on_the_card(cuda):
+    """Level 2's second carry must matter where Neumaier's carry rounds
+    off (the case of tests/test_torch_precise_gemm.py): a 2**40 tile,
+    ten triples of tiles x, y, -x (x in [1, 2), y ~ 1e-9), a -2**40
+    tile.  Level 1 loses every y, level 2 keeps them:
+    ``err[2] < err[1] / 1e4`` against the exact (``math.fsum``) sum."""
+    import math
+    rng = numpy.random.RandomState(2)
+    reps, bk = 10, 256
+    tiles = 2 + 3 * reps
+    a = numpy.zeros((8, tiles * bk), numpy.float32)
+    for i in range(8):
+        vals = [2.0 ** 40]
+        for _ in range(reps):
+            x = rng.uniform(1, 2)
+            vals += [x, rng.uniform(2.0 ** -31, 2.0 ** -30), -x]
+        vals.append(-2.0 ** 40)
+        for t, v in enumerate(vals):
+            a[i, t * bk + rng.randint(bk)] = v
+    cols = 2.0 ** numpy.arange(8, dtype=numpy.float32)
+    b = numpy.tile(cols[None, :], (tiles * bk, 1))
+    exact = numpy.array([math.fsum(r) for r in a.astype(numpy.float64)])
+    exact = exact[:, None] * cols[None, :].astype(numpy.float64)
+    err = {}
+    for level in (1, 2):
+        out = gemm.precise_matmul(torch.tensor(a, device=cuda),
+                                  torch.tensor(b, device=cuda), level)
+        err[level] = numpy.abs(out.cpu().numpy() - exact).max()
+    assert err[1] > 0.5 * numpy.abs(exact).max(), err
+    assert err[2] < err[1] / 1e4, err
+
+
+def test_precise_matmul_refuses_what_the_kernel_cannot_take(cuda):
+    a, b = _precise_inputs(cuda, 4, 8, 6, seed=0)
+    with pytest.raises(ValueError):        # f64 operand
+        gemm.precise_matmul(a.double(), b.double(), 1)
+    with pytest.raises(ValueError):        # operands on two devices
+        gemm.precise_matmul(a, b.cpu(), 1)
+    with pytest.raises(ValueError):        # no such level
+        gemm.precise_matmul(a, b, 3)
+
+
+def _mnist(precise, device):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.samples import mnist
+    prng.get().seed(42)
+    saved = root.common.engine.get("precise_gemm", 0)
+    root.common.engine.precise_gemm = precise
+    try:
+        wf = mnist.create_workflow(
+            loader={"minibatch_size": 60, "n_train": 600, "n_valid": 200,
+                    "prng": RandomGenerator().seed(3)},
+            decision={"max_epochs": 2, "silent": True})
+    finally:
+        root.common.engine.precise_gemm = saved
+    wf.initialize(device=Device(backend=device))
+    return wf
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+def test_mnist_training_on_the_card_matches_the_cpu(cuda, precise):
+    """Two epochs of the MNIST sample: the card and the CPU agree on the
+    validation error and on the weights within 1e-4; with
+    ``precise_gemm=1`` every train step launches K4 five times (two
+    forwards, three backward products) and every eval step twice."""
+    card, host = _mnist(precise, "cuda"), _mnist(precise, "cpu")
+    before = gemm.precise_matmul.launches
+    card.run()
+    launches = gemm.precise_matmul.launches - before
+    host.run()
+    step = card.fused_step
+    assert launches == precise * (5 * step.train_steps +
+                                  2 * step.eval_steps)
+    assert card.gather_results()["best_validation_error_pt"] == \
+        host.gather_results()["best_validation_error_pt"]
+    for f_card, f_host in zip(card.forwards, host.forwards):
+        for name, value in f_card.host_params.items():
+            assert numpy.abs(value - f_host.host_params[name]).max() <= 1e-4

@@ -9,6 +9,11 @@ their bytes: numpy has no float8 of its own.
 Only host arrays cross: pass ``numpy.asarray(leaf)`` of each JAX leaf
 (or the leaves themselves, which numpy converts); nothing here imports
 JAX.
+
+:func:`workflow_params_from_jax` carries a trained (or freshly
+initialized) StandardWorkflow across: each layer's ``{"weights": (in,
+out), "bias": (out,)}`` and its solver state, in the layout K4 and the
+port's All2All read.
 """
 
 import numpy
@@ -16,7 +21,7 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "workflow_params_from_jax"]
 
 _FP8_NAME = "float8_e4m3fn"
 
@@ -52,3 +57,39 @@ def params_to_jax(params, fp8_dtype=None):
         else:
             out[name] = t.numpy()
     return out
+
+
+def workflow_params_from_jax(wf, params, solver_state=None):
+    """Load a JAX StandardWorkflow's layers into the port's ``wf``.
+
+    ``params`` is ``[fwd.host_params for fwd in jax_wf.forwards]``
+    (numpy ``{"weights": (in, out), "bias": (out,)}`` per layer);
+    ``solver_state`` is ``[gd.solver_state for gd in jax_wf.gds]``
+    (``{name: (numpy, ...)}``, momentum's velocity for the MNIST
+    sample; call ``jax_wf.fused_step.sync_solver_state()`` first), or
+    None to keep the port's own.  Works before ``wf.initialize`` (the
+    forwards then skip their random init) and after it (the fused step
+    reloads)."""
+    if len(params) != len(wf.forwards):
+        raise ValueError("%d layers given for a workflow of %d"
+                         % (len(params), len(wf.forwards)))
+    for fwd, layer in zip(wf.forwards, params):
+        layer = {k: numpy.asarray(v, numpy.float32)
+                 for k, v in layer.items()}
+        if fwd.weights and tuple(fwd.weights.shape) != \
+                layer["weights"].shape:
+            raise ValueError("%s: weights %r, given %r" % (
+                fwd, tuple(fwd.weights.shape), layer["weights"].shape))
+        fwd.set_host_params(layer)
+    if solver_state is not None:
+        if len(solver_state) != len(wf.gds):
+            raise ValueError("%d solver states given for %d layers"
+                             % (len(solver_state), len(wf.gds)))
+        for gd, layer in zip(wf.gds, solver_state):
+            gd.solver_state = {
+                name: tuple(numpy.array(s, numpy.float32) for s in state)
+                for name, state in layer.items()}
+    step = wf.fused_step
+    if step is not None and step.is_initialized:
+        step.load_state()
+    return wf

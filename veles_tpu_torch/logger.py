@@ -1,11 +1,14 @@
-"""The event log the serving modules write their spans to.
+"""The event log the serving modules and the units write their spans to.
 
-The part of ``veles_tpu/logger.py`` the serving path calls:
+The part of ``veles_tpu/logger.py`` the port calls:
 ``events.span(name, seconds, **info)`` and ``events.event(name,
-**info)``.  Records are Chrome-trace JSONL (``ph`` X for spans, i for
-instants), loadable in Perfetto, written to
-``$VELES_TRACE_DIR/events-<pid>.jsonl`` when that variable is set and
-dropped otherwise.  Each record carries the active trace
+**info)`` (``Unit.execute`` spans every unit run while tracing is on).
+Records are Chrome-trace JSONL (``ph`` X for spans, i for instants),
+loadable in Perfetto.  Tracing is on when ``$VELES_TRACE_DIR`` is set
+(records go to ``$VELES_TRACE_DIR/events-<pid>.jsonl``) or when
+``root.common.trace.enabled`` is (records go to
+``root.common.trace.file``, else the events directory of the config);
+otherwise records are dropped.  Each record carries the active trace
 context (:mod:`.observability.trace`).
 """
 
@@ -14,6 +17,7 @@ import os
 import threading
 import time
 
+from .config import root
 from .observability import trace as _trace
 
 __all__ = ["EventLog", "events"]
@@ -33,15 +37,20 @@ class EventLog:
 
     @property
     def enabled(self):
-        return bool(os.environ.get(TRACE_DIR_ENV))
+        return bool(os.environ.get(TRACE_DIR_ENV) or
+                    root.common.trace.get("enabled", False))
 
     def _ensure_open(self):
         if self._file is not None:
             return
-        trace_dir = os.environ[TRACE_DIR_ENV]
-        os.makedirs(trace_dir, exist_ok=True)
-        self.path = os.path.join(trace_dir, "events-%d.jsonl" % os.getpid())
-        self._file = open(self.path, "a", buffering=1)   # line buffered
+        trace_dir = os.environ.get(TRACE_DIR_ENV)
+        name = "events-%d.jsonl" % os.getpid()
+        path = (os.path.join(trace_dir, name) if trace_dir else
+                root.common.trace.get("file") or
+                os.path.join(root.common.dirs.get("events", "."), name))
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self.path = path
+        self._file = open(path, "a", buffering=1)   # line buffered
 
     def event(self, name, kind="single", duration=None, **info):
         """Record one event; a no-op unless ``VELES_TRACE_DIR`` is set."""

@@ -1,0 +1,297 @@
+"""Unit: one node of the dataflow graph.
+
+The port's copy of ``veles_tpu/units.py``, a re-design of the reference
+unit engine (veles/units.py:107-927).  Semantics kept:
+
+- control-flow links (``link_from``) with AND-gates: a unit runs when *all*
+  of its input links have fired since its last run (reference ``open_gate``,
+  units.py:524);
+- ``gate_block`` (do not run, do not propagate) and ``gate_skip`` (do not
+  run, still propagate) mutable-Bool gates;
+- data links (``link_attrs``) — live attribute pointers between units;
+- the IDistributable 5-method protocol (reference distributable.py:222-281);
+- per-unit wall-time accumulators (reference units.py:184-187,805-817);
+- run-after-stop detection as a graph-linking sanitizer (units.py:823-839).
+
+Execution is an iterative worklist walk driven by the owning Workflow
+instead of the reference's thread-pool fan-out; the hot tensor path is
+one eager train step (``znicz/fused.py``), so this graph is the
+build-time structure and the host-side control plane.  The JAX
+package's ``make_trace`` (its whole-workflow graph compiler) is not
+ported.
+"""
+
+import time
+
+from .config import root
+from .mutable import Bool, link_attribute
+from .pickling import Lockable
+from .registry import UnitRegistry
+
+
+class IDistributable:
+    """The 5-method master/slave data protocol every unit implements.
+
+    Reference: veles/distributable.py:222-281; it survives for the
+    elastic/meta-level scheduler (ensembles, GA, eval) and for loader
+    index distribution.
+    """
+
+    negotiates_on_connect = False
+
+    def generate_data_for_master(self):
+        return None
+
+    def generate_data_for_slave(self, slave=None):
+        return None
+
+    def apply_data_from_master(self, data):
+        pass
+
+    def apply_data_from_slave(self, data, slave=None):
+        pass
+
+    def drop_slave(self, slave=None):
+        pass
+
+    @property
+    def has_data_for_slave(self):
+        return True
+
+
+class Unit(Lockable, IDistributable, metaclass=UnitRegistry):
+    """Dataflow node with control links, gates, and linked attributes."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        super().__init__()
+        self.name = kwargs.get("name", self.__class__.__name__)
+        self.view_group = kwargs.get("view_group", getattr(
+            self.__class__, "view_group", "PLUMBING"))
+        self._workflow = None
+        self.links_from = {}   # src unit -> fired flag (the AND-gate state)
+        self.links_to = {}     # dst unit -> True
+        self.gate_block = Bool(False)
+        self.gate_skip = Bool(False)
+        self.ignores_gate = False   # Repeater-style: any input opens the gate
+        # service side-branches (plotters, status reporters) set this so
+        # the final iteration still reaches them after EndPoint fires
+        self.runs_after_stop = False
+        self.stopped = False   # set by the unit itself to stop propagating;
+        #                        reset by FireStarter (reference units.py:823)
+        self.exports = []      # attr names included in package_export
+        self.demanded = list(kwargs.get("demand", ()))
+        self._initialized = False
+        self.timers = {"run": 0.0, "runs": 0}
+        if workflow is not None:
+            workflow.add_ref(self)
+
+    # -- identity ------------------------------------------------------------
+    @property
+    def workflow(self):
+        return self._workflow
+
+    @workflow.setter
+    def workflow(self, value):
+        if self._workflow is not None and value is not self._workflow:
+            self._workflow.del_ref(self)
+        self._workflow = value
+
+    @property
+    def is_initialized(self):
+        return self._initialized
+
+    def __repr__(self):
+        return '<%s "%s">' % (self.__class__.__name__, self.name)
+
+    # -- linked attributes ---------------------------------------------------
+    def __getattribute__(self, name):
+        if name.startswith("_") or name in ("links_from", "links_to"):
+            return object.__getattribute__(self, name)
+        links = object.__getattribute__(self, "__dict__").get("_linked_attrs")
+        if links and name in links:
+            src, sname, _ = links[name]
+            return getattr(src, sname)
+        return object.__getattribute__(self, name)
+
+    def __setattr__(self, name, value):
+        if not name.startswith("_"):
+            links = self.__dict__.get("_linked_attrs")
+            if links and name in links:
+                src, sname, two_way = links[name]
+                if two_way:
+                    setattr(src, sname, value)
+                    return
+                del links[name]  # one-way write takes local ownership
+        object.__setattr__(self, name, value)
+
+    def link_attrs(self, other, *mappings, two_way=False):
+        """Point attributes of self at attributes of ``other``.
+
+        Each mapping is either a name (same on both sides) or a
+        ``(my_name, other_name)`` pair — reference units.py:638.
+        """
+        for m in mappings:
+            if isinstance(m, str):
+                mine = theirs = m
+            else:
+                mine, theirs = m
+            if not hasattr(other, theirs):
+                raise AttributeError(
+                    "%s has no attribute %r to link into %s" %
+                    (other, theirs, self))
+            link_attribute(self, mine, other, theirs, two_way=two_way)
+        return self
+
+    def unlink_attrs(self, *names):
+        from .mutable import unlink_attribute
+        for n in names:
+            unlink_attribute(self, n)
+
+    # -- control links -------------------------------------------------------
+    def link_from(self, *units):
+        """Add control edges ``unit -> self`` (reference units.py:554)."""
+        for u in units:
+            self.links_from[u] = False
+            u.links_to[self] = True
+        return self
+
+    def unlink_from(self, *units):
+        for u in units:
+            self.links_from.pop(u, None)
+            u.links_to.pop(self, None)
+        return self
+
+    def unlink_all(self):
+        for u in list(self.links_from):
+            self.unlink_from(u)
+        for d in list(self.links_to):
+            d.unlink_from(self)
+        return self
+
+    # -- lifecycle -----------------------------------------------------------
+    def initialize(self, **kwargs):
+        """Prepare for running.  Subclasses override; called in dependency
+        order by Workflow.initialize.  Returning True means "not ready yet,
+        retry after the rest" (reference deferred-init protocol)."""
+        self._initialized = True
+
+    def run(self):
+        """The unit's work.  Subclasses override."""
+
+    def stop(self):
+        """Called when the workflow is stopping; release resources."""
+
+    # -- gate machinery ------------------------------------------------------
+    def open_gate(self, src):
+        """Mark ``src`` fired; True when all input links have fired.
+
+        Reference semantics (units.py:524): the AND-gate latches each input;
+        when the last one arrives all latches reset and the gate opens.
+        Units with ``ignores_gate`` (Repeater) open on any input.
+        """
+        if src is not None and src in self.links_from:
+            self.links_from[src] = True
+        if self.ignores_gate:
+            for k in self.links_from:
+                self.links_from[k] = False
+            return True
+        if all(self.links_from.values()):
+            for k in self.links_from:
+                self.links_from[k] = False
+            return True
+        return False
+
+    def reset_gates(self):
+        for k in self.links_from:
+            self.links_from[k] = False
+
+    def signal(self, src, schedule):
+        """An input link fired.  ``schedule(unit)`` enqueues a ready unit.
+
+        ``gate_block`` suppresses the gate entirely — a blocked unit does not
+        latch input firings (reference run_dependent checks gate_block before
+        open_gate), so no partial gate state leaks past an unblock.
+        """
+        if bool(self.gate_block):
+            return
+        if not self.open_gate(src):
+            return
+        schedule(self)
+
+    def execute(self, schedule):
+        """Run (unless gate_skip) and propagate to dependents."""
+        wf = self._workflow
+        if wf is not None and wf.is_finished and \
+                not (self.ignores_gate or self.runs_after_stop):
+            # run-after-stop: a linking bug in the graph (units.py:823-839)
+            wf.warning_run_after_stop(self)
+            return
+        if not bool(self.gate_skip):
+            t0 = time.monotonic()
+            self.run()
+            dt = time.monotonic() - t0
+            self.timers["run"] += dt
+            self.timers["runs"] += 1
+            name = self.__class__.__name__
+            if name in root.common.get("timings", set()):
+                print("%s: run %.3f ms" % (self.name, dt * 1e3))
+            if root.common.observability.get("unit_metrics", False):
+                # opt-in: every unit run lands in the process-global
+                # registry (one histogram series per unit name) — the
+                # /metrics twin of print_stats' end-of-run table
+                from .observability.registry import REGISTRY
+                REGISTRY.histogram(
+                    "veles_unit_run_seconds",
+                    "Per-unit run() wall time",
+                    ("unit", "cls")).labels(
+                    unit=self.name, cls=name).observe(dt)
+            from .logger import events
+            if events.enabled:
+                # per-run span into the JSONL event stream (the Mongo
+                # event replacement — reference logger.py:264-289 wrapped
+                # run the same way); events.enabled also honors the
+                # VELES_TRACE_DIR env switch, not just the config flag
+                events.span(self.name, dt, cls=name)
+        if self.stopped and not isinstance(self, Container):
+            return  # unit declared itself done; FireStarter can revive it
+        self.run_dependent(schedule)
+
+    def run_dependent(self, schedule):
+        """Fire all outgoing links (reference units.py:485)."""
+        for dst in self.links_to:
+            dst.signal(self, schedule)
+
+    # -- introspection -------------------------------------------------------
+    def describe(self):
+        return {
+            "name": self.name,
+            "class": self.__class__.__name__,
+            "uuid": getattr(self.__class__, "UUID", None),
+            "links_to": [u.name for u in self.links_to],
+            "view_group": self.view_group,
+        }
+
+    def verify_demands(self):
+        missing = [d for d in self.demanded
+                   if getattr(self, d, None) is None]
+        if missing:
+            raise ValueError("%s: demanded attributes not supplied: %s" %
+                             (self, ", ".join(missing)))
+
+
+class TrivialUnit(Unit):
+    """A unit that does nothing (reference units.py:916)."""
+
+    def initialize(self, **kwargs):
+        super().initialize(**kwargs)
+
+    def run(self):
+        pass
+
+
+class Container(Unit):
+    """Marker base for units that contain other units (units.py:925)."""
+
+    hide_from_registry = True

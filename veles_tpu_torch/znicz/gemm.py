@@ -1,17 +1,28 @@
-"""Weight-quantized GEMM: a CUDA kernel and its plain version.
+"""The two GEMMs of ``veles_tpu/znicz/gemm.py``: CUDA kernels and their
+plain versions.
 
-The serving half of ``veles_tpu/znicz/gemm.py`` (the compensated
-training GEMM, ``precise_matmul``, is still to be ported).  Weights are
-static at serve time, so they quantize ONCE — symmetric, one f32 scale
-per output channel — and :func:`quantized_matmul` streams int8 or
-float8-e4m3 bytes, upcasts each tile to f32 on the card and folds the
-channel scales into the output after the K loop.  That is exact up to
-the weight quantization itself, because per-output-channel scales factor
-out of the K contraction.
+**Compensated training GEMM** (:func:`precise_matmul`, kernel K4 in
+``csrc/precise_matmul.cu``): the reference's PRECISION_LEVEL 0/1/2.  K
+is cut into tiles of ``DEFAULT_BLOCK_K`` columns; each tile's partial
+product is summed plainly, and the running sum of the tiles is
+compensated (level 0 plain, 1 Neumaier TwoSum, 2 Klein's doubly
+compensated sum), the carries folded in after the last tile.  It is a
+``torch.autograd.Function`` whose backward is the same kernel twice
+(``g @ b.T`` and ``a.T @ g``, passed as strided views, no copies); the
+``dx`` call is skipped when nothing needs it (a first layer).
 
-CUDA tensors launch ``csrc/quantized_matmul.cu`` (kernel K3); CPU
-tensors take :func:`quantized_matmul_reference`.
-``quantized_matmul.launches`` counts the kernel launches.
+**Weight-quantized serving GEMM** (:func:`quantized_matmul`, kernel K3
+in ``csrc/quantized_matmul.cu``).  Weights are static at serve time, so
+they quantize ONCE — symmetric, one f32 scale per output channel — and
+the kernel streams int8 or float8-e4m3 bytes, upcasts each tile to f32
+on the card and folds the channel scales into the output after the K
+loop.  That is exact up to the weight quantization itself, because
+per-output-channel scales factor out of the K contraction.
+
+CUDA tensors launch the kernels; CPU tensors take
+:func:`precise_matmul_reference` / :func:`quantized_matmul_reference`.
+``precise_matmul.launches`` and ``quantized_matmul.launches`` count the
+kernel launches.
 """
 
 import ctypes
@@ -20,11 +31,13 @@ import torch
 
 from .. import _build
 
-__all__ = ["quantize_weight", "quantized_matmul",
-           "quantized_matmul_reference", "fp8_dtype", "DEFAULT_BLOCK_K"]
+__all__ = ["precise_matmul", "precise_matmul_reference", "quantize_weight",
+           "quantized_matmul", "quantized_matmul_reference", "fp8_dtype",
+           "DEFAULT_BLOCK_K"]
 
-#: K tile of the JAX kernel; the plain version accumulates K in tiles of
-#: this depth, as the JAX reference does
+#: K tile of the JAX kernels: the unit of compensated accumulation of
+#: the precise GEMM; the plain versions accumulate K in tiles of this
+#: depth, as the JAX references do
 DEFAULT_BLOCK_K = 256
 
 #: largest-magnitude finite value of float8_e4m3fn: per-channel scales
@@ -32,7 +45,8 @@ DEFAULT_BLOCK_K = 256
 _FP8_E4M3_MAX = 448.0
 
 _SRC = "quantized_matmul"
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_PRECISE_SRC = "precise_matmul"
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def fp8_dtype():
@@ -138,3 +152,115 @@ def quantized_matmul_reference(a, w_q, scales):
     for k0 in range(0, k, bk):
         acc = acc + a[:, k0:k0 + bk] @ w_q[k0:k0 + bk].to(torch.float32)
     return acc * scales.to(torch.float32)[None, :]
+
+
+# -- compensated training GEMM (K4) -------------------------------------------
+
+def _two_sum(a, b):
+    """Knuth's exact TwoSum: ``a + b == s + e`` with ``e`` the rounding
+    error of ``s`` (eager elementwise ops, never fused or reordered)."""
+    s = a + b
+    v = s - a
+    e = (a - (s - v)) + (b - v)
+    return s, e
+
+
+def precise_matmul_reference(a, b, level=1):
+    """Plain PyTorch version of the precise GEMM: the same K-tile loop
+    as the kernel, tile partials from ``torch.matmul`` (TF32 off), the
+    running sum compensated at ``level`` 0 / 1 / 2."""
+    _check_level(level)
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    m, k = a.shape
+    n = b.shape[1]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    c1 = torch.zeros_like(acc)
+    c2 = torch.zeros_like(acc)
+    for k0 in range(0, k, DEFAULT_BLOCK_K):
+        p = a[:, k0:k0 + DEFAULT_BLOCK_K] @ b[k0:k0 + DEFAULT_BLOCK_K]
+        if level == 0:
+            acc = acc + p
+            continue
+        acc, e = _two_sum(acc, p)
+        if level == 1:
+            c1 = c1 + e
+        else:
+            c1, e2 = _two_sum(c1, e)
+            c2 = c2 + e2
+    return acc + (c1 + c2)
+
+
+def _check_level(level):
+    if level not in (0, 1, 2):
+        raise ValueError("precision level must be 0, 1 or 2, got %r"
+                         % (level,))
+
+
+def _precise_launch(a, b, level):
+    """One K4 launch (CUDA operands, any strides) or the plain version
+    (CPU operands)."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError("want a [M, K] and b [K, N], got %r and %r"
+                         % (tuple(a.shape), tuple(b.shape)))
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError("shape mismatch %r @ %r"
+                         % (tuple(a.shape), tuple(b.shape)))
+    _check_level(level)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return precise_matmul_reference(a, b, level)
+    if a.device != b.device:
+        raise ValueError("a is on %s, b on %s" % (a.device, b.device))
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.float32:
+            raise ValueError("%s must be float32, got %s" % (name, t.dtype))
+    if m == 0 or n == 0 or k == 0:
+        raise ValueError("empty operand: a %r, b %r"
+                         % (tuple(a.shape), tuple(b.shape)))
+    fn = _build.function(_PRECISE_SRC, "vt_precise_matmul",
+                         [_P] * 3 + [_I] * 3 + [_L] * 4 + [_I, _P])
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                  a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+                  int(level), _build.stream_ptr(a.device))
+    _build.check(_PRECISE_SRC, code, "precise_matmul kernel")
+    precise_matmul.launches += 1
+    return out
+
+
+class _PreciseMatmul(torch.autograd.Function):
+    """Forward K4; backward K4 twice at the same level (``g @ b.T``,
+    ``a.T @ g``), each only where a gradient is needed."""
+
+    @staticmethod
+    def forward(ctx, a, b, level):
+        ctx.save_for_backward(a, b)
+        ctx.level = level
+        return _precise_launch(a, b, level)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _precise_launch(g, b.t(), ctx.level)
+        if ctx.needs_input_grad[1]:
+            db = _precise_launch(a.t(), g, ctx.level)
+        return da, db, None
+
+
+def precise_matmul(a, b, level=1):
+    """``a @ b`` (f32 [M, K] @ [K, N]) with compensated accumulation
+    across K tiles at ``level`` 0 / 1 / 2.  Differentiable; the
+    backward runs the same kernel at the same level.  CUDA tensors
+    launch K4 (any strides, so transposed views cost no copy); CPU
+    tensors run :func:`precise_matmul_reference`."""
+    return _PreciseMatmul.apply(a, b, int(level))
+
+
+#: kernel launches since the last reset, forward and backward (CPU
+#: calls do not count)
+precise_matmul.launches = 0
