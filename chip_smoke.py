@@ -17,7 +17,16 @@ Phases (any failure raises and the script exits non-zero):
    (K4, levels 0/1/2) ``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)``;
    against the exact product, level 1 must beat level 0 by 1e4x on a
    cancellation case, and level 2 must beat level 1 by 1e4x on a case
-   where Neumaier's own carry rounds off.
+   where Neumaier's own carry rounds off.  Flash attention (K7 forward,
+   K8 dq, K9 dk/dv) on ``randn * 0.5`` inputs, q/k/v as strided views of
+   one packed projection: out and lse ``max|kernel - plain| <= 2e-5``,
+   each gradient ``<= 5e-4 * max(1, max|plain|)``; at head dims 4, 8, 16,
+   T = 7, 8, 256, windows 1-256 (untimed), at the main path's shape
+   (B=8, T=2048, H=8, D=64: no mask, causal, causal with window 512) and
+   at the JAX package's bench shapes (B=2, T=2048 causal; B=1, T=16384,
+   window 512); ``library_ms`` is ``scaled_dot_product_attention`` on the
+   same f32 inputs, its forward on K7's row and its backward on K8's and
+   K9's.
 3. End to end, over real HTTP: the port's ``InferenceServer`` serving
    the flagship decode model at the README's decode-quickstart widths
    (stages=2, experts=4, d=64, heads=4, hidden=128, vocab=1024; server
@@ -38,11 +47,27 @@ Phases (any failure raises and the script exits non-zero):
    and per eval step.  The first epoch of the ``precise_gemm=1`` run is
    held against the same epoch run by the port on the CPU: n_err of each
    class within 1, weights within ``max|card - cpu| <= 1e-4``.
-5. Where the time goes: each serving configuration's burst and one
-   training epoch of each matmul mode once more under ``torch.profiler``
-   (after every untraced measurement): the share of the wall time the
-   card is busy, and the top kernels.
+4b. Training (slice 3): ``MultiHeadAttention`` (d_model 512, 8 heads)
+   and a softmax head through ``StandardWorkflow`` on the needle task of
+   the JAX package's tests/test_attention_unit.py (find the marked
+   position's payload class), T=2048, 480 sequences (360 train, 120
+   valid), minibatch 8, 5 epochs, lr 0.01 and momentum 0.9 on both
+   layers; without a mask and causal with window 512.  Every train step
+   launches K7, K8 and K9 once, every eval step K7 once; every loss is
+   finite and the last epoch's mean train loss is below the first's.
+   The first epoch of each, cut to 24 sequences (16 train, 8 valid), is
+   held against the port on the CPU (``use_pallas=True``: the plain
+   versions): n_err of each class within 1, weights within
+   ``max|card - cpu| <= 1e-4``.  Then the JAX test's own run (T=8, D=8,
+   2 heads, 600 sequences, minibatch 50, 25 epochs) must reach a best
+   validation error < 40 %.
+5. Where the time goes: each serving configuration's burst, one
+   training epoch of each matmul mode and one full-width attention
+   epoch (causal, window 512) once more under ``torch.profiler`` (after
+   every untraced measurement): the share of the wall time the card is
+   busy, and the top kernels.
 6. The ``kernels`` JSON line, the card's line, and the result line.
+   Each phase prints its wall time.
 
 Imports nothing of JAX or of the JAX package.  ``--json PATH`` writes
 every number to PATH as well.
@@ -371,6 +396,180 @@ def k4_phase(torch, gemm, dev):
     return out, _k4_cancellation(torch, gemm, dev)
 
 
+# -- phase 2, K7-K9: flash attention ------------------------------------------
+
+#: (B, T, H, D) of the main path: the attention unit at d_model 512,
+#: 8 heads, T 2048, minibatch 8; and its masks (causal, window)
+FLASH_MAIN = (8, 2048, 8, 64)
+FLASH_MASKS = ((False, None), (True, None), (True, 512))
+#: the JAX package's measured shapes (bench.py:543 bench_flash_attention,
+#: :577 bench_window_attention)
+FLASH_REALISTIC = (((2, 2048, 8, 64), True, None),
+                   ((1, 16384, 8, 64), True, 512))
+#: (B, T, H, D, causal, window) held untimed: head dims below a tile, T
+#: below and at a tile, the JAX tests' windows, and T=256 with window
+#: 40, where both backward passes are banded (test_flash_attention.py)
+FLASH_SMALL = tuple(
+    [(2, t, 2, d, c, w) for d in (4, 8, 16) for t in (7, 8, 256)
+     for c, w in ((False, None), (True, None), (True, 5))] +
+    [(1, 256, 2, 16, True, w) for w in (1, 5, 64, 100, 256)] +
+    [(1, 256, 2, 8, True, 40)])
+FLASH_FWD_TOL = 2e-5
+FLASH_GRAD_TOL = 5e-4
+
+
+def _flash_inputs(torch, dev, b, t, h, d, seed):
+    """q, k, v as strided views of one packed [B, T, 3 H D] tensor (the
+    unit's layout) and a contiguous dO, all ``randn * 0.5``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev) * 0.5
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen, device=dev) * 0.5
+    return q, k, v, do
+
+
+def _visible(t, causal, window):
+    """(query, key) pairs the mask lets through, per batch * head."""
+    if not causal:
+        return t * t
+    if window is None:
+        return t * (t + 1) // 2
+    w = min(window, t)
+    return w * (w + 1) // 2 + (t - w) * w
+
+
+def _flash_check(torch, fa, q, k, v, do, causal, window, label):
+    """Each kernel against its plain version on the same inputs (K8 and
+    K9 get the plain forward's lse and delta); -> (errors, plain out,
+    lse, delta)."""
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = fa.flash_delta(do, ref_out)
+    dq = fa.flash_attention_dq(q, k, v, do, ref_lse, delta, **kw)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, ref_lse, delta, **kw)
+    ref_dq = fa.flash_dq_reference(q, k, v, do, ref_lse, delta, **kw)
+    ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta,
+                                            **kw)
+    torch.cuda.synchronize()
+
+    def worst(pairs, tol, scaled):
+        """max|kernel - plain| over ``pairs``, each held to ``tol`` (times
+        max(1, max|plain|) where ``scaled``)."""
+        out = 0.0
+        for a, r in pairs:
+            e = float((a - r).abs().max())
+            limit = tol * (max(1.0, float(r.abs().max())) if scaled else 1)
+            if not e <= limit:
+                raise AssertionError("flash attention %s: max|kernel - "
+                                     "plain| = %g > %g" % (label, e, limit))
+            out = max(out, e)
+        return out
+
+    err = {"fwd": worst(((out, ref_out), (lse, ref_lse)), FLASH_FWD_TOL,
+                        False),
+           "dq": worst(((dq, ref_dq),), FLASH_GRAD_TOL, True),
+           "dkv": worst(((dk, ref_dk), (dv, ref_dv)), FLASH_GRAD_TOL, True)}
+    return err, ref_out, ref_lse, delta
+
+
+def _sdpa_calls(torch, q, k, v, do, causal, window):
+    """``scaled_dot_product_attention`` on the same f32 inputs: (forward,
+    backward, forward output) for timing; a window is a boolean band."""
+    f = torch.nn.functional
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    kw = {"is_causal": causal}
+    if window is not None:
+        t = q.shape[1]
+        rows = torch.arange(t, device=q.device)[:, None]
+        cols = torch.arange(t, device=q.device)[None, :]
+        kw = {"attn_mask": (cols <= rows) & (cols > rows - window)}
+    out = f.scaled_dot_product_attention(qh, kh, vh, **kw)
+    g = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        with torch.no_grad():
+            return f.scaled_dot_product_attention(qh, kh, vh, **kw)
+
+    def bwd():
+        return torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+
+    return fwd, bwd, out.detach().transpose(1, 2)
+
+
+def _measure_flash(torch, fa, dev, shape, causal, window, seed):
+    """One timed case: -> {kernel name: record}."""
+    b, t, h, d = shape
+    q, k, v, do = _flash_inputs(torch, dev, b, t, h, d, seed)
+    label = "B=%d T=%d H=%d D=%d %s" % (
+        b, t, h, d, "no mask" if not causal else
+        "causal" if window is None else "causal window=%d" % window)
+    err, ref_out, lse, delta = _flash_check(torch, fa, q, k, v, do, causal,
+                                            window, label)
+    kw = dict(causal=causal, window=window)
+    sdpa_fwd, sdpa_bwd, sdpa_out = _sdpa_calls(torch, q, k, v, do, causal,
+                                               window)
+    library = {"fwd": _cuda_ms(torch, sdpa_fwd, iters=10),
+               "bwd": _cuda_ms(torch, sdpa_bwd, iters=10)}
+    library_err = float((sdpa_out - ref_out).abs().max())
+    del sdpa_fwd, sdpa_bwd, sdpa_out
+    vis, bh, elem = _visible(t, causal, window), b * h, b * t * h * d
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, **kw),
+            lambda: fa.flash_fwd_reference(q, k, v, **kw),
+            4 * (4 * elem + bh * t), 4 * bh * vis * d, library["fwd"],
+            err["fwd"]),
+        "flash_attention_dq": (
+            lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, **kw),
+            4 * (5 * elem + 2 * bh * t), 6 * bh * vis * d, library["bwd"],
+            err["dq"]),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, **kw),
+            4 * (6 * elem + 2 * bh * t), 8 * bh * vis * d, library["bwd"],
+            err["dkv"])}
+    recs = {}
+    for name, (kernel, plain, nbytes, flops, lib_ms, e) in calls.items():
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rec = {"shape": label, "max_abs_err": e,
+               "ms": _cuda_ms(torch, kernel),
+               "plain_ms": _cuda_ms(torch, plain, iters=3, warmup=1),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms, "flops": flops}
+        _log("kernel %s [%s] max_err=%.3g kernel_ms=%.4f plain_ms=%.4f "
+             "bound_ms=%.4f (%s) library_ms=%.4f (scaled_dot_product_"
+             "attention %s; its output within %.3g of the plain one)"
+             % (name, label, e, rec["ms"], rec["plain_ms"], bound_ms,
+                bound_by, lib_ms, "forward" if name.endswith("fwd")
+                else "backward, dq+dk+dv", library_err))
+        recs[name] = rec
+    return recs
+
+
+def flash_phase(torch, fa, dev):
+    """-> {kernel name: {"main": record, "realistic": [records]}}: the
+    small cases untimed, then the main path's three masks and the bench
+    shapes timed."""
+    for i, (b, t, h, d, causal, window) in enumerate(FLASH_SMALL):
+        _flash_check(torch, fa, *_flash_inputs(torch, dev, b, t, h, d, i),
+                     causal, window, "B=%d T=%d H=%d D=%d causal=%s "
+                     "window=%s" % (b, t, h, d, causal, window))
+    _log("kernel flash attention: %d small cases (head dims 4/8/16, T "
+         "7/8/256, windows 1-256) within the limits" % len(FLASH_SMALL))
+    cases = [_measure_flash(torch, fa, dev, FLASH_MAIN, causal, window,
+                            seed=100 + i)
+             for i, (causal, window) in enumerate(FLASH_MASKS)]
+    cases += [_measure_flash(torch, fa, dev, shape, causal, window,
+                             seed=200 + i)
+              for i, (shape, causal, window) in enumerate(FLASH_REALISTIC)]
+    return {name: {"main": cases[0][name],
+                   "realistic": [c[name] for c in cases[1:]]}
+            for name in cases[0]}
+
+
 # -- phase 3: end to end over HTTP --------------------------------------------
 
 def _prompts():
@@ -527,24 +726,31 @@ def _mnist_workflow(precise, device="cuda", epochs=None):
     return wf
 
 
-def _instrument(wf, gemm):
-    """Record each epoch's end time and first-epoch state, and K4
-    launches per minibatch class (wrappers on this workflow's units)."""
+def _instrument(wf, counters):
+    """Record each epoch's end time, first-epoch state and train losses,
+    and the launches of each wrapper of ``counters`` ({name: wrapper
+    with a ``launches`` count}) per minibatch class (wrappers on this
+    workflow's units)."""
     from veles_tpu_torch.loader import TRAIN, VALID
     rec = {"epoch_end": [], "first_epoch": None,
-           "steps": {TRAIN: 0, VALID: 0}, "k4": {TRAIN: 0, VALID: 0}}
+           "steps": {TRAIN: 0, VALID: 0}, "train_loss": [[]],
+           "launches": {name: {TRAIN: 0, VALID: 0} for name in counters}}
     step, decision = wf.fused_step, wf.decision
     step_run, epoch_end = step.run, decision._on_epoch_end
 
     def run():
-        before = gemm.precise_matmul.launches
+        before = {name: fn.launches for name, fn in counters.items()}
         cls = step.minibatch_class
         step_run()
         rec["steps"][cls] += 1
-        rec["k4"][cls] += gemm.precise_matmul.launches - before
+        for name, fn in counters.items():
+            rec["launches"][name][cls] += fn.launches - before[name]
+        if cls == TRAIN:     # a device scalar: read at the end, no sync
+            rec["train_loss"][-1].append(step.loss)
 
     def on_epoch_end():
         rec["epoch_end"].append(time.perf_counter())
+        rec["train_loss"].append([])
         if rec["first_epoch"] is None:
             rec["first_epoch"] = {
                 "n_err": list(decision.epoch_n_err),
@@ -558,6 +764,30 @@ def _instrument(wf, gemm):
     return rec
 
 
+def _epoch_losses(rec):
+    """Each epoch's train losses as floats."""
+    return [[float(x) for x in epoch] for epoch in rec["train_loss"]
+            if epoch]
+
+
+def _first_epochs_agree(label, gpu, cpu, seconds):
+    """n_err of each class within 1, weights within the stated
+    tolerance; -> record."""
+    n_err_diff = [abs(a - b) for a, b in zip(cpu["n_err"], gpu["n_err"])]
+    w_diff = max(float(numpy.abs(c[k] - g[k]).max())
+                 for c, g in zip(cpu["weights"], gpu["weights"]) for k in c)
+    _log("train %s first epoch, card vs CPU: n_err card %s cpu %s, "
+         "max|w_card - w_cpu| = %.3g (limit %g); CPU epoch %.3f s"
+         % (label, gpu["n_err"], cpu["n_err"], w_diff,
+            FIRST_EPOCH_WEIGHT_ATOL, seconds))
+    if max(n_err_diff) > 1 or not w_diff <= FIRST_EPOCH_WEIGHT_ATOL:
+        raise AssertionError("%s: first epoch on the card differs from "
+                             "the CPU" % label)
+    return {"label": label, "n_err_card": gpu["n_err"],
+            "n_err_cpu": cpu["n_err"], "max_weight_diff": w_diff,
+            "cpu_seconds": seconds}
+
+
 def train_run(torch, gemm, card, precise):
     """The gate's training run on the card; -> record."""
     from veles_tpu_torch.loader import TRAIN, VALID
@@ -566,7 +796,7 @@ def train_run(torch, gemm, card, precise):
     init_s = time.perf_counter() - t_init
     if wf.loader.provenance not in ("fixture", "real"):
         raise AssertionError("digits came from %r" % wf.loader.provenance)
-    rec = _instrument(wf, gemm)
+    rec = _instrument(wf, {"k4": gemm.precise_matmul})
     gemm.precise_matmul.launches = 0
     t0 = time.perf_counter()
     wf.run()
@@ -588,8 +818,10 @@ def train_run(torch, gemm, card, precise):
            "best_epoch": res["best_epoch"],
            "train_steps": steps[TRAIN], "eval_steps": steps[VALID],
            "k4_launches": launches,
-           "k4_per_train_step": rec["k4"][TRAIN] / max(steps[TRAIN], 1),
-           "k4_per_eval_step": rec["k4"][VALID] / max(steps[VALID], 1),
+           "k4_per_train_step":
+               rec["launches"]["k4"][TRAIN] / max(steps[TRAIN], 1),
+           "k4_per_eval_step":
+               rec["launches"]["k4"][VALID] / max(steps[VALID], 1),
            "first_epoch": rec["first_epoch"]}
     _log("train %s: best validation error %.2f%% (epoch %d) in %d epochs, "
          "%.3f s; epoch wall s first %.4f median %.4f; train images/s "
@@ -624,22 +856,230 @@ def first_epoch_on_the_cpu(card_run, gemm):
     CPU from the same seeds: n_err within 1, weights within the stated
     tolerance."""
     wf = _mnist_workflow(card_run["precise_gemm"], device="cpu", epochs=1)
-    rec = _instrument(wf, gemm)
+    rec = _instrument(wf, {"k4": gemm.precise_matmul})
     t0 = time.perf_counter()
     wf.run()
+    return _first_epochs_agree(card_run["label"], card_run["first_epoch"],
+                               rec["first_epoch"], time.perf_counter() - t0)
+
+
+# -- phase 4b: training, the attention unit (slice 3) -------------------------
+
+#: the needle task at the unit's measured width (bench.py:543): T 2048,
+#: d_model 512, 8 heads, 4 classes
+ATTN_T, ATTN_D, ATTN_HEADS, ATTN_CLASSES = 2048, 512, 8, 4
+ATTN_N, ATTN_MINIBATCH, ATTN_EPOCHS = 480, 8, 5
+#: sequences (and validation ones) of the first epoch held against the
+#: CPU
+ATTN_CPU_N, ATTN_CPU_VALID = 24, 8
+#: (label, causal, window) of the full-width runs
+ATTN_CONFIGS = (("attention", False, None),
+                ("attention causal window=512", True, 512))
+#: both layers' solver (tests/test_attention_unit.py:146-149)
+ATTN_GD = {"learning_rate": 0.01, "gradient_moment": 0.9}
+#: the JAX test's own run and gate (tests/test_attention_unit.py:113-160)
+SMALL_ATTN = dict(n=600, t=8, d=8, heads=2, minibatch=50, epochs=25)
+SMALL_ATTN_GATE_PT = 40.0
+
+
+def needle_loader(n, t, d, classes, n_valid=None):
+    """The needle task of the JAX package's tests/test_attention_unit.py
+    as a port FullBatchLoader: n sequences of [T, D] uniform noise in
+    [-0.2, 0.2], one marked position per sequence (feature 0 = 2.0) whose
+    payload feature 1 + label is 2.0 too; the first ``n_valid`` (default
+    n / 4) validate, the rest train."""
+    n_valid = n // 4 if n_valid is None else n_valid
+    from veles_tpu_torch.loader.base import TEST, TRAIN, VALID
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+
+    class NeedleLoader(FullBatchLoader):
+        def load_data(self):
+            rng = numpy.random.RandomState(3)
+            x = rng.uniform(-0.2, 0.2, (n, t, d)).astype(numpy.float32)
+            labels = rng.randint(0, classes, n)
+            pos = rng.randint(0, t, n)
+            rows = numpy.arange(n)
+            x[rows, pos, 0] = 2.0                 # the marker
+            x[rows, pos, 1 + labels] = 2.0        # the payload class
+            self.original_data.mem = x
+            self.original_labels = list(labels.astype(numpy.int32))
+            self.class_lengths[TEST] = 0
+            self.class_lengths[VALID] = n_valid
+            self.class_lengths[TRAIN] = n - n_valid
+
+    return NeedleLoader
+
+
+def attention_workflow(n, t, d, heads, causal=False, window=None,
+                       minibatch=ATTN_MINIBATCH, epochs=ATTN_EPOCHS,
+                       device="cuda", use_pallas=None, n_valid=None):
+    """``StandardWorkflow([multihead_attention, softmax])`` on the needle
+    task, weights from seed 42, initialized on ``device`` (the card
+    unless the CPU is asked for)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    prng.get().seed(42)
+    fwd = {"heads": heads, "causal": causal}
+    if window is not None:
+        fwd["window"] = window
+    if use_pallas is not None:
+        fwd["use_pallas"] = use_pallas
+    wf = StandardWorkflow(
+        None, name="attention",
+        loader_factory=needle_loader(n, t, d, ATTN_CLASSES, n_valid),
+        loader={"minibatch_size": minibatch,
+                "prng": RandomGenerator().seed(5)},
+        layers=[{"type": "multihead_attention", "->": fwd,
+                 "<-": dict(ATTN_GD)},
+                {"type": "softmax",
+                 "->": {"output_sample_shape": ATTN_CLASSES},
+                 "<-": dict(ATTN_GD)}],
+        loss_function="softmax",
+        decision={"max_epochs": epochs, "silent": True}, fused=True)
+    wf.initialize(device=Device(backend=device))
+    unit = wf.forwards[0]
+    if wf.fused_step._dev_.type != device or \
+            unit.device.BACKEND != device:
+        raise AssertionError("the workflow runs on %s, not %s"
+                             % (wf.fused_step._dev_, device))
+    return wf
+
+
+def _flash_counters(fa):
+    return {"K7": fa.flash_attention_fwd, "K8": fa.flash_attention_dq,
+            "K9": fa.flash_attention_dkv}
+
+
+def attention_run(torch, fa, card, label, causal, window):
+    """One full-width run on the card; -> record (with its first
+    epoch's state, for the CPU comparison)."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    t_init = time.perf_counter()
+    wf = attention_workflow(ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS, causal,
+                            window)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    if not wf.forwards[0]._resolved_use_pallas():
+        raise AssertionError("%s: AUTO did not pick the kernels on the "
+                             "card" % label)
+    counters = _flash_counters(fa)
+    rec = _instrument(wf, counters)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    cpu, gpu = rec["first_epoch"], card_run["first_epoch"]
-    n_err_diff = [abs(a - b) for a, b in zip(cpu["n_err"], gpu["n_err"])]
-    w_diff = max(float(numpy.abs(c[k] - g[k]).max())
-                 for c, g in zip(cpu["weights"], gpu["weights"]) for k in c)
-    _log("train %s first epoch, card vs CPU: n_err card %s cpu %s, "
-         "max|w_card - w_cpu| = %.3g (limit %g); CPU epoch %.3f s"
-         % (card_run["label"], gpu["n_err"], cpu["n_err"], w_diff,
-            FIRST_EPOCH_WEIGHT_ATOL, seconds))
-    if max(n_err_diff) > 1 or not w_diff <= FIRST_EPOCH_WEIGHT_ATOL:
-        raise AssertionError("first epoch on the card differs from the CPU")
-    return {"n_err_card": gpu["n_err"], "n_err_cpu": cpu["n_err"],
-            "max_weight_diff": w_diff, "cpu_seconds": seconds}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    res = wf.gather_results()
+    ends = [t0] + rec["epoch_end"]
+    epoch_s = [b - a for a, b in zip(ends, ends[1:])]
+    n_train = wf.loader.class_lengths[TRAIN]
+    steps = rec["steps"]
+    per = {name: (rec["launches"][name][TRAIN] / max(steps[TRAIN], 1),
+                  rec["launches"][name][VALID] / max(steps[VALID], 1))
+           for name in counters}
+    losses = _epoch_losses(rec)
+    mean_loss = [statistics.fmean(e) for e in losses]
+    median_s = statistics.median(epoch_s)
+    out = {"label": label, "causal": causal, "window": window, "card": card,
+           "init_s": init_s, "seconds": seconds, "epochs": len(epoch_s),
+           "epoch_s": epoch_s, "epoch_s_median": median_s,
+           "train_seq_s_median": n_train / median_s,
+           "train_tokens_s_median": n_train * ATTN_T / median_s,
+           "train_steps": steps[TRAIN], "eval_steps": steps[VALID],
+           "launches": launches, "launches_per_train_eval_step": per,
+           "mean_train_loss": mean_loss,
+           "best_validation_error_pt": res["best_validation_error_pt"],
+           "first_epoch": rec["first_epoch"]}
+    _log("train %s: T=%d d_model=%d heads=%d, %d train + %d valid "
+         "sequences, minibatch %d; %d epochs in %.3f s; epoch wall s %s; "
+         "median %.4f s = %.1f train sequences/s = %.0f train tokens/s; "
+         "mean train loss by epoch %s; best validation error %.2f%%; "
+         "launches %s (per train / eval step %s); init %.3f s [%s]"
+         % (label, ATTN_T, ATTN_D, ATTN_HEADS, n_train,
+            wf.loader.class_lengths[VALID], ATTN_MINIBATCH, len(epoch_s),
+            seconds, " ".join("%.4f" % x for x in epoch_s), median_s,
+            out["train_seq_s_median"], out["train_tokens_s_median"],
+            " ".join("%.5f" % x for x in mean_loss),
+            out["best_validation_error_pt"], launches, per, init_s, card))
+    if any(not math.isfinite(x) for e in losses for x in e):
+        raise AssertionError("%s: a train loss is not finite" % label)
+    if not mean_loss[-1] < mean_loss[0]:
+        raise AssertionError("%s: the last epoch's mean train loss %g is "
+                             "not below the first's %g"
+                             % (label, mean_loss[-1], mean_loss[0]))
+    if per != {"K7": (1, 1), "K8": (1, 0), "K9": (1, 0)}:
+        raise AssertionError("%s: launches per train / eval step %r, want "
+                             "K7 1/1, K8 and K9 1/0" % (label, per))
+    return out
+
+
+def attention_first_epoch_vs_cpu(fa, label, causal, window):
+    """The first epoch at full width on ``ATTN_CPU_N`` sequences, on the
+    card and by the port on the CPU (``use_pallas=True``: the plain
+    versions through the same autograd Function)."""
+    first = {}
+    for device in ("cuda", "cpu"):
+        wf = attention_workflow(ATTN_CPU_N, ATTN_T, ATTN_D, ATTN_HEADS,
+                                causal, window, epochs=1, device=device,
+                                use_pallas=True, n_valid=ATTN_CPU_VALID)
+        rec = _instrument(wf, _flash_counters(fa))
+        t0 = time.perf_counter()
+        wf.run()
+        first[device] = (rec["first_epoch"], time.perf_counter() - t0)
+    return _first_epochs_agree(label + " (%d sequences)" % ATTN_CPU_N,
+                               first["cuda"][0], first["cpu"][0],
+                               first["cpu"][1])
+
+
+def attention_small_run(torch, fa, card):
+    """The JAX test's own settings on the card: best validation error
+    under its gate; T=8 is below one kernel tile."""
+    cfg = SMALL_ATTN
+    wf = attention_workflow(cfg["n"], cfg["t"], cfg["d"], cfg["heads"],
+                            minibatch=cfg["minibatch"],
+                            epochs=cfg["epochs"])
+    counters = _flash_counters(fa)
+    before = {name: fn.launches for name, fn in counters.items()}
+    t0 = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches - before[name]
+                for name, fn in counters.items()}
+    res = wf.gather_results()
+    out = {"label": "attention T=8 (the JAX test's run)", "card": card,
+           "seconds": seconds, "launches": launches,
+           "best_validation_error_pt": res["best_validation_error_pt"],
+           "best_epoch": res["best_epoch"]}
+    _log("train %s: best validation error %.2f%% (epoch %d; gate < %.0f%%,"
+         " chance 75%%) in %.3f s; launches %s [%s]"
+         % (out["label"], out["best_validation_error_pt"],
+            out["best_epoch"], SMALL_ATTN_GATE_PT, seconds, launches, card))
+    if not res["best_validation_error_pt"] < SMALL_ATTN_GATE_PT:
+        raise AssertionError("the small attention run missed its gate")
+    if min(launches.values()) <= 0:
+        raise AssertionError("the small attention run skipped a kernel")
+    return out
+
+
+def trace_attention(torch, card):
+    """One full-width epoch (causal, window 512) under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    label, causal, window = ATTN_CONFIGS[1]
+    wf = attention_workflow(ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS, causal,
+                            window, epochs=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wf.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return _trace_record(prof, "train " + label, card, seconds)
 
 
 def trace_train(torch, card, precise):
@@ -741,6 +1181,15 @@ KERNEL_META = {
     "precise_matmul_l2": (
         "K4", "csrc/precise_matmul.cu",
         "veles_tpu/znicz/gemm.py:126 (_matmul_impl kernel, level 2)"),
+    "flash_attention_fwd": (
+        "K7", "csrc/flash_attention.cu",
+        "veles_tpu/znicz/flash_attention.py:141 (_fwd_kernel)"),
+    "flash_attention_dq": (
+        "K8", "csrc/flash_attention.cu",
+        "veles_tpu/znicz/flash_attention.py:265 (_dq_kernel)"),
+    "flash_attention_dkv": (
+        "K9", "csrc/flash_attention.cu",
+        "veles_tpu/znicz/flash_attention.py:307 (_dkv_kernel)"),
 }
 
 
@@ -808,6 +1257,7 @@ def main():
         return 2
     from veles_tpu_torch import _build
     from veles_tpu_torch.device import resolve_device
+    from veles_tpu_torch.znicz import flash_attention as fa
     from veles_tpu_torch.znicz import gemm
     from veles_tpu_torch.znicz import paged_attention as pa
 
@@ -827,14 +1277,25 @@ def main():
                 _log("  %s: %s" % (name, line.strip()))
 
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "phase_s": {}}
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        record["phase_s"][name] = now - clock[0]
+        _log("phase %s: %.1f s" % (name, now - clock[0]))
+        clock[0] = now
+
     kernels = kernel_phase(torch, pa, gemm, dev)
     k4, record["k4_compensation"] = k4_phase(torch, gemm, dev)
     record["k4"] = k4
+    kernels.update(flash_phase(torch, fa, dev))
+    phase_done("2 kernels")
     runs = [e2e_run(pa, gemm, card, label, kv, wd)
             for label, kv, wd in CONFIGS]
     launches = serving_launches(runs)
     record["e2e"] = runs
+    phase_done("3 serving")
     train = [train_run(torch, gemm, card, precise) for precise in (0, 1, 2)]
     record["first_epoch_vs_cpu"] = first_epoch_on_the_cpu(train[1], gemm)
     for run in train:
@@ -843,11 +1304,28 @@ def main():
             launches["precise_matmul_l%d" % run["precise_gemm"]] = \
                 run["k4_launches"]
     record["training"] = train
+    phase_done("4 MNIST training")
+    attention = [attention_run(torch, fa, card, *config)
+                 for config in ATTN_CONFIGS]
+    record["attention_first_epoch_vs_cpu"] = [
+        attention_first_epoch_vs_cpu(fa, *config)
+        for config in ATTN_CONFIGS]
+    record["attention_small"] = attention_small_run(torch, fa, card)
+    for run in attention:
+        run.pop("first_epoch")
+    for name, kid in (("flash_attention_fwd", "K7"),
+                      ("flash_attention_dq", "K8"),
+                      ("flash_attention_dkv", "K9")):
+        launches[name] = sum(run["launches"][kid] for run in attention)
+    record["attention"] = attention
+    phase_done("4b attention training")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (
         [trace_run(torch, card, *config) for config in CONFIGS] +
-        [trace_train(torch, card, precise) for precise in (0, 1)])
+        [trace_train(torch, card, precise) for precise in (0, 1)] +
+        [trace_attention(torch, card)])
+    phase_done("5 traces")
     record["seconds"] = time.perf_counter() - t_start
     _log("chip_smoke: every phase in %.1f s" % record["seconds"])
     if args.json:

@@ -5,10 +5,13 @@
   ``_PreciseMatmul``) with the time of the kernels it launched as its
   own self device time, and lists those kernels again as device rows;
   summing every row counted each kernel twice.
-- The ``kernels`` line holds every kernel of the main paths, refuses
-  one that never launched there or was never measured, and carries K4's level 0 (on no main
+- The ``kernels`` line holds every kernel of the main paths (slice 3's
+  flash attention K7-K9 included), refuses one that never launched
+  there or was never measured, and carries K4's level 0 (on no main
   path: ``precise_gemm=0`` means plain matmuls) inside the level-1
   entry.
+- The work a masked attention call needs is counted from the mask, and
+  the needle loader makes the JAX test's data.
 """
 
 import os
@@ -52,16 +55,20 @@ def _rec(ms):
 def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     slice1 = ("paged_attention_f32", "paged_attention_int8",
               "quantized_matmul_int8", "quantized_matmul_fp8")
+    slice3 = ("flash_attention_fwd", "flash_attention_dq",
+              "flash_attention_dkv")
     kernels = {name: {"main": _rec(0.1), "realistic": [_rec(0.4)]}
-               for name in slice1}
+               for name in slice1 + slice3}
     k4 = {level: {"main": [_rec(0.08 + level), _rec(0.07)],
                   "realistic": [_rec(7.0)]} for level in (0, 1, 2)}
     launches = dict({name: 64 for name in slice1},
-                    precise_matmul_l1=26700, precise_matmul_l2=26700)
+                    precise_matmul_l1=26700, precise_matmul_l2=26700,
+                    flash_attention_fwd=600, flash_attention_dq=450,
+                    flash_attention_dkv=450)
     line = chip_smoke.kernels_line(kernels, k4, launches)
     names = [e["name"] for e in line["kernels"]]
     assert names == list(slice1) + ["precise_matmul_l1",
-                                    "precise_matmul_l2"]
+                                    "precise_matmul_l2"] + list(slice3)
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -83,3 +90,55 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     del unmeasured["paged_attention_int8"]
     with pytest.raises(AssertionError, match="not measured"):
         chip_smoke.kernels_line(unmeasured, k4, launches)
+    by_name = {e["name"]: e for e in line["kernels"]}
+    for name, kid in zip(slice3, ("K7", "K8", "K9")):
+        entry = by_name[name]
+        assert entry["id"] == kid and entry["route"] == "cuda"
+        assert entry["source"] == "veles_tpu_torch/csrc/flash_attention.cu"
+        assert entry["replaces"].startswith(
+            "veles_tpu/znicz/flash_attention.py:")
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.kernels_line(kernels, k4,
+                                dict(launches, flash_attention_dkv=0))
+    without_k8 = dict(kernels)
+    del without_k8["flash_attention_dq"]
+    with pytest.raises(AssertionError, match="not measured"):
+        chip_smoke.kernels_line(without_k8, k4, launches)
+
+
+@pytest.mark.parametrize("t,causal,window", [
+    (7, False, None), (256, True, None), (256, True, 40), (100, True, 1),
+    (64, True, 500)])
+def test_visible_pairs_count_the_mask(t, causal, window):
+    rows = torch.arange(t)[:, None]
+    cols = torch.arange(t)[None, :]
+    allowed = torch.ones((t, t), dtype=torch.bool)
+    if causal:
+        allowed = cols <= rows
+        if window is not None:
+            allowed &= cols > rows - window
+    assert chip_smoke._visible(t, causal, window) == int(allowed.sum())
+
+
+def test_needle_loader_makes_the_jax_tests_data():
+    """The JAX test's loop (tests/test_attention_unit.py:124-137) and
+    the loader's vectorized marking give the same bytes and split."""
+    import numpy
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+    from veles_tpu_torch.workflow import Workflow
+    n, t, d, c = 60, 8, 8, 4
+    loader = chip_smoke.needle_loader(n, t, d, c)(Workflow(name="w"),
+                                                  minibatch_size=10)
+    loader.initialize(device=Device(backend="cpu"))
+    rng = numpy.random.RandomState(3)
+    x = rng.uniform(-0.2, 0.2, (n, t, d)).astype(numpy.float32)
+    labels = rng.randint(0, c, n)
+    pos = rng.randint(0, t, n)
+    for i in range(n):
+        x[i, pos[i], 0] = 2.0
+        x[i, pos[i], 1 + labels[i]] = 2.0
+    assert loader.original_data.map_read().tobytes() == x.tobytes()
+    assert list(loader.original_labels) == list(labels)
+    assert (loader.class_lengths[VALID], loader.class_lengths[TRAIN]) == \
+        (15, 45)

@@ -60,7 +60,8 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "loader.fullbatch", "znicz.nn_units", "znicz.all2all",
                  "znicz.gd", "znicz.solvers", "znicz.evaluator",
                  "znicz.decision", "znicz.fused", "znicz.standard_workflow",
-                 "znicz.samples.mnist"):
+                 "znicz.samples.mnist", "znicz.attention",
+                 "znicz.flash_attention", "parallel.ring"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")

@@ -12,15 +12,26 @@ summation order and ``expf``); the quantized GEMM
 ``max|kernel - plain| <= 1e-5 * max|plain|`` (per-element f32 FMA
 chains against cuBLAS's blocked sums); the precise GEMM
 ``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)`` (the same K tiles,
-each summed in another order than cuBLAS's).
+each summed in another order than cuBLAS's); flash attention (K7-K9)
+out and lse ``<= 2e-5``, each gradient ``<= 5e-4 * max(1, max|plain|)``
+(the JAX package's tests/test_flash_attention.py tolerances).
 """
+
+import os
+import sys
 
 import numpy
 import pytest
 import torch
 
+from veles_tpu_torch.parallel.ring import attention_reference
+from veles_tpu_torch.znicz import flash_attention as fa
 from veles_tpu_torch.znicz import gemm
 from veles_tpu_torch.znicz import paged_attention as pa
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -282,5 +293,121 @@ def test_mnist_training_on_the_card_matches_the_cpu(cuda, precise):
     assert card.gather_results()["best_validation_error_pt"] == \
         host.gather_results()["best_validation_error_pt"]
     for f_card, f_host in zip(card.forwards, host.forwards):
+        for name, value in f_card.host_params.items():
+            assert numpy.abs(value - f_host.host_params[name]).max() <= 1e-4
+
+
+def _flash_inputs(dev, b, t, h, d, seed, packed=True):
+    """q, k, v (strided views of one packed projection, or contiguous)
+    and dO, ``randn * 0.5``."""
+    rng = numpy.random.RandomState(seed)
+    qkv = torch.tensor(rng.standard_normal((b, t, 3 * h * d)) * 0.5,
+                       dtype=torch.float32, device=dev)
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    if not packed:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    do = torch.tensor(rng.standard_normal((b, t, h, d)) * 0.5,
+                      dtype=torch.float32, device=dev)
+    return q, k, v, do
+
+
+def _rel(a, r):
+    return float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+
+
+@pytest.mark.parametrize("case", [
+    (2, 7, 2, 4, False, None), (2, 8, 2, 8, True, None),
+    (2, 256, 2, 16, True, 5), (1, 256, 2, 16, True, 1),
+    (1, 256, 2, 16, True, 64), (1, 256, 2, 16, True, 100),
+    (1, 256, 2, 16, True, 256), (1, 256, 2, 8, True, 40),
+    (2, 300, 3, 128, True, None), (2, 200, 3, 33, True, 70),
+    (8, 2048, 8, 64, False, None), (8, 2048, 8, 64, True, 512)])
+def test_flash_attention_kernels_match_plain(cuda, case):
+    b, t, h, d, causal, window = case
+    q, k, v, do = _flash_inputs(cuda, b, t, h, d, seed=t + d,
+                                packed=(t % 2 == 0))
+    kw = dict(causal=causal, window=window)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = fa.flash_delta(do, ref_out)
+    dq = fa.flash_attention_dq(q, k, v, do, ref_lse, delta, **kw)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, ref_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(n + 1 for n in before)
+    assert float((out - ref_out).abs().max()) <= 2e-5
+    assert float((lse - ref_lse).abs().max()) <= 2e-5
+    assert _rel(dq, fa.flash_dq_reference(q, k, v, do, ref_lse, delta,
+                                          **kw)) <= 5e-4
+    ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta,
+                                            **kw)
+    assert _rel(dk, ref_dk) <= 5e-4 and _rel(dv, ref_dv) <= 5e-4
+
+
+def test_flash_attention_autograd_is_the_kernels(cuda):
+    """flash_attention's forward is one K7 launch, its backward one K8
+    and one K9; the grads are attention_reference's; two runs give the
+    same bits (no atomics)."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 256, 2, 16, seed=3)
+    grads = []
+    for _ in range(2):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        before = fa.flash_attention_fwd.launches, \
+            fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches
+        out = fa.flash_attention(*leaves, causal=True, window=40)
+        grads.append(torch.autograd.grad((torch.sin(out) * out).sum(),
+                                         leaves))
+        torch.cuda.synchronize()
+        assert (fa.flash_attention_fwd.launches,
+                fa.flash_attention_dq.launches,
+                fa.flash_attention_dkv.launches) == \
+            tuple(n + 1 for n in before)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref = attention_reference(*leaves, causal=True, window=40)
+    want = torch.autograd.grad((torch.sin(ref) * ref).sum(), leaves)
+    for g1, g2, w in zip(*grads, want):
+        assert torch.equal(g1, g2)
+        assert float((g1 - w).abs().max()) <= 5e-4
+
+
+def test_flash_attention_refuses_what_the_kernels_cannot_take(cuda):
+    q, k, v, do = _flash_inputs(cuda, 1, 16, 2, 8, seed=0)
+    with pytest.raises(ValueError):        # f64 operands
+        fa.flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):        # head dim past 128
+        z = torch.zeros((1, 4, 1, 129), device=cuda)
+        fa.flash_attention_fwd(z, z, z)
+    with pytest.raises(ValueError):        # operands on two devices
+        fa.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError):        # head dim not unit stride
+        fa.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(
+            2, 3), k, v)
+    with pytest.raises(ValueError):        # a window without causal
+        fa.flash_attention_fwd(q, k, v, causal=False, window=4)
+
+
+def test_needle_training_on_the_card_matches_the_cpu(cuda):
+    """Two epochs of the attention unit on the needle task (T=8, D=8, 2
+    heads, as the JAX test trains it): the card (K7-K9) and the CPU
+    (plain versions) agree on every epoch's n_err within 1 and on the
+    weights within 1e-4; the card launched K7 once a step, K8 and K9
+    once a train step."""
+    wfs = {dev: chip_smoke.attention_workflow(
+        600, 8, 8, 2, minibatch=50, epochs=2, device=dev, use_pallas=True)
+        for dev in ("cuda", "cpu")}
+    before = fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches
+    wfs["cuda"].run()
+    torch.cuda.synchronize()
+    k7 = fa.flash_attention_fwd.launches - before[0]
+    k8 = fa.flash_attention_dq.launches - before[1]
+    wfs["cpu"].run()
+    step = wfs["cuda"].fused_step
+    assert (k7, k8) == (step.train_steps + step.eval_steps, step.train_steps)
+    errs = {dev: wf.decision.epoch_n_err for dev, wf in wfs.items()}
+    assert max(abs(a - b) for a, b in zip(errs["cuda"], errs["cpu"])) <= 1
+    for f_card, f_host in zip(wfs["cuda"].forwards, wfs["cpu"].forwards):
         for name, value in f_card.host_params.items():
             assert numpy.abs(value - f_host.host_params[name]).max() <= 1e-4

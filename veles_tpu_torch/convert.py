@@ -11,9 +11,10 @@ Only host arrays cross: pass ``numpy.asarray(leaf)`` of each JAX leaf
 JAX.
 
 :func:`workflow_params_from_jax` carries a trained (or freshly
-initialized) StandardWorkflow across: each layer's ``{"weights": (in,
-out), "bias": (out,)}`` and its solver state, in the layout K4 and the
-port's All2All read.
+initialized) StandardWorkflow across: each layer's host params
+(``{"weights": (in, out), "bias": (out,)}``, plus ``"proj"`` for the
+attention unit) and its solver state, in the layout the port's units
+read.
 """
 
 import numpy
@@ -63,7 +64,8 @@ def workflow_params_from_jax(wf, params, solver_state=None):
     """Load a JAX StandardWorkflow's layers into the port's ``wf``.
 
     ``params`` is ``[fwd.host_params for fwd in jax_wf.forwards]``
-    (numpy ``{"weights": (in, out), "bias": (out,)}`` per layer);
+    (numpy ``{"weights": (in, out), "bias": (out,)}`` per layer, and
+    ``"proj"`` for an attention layer);
     ``solver_state`` is ``[gd.solver_state for gd in jax_wf.gds]``
     (``{name: (numpy, ...)}``, momentum's velocity for the MNIST
     sample; call ``jax_wf.fused_step.sync_solver_state()`` first), or
@@ -76,10 +78,10 @@ def workflow_params_from_jax(wf, params, solver_state=None):
     for fwd, layer in zip(wf.forwards, params):
         layer = {k: numpy.asarray(v, numpy.float32)
                  for k, v in layer.items()}
-        if fwd.weights and tuple(fwd.weights.shape) != \
-                layer["weights"].shape:
-            raise ValueError("%s: weights %r, given %r" % (
-                fwd, tuple(fwd.weights.shape), layer["weights"].shape))
+        for name, have in fwd.host_params.items():
+            if name in layer and have.shape != layer[name].shape:
+                raise ValueError("%s: %s %r, given %r" % (
+                    fwd, name, have.shape, layer[name].shape))
         fwd.set_host_params(layer)
     if solver_state is not None:
         if len(solver_state) != len(wf.gds):

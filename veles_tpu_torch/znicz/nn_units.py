@@ -15,8 +15,13 @@ implements
 
 GradientDescent units own the hyperparameters and the solver state the
 fused step reads (``lr_for``, ``decay_for``, ``solver``,
-``solver_state``).  Their own per-unit backward (graph mode) is not
-ported yet.
+``solver_state``).  :meth:`GradientDescentBase.backward_via_vjp` is the
+generic backward of a forward's ``apply`` (the attention unit's); the
+per-unit graph-mode ``run`` is not ported yet.
+
+:func:`resolve_use_pallas` is the tri-state ``use_pallas`` knob of the
+units that have a kernel route (the name is the JAX package's, so a
+layers config moves across as it is).
 """
 
 import numpy
@@ -27,7 +32,23 @@ from ..memory import Array
 from .. import prng
 from . import solvers
 
-__all__ = ["NNUnitBase", "ForwardBase", "GradientDescentBase"]
+__all__ = ["NNUnitBase", "ForwardBase", "GradientDescentBase",
+           "resolve_use_pallas"]
+
+
+def resolve_use_pallas(setting, device):
+    """Shared tri-state ``use_pallas`` semantics: True / False force the
+    choice; None (unset) is AUTO: the kernels when the unit's device is
+    the card, the oracle elsewhere (on the CPU the kernels' plain
+    versions are slower than the oracle).  A unit not initialized yet
+    (no device) counts as on the card when torch sees one, as
+    ``Device()`` would put it there."""
+    if setting is not None:
+        return bool(setting)
+    backend = getattr(device, "BACKEND", None)
+    if backend is None:
+        return torch.cuda.is_available()
+    return backend == "cuda"
 
 
 class NNUnitBase(AcceleratedUnit):
@@ -205,6 +226,19 @@ class GradientDescentBase(NNUnitBase):
         if name == "bias":
             return self.weights_decay_bias, self.l1_vs_l2_bias, 0.0
         return self.weights_decay, self.l1_vs_l2, self.factor_ortho
+
+    def backward_via_vjp(self, params, x, err_output, n_valid):
+        """Generic backward through autograd of the forward's ``apply``:
+        ``(err_input, {name: grad / n_valid})`` for ``params`` (a dict of
+        tensors), the input ``x`` and ``err_output`` (the gradient at the
+        output) -- the chain rule the fused step differentiates."""
+        names = list(params)
+        leaves = [params[n].detach().requires_grad_(True) for n in names]
+        xx = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = self.forward_unit.apply(dict(zip(names, leaves)), xx)
+            grads = torch.autograd.grad(y, leaves + [xx], err_output)
+        return grads[-1], {n: g / n_valid for n, g in zip(names, grads)}
 
     def run(self):
         raise NotImplementedError(

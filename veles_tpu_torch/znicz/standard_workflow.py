@@ -27,7 +27,8 @@ from ..workflow import Workflow
 from .nn_units import ForwardBase, GradientDescentBase
 from .decision import DecisionGD
 from .fused import FusedTrainStep
-from . import all2all, gd  # noqa: F401 — registers the layer MAPPINGs
+# registers the layer MAPPINGs
+from . import all2all, attention, gd  # noqa: F401
 
 __all__ = ["StandardWorkflow"]
 
