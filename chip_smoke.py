@@ -26,7 +26,13 @@ Phases (any failure raises and the script exits non-zero):
    at the JAX package's bench shapes (B=2, T=2048 causal; B=1, T=16384,
    window 512); ``library_ms`` is ``scaled_dot_product_attention`` on the
    same f32 inputs, its forward on K7's row and its backward on K8's and
-   K9's.
+   K9's.  LRN (K5 forward, K6 backward) on ``randn * 2`` inputs:
+   ``max|kernel - plain| <= 1e-5 * max(1, max|plain|)``, at n 1-5 and C
+   1-5000 with alpha 0.5 (untimed), and timed at the main paths' LRN
+   shapes: AlexNet's two at minibatch 128 (the first is the kernels
+   line's record) and the LRN convnet's two at minibatch 100;
+   ``library_ms`` is ``F.local_response_norm`` on the NCHW view of the
+   same input, its forward on K5's row and its autograd backward on K6's.
 3. End to end, over real HTTP: the port's ``InferenceServer`` serving
    the flagship decode model at the README's decode-quickstart widths
    (stages=2, experts=4, d=64, heads=4, hidden=128, vocab=1024; server
@@ -61,11 +67,31 @@ Phases (any failure raises and the script exits non-zero):
    ``max|card - cpu| <= 1e-4``.  Then the JAX test's own run (T=8, D=8,
    2 heads, 600 sequences, minibatch 50, 25 epochs) must reach a best
    validation error < 40 %.
+4c. Training (slice 4): the AlexNet sample at its published widths
+   (227x227x3, conv 96/256/384/384/256 with LRN after the first two, fc
+   4096/4096 with dropout 0.5, softmax 1000, minibatch 128) through
+   ``create_workflow()`` on its synthetic loader's defaults (2048 train
+   + 256 valid images, 1.42 GB resident), 3 epochs, dropout on: once
+   with ``use_pallas`` unset (K5 twice every step, K6 twice every train
+   step) and once with the band form (``use_pallas=False``, neither
+   kernel).  Train images/s is the median epoch after the first.  Every
+   loss must be finite.  The first 2 train steps at minibatch 128 (on
+   256 train + 128 valid images) are held against the port on the CPU:
+   each loss within 1e-4 relative, each parameter tensor within 1e-4 of
+   its largest magnitude, each dropout mask drawn on the card equal to
+   the CPU's bit for bit.
+4d. Training (slice 4): the LRN convnet (conv 32 5x5 → LRN → max 3x3/2,
+   twice, then fc 64 → dropout 0.5 → softmax 10; lr 0.02, momentum 0.9)
+   on the CIFAR sample's synthetic data (5000 train + 1000 valid,
+   range_linear), minibatch 100, 5 epochs: best validation error < 25 %,
+   K5/K6 launched on every step.
 5. Where the time goes: each serving configuration's burst, one
-   training epoch of each matmul mode and one full-width attention
-   epoch (causal, window 512) once more under ``torch.profiler`` (after
-   every untraced measurement): the share of the wall time the card is
-   busy, and the top kernels.
+   training epoch of each matmul mode, one full-width attention epoch
+   (causal, window 512) and one AlexNet epoch with each LRN form once
+   more under ``torch.profiler`` (after every untraced measurement):
+   the share of the wall time the card is busy, the top kernels, the
+   device copies and cuDNN's layout transforms, and the int64
+   elementwise kernels (dropout's threefry draws).
 6. The ``kernels`` JSON line, the card's line, and the result line.
    Each phase prints its wall time.
 
@@ -569,6 +595,116 @@ def flash_phase(torch, fa, dev):
                    "realistic": [c[name] for c in cases[1:]]}
             for name in cases[0]}
 
+
+# -- phase 2, K5/K6: LRN ------------------------------------------------------
+
+#: (label, NHWC shape) of the LRN layers of the main paths: AlexNet's two
+#: at minibatch 128 (227x227 input), then the LRN convnet's two at
+#: minibatch 100 (32x32 input)
+LRN_SHAPES = (("AlexNet LRN1", (128, 55, 55, 96)),
+              ("AlexNet LRN2", (128, 27, 27, 256)),
+              ("LRN convnet LRN1", (100, 32, 32, 32)),
+              ("LRN convnet LRN2", (100, 15, 15, 32)))
+#: AlexNet's LRN parameters (n, alpha, beta, k), the LRN convnet's too
+LRN_PARAMS = (5, 1e-4, 0.75, 2.0)
+#: (shape, (n, alpha, beta, k)) held untimed: even and odd n, ragged C,
+#: C past one 4096-float tile (K6's shared memory opt-in), an alpha that
+#: makes the window sum matter
+LRN_SMALL = tuple(
+    [((3, 5, 7, c), (n, 0.5, 0.75, 2.0)) for c in (1, 7, 16, 33, 96, 256)
+     for n in (1, 2, 4, 5)] +
+    [((2, 3, 3, 5000), (5, 0.5, 0.6, 1.5)),
+     ((4, 9, 9, 96), (3, 1e-4, 0.75, 2.0))])
+LRN_TOL = 1e-5
+
+
+def _lrn_inputs(torch, dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev) * 2.0
+    g = torch.randn(shape, generator=gen, device=dev)
+    return x, g
+
+
+def _lrn_check(torch, lrn_mod, x, g, params, label):
+    """K5 and K6 against their plain versions on the same inputs: errors
+    ``max|kernel - plain| <= LRN_TOL * max(1, max|plain|)``."""
+    y = lrn_mod.lrn(x, *params)
+    dx = lrn_mod.lrn_backward(x, g, *params)
+    ref_y = lrn_mod.lrn_reference(x, *params)
+    ref_dx = lrn_mod.lrn_backward_reference(x, g, *params)
+    torch.cuda.synchronize()
+    err = {}
+    for name, a, r in (("fwd", y, ref_y), ("bwd", dx, ref_dx)):
+        e = float((a - r).abs().max())
+        limit = LRN_TOL * max(1.0, float(r.abs().max()))
+        if not e <= limit:
+            raise AssertionError("LRN %s %s: max|kernel - plain| = %g > %g"
+                                 % (name, label, e, limit))
+        err[name] = e
+    return err, ref_y
+
+
+def _measure_lrn(torch, lrn_mod, dev, label, shape, seed):
+    """One timed case: -> {kernel name: record}."""
+    f = torch.nn.functional
+    x, g = _lrn_inputs(torch, dev, shape, seed)
+    n = LRN_PARAMS[0]
+    err, ref_y = _lrn_check(torch, lrn_mod, x, g, LRN_PARAMS, label)
+    # the library's LRN takes NCHW: the channels_last view of NHWC x
+    xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    lib_out = f.local_response_norm(xl, *LRN_PARAMS)
+    lib_err = float((lib_out.detach().permute(0, 2, 3, 1) - ref_y).abs().max())
+    gl = g.permute(0, 3, 1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return f.local_response_norm(xl, *LRN_PARAMS)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, xl, gl, retain_graph=True)
+
+    elems = x.numel()
+    calls = {
+        "lrn_fwd": (lambda: lrn_mod.lrn(x, *LRN_PARAMS),
+                    lambda: lrn_mod.lrn_reference(x, *LRN_PARAMS),
+                    2 * 4 * elems, elems * (2 * n + 4), lib_fwd, err["fwd"]),
+        "lrn_bwd": (lambda: lrn_mod.lrn_backward(x, g, *LRN_PARAMS),
+                    lambda: lrn_mod.lrn_backward_reference(x, g,
+                                                           *LRN_PARAMS),
+                    3 * 4 * elems, elems * (3 * n + 9), lib_bwd, err["bwd"])}
+    recs = {}
+    shape_s = "%s N=%d C=%d" % (label, elems // shape[-1], shape[-1])
+    for name, (kernel, plain, nbytes, flops, lib, e) in calls.items():
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rec = {"shape": shape_s, "max_abs_err": e,
+               "ms": _cuda_ms(torch, kernel),
+               "plain_ms": _cuda_ms(torch, plain, iters=5),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": _cuda_ms(torch, lib, iters=10)}
+        _log("kernel %s [%s] max_err=%.3g kernel_ms=%.4f plain_ms=%.4f "
+             "bound_ms=%.4f (%s) library_ms=%.4f (F.local_response_norm %s;"
+             " its output within %.3g of the plain one)"
+             % (name, shape_s, e, rec["ms"], rec["plain_ms"], bound_ms,
+                bound_by, rec["library_ms"], "forward" if name == "lrn_fwd"
+                else "autograd backward", lib_err))
+        recs[name] = rec
+    return recs
+
+
+def lrn_phase(torch, lrn_mod, dev):
+    """-> {kernel name: {"main": record, "realistic": [records]}}: the
+    small cases untimed, then the main paths' shapes timed (AlexNet's
+    first LRN is the main record)."""
+    for i, (shape, params) in enumerate(LRN_SMALL):
+        x, g = _lrn_inputs(torch, dev, shape, 300 + i)
+        _lrn_check(torch, lrn_mod, x, g, params, "%r %r" % (shape, params))
+    _log("kernel LRN: %d small cases (n 1-5, C 1-5000) within the limits"
+         % len(LRN_SMALL))
+    cases = [_measure_lrn(torch, lrn_mod, dev, label, shape, seed=400 + i)
+             for i, (label, shape) in enumerate(LRN_SHAPES)]
+    return {name: {"main": cases[0][name],
+                   "realistic": [c[name] for c in cases[1:]]}
+            for name in cases[0]}
 
 # -- phase 3: end to end over HTTP --------------------------------------------
 
@@ -1097,6 +1233,310 @@ def trace_train(torch, card, precise):
     return _trace_record(prof, label, card, seconds)
 
 
+# -- phase 4c: AlexNet at full width (slice 4) --------------------------------
+
+#: the AlexNet sample as published (227x227x3, conv 96/256/384/384/256, fc
+#: 4096/4096, softmax 1000, minibatch 128) on its own synthetic loader
+#: defaults (2048 train + 256 valid images, 1.42 GB resident)
+ALEX_EPOCHS = 3
+#: the card-vs-CPU hold: the first train steps at minibatch 128 on a cut
+#: dataset (256 train + 128 valid images; widths untouched)
+ALEX_HOLD_STEPS = 2
+ALEX_HOLD_LOADER = {"n_train": 256, "n_valid": 128}
+#: card vs CPU (and port vs JAX in the tests): each train step's loss
+#: within this relative tolerance, each parameter tensor within this
+#: fraction of its largest magnitude
+STEP_LOSS_RTOL = 1e-4
+STEP_WEIGHT_RTOL = 1e-4
+#: (label, use_pallas) of the full-width runs: unset (K5/K6 on the card)
+#: and the band form
+ALEX_CONFIGS = (("alexnet", None), ("alexnet band LRN", False))
+
+
+def _with_lrn_form(layers, use_pallas):
+    """``layers`` with ``use_pallas`` set on every LRN layer (None:
+    unchanged)."""
+    if use_pallas is None:
+        return [dict(layer) for layer in layers]
+    return [dict(layer, **{"->": dict(layer["->"], use_pallas=use_pallas)})
+            if layer["type"] == "norm" else dict(layer) for layer in layers]
+
+
+def _on(wf, device):
+    """Refuse a workflow that does not run where it was asked to."""
+    if wf.fused_step._dev_.type != device:
+        raise AssertionError("the workflow runs on %s, not %s"
+                             % (wf.fused_step._dev_, device))
+    return wf
+
+
+def alexnet_workflow(device="cuda", use_pallas=None, epochs=ALEX_EPOCHS,
+                     **loader):
+    """The AlexNet sample through ``create_workflow``, weights from seed
+    42, loader seed 7, initialized on ``device`` (the card unless the CPU
+    is asked for); ``loader`` overrides the sample's loader config."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.samples import alexnet
+    prng.get().seed(42)
+    wf = alexnet.create_workflow(
+        loader=dict(loader, prng=RandomGenerator().seed(7)),
+        layers=_with_lrn_form(root.alexnet.layers, use_pallas),
+        decision={"max_epochs": epochs, "silent": True})
+    wf.initialize(device=Device(backend=device))
+    return _on(wf, device)
+
+
+def train_steps(wf, n):
+    """Run the first ``n`` train minibatches of ``wf`` by hand (the
+    loader's validation minibatches are served and skipped); -> their
+    losses.  The weights stay in the fused step (``sync_weights``)."""
+    from veles_tpu_torch.loader import TRAIN
+    losses = []
+    for _ in range(n):
+        while True:
+            wf.loader.run()
+            if wf.loader.minibatch_class == TRAIN:
+                break
+        wf.fused_step.run()
+        losses.append(float(wf.fused_step.loss))
+    wf.fused_step.sync_weights()
+    return losses
+
+
+def steps_agree(label, losses, weights, want_losses, want_weights):
+    """Losses within ``STEP_LOSS_RTOL``, each parameter tensor within
+    ``STEP_WEIGHT_RTOL`` of its largest magnitude; -> (max loss rel
+    diff, max weight rel diff)."""
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                        want_losses))
+    w_diff = max(float(numpy.abs(w[k] - ref[k]).max()) /
+                 float(numpy.abs(ref[k]).max())
+                 for w, ref in zip(weights, want_weights) for k in ref)
+    if len(losses) != len(want_losses) or \
+            not loss_diff <= STEP_LOSS_RTOL or \
+            not w_diff <= STEP_WEIGHT_RTOL:
+        raise AssertionError("%s: losses %r against %r (rel %g, limit %g),"
+                             " weights rel %g (limit %g)"
+                             % (label, losses, want_losses, loss_diff,
+                                STEP_LOSS_RTOL, w_diff, STEP_WEIGHT_RTOL))
+    return loss_diff, w_diff
+
+
+def host_weights(wf):
+    return [{k: numpy.array(v) for k, v in f.host_params.items()}
+            for f in wf.forwards]
+
+
+def _lrn_counters(lrn_mod):
+    return {"K5": lrn_mod.lrn, "K6": lrn_mod.lrn_backward}
+
+
+def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
+    """Run ``wf`` with its kernels' counts reset; -> record of epoch
+    times, train samples/s (median epoch, the first apart), losses,
+    launches (total and per train / eval step) and the best error."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    rec = _instrument(wf, counters)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ends = [t0] + rec["epoch_end"]
+    epoch_s = [b - a for a, b in zip(ends, ends[1:])]
+    steps = rec["steps"]
+    n_train = wf.loader.class_lengths[TRAIN]
+    median_s = statistics.median(epoch_s[1:] or epoch_s)
+    losses = _epoch_losses(rec)
+    per = {name: (rec["launches"][name][TRAIN] / max(steps[TRAIN], 1),
+                  rec["launches"][name][VALID] / max(steps[VALID], 1))
+           for name in counters}
+    res = wf.gather_results()
+    out = {"label": label, "card": card, "init_s": t_init,
+           "seconds": seconds, "epochs": len(epoch_s), "epoch_s": epoch_s,
+           "epoch_s_median_after_first": median_s,
+           "train_samples_s_median": n_train / median_s,
+           "train_steps": steps[TRAIN], "eval_steps": steps[VALID],
+           "launches": launches, "launches_per_train_eval_step": per,
+           "mean_train_loss": [statistics.fmean(e) for e in losses],
+           "best_validation_error_pt": res["best_validation_error_pt"],
+           "best_epoch": res["best_epoch"]}
+    _log("train %s: %d train + %d valid %s, minibatch %d; %d epochs in "
+         "%.3f s; epoch wall s %s; median after the first %.4f s = %.1f "
+         "train %s/s; mean train loss by epoch %s; best validation error "
+         "%.2f%% (epoch %d); launches %s (per train / eval step %s); init "
+         "%.3f s [%s]"
+         % (label, n_train, wf.loader.class_lengths[VALID], n_seq_label,
+            wf.loader.max_minibatch_size, len(epoch_s), seconds,
+            " ".join("%.4f" % x for x in epoch_s), median_s,
+            out["train_samples_s_median"], n_seq_label,
+            " ".join("%.5f" % x for x in out["mean_train_loss"]),
+            out["best_validation_error_pt"], out["best_epoch"], launches,
+            per, t_init, card))
+    if any(not math.isfinite(x) for e in losses for x in e):
+        raise AssertionError("%s: a train loss is not finite" % label)
+    return out
+
+
+def alexnet_run(torch, lrn_mod, card, label, use_pallas):
+    """AlexNet at full width on the card for ``ALEX_EPOCHS``; -> record.
+    Unset ``use_pallas`` must launch K5 twice a step (train and eval) and
+    K6 twice a train step; the band form launches neither."""
+    t0 = time.perf_counter()
+    wf = alexnet_workflow(use_pallas=use_pallas)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    norms = [f for f in wf.forwards if f.MAPPING == "norm"]
+    if [f._resolved_use_pallas() for f in norms] != \
+            [use_pallas is None] * 2:
+        raise AssertionError("%s: the LRN layers took the wrong form"
+                             % label)
+    out = _train_record(torch, wf, _lrn_counters(lrn_mod), label, card,
+                        init_s, "images")
+    want = {"K5": (2, 2), "K6": (2, 0)} if use_pallas is None else \
+        {"K5": (0, 0), "K6": (0, 0)}
+    if out["launches_per_train_eval_step"] != want:
+        raise AssertionError("%s: launches per train / eval step %r, want "
+                             "%r" % (label,
+                                     out["launches_per_train_eval_step"],
+                                     want))
+    return out
+
+
+def alexnet_hold(torch, lrn_mod):
+    """The first ``ALEX_HOLD_STEPS`` train steps at full width, minibatch
+    128, on the card (K5/K6) and by the port on the CPU (the same
+    Function, on its plain versions): losses and weights within the
+    stated tolerances, and each dropout layer's last mask drawn on the
+    card equal, bit for bit, to the one drawn on the CPU."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        wf = alexnet_workflow(device, use_pallas=True, epochs=1,
+                              **ALEX_HOLD_LOADER)
+        t0 = time.perf_counter()
+        losses = train_steps(wf, ALEX_HOLD_STEPS)
+        runs[device] = (wf, losses, time.perf_counter() - t0)
+    (card_wf, card_losses, _), (cpu_wf, cpu_losses, cpu_s) = \
+        runs["cuda"], runs["cpu"]
+    loss_diff, w_diff = steps_agree(
+        "alexnet first steps, card vs CPU", card_losses, host_weights(
+            card_wf), cpu_losses, host_weights(cpu_wf))
+    masks = 0
+    for f_card, f_cpu in zip(card_wf.forwards, cpu_wf.forwards):
+        if not f_card.stochastic:
+            continue
+        if f_card.last_key != f_cpu.last_key or f_card.last_key is None:
+            raise AssertionError("dropout keys differ: %r, %r"
+                                 % (f_card.last_key, f_cpu.last_key))
+        shape = tuple(f_card.output.shape)
+        on_card = f_card.mask(f_card.last_key, shape, "cuda").cpu()
+        if not torch.equal(on_card, f_cpu.mask(f_cpu.last_key, shape,
+                                               "cpu")):
+            raise AssertionError("a dropout mask on the card differs from "
+                                 "the CPU's")
+        masks += 1
+    if masks != 2:
+        raise AssertionError("AlexNet has %d dropout layers, want 2" % masks)
+    out = {"steps": ALEX_HOLD_STEPS, "losses_card": card_losses,
+           "losses_cpu": cpu_losses, "max_loss_rel_diff": loss_diff,
+           "max_weight_rel_diff": w_diff, "dropout_masks_equal": masks,
+           "cpu_seconds": cpu_s}
+    _log("train alexnet first %d steps, card vs CPU (minibatch 128): losses"
+         " card %s cpu %s (max rel diff %.3g, limit %g); max|w_card - "
+         "w_cpu| / max|w_cpu| = %.3g (limit %g); %d dropout masks equal; "
+         "CPU steps %.3f s"
+         % (ALEX_HOLD_STEPS, card_losses, cpu_losses, loss_diff,
+            STEP_LOSS_RTOL, w_diff, STEP_WEIGHT_RTOL, masks, cpu_s))
+    return out
+
+
+# -- phase 4d: the LRN convnet on synthetic CIFAR (slice 4) -------------------
+
+#: conv 32 5x5 pad 2 → LRN n 5 → max 3x3/2 → conv 32 5x5 pad 2 → LRN →
+#: max 3x3/2 → fc 64 strict RELU → dropout 0.5 → softmax 10; lr 0.02,
+#: momentum 0.9 (the JAX package's tests/test_conv_stack.py convnet
+#: solver)
+LRN_NET_GD = {"learning_rate": 0.02, "gradient_moment": 0.9}
+LRN_NET_LAYERS = (
+    {"type": "conv_str", "->": {"n_kernels": 32, "kx": 5, "ky": 5,
+                                "padding": 2}, "<-": LRN_NET_GD},
+    {"type": "norm", "->": {"n": 5}},
+    {"type": "max_pooling", "->": {"kx": 3, "ky": 3, "sliding": (2, 2)}},
+    {"type": "conv_str", "->": {"n_kernels": 32, "kx": 5, "ky": 5,
+                                "padding": 2}, "<-": LRN_NET_GD},
+    {"type": "norm", "->": {"n": 5}},
+    {"type": "max_pooling", "->": {"kx": 3, "ky": 3, "sliding": (2, 2)}},
+    {"type": "all2all_str", "->": {"output_sample_shape": 64},
+     "<-": LRN_NET_GD},
+    {"type": "dropout", "->": {"dropout_ratio": 0.5}},
+    {"type": "softmax", "->": {"output_sample_shape": 10},
+     "<-": LRN_NET_GD})
+#: the CIFAR loader's synthetic defaults (5000 train + 1000 valid)
+LRN_NET_LOADER = {"minibatch_size": 100, "normalization_type": "range_linear"}
+LRN_NET_EPOCHS = 5
+LRN_NET_GATE_PT = 25.0
+
+
+def lrn_net_workflow(device="cuda", use_pallas=None, epochs=LRN_NET_EPOCHS,
+                     **loader):
+    """The LRN convnet through the CIFAR sample's ``create_workflow``,
+    weights from seed 42, loader seed 7, on ``device`` (the card unless
+    the CPU is asked for)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.samples import cifar
+    prng.get().seed(42)
+    wf = cifar.create_workflow(
+        loader=dict(LRN_NET_LOADER, prng=RandomGenerator().seed(7),
+                    **loader),
+        layers=_with_lrn_form(LRN_NET_LAYERS, use_pallas),
+        decision={"max_epochs": epochs, "silent": True})
+    wf.initialize(device=Device(backend=device))
+    return _on(wf, device)
+
+
+def lrn_net_run(torch, lrn_mod, card):
+    """The LRN convnet on the card: best validation error under its gate,
+    K5/K6 launched on every step."""
+    t0 = time.perf_counter()
+    wf = lrn_net_workflow()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if wf.loader.provenance != "synthetic":
+        raise AssertionError("CIFAR came from %r" % wf.loader.provenance)
+    out = _train_record(torch, wf, _lrn_counters(lrn_mod), "LRN convnet",
+                        card, init_s, "images")
+    if not out["best_validation_error_pt"] < LRN_NET_GATE_PT:
+        raise AssertionError("the LRN convnet missed its gate: %.2f%% >= "
+                             "%.0f%%" % (out["best_validation_error_pt"],
+                                         LRN_NET_GATE_PT))
+    if out["launches_per_train_eval_step"] != {"K5": (2, 2),
+                                               "K6": (2, 0)}:
+        raise AssertionError("the LRN convnet's launches per train / eval "
+                             "step: %r" % out["launches_per_train_eval_step"])
+    return out
+
+
+def trace_alexnet(torch, card, label, use_pallas):
+    """One AlexNet epoch under ``torch.profiler`` with each LRN form (the
+    card's busy time of the two compares the forms inside a real step),
+    with the top kernels and every device copy named."""
+    from torch.profiler import ProfilerActivity, profile
+    wf = alexnet_workflow(use_pallas=use_pallas, epochs=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wf.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return _trace_record(prof, "train " + label, card, seconds, top=25)
+
 # -- phase 5: where the time goes ---------------------------------------------
 
 def trace_run(torch, card, label, kv_dtype, weight_dtype):
@@ -1139,7 +1579,16 @@ def device_rows(events):
                    e.self_device_time_total > 0), reverse=True)
 
 
-def _trace_record(prof, label, card, seconds):
+#: device rows that move data between layouts or buffers: copies, and
+#: cuDNN's own NHWC <-> NCHW transforms around a convolution
+COPY_MARKS = ("copy", "tonchw", "tonhwc", "transpose")
+
+
+def _trace_record(prof, label, card, seconds, top=5):
+    """Busy share, the ``top`` kernels by device time, the device copies
+    and layout transforms (``COPY_MARKS``), and the int64 elementwise
+    kernels (dropout's threefry draws and index arithmetic) of a traced
+    run."""
     by_kernel = device_rows(prof.key_averages())
     busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
     if busy_ms <= 0:
@@ -1149,15 +1598,29 @@ def _trace_record(prof, label, card, seconds):
            "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / 1e3 / seconds,
            "device_launches": sum(c for _, c, _ in by_kernel),
-           "top": [{"kernel": k[:80], "ms": t / 1e3, "count": c}
-                   for t, c, k in by_kernel[:5]]}
+           "top": [{"kernel": k[:120], "ms": t / 1e3, "count": c}
+                   for t, c, k in by_kernel[:top]],
+           "copies": [{"kernel": k[:120], "ms": t / 1e3, "count": c}
+                      for t, c, k in by_kernel
+                      if any(m in k.lower() for m in COPY_MARKS)],
+           "int64_elementwise_ms": sum(
+               t for t, _, k in by_kernel
+               if "elementwise" in k and "<long" in k) / 1e3,
+           "int64_elementwise_launches": sum(
+               c for _, c, k in by_kernel
+               if "elementwise" in k and "<long" in k)}
+    width = 40 if top <= 5 else 70
     _log("trace %s: %.3f s traced, device busy %.3f ms (%.1f%%) over %d "
-         "launches; top: %s [%s]"
+         "launches; int64 elementwise %.3f ms x%d; top: %s; copies and "
+         "layout transforms: %s [%s]"
          % (label, seconds, busy_ms, 100 * rec["device_busy_share"],
-            rec["device_launches"],
-            "; ".join("%s %.3f ms x%d" % (e["kernel"][:40], e["ms"],
+            rec["device_launches"], rec["int64_elementwise_ms"],
+            rec["int64_elementwise_launches"],
+            "; ".join("%s %.3f ms x%d" % (e["kernel"][:width], e["ms"],
                                           e["count"]) for e in rec["top"]),
-            card))
+            "; ".join("%s %.3f ms x%d" % (e["kernel"][:width], e["ms"],
+                                          e["count"])
+                      for e in rec["copies"]) or "none", card))
     return rec
 
 
@@ -1181,6 +1644,12 @@ KERNEL_META = {
     "precise_matmul_l2": (
         "K4", "csrc/precise_matmul.cu",
         "veles_tpu/znicz/gemm.py:126 (_matmul_impl kernel, level 2)"),
+    "lrn_fwd": (
+        "K5", "csrc/lrn.cu",
+        "veles_tpu/znicz/lrn.py:143 (pallas_lrn kernel)"),
+    "lrn_bwd": (
+        "K6", "csrc/lrn.cu",
+        "veles_tpu/znicz/lrn.py:164 (_pallas_lrn_bwd kernel)"),
     "flash_attention_fwd": (
         "K7", "csrc/flash_attention.cu",
         "veles_tpu/znicz/flash_attention.py:141 (_fwd_kernel)"),
@@ -1259,6 +1728,7 @@ def main():
     from veles_tpu_torch.device import resolve_device
     from veles_tpu_torch.znicz import flash_attention as fa
     from veles_tpu_torch.znicz import gemm
+    from veles_tpu_torch.znicz import lrn as lrn_mod
     from veles_tpu_torch.znicz import paged_attention as pa
 
     t_start = time.perf_counter()
@@ -1290,6 +1760,7 @@ def main():
     k4, record["k4_compensation"] = k4_phase(torch, gemm, dev)
     record["k4"] = k4
     kernels.update(flash_phase(torch, fa, dev))
+    kernels.update(lrn_phase(torch, lrn_mod, dev))
     phase_done("2 kernels")
     runs = [e2e_run(pa, gemm, card, label, kv, wd)
             for label, kv, wd in CONFIGS]
@@ -1319,12 +1790,24 @@ def main():
         launches[name] = sum(run["launches"][kid] for run in attention)
     record["attention"] = attention
     phase_done("4b attention training")
+    alexnet = [alexnet_run(torch, lrn_mod, card, *config)
+               for config in ALEX_CONFIGS]
+    record["alexnet"] = alexnet
+    record["alexnet_first_steps_vs_cpu"] = alexnet_hold(torch, lrn_mod)
+    phase_done("4c AlexNet training")
+    lrn_net = lrn_net_run(torch, lrn_mod, card)
+    record["lrn_convnet"] = lrn_net
+    for name, kid in (("lrn_fwd", "K5"), ("lrn_bwd", "K6")):
+        launches[name] = alexnet[0]["launches"][kid] + \
+            lrn_net["launches"][kid]
+    phase_done("4d LRN convnet training")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (
         [trace_run(torch, card, *config) for config in CONFIGS] +
         [trace_train(torch, card, precise) for precise in (0, 1)] +
-        [trace_attention(torch, card)])
+        [trace_attention(torch, card)] +
+        [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS])
     phase_done("5 traces")
     record["seconds"] = time.perf_counter() - t_start
     _log("chip_smoke: every phase in %.1f s" % record["seconds"])

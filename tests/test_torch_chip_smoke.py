@@ -4,12 +4,17 @@
   lists a host op (``aten::mm``, an autograd Function such as
   ``_PreciseMatmul``) with the time of the kernels it launched as its
   own self device time, and lists those kernels again as device rows;
-  summing every row counted each kernel twice.
+  summing every row counted each kernel twice.  A traced run's record
+  names the device copies and cuDNN's layout transforms, and sums the
+  int64 elementwise kernels (dropout's threefry draws).
 - The ``kernels`` line holds every kernel of the main paths (slice 3's
-  flash attention K7-K9 included), refuses one that never launched
-  there or was never measured, and carries K4's level 0 (on no main
-  path: ``precise_gemm=0`` means plain matmuls) inside the level-1
-  entry.
+  flash attention K7-K9 and slice 4's LRN pair K5/K6 included), refuses
+  one that never launched there or was never measured, and carries K4's
+  level 0 (on no main path: ``precise_gemm=0`` means plain matmuls)
+  inside the level-1 entry.
+- The helpers of the AlexNet and LRN convnet phases: the LRN form is set
+  on the LRN layers only, and ``steps_agree`` refuses a step that
+  differs past its limits.
 - The work a masked attention call needs is counted from the mask, and
   the needle loader makes the JAX test's data.
 """
@@ -46,6 +51,34 @@ def test_device_busy_counts_each_kernel_once():
     assert sum(t for t, _, _ in got) == pytest.approx(32.5)
 
 
+class _Prof:
+    def __init__(self, rows):
+        self.rows = rows
+
+    def key_averages(self):
+        return self.rows
+
+
+def test_trace_record_names_copies_transforms_and_int64_work():
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    rows = [_Row("sm80_xmma_fprop_implicit_gemm_f32", 400.0, 36, cuda),
+            _Row("cudnn::engines_precompiled::nhwcToNchwKernel<float>", 7.0,
+                 368, cuda),
+            _Row("elementwise_kernel<direct_copy_kernel_cuda>", 1.5, 154,
+                 cuda),
+            _Row("vectorized_elementwise_kernel<4, BitwiseXorFunctor<long>>",
+                 2.0, 40, cuda),
+            _Row("aten::copy_", 9.0, 10, cpu)]
+    rec = chip_smoke._trace_record(_Prof(rows), "t", "card", 0.5, top=2)
+    assert rec["device_busy_ms"] == pytest.approx(0.4105)
+    assert [e["kernel"] for e in rec["top"]] == [
+        "sm80_xmma_fprop_implicit_gemm_f32",
+        "cudnn::engines_precompiled::nhwcToNchwKernel<float>"]
+    assert [e["count"] for e in rec["copies"]] == [368, 154]
+    assert rec["int64_elementwise_ms"] == pytest.approx(0.002)
+    assert rec["int64_elementwise_launches"] == 40
+
+
 def _rec(ms):
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": 2 * ms,
             "bound_ms": ms / 10, "bound_by": "bytes", "library_ms": None,
@@ -57,18 +90,22 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
               "quantized_matmul_int8", "quantized_matmul_fp8")
     slice3 = ("flash_attention_fwd", "flash_attention_dq",
               "flash_attention_dkv")
+    slice4 = ("lrn_fwd", "lrn_bwd")
     kernels = {name: {"main": _rec(0.1), "realistic": [_rec(0.4)]}
-               for name in slice1 + slice3}
+               for name in slice1 + slice3 + slice4}
     k4 = {level: {"main": [_rec(0.08 + level), _rec(0.07)],
                   "realistic": [_rec(7.0)]} for level in (0, 1, 2)}
     launches = dict({name: 64 for name in slice1},
                     precise_matmul_l1=26700, precise_matmul_l2=26700,
                     flash_attention_fwd=600, flash_attention_dq=450,
-                    flash_attention_dkv=450)
+                    flash_attention_dkv=450, lrn_fwd=700, lrn_bwd=300)
     line = chip_smoke.kernels_line(kernels, k4, launches)
     names = [e["name"] for e in line["kernels"]]
     assert names == list(slice1) + ["precise_matmul_l1",
-                                    "precise_matmul_l2"] + list(slice3)
+                                    "precise_matmul_l2"] + list(slice4) + \
+        list(slice3)
+    ids = [e["id"] for e in line["kernels"]]
+    assert sorted(set(ids)) == ["K%d" % i for i in range(1, 10)]
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -104,6 +141,17 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     del without_k8["flash_attention_dq"]
     with pytest.raises(AssertionError, match="not measured"):
         chip_smoke.kernels_line(without_k8, k4, launches)
+    for name, kid in zip(slice4, ("K5", "K6")):
+        entry = by_name[name]
+        assert entry["id"] == kid and entry["route"] == "cuda"
+        assert entry["source"] == "veles_tpu_torch/csrc/lrn.cu"
+        assert entry["replaces"].startswith("veles_tpu/znicz/lrn.py:")
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.kernels_line(kernels, k4, dict(launches, lrn_bwd=0))
+    without_k5 = dict(kernels)
+    del without_k5["lrn_fwd"]
+    with pytest.raises(AssertionError, match="not measured"):
+        chip_smoke.kernels_line(without_k5, k4, launches)
 
 
 @pytest.mark.parametrize("t,causal,window", [
@@ -142,3 +190,33 @@ def test_needle_loader_makes_the_jax_tests_data():
     assert list(loader.original_labels) == list(labels)
     assert (loader.class_lengths[VALID], loader.class_lengths[TRAIN]) == \
         (15, 45)
+
+
+def test_lrn_form_is_set_on_the_lrn_layers_only():
+    from veles_tpu_torch.znicz.standard_workflow import _find_pair
+    layers = chip_smoke.LRN_NET_LAYERS
+    for layer in layers:
+        _find_pair(layer["type"])       # every type is registered
+    assert chip_smoke._with_lrn_form(layers, None) == list(layers)
+    band = chip_smoke._with_lrn_form(layers, False)
+    for was, now in zip(layers, band):
+        if was["type"] == "norm":
+            assert now["->"] == dict(was["->"], use_pallas=False)
+        else:
+            assert now == was
+    assert "use_pallas" not in layers[1]["->"]     # not changed in place
+
+
+def test_steps_agree_holds_its_limits():
+    import numpy
+    w = [{"weights": numpy.full((3, 2), 0.5, numpy.float32)}, {}]
+    near = [{"weights": w[0]["weights"] + 4e-5}, {}]
+    far = [{"weights": w[0]["weights"] + 6e-5}, {}]
+    loss_diff, w_diff = chip_smoke.steps_agree("ok", [2.0, 1.5], near,
+                                               [2.0001, 1.5], w)
+    assert loss_diff == pytest.approx(0.0001 / 2.0001)
+    assert w_diff == pytest.approx(8e-5, rel=1e-2)
+    with pytest.raises(AssertionError):
+        chip_smoke.steps_agree("weights", [2.0], far, [2.0], w)
+    with pytest.raises(AssertionError):
+        chip_smoke.steps_agree("loss", [2.0], w, [2.001], w)

@@ -10,7 +10,10 @@
 - ``chip_smoke.py`` imports neither, read from its source.
 - Every entry point called without ``device`` on a machine without CUDA
   raises instead of running on the CPU (CUDA is hidden with
-  ``monkeypatch`` so the check means the same on any machine).
+  ``monkeypatch`` so the check means the same on any machine): the
+  serving face, and the AlexNet and CIFAR samples' workflows, the LRN
+  unit and the threefry draws (slice 4); the LRN wrappers run on their
+  operand's device.
 """
 
 import ast
@@ -19,6 +22,7 @@ import os
 import subprocess
 import sys
 
+import numpy
 import pytest
 import torch
 
@@ -61,7 +65,10 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "znicz.gd", "znicz.solvers", "znicz.evaluator",
                  "znicz.decision", "znicz.fused", "znicz.standard_workflow",
                  "znicz.samples.mnist", "znicz.attention",
-                 "znicz.flash_attention", "parallel.ring"):
+                 "znicz.flash_attention", "parallel.ring", "znicz.conv",
+                 "znicz.gd_conv", "znicz.pooling", "znicz.gd_pooling",
+                 "znicz.lrn", "znicz.dropout", "znicz.activation",
+                 "znicz.samples.alexnet", "znicz.samples.cifar"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -114,3 +121,42 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         sched.close()
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_slice4_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """The samples' workflows and the LRN unit initialize on the card by
+    default and raise without one; the LRN wrappers' device is their
+    operand's (a CPU tensor is the ask), and they refuse any other."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz import lrn
+    from veles_tpu_torch.znicz.samples import alexnet, cifar
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = {"alexnet": dict(n_train=4, n_valid=4, side=67, n_classes=5,
+                             minibatch_size=4),
+             "cifar": dict(n_train=20, n_valid=10, minibatch_size=10)}
+    for sample in (alexnet, cifar):
+        wf = sample.create_workflow(
+            loader=small[sample.__name__.rsplit(".", 1)[1]],
+            decision={"max_epochs": 1, "silent": True})
+        with pytest.raises(RuntimeError):
+            wf.initialize()
+    unit = lrn.LRNormalizerForward(Workflow(name="w"))
+    unit.input = Array(numpy.ones((2, 3, 3, 8), numpy.float32))
+    with pytest.raises(RuntimeError):
+        unit.initialize()
+    unit.initialize(device=Device(backend="cpu"))
+    assert not unit._resolved_use_pallas()    # the band form on the CPU
+    x = torch.ones((2, 8))
+    launches = lrn.lrn.launches, lrn.lrn_backward.launches
+    assert torch.equal(lrn.lrn(x), lrn.lrn_reference(x))
+    assert torch.equal(lrn.lrn_backward(x, x),
+                       lrn.lrn_backward_reference(x, x))
+    assert (lrn.lrn.launches, lrn.lrn_backward.launches) == launches
+    with pytest.raises(ValueError):
+        lrn.lrn(torch.ones((2, 8), device="meta"))
+    from veles_tpu_torch import prng
+    with pytest.raises(RuntimeError):
+        prng.bernoulli(prng.key(1), 0.5, (4,))
+    assert prng.bernoulli(prng.key(1), 0.5, (4,), "cpu").shape == (4,)

@@ -14,7 +14,14 @@ chains against cuBLAS's blocked sums); the precise GEMM
 ``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)`` (the same K tiles,
 each summed in another order than cuBLAS's); flash attention (K7-K9)
 out and lse ``<= 2e-5``, each gradient ``<= 5e-4 * max(1, max|plain|)``
-(the JAX package's tests/test_flash_attention.py tolerances).
+(the JAX package's tests/test_flash_attention.py tolerances); LRN (K5,
+K6) ``<= 1e-5 * max(1, max|plain|)`` (the same formula, powf against
+torch.pow a few ulps apart), and ``F.local_response_norm`` agrees with
+K5 within the same limit.  AlexNet (full widths at the JAX test's side
+67) takes two train steps on the card and on the CPU: losses within
+1e-4 relative, each parameter tensor within 1e-4 of its largest
+magnitude (chip_smoke's limits); threefry bits on the card equal the
+CPU's.
 """
 
 import os
@@ -26,7 +33,9 @@ import torch
 
 from veles_tpu_torch.parallel.ring import attention_reference
 from veles_tpu_torch.znicz import flash_attention as fa
+from veles_tpu_torch import prng
 from veles_tpu_torch.znicz import gemm
+from veles_tpu_torch.znicz import lrn
 from veles_tpu_torch.znicz import paged_attention as pa
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -411,3 +420,107 @@ def test_needle_training_on_the_card_matches_the_cpu(cuda):
     for f_card, f_host in zip(wfs["cuda"].forwards, wfs["cpu"].forwards):
         for name, value in f_card.host_params.items():
             assert numpy.abs(value - f_host.host_params[name]).max() <= 1e-4
+
+
+def _lrn_err(a, r):
+    return float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+
+
+@pytest.mark.parametrize("c", [1, 7, 32, 96, 256, 5000])
+@pytest.mark.parametrize("n", [1, 2, 4, 5])
+def test_lrn_kernels_match_plain(cuda, n, c):
+    gen = torch.Generator(device=cuda).manual_seed(n * 10000 + c)
+    x = torch.randn((3, 5, 7, c), generator=gen, device=cuda) * 2.0
+    g = torch.randn((3, 5, 7, c), generator=gen, device=cuda)
+    params = (n, 0.5, 0.75, 2.0)
+    before = lrn.lrn.launches, lrn.lrn_backward.launches
+    y = lrn.lrn(x, *params)
+    dx = lrn.lrn_backward(x, g, *params)
+    torch.cuda.synchronize()
+    assert (lrn.lrn.launches, lrn.lrn_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert _lrn_err(y, lrn.lrn_reference(x, *params)) <= 1e-5
+    assert _lrn_err(dx, lrn.lrn_backward_reference(x, g, *params)) <= 1e-5
+
+
+def test_lrn_kernels_at_alexnet_shapes(cuda):
+    for shape in ((128, 55, 55, 96), (128, 27, 27, 256)):
+        gen = torch.Generator(device=cuda).manual_seed(shape[-1])
+        x = torch.randn(shape, generator=gen, device=cuda) * 2.0
+        g = torch.randn(shape, generator=gen, device=cuda)
+        assert _lrn_err(lrn.lrn(x), lrn.lrn_reference(x)) <= 1e-5
+        assert _lrn_err(lrn.lrn_backward(x, g),
+                        lrn.lrn_backward_reference(x, g)) <= 1e-5
+
+
+def test_lrn_pair_backward_is_k6(cuda):
+    """``lrn_pair``'s forward launches K5 once and its backward K6 once;
+    the gradient is K6's plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((4, 6, 6, 96), generator=gen, device=cuda)
+    g = torch.randn((4, 6, 6, 96), generator=gen, device=cuda)
+    xl = x.clone().requires_grad_(True)
+    before = lrn.lrn.launches, lrn.lrn_backward.launches
+    y = lrn.lrn_pair(xl, 4, 0.5)
+    assert (lrn.lrn.launches, lrn.lrn_backward.launches) == \
+        (before[0] + 1, before[1])
+    (dx,) = torch.autograd.grad(y, xl, g)
+    torch.cuda.synchronize()
+    assert (lrn.lrn.launches, lrn.lrn_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert _lrn_err(dx, lrn.lrn_backward_reference(x, g, 4, 0.5)) <= 1e-5
+
+
+def test_local_response_norm_agrees_with_k5(cuda):
+    """The library yardstick computes K5's function on the card too."""
+    for n in (2, 5):
+        gen = torch.Generator(device=cuda).manual_seed(n)
+        x = torch.randn((8, 13, 13, 96), generator=gen, device=cuda) * 3.0
+        lib = torch.nn.functional.local_response_norm(
+            x.permute(0, 3, 1, 2), n, 0.3, 0.75, 1.5).permute(0, 2, 3, 1)
+        assert _lrn_err(lrn.lrn(x, n, 0.3, 0.75, 1.5), lib) <= 1e-5
+
+
+def test_lrn_refuses_what_the_kernels_cannot_take(cuda):
+    x = torch.randn((2, 3, 3, 16), device=cuda)
+    with pytest.raises(ValueError):        # f64
+        lrn.lrn(x.double())
+    with pytest.raises(ValueError):        # rows not dense
+        lrn.lrn(x.permute(0, 3, 1, 2))
+    with pytest.raises(ValueError):        # channels past the limit
+        lrn.lrn(torch.zeros((1, lrn.MAX_CHANNELS + 1), device=cuda))
+    with pytest.raises(ValueError):        # operands on two devices
+        lrn.lrn_backward(x, x.cpu())
+    with pytest.raises(ValueError):        # g of another shape
+        lrn.lrn_backward(x, x[:1])
+
+
+def test_threefry_bits_on_the_card_equal_the_cpu(cuda):
+    key = prng.fold_in(prng.key(42), 11)
+    for shape in ((7,), (128, 4096), (1000003,)):
+        assert torch.equal(prng.random_bits(key, shape, cuda).cpu(),
+                           prng.random_bits(key, shape, "cpu"))
+        assert torch.equal(prng.bernoulli(key, 0.5, shape, cuda).cpu(),
+                           prng.bernoulli(key, 0.5, shape, "cpu"))
+
+
+def test_alexnet_steps_on_the_card_match_the_cpu(cuda):
+    """Two AlexNet train steps (full widths, side 67, minibatch 8,
+    dropout on) through K5/K6 on the card and their plain versions on
+    the CPU."""
+    loader = {"minibatch_size": 8, "n_train": 16, "n_valid": 8,
+              "n_classes": 20, "side": 67}
+    wfs = {dev: chip_smoke.alexnet_workflow(dev, use_pallas=True, epochs=1,
+                                            **loader)
+           for dev in ("cuda", "cpu")}
+    before = lrn.lrn.launches, lrn.lrn_backward.launches
+    card = chip_smoke.train_steps(wfs["cuda"], 2)
+    torch.cuda.synchronize()
+    assert (lrn.lrn.launches - before[0],
+            lrn.lrn_backward.launches - before[1]) == (4, 4)
+    host = chip_smoke.train_steps(wfs["cpu"], 2)
+    chip_smoke.steps_agree("alexnet", card, chip_smoke.host_weights(
+        wfs["cuda"]), host, chip_smoke.host_weights(wfs["cpu"]))
+    keys = [[f.last_key for f in wf.forwards if f.stochastic]
+            for wf in wfs.values()]
+    assert keys[0] == keys[1] and len(keys[0]) == 2

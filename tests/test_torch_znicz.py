@@ -109,6 +109,7 @@ def test_standard_workflow_routes_and_refuses():
     assert wf.forwards[0].weights.shape == (784, 20)
     with pytest.raises(ValueError, match="unknown layer type"):
         mnist.create_workflow(loader=loader,
-                              layers=[{"type": "conv", "n_kernels": 4}])
+                              layers=[{"type": "stochastic_pooling",
+                                       "kx": 2, "ky": 2}])
     with pytest.raises(NotImplementedError, match="graph mode"):
         mnist.create_workflow(fused=False, loader=loader)

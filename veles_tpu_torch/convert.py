@@ -11,10 +11,13 @@ Only host arrays cross: pass ``numpy.asarray(leaf)`` of each JAX leaf
 JAX.
 
 :func:`workflow_params_from_jax` carries a trained (or freshly
-initialized) StandardWorkflow across: each layer's host params
-(``{"weights": (in, out), "bias": (out,)}``, plus ``"proj"`` for the
-attention unit) and its solver state, in the layout the port's units
-read.
+initialized) StandardWorkflow across: each layer's host params and its
+solver state, in the layout the port's units read, which is the JAX
+package's: ``{"weights": (in, out), "bias": (out,)}`` for an All2All
+layer, plus ``"proj"`` for the attention unit; 4-D HWIO weights
+``(ky, kx, C / grouping, K)`` and ``(K,)`` biases for a conv layer (no
+transpose to ``conv2d``'s OIHW); ``{}`` for a paramless layer (pooling,
+LRN, dropout, activation units).
 """
 
 import numpy
@@ -64,24 +67,36 @@ def workflow_params_from_jax(wf, params, solver_state=None):
     """Load a JAX StandardWorkflow's layers into the port's ``wf``.
 
     ``params`` is ``[fwd.host_params for fwd in jax_wf.forwards]``
-    (numpy ``{"weights": (in, out), "bias": (out,)}`` per layer, and
-    ``"proj"`` for an attention layer);
+    (numpy ``{"weights": (in, out), "bias": (out,)}`` per All2All layer,
+    and ``"proj"`` for an attention layer; HWIO ``weights`` for a conv
+    layer; ``{}`` for a paramless one);
     ``solver_state`` is ``[gd.solver_state for gd in jax_wf.gds]``
     (``{name: (numpy, ...)}``, momentum's velocity for the MNIST
     sample; call ``jax_wf.fused_step.sync_solver_state()`` first), or
     None to keep the port's own.  Works before ``wf.initialize`` (the
     forwards then skip their random init) and after it (the fused step
-    reloads)."""
+    reloads).  A layer given a tensor it does not have, or one of
+    another shape (an OIHW conv kernel for an HWIO one), raises: nothing
+    is transposed to fit."""
+    from .znicz.nn_units import ParamlessForward
     if len(params) != len(wf.forwards):
         raise ValueError("%d layers given for a workflow of %d"
                          % (len(params), len(wf.forwards)))
-    for fwd, layer in zip(wf.forwards, params):
-        layer = {k: numpy.asarray(v, numpy.float32)
-                 for k, v in layer.items()}
-        for name, have in fwd.host_params.items():
+    layers = [{k: numpy.asarray(v, numpy.float32) for k, v in p.items()}
+              for p in params]
+    for fwd, layer in zip(wf.forwards, layers):   # check all, then load
+        if layer and isinstance(fwd, ParamlessForward):
+            raise ValueError("%s has no parameters, given %s"
+                             % (fwd, sorted(layer)))
+        have_params = fwd.host_params
+        if have_params and set(layer) - set(have_params):
+            raise ValueError("%s has no %s" % (
+                fwd, sorted(set(layer) - set(have_params))))
+        for name, have in have_params.items():
             if name in layer and have.shape != layer[name].shape:
                 raise ValueError("%s: %s %r, given %r" % (
                     fwd, name, have.shape, layer[name].shape))
+    for fwd, layer in zip(wf.forwards, layers):
         fwd.set_host_params(layer)
     if solver_state is not None:
         if len(solver_state) != len(wf.gds):

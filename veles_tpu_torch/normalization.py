@@ -2,9 +2,10 @@
 
 The port's copy of the part of ``veles_tpu/normalization.py`` (a
 re-design of the reference's normalizers, veles/normalization.py) that
-the digits loader needs: ``none`` and ``range_linear``.  The contract is
-the same: ``analyze(batch)`` accumulates statistics over a streaming
-pass and ``normalize(data)`` mutates a numpy array in place.
+the samples' loaders need: ``none``, ``range_linear`` (MNIST, the LRN
+convnet) and ``internal_mean`` (the CIFAR sample's default).  The
+contract is the same: ``analyze(batch)`` accumulates statistics over a
+streaming pass and ``normalize(data)`` mutates a numpy array in place.
 Normalization runs once, host-side, when the loader bakes it into the
 resident dataset, so there is no tensor form.  The other families
 (``mean_disp``, ``linear``, ``exp``, ``pointwise``, ``external_mean``),
@@ -17,7 +18,7 @@ import numpy
 from .registry import MappedObjectsRegistry
 
 __all__ = ["NormalizerBase", "StatelessNormalizer", "NoneNormalizer",
-           "RangeLinearNormalizer", "factory"]
+           "RangeLinearNormalizer", "InternalMeanNormalizer", "factory"]
 
 
 class NormalizerBase(metaclass=MappedObjectsRegistry):
@@ -85,6 +86,35 @@ class RangeLinearNormalizer(NormalizerBase):
         data -= self._min
         data *= (imax - imin) / diff
         data += imin
+        return data
+
+
+class InternalMeanNormalizer(NormalizerBase):
+    """Subtract the mean sample of the analyze pass, then scale
+    (reference normalization.py:636-660)."""
+
+    MAPPING = "internal_mean"
+
+    def __init__(self, scale=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self.scale = float(scale)
+
+    def _initialize(self, data):
+        self._sum = numpy.zeros_like(data[0], dtype=numpy.float64)
+        self._count = 0
+
+    def _analyze(self, data):
+        self._sum += numpy.sum(data, axis=0, dtype=numpy.float64)
+        self._count += data.shape[0]
+
+    @property
+    def mean(self):
+        return self._sum / self._count
+
+    def normalize(self, data):
+        data -= self.mean
+        if self.scale != 1.0:
+            data *= self.scale
         return data
 
 

@@ -1,17 +1,33 @@
 """Seeded random generators with snapshot-safe state.
 
-The port's copy of the numpy half of ``veles_tpu/prng/random_generator.py``
-(a re-design of the reference's RandomGenerator,
-veles/prng/random_generator.py:64: a numpy RandomState wrapper with state
-save/restore and global keyed instances).  Seeded alike, it gives the
-JAX package's bytes: initial weights and shuffle orders are equal in the
-two packages.  ``KeyTree`` (stateless JAX keys for stochastic units)
-waits for the first stochastic unit of the port.
+The port's counterpart of ``veles_tpu/prng/random_generator.py``:
+
+- :class:`RandomGenerator` (a re-design of the reference's
+  RandomGenerator, veles/prng/random_generator.py:64: a numpy
+  RandomState wrapper with state save/restore and global keyed
+  instances).  Seeded alike, it gives the JAX package's bytes: initial
+  weights and shuffle orders are equal in the two packages.
+- :class:`KeyTree` and the stateless keys of stochastic units (dropout):
+  ``jax.random``'s default threefry2x32 generator in torch integer ops,
+  so the same key gives the JAX package's bits.  A key is a pair of
+  32-bit words held as Python ints (:func:`key`, :func:`fold_in`),
+  derived on the host; :func:`random_bits`, :func:`uniform` and
+  :func:`bernoulli` draw per-element bits on their ``device`` (the card
+  unless the CPU is asked for), in int64 tensors masked to 32 bits (all values
+  non-negative, so every right shift is a logical one), and the CPU and
+  the card give the same bits.  The element counters are those of
+  ``jax_threefry_partitionable=True`` (the default of jax 0.9): element
+  ``i`` of the flattened shape hashes the words ``(i >> 32, i & mask)``,
+  and its 32-bit draw is the xor of the two output words.
 """
 
 import threading
+import zlib
 
 import numpy
+import torch
+
+from ..device import resolve_device
 
 
 class RandomGenerator:
@@ -98,8 +114,104 @@ def get(key=0):
     with _lock:
         gen = _generators.get(key)
         if gen is None:
-            import zlib
             gen = _generators[key] = RandomGenerator(key)
             gen.seed(42 + (key if isinstance(key, int)
                            else zlib.crc32(str(key).encode())))
         return gen
+
+
+# -- stateless keys: threefry2x32, jax.random's default generator -------------
+
+_MASK = 0xFFFFFFFF
+#: rotation constants of Threefry-2x32, 20 rounds (Salmon et al., 2011)
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(v, r):
+    return ((v << r) & _MASK) | (v >> (32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
+    the key words ``(k0, k1)``: Python ints in ``[0, 2**32)`` or int64
+    tensors holding such values (the key words are ints).  Returns the
+    two output words alike."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def key(seed):
+    """``jax.random.key(seed)`` as its two words: ``(0, seed mod 2**32)``
+    (the JAX package runs with 32-bit integers, so a seed's high word is
+    always 0)."""
+    return (0, int(seed) & _MASK)
+
+
+def fold_in(k, data):
+    """``jax.random.fold_in(k, data)``: the key hashed with the counter
+    ``(0, data)``; ``data`` in ``[0, 2**32)`` as JAX requires."""
+    data = int(data)
+    if not 0 <= data <= _MASK:
+        raise ValueError("fold_in data %d is out of the uint32 range" % data)
+    return threefry2x32(k[0], k[1], 0, data)
+
+
+def random_bits(k, shape, device=None):
+    """``jax.random.bits(k, shape, uint32)`` as an int64 tensor of
+    ``shape`` on ``device`` (values in ``[0, 2**32)``; default: the
+    card, and no card raises unless ``device="cpu"``)."""
+    shape = tuple(int(d) for d in shape)
+    idx = torch.arange(int(numpy.prod(shape)), dtype=torch.int64,
+                       device=resolve_device(device))
+    y0, y1 = threefry2x32(k[0], k[1], idx >> 32, idx & _MASK)
+    return (y0 ^ y1).reshape(shape)
+
+
+def uniform(k, shape, device=None):
+    """``jax.random.uniform(k, shape)`` (f32 in ``[0, 1)``): the top 23
+    bits of each draw as the mantissa of a float in ``[1, 2)``, minus 1."""
+    bits = (random_bits(k, shape, device) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(k, p, shape, device=None):
+    """``jax.random.bernoulli(k, p, shape)``: ``uniform < p``, with ``p``
+    rounded to f32 as JAX compares it."""
+    return uniform(k, shape, device) < float(numpy.float32(p))
+
+
+class KeyTree:
+    """Stateless keys for units: ``key = fold_in(fold_in(key(seed),
+    crc32(name) & 0x7fffffff), step)``, the JAX package's derivation.
+
+    The per-unit step counters are plain ints, so they pickle with the
+    workflow snapshot and restore deterministic randomness on resume.
+    """
+
+    def __init__(self, seed=42):
+        self.seed = int(seed)
+        self.counters = {}
+
+    def key_for(self, name, advance=True):
+        c = self.counters.get(name, 0)
+        if advance:
+            self.counters[name] = c + 1
+        k = fold_in(key(self.seed),
+                    zlib.crc32(str(name).encode()) & 0x7FFFFFFF)
+        return fold_in(k, c)
+
+    def __getstate__(self):
+        return {"seed": self.seed, "counters": dict(self.counters)}
+
+    def __setstate__(self, state):
+        self.seed = state["seed"]
+        self.counters = state["counters"]

@@ -1,17 +1,21 @@
-"""Activation functions of the all2all forwards, on torch tensors.
+"""Activation functions of the forward units, on torch tensors.
 
 The port's counterpart of ``veles_tpu/znicz/activations.py`` (the Znicz
 kernel conventions):
 
 - ``linear``: the identity;
-- ``tanh``: LeCun-scaled ``1.7159 * tanh(0.6666 * x)``.
-
-Sigmoid, the RELUs and the activation units' extras (log, tanhlog,
-sincos) come with the units that use them.
+- ``tanh``: LeCun-scaled ``1.7159 * tanh(0.6666 * x)``;
+- ``sigmoid``: logistic;
+- ``relu``: smooth ``log(1 + exp(x))`` (Znicz's "RELU" is softplus);
+- ``strict_relu``: ``max(0, x)``;
+- the activation units' extras ``log`` (``asinh``), ``tanhlog`` and
+  ``sincos``.
 
 Only the forwards are here: the fused train step differentiates them
-with autograd.  The explicit derivatives (``deriv(y, x)``) come with
-graph mode's GD units.
+with autograd.  ``strict_relu`` is ``torch.maximum(x, 0)``, whose
+gradient at a tie is 0.5, as ``jnp.maximum``'s is (``relu`` and
+``clamp`` give 0 there).  The explicit derivatives (``deriv(y, x)``)
+come with graph mode's GD units.
 """
 
 import torch
@@ -32,9 +36,36 @@ class Activation:
         return (get, (self.name,))
 
 
+def _strict_relu(x):
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def _tanhlog(x):
+    small = x.abs() <= 15.0 / B
+    # log's argument is 1 where its branch is not taken, so autograd of
+    # the unused branch never meets log(0) (0 * inf = nan at x == 0)
+    big = torch.where(small, torch.ones_like(x), x.abs())
+    return torch.where(small, A * torch.tanh(B * x),
+                       torch.sign(x) * (torch.log(big * B) / B +
+                                        A * torch.tanh(torch.tensor(15.0))))
+
+
+def _sincos(x):
+    odd = torch.arange(x.shape[-1], device=x.device) % 2 == 1
+    return torch.where(odd, torch.sin(x), torch.cos(x))
+
+
 _TABLE = {
     "linear": Activation("linear", lambda x: x),
     "tanh": Activation("tanh", lambda x: A * torch.tanh(B * x)),
+    "sigmoid": Activation("sigmoid", torch.sigmoid),
+    "relu": Activation("relu", lambda x: torch.logaddexp(
+        x, x.new_zeros(()))),
+    "strict_relu": Activation("strict_relu", _strict_relu),
+    "log": Activation("log", lambda x: torch.log(
+        x + torch.sqrt(x * x + 1.0))),
+    "tanhlog": Activation("tanhlog", _tanhlog),
+    "sincos": Activation("sincos", _sincos),
 }
 
 

@@ -2,8 +2,8 @@
 
 The port's counterpart of ``veles_tpu/znicz/all2all.py`` (the Znicz
 All2All family): ``y = act(flatten(x) @ W + b)`` with the weights in
-the natural (in, out) layout; the linear, scaled-tanh and softmax
-members (sigmoid and the RELUs come with the slice that needs them).
+the natural (in, out) layout; the linear, scaled-tanh, sigmoid, RELU
+(Znicz softplus), strict-RELU and softmax members.
 The matmul is ``torch.matmul`` (TF32
 off), or, with ``precise_gemm=N`` (default
 ``root.common.engine.precise_gemm``), the compensated GEMM
@@ -25,7 +25,8 @@ from .nn_units import ForwardBase
 from . import activations
 from . import gemm
 
-__all__ = ["All2All", "All2AllTanh", "All2AllSoftmax"]
+__all__ = ["All2All", "All2AllTanh", "All2AllSigmoid", "All2AllRELU",
+           "All2AllStrictRELU", "All2AllSoftmax"]
 
 
 class All2All(ForwardBase):
@@ -83,6 +84,23 @@ class All2AllTanh(All2All):
     """y = 1.7159 * tanh(0.6666 * (xW + b))."""
     MAPPING = "all2all_tanh"
     ACTIVATION = "tanh"
+
+
+class All2AllSigmoid(All2All):
+    MAPPING = "all2all_sigmoid"
+    ACTIVATION = "sigmoid"
+
+
+class All2AllRELU(All2All):
+    """Znicz "RELU": y = log(1 + exp(xW + b)), softplus."""
+    MAPPING = "all2all_relu"
+    ACTIVATION = "relu"
+
+
+class All2AllStrictRELU(All2All):
+    """y = max(xW + b, 0) (AlexNet's fully connected layers)."""
+    MAPPING = "all2all_str"
+    ACTIVATION = "strict_relu"
 
 
 class All2AllSoftmax(All2All):

@@ -21,16 +21,25 @@ evaluator exposes, so the Decision works unchanged.  The step updates
 its own copy of the parameters in place; ``sync_weights`` copies them
 into the forward units at class boundaries and at the end of a run.
 
+Stochastic units (dropout) draw from a per-step seed, as the JAX
+package's step does: ``_seed_counter`` starts at ``seed * 1_000_003 mod
+0x7FFF0000`` (``seed`` 42 unless given), advances before each train
+step, and the step's key is ``prng.key(counter)``; the stochastic
+forward at chain index ``i`` runs ``apply_train`` with ``fold_in(key,
+i)``, so its bits equal the JAX step's.  Eval steps run ``apply``.
+
 Not ported: ``compute_dtype`` (bf16 compute), the persistent executable
-cache, the staged-seed path of stochastic units, the MSE loss, the
-switch that turns the confusion matrix off, steps fed by a host-side
-loader and the whole-workflow graph compiler's face.
+cache, the staged-seed path of stochastic units, the ``rng_impl``
+switch, the MSE loss, the switch that turns the confusion matrix off,
+steps fed by a host-side loader and the whole-workflow graph compiler's
+face.
 """
 
 import numpy
 import torch
 
 from ..memory import Array
+from .. import prng
 from ..result_provider import IResultProvider
 from ..units import Unit
 from .. import loader as loader_mod
@@ -74,6 +83,10 @@ class FusedTrainStep(Unit, IResultProvider):
         # global learning-rate multiplier (a LearningRateAdjuster sets it
         # per epoch); 1.0 = the configured base rates
         self.lr_scale = 1.0
+        # the per-step seed of stochastic units (the JAX package's; kept
+        # within int32 there)
+        self._seed_counter = (int(kwargs.get("seed", 42)) *
+                              1_000_003) % 0x7FFF0000
         self.train_steps = 0
         self.eval_steps = 0
 
@@ -106,7 +119,7 @@ class FusedTrainStep(Unit, IResultProvider):
                              "FullBatchLoader: call link_fused_gather"
                              % self)
         self.device = self.forwards[0].device
-        self._dev_ = self.forwards[0].weights.devmem.device
+        self._dev_ = self.device.torch_device
         self._n_classes = int(self.forwards[-1].output.shape[-1])
         if not self.confusion_matrix:
             self.confusion_matrix.mem = numpy.zeros(
@@ -148,10 +161,19 @@ class FusedTrainStep(Unit, IResultProvider):
                 torch.zeros((), dtype=torch.float32, device=self._dev_))
 
     # -- the step ------------------------------------------------------------
-    def _logits(self, x):
+    def _logits(self, x, seed=None):
+        """The chain's logits; ``seed`` (train steps) keys the stochastic
+        forwards."""
         h = x
-        for fwd, params in zip(self.forwards[:-1], self._params_):
-            h = fwd.apply(params, h)
+        key = None
+        if seed is not None and any(f.stochastic for f in self.forwards):
+            key = prng.key(seed)
+        for i, (fwd, params) in enumerate(zip(self.forwards[:-1],
+                                              self._params_)):
+            if key is not None and fwd.stochastic:
+                h = fwd.apply_train(params, h, prng.fold_in(key, i))
+            else:
+                h = fwd.apply(params, h)
         return self.forwards[-1].apply_logits(self._params_[-1], h)
 
     def _accumulate(self, probs, y, mask):
@@ -169,7 +191,8 @@ class FusedTrainStep(Unit, IResultProvider):
 
     def _train_step(self, x, y, mask):
         flat = [p for layer in self._params_ for p in layer.values()]
-        logits = self._logits(x)
+        self._seed_counter = (self._seed_counter + 1) % 0x7FFF0000
+        logits = self._logits(x, self._seed_counter)
         loss = EvaluatorSoftmax.loss_from_logits(logits, y, mask)
         grads = iter(torch.autograd.grad(loss, flat))
         lr_scale = float(self.lr_scale)

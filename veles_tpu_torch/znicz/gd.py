@@ -1,8 +1,8 @@
 """Gradient-descent units for the all2all family.
 
 The port's counterpart of ``veles_tpu/znicz/gd.py`` (the Znicz
-GradientDescent, GDTanh, GDSoftmax: the trainers of the port's
-All2All members).  Here
+GradientDescent, GDTanh, GDSigmoid, GDRELU, GDStrictRELU, GDSoftmax:
+the trainers of the port's All2All members).  Here
 they are the owners of each layer's hyperparameters and solver state,
 which the fused train step reads (:class:`~.nn_units.
 GradientDescentBase`); the fused step differentiates the forwards with
@@ -13,7 +13,8 @@ mode: ``err = err_output * act'(y)``, ``grad_W = x^T err / B``,
 
 from .nn_units import GradientDescentBase
 
-__all__ = ["GradientDescent", "GDTanh", "GDSoftmax"]
+__all__ = ["GradientDescent", "GDTanh", "GDSigmoid", "GDRELU",
+           "GDStrictRELU", "GDSoftmax"]
 
 
 class GradientDescent(GradientDescentBase):
@@ -27,6 +28,21 @@ class GradientDescent(GradientDescentBase):
 class GDTanh(GradientDescent):
     MAPPING = "all2all_tanh"
     ACTIVATION = "tanh"
+
+
+class GDSigmoid(GradientDescent):
+    MAPPING = "all2all_sigmoid"
+    ACTIVATION = "sigmoid"
+
+
+class GDRELU(GradientDescent):
+    MAPPING = "all2all_relu"
+    ACTIVATION = "relu"
+
+
+class GDStrictRELU(GradientDescent):
+    MAPPING = "all2all_str"
+    ACTIVATION = "strict_relu"
 
 
 class GDSoftmax(GradientDescent):

@@ -13,11 +13,18 @@ implements
   wraps it for a standalone forward; the StandardWorkflow's fused step
   composes the chain of ``apply``s into one train step.
 
+Stochastic forwards (dropout) set ``stochastic`` and implement
+``apply_train(params, x, key)``, which the fused step calls on train
+steps with a threefry key (:mod:`veles_tpu_torch.prng`); eval steps call
+``apply``.  :class:`ParamlessForward` is the base of the forwards with
+no trainable tensors (pooling, LRN, dropout, activation units).
+
 GradientDescent units own the hyperparameters and the solver state the
 fused step reads (``lr_for``, ``decay_for``, ``solver``,
 ``solver_state``).  :meth:`GradientDescentBase.backward_via_vjp` is the
-generic backward of a forward's ``apply`` (the attention unit's); the
-per-unit graph-mode ``run`` is not ported yet.
+generic backward of a forward's ``apply`` (the attention and conv
+units'); :class:`GenericVJPBackward` is the backward of a paramless
+forward.  The per-unit graph-mode ``run`` is not ported yet.
 
 :func:`resolve_use_pallas` is the tri-state ``use_pallas`` knob of the
 units that have a kernel route (the name is the JAX package's, so a
@@ -32,8 +39,8 @@ from ..memory import Array
 from .. import prng
 from . import solvers
 
-__all__ = ["NNUnitBase", "ForwardBase", "GradientDescentBase",
-           "resolve_use_pallas"]
+__all__ = ["NNUnitBase", "ForwardBase", "ParamlessForward",
+           "GradientDescentBase", "GenericVJPBackward", "resolve_use_pallas"]
 
 
 def resolve_use_pallas(setting, device):
@@ -65,6 +72,8 @@ class ForwardBase(NNUnitBase):
     hide_from_registry = True
     view_group = "WORKER"
     MAPPING = None  # StandardWorkflow layer-type key
+    #: True where ``apply_train`` draws random numbers from its key
+    stochastic = False
 
     def __init__(self, workflow, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -135,6 +144,11 @@ class ForwardBase(NNUnitBase):
     def apply(self, params, x):
         raise NotImplementedError
 
+    def apply_train(self, params, x, key):
+        """Train-time forward; the eval forward unless the unit is
+        ``stochastic`` and consumes ``key``."""
+        return self.apply(params, x)
+
     def output_shape_for(self, input_shape):
         """Shape of the output for a given input shape; lets initialize
         pre-allocate ``output`` so downstream units can size themselves
@@ -170,6 +184,30 @@ class ForwardBase(NNUnitBase):
             else self.input
         with torch.no_grad():
             self.output.devmem = self.apply(self.params, x)
+
+
+class ParamlessForward(ForwardBase):
+    """Base for forwards with no trainable parameters (pooling, LRN,
+    dropout, activations)."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.include_bias = False
+
+    def init_params(self):
+        pass
+
+    @property
+    def params(self):
+        return {}
+
+    def set_params(self, params):
+        pass
+
+    def output_shape_for(self, input_shape):
+        return tuple(input_shape)
 
 
 class GradientDescentBase(NNUnitBase):
@@ -244,3 +282,20 @@ class GradientDescentBase(NNUnitBase):
         raise NotImplementedError(
             "%s: the per-unit backward (graph mode) is not ported yet; "
             "train through the fused step" % self)
+
+
+class GenericVJPBackward(GradientDescentBase):
+    """Backward of a paramless forward: the vjp of its ``apply``, no
+    parameters to update."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        kwargs.setdefault("learning_rate", 0.0)
+        super().__init__(workflow, **kwargs)
+
+    def backward(self, params, x, y, err_output, n_valid=None):
+        if n_valid is None:
+            n_valid = x.shape[0]
+        err_in, _ = self.backward_via_vjp({}, x, err_output, n_valid)
+        return err_in, {}

@@ -1,6 +1,7 @@
 """Sample models of the port (the counterpart of
-``veles_tpu.znicz.samples``): the flagship decode model and the MNIST
-training sample."""
+``veles_tpu.znicz.samples``): the flagship decode model (serving) and
+the StandardWorkflow training samples MNIST, AlexNet and the CIFAR
+convnet."""
 
 
 def build_standard(cfg, name, default_loader_factory, loss_function,

@@ -28,7 +28,8 @@ from .nn_units import ForwardBase, GradientDescentBase
 from .decision import DecisionGD
 from .fused import FusedTrainStep
 # registers the layer MAPPINGs
-from . import all2all, attention, gd  # noqa: F401
+from . import (activation, all2all, attention, conv, dropout,  # noqa: F401
+               gd, gd_conv, gd_pooling, lrn, pooling)
 
 __all__ = ["StandardWorkflow"]
 
