@@ -17,7 +17,13 @@ Phases (any failure raises and the script exits non-zero):
    (K4, levels 0/1/2) ``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)``;
    against the exact product, level 1 must beat level 0 by 1e4x on a
    cancellation case, and level 2 must beat level 1 by 1e4x on a case
-   where Neumaier's own carry rounds off.  Flash attention (K7 forward,
+   where Neumaier's own carry rounds off; K4 is timed at the five MNIST
+   shapes and at 4096^3 with CUDA events and with the profiler's device
+   time, each call marked split or not (split-K launches the fold too),
+   its bound 6MNK TF32 operations (3xTF32) beside the CUDA-core bound of
+   2MNK f32 FMAs; untimed, at the MNIST forward shape (which splits) each
+   level must equal the top-left corner of operands too large to split
+   bit for bit.  Flash attention (K7 forward,
    K8 dq, K9 dk/dv) on ``randn * 0.5`` inputs, q/k/v as strided views of
    one packed projection: out and lse ``max|kernel - plain| <= 2e-5``,
    each gradient ``<= 5e-4 * max(1, max|plain|)``; at head dims 4, 8, 16,
@@ -91,7 +97,11 @@ Phases (any failure raises and the script exits non-zero):
    more under ``torch.profiler`` (after every untraced measurement):
    the share of the wall time the card is busy, the top kernels, the
    device copies and cuDNN's layout transforms, and the int64
-   elementwise kernels (dropout's threefry draws).
+   elementwise kernels (dropout's threefry draws).  Each serving
+   configuration's tok/s and decode step p50 (phase 3) are printed
+   beside its traced burst's launches and device-to-device copies.
+   A trace that holds no device time is taken again on a fresh run, up
+   to ``TRACE_TRIES`` times in all; a run with none in every try fails.
 6. The ``kernels`` JSON line, the card's line, and the result line.
    Each phase prints its wall time.
 
@@ -115,6 +125,8 @@ import numpy
 #: tensor cores)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
+#: dense TF32 tensor-core FLOP/s (the same data sheet)
+TF32_FLOPS = 495e12
 
 README_MODEL = dict(stages=2, experts=4, d=64, heads=4, hidden=128,
                     vocab=1024, seed=0)
@@ -152,6 +164,26 @@ def _cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, iters=20):
+    """Mean device time of the kernels ``fn`` launches, from
+    ``torch.profiler`` (device rows only, after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for tries in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof.key_averages())
+        if rows:
+            return sum(t for t, _, _ in rows) / 1e3 / iters
+        _log("the profiler saw no device time (try %d of %d)"
+             % (tries, TRACE_TRIES))
+    raise AssertionError("the profiler saw no device time")
 
 
 def _bound(nbytes, flops):
@@ -314,7 +346,9 @@ def _k4_operands(torch, dev, m, k, n, layout, seed):
 def _measure_k4(torch, gemm, dev, level, label, m, k, n, layout, seed,
                 iters=20):
     a, b = _k4_operands(torch, dev, m, k, n, layout, seed)
+    folds = gemm.precise_matmul.fold_launches
     out = gemm.precise_matmul(a, b, level)
+    split = gemm.precise_matmul.fold_launches > folds
     ref = gemm.precise_matmul_reference(a, b, level)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
@@ -323,24 +357,63 @@ def _measure_k4(torch, gemm, dev, level, label, m, k, n, layout, seed,
         raise AssertionError("K4 level %d %s: max|kernel - plain| = %g > "
                              "1e-6 * %g" % (level, label, err, scale))
     tiles = -(-k // gemm.DEFAULT_BLOCK_K)
-    flops = 2 * m * n * k + m * n * (tiles * K4_COMP_OPS[level] + 2)
-    bound_ms, bound_by = _bound((m * k + k * n + m * n) * 4, flops)
+    comp = m * n * (tiles * K4_COMP_OPS[level] + 2)
+    nbytes = (m * k + k * n + m * n) * 4
+    # the card's least time: three TF32 products (6MNK on the tensor
+    # cores) beside the compensation on the CUDA cores, or the bytes;
+    # the CUDA-core bound (2MNK f32 FMAs) stands beside it
+    bound_ms, bound_by = _bound(nbytes, 0)
+    t_ops = max(6 * m * n * k / TF32_FLOPS, comp / F32_FLOPS) * 1e3
+    if t_ops > bound_ms:
+        bound_ms, bound_by = t_ops, "operations"
+    cuda_core_ms = _bound(nbytes, 2 * m * n * k + comp)[0]
+    call = lambda: gemm.precise_matmul(a, b, level)  # noqa: E731
     rec = {"shape": "M=%d K=%d N=%d %s" % (m, k, n, layout or "row-major"),
            "label": label, "level": level, "max_abs_err": err,
-           "ms": _cuda_ms(torch, lambda: gemm.precise_matmul(a, b, level),
-                          iters=iters),
+           "split": split, "ms": _cuda_ms(torch, call, iters=iters),
+           "device_ms": _device_ms(torch, call, iters=iters),
            "plain_ms": _cuda_ms(
                torch, lambda: gemm.precise_matmul_reference(a, b, level),
                iters=iters),
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "cuda_core_bound_ms": cuda_core_ms,
            "library_ms": _cuda_ms(torch, lambda: torch.matmul(a, b),
                                   iters=iters)}
     _log("kernel precise_matmul level %d [%s: %s] max_err=%.3g (scale %.3g)"
-         " kernel_ms=%.4f plain_ms=%.4f bound_ms=%.5f (%s) library_ms=%.4f "
+         " split=%s kernel_ms=%.4f device_ms=%.4f plain_ms=%.4f "
+         "bound_ms=%.5f (%s; CUDA cores %.5f) library_ms=%.4f "
          "(torch.matmul, TF32 off)"
-         % (level, label, rec["shape"], err, scale, rec["ms"],
-            rec["plain_ms"], bound_ms, bound_by, rec["library_ms"]))
+         % (level, label, rec["shape"], err, scale, split, rec["ms"],
+            rec["device_ms"], rec["plain_ms"], bound_ms, bound_by,
+            cuda_core_ms, rec["library_ms"]))
     return rec
+
+
+def _k4_split_equal(torch, gemm, dev):
+    """Untimed: at the MNIST forward shape (which splits K) each level
+    equals, bit for bit, the top-left corner of operands too large to
+    split."""
+    _, m, k, n, _ = K4_MAIN_SHAPES[0]
+    out = {}
+    for level in (0, 1, 2):
+        a_big, b_big = _k4_operands(torch, dev, 2048, k, 1024, "",
+                                    seed=50 + level)
+        folds = gemm.precise_matmul.fold_launches
+        small = gemm.precise_matmul(a_big[:m].contiguous(),
+                                    b_big[:, :n].contiguous(), level)
+        split = gemm.precise_matmul.fold_launches - folds
+        big = gemm.precise_matmul(a_big, b_big, level)
+        torch.cuda.synchronize()
+        unsplit = gemm.precise_matmul.fold_launches - folds == split
+        equal = bool(torch.equal(small, big[:m, :n]))
+        if not (split == 1 and unsplit and equal):
+            raise AssertionError(
+                "K4 level %d: split %d, large call unsplit %s, split equal "
+                "to unsplit %s" % (level, split, unsplit, equal))
+        out[level] = equal
+    _log("kernel precise_matmul split-K: M=%d K=%d N=%d splits and equals "
+         "the unsplit corner bit for bit at levels 0-2" % (m, k, n))
+    return out
 
 
 def _k4_errors(torch, gemm, dev, a, b, exact):
@@ -419,7 +492,9 @@ def k4_phase(torch, gemm, dev):
             "realistic": [_measure_k4(torch, gemm, dev, level, "bench",
                                       *K4_REALISTIC, "", seed=99,
                                       iters=5)]}
-    return out, _k4_cancellation(torch, gemm, dev)
+    checks = _k4_cancellation(torch, gemm, dev)
+    checks["split_equal"] = _k4_split_equal(torch, gemm, dev)
+    return out, checks
 
 
 # -- phase 2, K7-K9: flash attention ------------------------------------------
@@ -934,11 +1009,13 @@ def train_run(torch, gemm, card, precise):
         raise AssertionError("digits came from %r" % wf.loader.provenance)
     rec = _instrument(wf, {"k4": gemm.precise_matmul})
     gemm.precise_matmul.launches = 0
+    gemm.precise_matmul.fold_launches = 0
     t0 = time.perf_counter()
     wf.run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = gemm.precise_matmul.launches
+    folds = gemm.precise_matmul.fold_launches
     res = wf.gather_results()
     ends = [t0] + rec["epoch_end"]
     epoch_s = [b - a for a, b in zip(ends, ends[1:])]
@@ -953,7 +1030,7 @@ def train_run(torch, gemm, card, precise):
            "best_validation_error_pt": res["best_validation_error_pt"],
            "best_epoch": res["best_epoch"],
            "train_steps": steps[TRAIN], "eval_steps": steps[VALID],
-           "k4_launches": launches,
+           "k4_launches": launches, "k4_fold_launches": folds,
            "k4_per_train_step":
                rec["launches"]["k4"][TRAIN] / max(steps[TRAIN], 1),
            "k4_per_eval_step":
@@ -962,13 +1039,13 @@ def train_run(torch, gemm, card, precise):
     _log("train %s: best validation error %.2f%% (epoch %d) in %d epochs, "
          "%.3f s; epoch wall s first %.4f median %.4f; train images/s "
          "median %.0f (first epoch %.0f); %d train + %d eval steps; K4 "
-         "launches %d (%.2f per train step, %.2f per eval step); init %.3f"
-         " s [%s]"
+         "launches %d (%.2f per train step, %.2f per eval step), %d of "
+         "them split K and folded; init %.3f s [%s]"
          % (out["label"], out["best_validation_error_pt"], out["best_epoch"],
             out["epochs"], seconds, epoch_s[0], out["epoch_s_median"],
             out["train_images_s_median"], out["train_images_s"][0],
             steps[TRAIN], steps[VALID], launches, out["k4_per_train_step"],
-            out["k4_per_eval_step"], init_s, card))
+            out["k4_per_eval_step"], folds, init_s, card))
     _log("train %s: epoch wall s %s" % (
         out["label"], " ".join("%.4f" % t for t in epoch_s)))
     if not res["best_validation_error_pt"] <= GATE_ERROR_PT:
@@ -982,6 +1059,12 @@ def train_run(torch, gemm, card, precise):
                              "%r, want 5 / 2" % (
                                  out["label"], out["k4_per_train_step"],
                                  out["k4_per_eval_step"]))
+    # the first layer's forward (M = 60, K = 784) is the one call of a
+    # step that splits
+    if precise and folds != steps[TRAIN] + steps[VALID]:
+        raise AssertionError("%s: %d K4 calls split K over %d steps, want "
+                             "one a step" % (out["label"], folds,
+                                             steps[TRAIN] + steps[VALID]))
     if not precise and launches:
         raise AssertionError("the plain-matmul run launched K4")
     return out
@@ -1205,32 +1288,18 @@ def attention_small_run(torch, fa, card):
 def trace_attention(torch, card):
     """One full-width epoch (causal, window 512) under
     ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
     label, causal, window = ATTN_CONFIGS[1]
-    wf = attention_workflow(ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS, causal,
-                            window, epochs=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        wf.run()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    return _trace_record(prof, "train " + label, card, seconds)
+    return _traced(torch, "train " + label, card, lambda: _epoch(
+        attention_workflow(ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS, causal,
+                           window, epochs=1)))
 
 
 def trace_train(torch, card, precise):
     """One epoch of the gate's workflow under ``torch.profiler``: the
     share of the epoch's wall time the card is busy."""
-    from torch.profiler import ProfilerActivity, profile
-    wf = _mnist_workflow(precise, epochs=1)
     label = "train precise_gemm=%d" % precise if precise else "train plain"
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        wf.run()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    return _trace_record(prof, label, card, seconds)
+    return _traced(torch, label, card,
+                   lambda: _epoch(_mnist_workflow(precise, epochs=1)))
 
 
 # -- phase 4c: AlexNet at full width (slice 4) --------------------------------
@@ -1527,15 +1596,8 @@ def trace_alexnet(torch, card, label, use_pallas):
     """One AlexNet epoch under ``torch.profiler`` with each LRN form (the
     card's busy time of the two compares the forms inside a real step),
     with the top kernels and every device copy named."""
-    from torch.profiler import ProfilerActivity, profile
-    wf = alexnet_workflow(use_pallas=use_pallas, epochs=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        wf.run()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    return _trace_record(prof, "train " + label, card, seconds, top=25)
+    return _traced(torch, "train " + label, card, lambda: _epoch(
+        alexnet_workflow(use_pallas=use_pallas, epochs=1)), top=25)
 
 # -- phase 5: where the time goes ---------------------------------------------
 
@@ -1544,26 +1606,34 @@ def trace_run(torch, card, label, kv_dtype, weight_dtype):
     scheduler directly (HTTP adds no device work): device busy time and
     the kernels that take it.  Runs after every untraced measurement,
     because the tracer slows every later launch of the process."""
-    from torch.profiler import ProfilerActivity, profile
-
     from veles_tpu_torch.serving import DecodeScheduler
     from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
-    model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype,
-                                weight_dtype=weight_dtype)
-    sched = DecodeScheduler(model, name="trace-" + label,
-                            kv_dtype=kv_dtype, **README_SERVER)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+    def burst():
+        model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype,
+                                    weight_dtype=weight_dtype)
+        sched = DecodeScheduler(model, name="trace-" + label,
+                                kv_dtype=kv_dtype, **README_SERVER)
+
+        def run():
             futures = [sched.submit(p, NEW_TOKENS) for p in _prompts()]
             for f in futures:
                 f.result(900)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-    finally:
-        sched.close()
-    return _trace_record(prof, label, card, seconds)
+        return run, sched.close
+    return _traced(torch, label, card, burst)
+
+
+def serving_summary(run, trace):
+    """Phase 3's tok/s and decode step p50 of a serving configuration
+    beside its burst traced in phase 5: launches and device-to-device
+    copies (the int8 KV append's cost)."""
+    run["traced_launches"] = trace["device_launches"]
+    run["traced_dtod_copies"] = sum(
+        c["count"] for c in trace["copies"] if "dtod" in c["kernel"].lower())
+    _log("serving %s: %.1f tok/s, decode step p50 %s ms; its traced burst "
+         "%d launches, %d device-to-device copies [%s]"
+         % (run["label"], run["tok_s"], run["step_ms_p50"],
+            run["traced_launches"], run["traced_dtod_copies"], run["card"]))
 
 
 def device_rows(events):
@@ -1579,6 +1649,51 @@ def device_rows(events):
                    e.self_device_time_total > 0), reverse=True)
 
 
+#: tries of a traced run before a trace with no device time fails it.  The
+#: tracer has kept no device record of a run that launched work (an
+#: AlexNet epoch's trace, whose same epoch other runs traced in full); a
+#: run that launches nothing on the card fails every try.
+TRACE_TRIES = 3
+
+
+class TraceLost(AssertionError):
+    """A traced run whose trace holds no device time."""
+
+
+def _epoch(wf):
+    """(run, close) of one epoch of the workflow ``wf``, for ``_traced``."""
+    return wf.run, lambda: None
+
+
+def _traced(torch, label, card, make, top=5):
+    """``_trace_record`` of a run under ``torch.profiler``: ``make()`` ->
+    (run, close) builds a fresh run for each try; a try whose trace holds
+    no device time is taken again, up to ``TRACE_TRIES``.  The record
+    says how many tries it took."""
+    from torch.profiler import ProfilerActivity, profile
+    for tries in range(1, TRACE_TRIES + 1):
+        run, close = make()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            close()
+        try:
+            rec = _trace_record(prof, label, card, seconds, top)
+        except TraceLost as e:
+            if tries == TRACE_TRIES:
+                raise
+            _log("%s; try %d of %d, tracing a fresh run"
+                 % (e, tries, TRACE_TRIES))
+            continue
+        rec["tries"] = tries
+        return rec
+
+
 #: device rows that move data between layouts or buffers: copies, and
 #: cuDNN's own NHWC <-> NCHW transforms around a convolution
 COPY_MARKS = ("copy", "tonchw", "tonhwc", "transpose")
@@ -1592,8 +1707,9 @@ def _trace_record(prof, label, card, seconds, top=5):
     by_kernel = device_rows(prof.key_averages())
     busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
     if busy_ms <= 0:
-        raise AssertionError("%s: the traced run ran nothing on the card"
-                             % label)
+        raise TraceLost("%s: the traced run ran nothing on the card "
+                        "(%.3f s traced, %d host events)"
+                        % (label, seconds, len(prof.events())))
     rec = {"label": label, "card": card, "traced_seconds": seconds,
            "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / 1e3 / seconds,
@@ -1608,7 +1724,20 @@ def _trace_record(prof, label, card, seconds, top=5):
                if "elementwise" in k and "<long" in k) / 1e3,
            "int64_elementwise_launches": sum(
                c for _, c, k in by_kernel
-               if "elementwise" in k and "<long" in k)}
+               if "elementwise" in k and "<long" in k),
+           # K4's products (every instantiation) and its split-K folds
+           "k4_ms": sum(t for t, _, k in by_kernel
+                        if "precise_matmul_kernel" in k) / 1e3,
+           "k4_launches": sum(c for _, c, k in by_kernel
+                              if "precise_matmul_kernel" in k),
+           "k4_fold_ms": sum(t for t, _, k in by_kernel
+                             if "precise_fold_kernel" in k) / 1e3,
+           "k4_fold_launches": sum(c for _, c, k in by_kernel
+                                   if "precise_fold_kernel" in k)}
+    if rec["k4_launches"]:
+        _log("trace %s: K4 %.3f ms over %d products, fold %.3f ms over %d "
+             "[%s]" % (label, rec["k4_ms"], rec["k4_launches"],
+                       rec["k4_fold_ms"], rec["k4_fold_launches"], card))
     width = 40 if top <= 5 else 70
     _log("trace %s: %.3f s traced, device busy %.3f ms (%.1f%%) over %d "
          "launches; int64 elementwise %.3f ms x%d; top: %s; copies and "
@@ -1708,6 +1837,9 @@ def kernels_line(kernels, k4, launches):
                  "bound_by": rec["bound_by"],
                  "library_ms": rec["library_ms"], "shape": rec["shape"],
                  "realistic": realistic[name]}
+        if name.startswith("precise_matmul"):
+            entry.update(device_ms=rec["device_ms"], split=rec["split"],
+                         cuda_core_bound_ms=rec["cuda_core_bound_ms"])
         if name == "precise_matmul_l1":
             entry["level0"] = k4[0]
         out.append(entry)
@@ -1808,6 +1940,8 @@ def main():
         [trace_train(torch, card, precise) for precise in (0, 1)] +
         [trace_attention(torch, card)] +
         [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS])
+    for run, trace in zip(runs, record["traces"]):
+        serving_summary(run, trace)
     phase_done("5 traces")
     record["seconds"] = time.perf_counter() - t_start
     _log("chip_smoke: every phase in %.1f s" % record["seconds"])

@@ -6,7 +6,9 @@
   own self device time, and lists those kernels again as device rows;
   summing every row counted each kernel twice.  A traced run's record
   names the device copies and cuDNN's layout transforms, and sums the
-  int64 elementwise kernels (dropout's threefry draws).
+  int64 elementwise kernels (dropout's threefry draws).  A traced run
+  whose trace holds no device time is traced again on a fresh run, up
+  to ``TRACE_TRIES``; one with no device time in every try fails.
 - The ``kernels`` line holds every kernel of the main paths (slice 3's
   flash attention K7-K9 and slice 4's LRN pair K5/K6 included), refuses
   one that never launched there or was never measured, and carries K4's
@@ -58,6 +60,9 @@ class _Prof:
     def key_averages(self):
         return self.rows
 
+    def events(self):
+        return self.rows
+
 
 def test_trace_record_names_copies_transforms_and_int64_work():
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -79,10 +84,63 @@ def test_trace_record_names_copies_transforms_and_int64_work():
     assert rec["int64_elementwise_launches"] == 40
 
 
+def _fake_tracer(monkeypatch, traces):
+    """``torch.profiler.profile`` replaced by one that hands out the row
+    lists of ``traces`` in turn; -> a torch stand-in whose
+    ``cuda.synchronize`` does nothing."""
+    import contextlib
+    import types
+    traces = iter(traces)
+
+    @contextlib.contextmanager
+    def profile(**_):
+        yield _Prof(next(traces))
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    return types.SimpleNamespace(
+        cuda=types.SimpleNamespace(synchronize=lambda: None))
+
+
+def test_a_lost_trace_is_taken_again_on_a_fresh_run(monkeypatch):
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    lost = [_Row("aten::mm", 5.0, 10, cpu)]
+    kept = lost + [_Row("sgemm", 5.0, 10, cuda)]
+    fake = _fake_tracer(monkeypatch, [lost, kept])
+    made, ran, closed = [], [], []
+
+    def make():
+        made.append(len(made))
+        return (lambda: ran.append(made[-1])), (lambda: closed.append(1))
+    rec = chip_smoke._traced(fake, "t", "card", make)
+    assert rec["tries"] == 2 and rec["device_launches"] == 10
+    assert made == ran == [0, 1] and len(closed) == 2
+
+
+def test_a_run_with_no_device_time_fails_every_try(monkeypatch):
+    cpu = torch.autograd.DeviceType.CPU
+    n = chip_smoke.TRACE_TRIES
+    fake = _fake_tracer(monkeypatch,
+                        [[_Row("aten::mm", 5.0, 10, cpu)]] * (n + 1))
+    made = []
+
+    def make():
+        made.append(1)
+        return (lambda: None), (lambda: None)
+    with pytest.raises(chip_smoke.TraceLost, match="ran nothing on the card"):
+        chip_smoke._traced(fake, "t", "card", make)
+    assert len(made) == n
+
+
 def _rec(ms):
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": 2 * ms,
             "bound_ms": ms / 10, "bound_by": "bytes", "library_ms": None,
             "shape": "M=60 K=784 N=100"}
+
+
+def _k4_rec(ms):
+    """A K4 record: its device time, whether it split, the CUDA-core
+    bound beside the 3xTF32 one."""
+    return dict(_rec(ms), device_ms=ms / 2, split=ms < 1,
+                cuda_core_bound_ms=ms / 4)
 
 
 def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
@@ -93,8 +151,8 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     slice4 = ("lrn_fwd", "lrn_bwd")
     kernels = {name: {"main": _rec(0.1), "realistic": [_rec(0.4)]}
                for name in slice1 + slice3 + slice4}
-    k4 = {level: {"main": [_rec(0.08 + level), _rec(0.07)],
-                  "realistic": [_rec(7.0)]} for level in (0, 1, 2)}
+    k4 = {level: {"main": [_k4_rec(0.08 + level), _k4_rec(0.07)],
+                  "realistic": [_k4_rec(7.0)]} for level in (0, 1, 2)}
     launches = dict({name: 64 for name in slice1},
                     precise_matmul_l1=26700, precise_matmul_l2=26700,
                     flash_attention_fwd=600, flash_attention_dq=450,
@@ -113,6 +171,8 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
         assert keys <= set(entry) and entry["launches"] > 0
     l1 = line["kernels"][4]
     assert l1["ms"] == 1.08 and l1["level0"] is k4[0]
+    assert l1["device_ms"] == 0.54 and l1["cuda_core_bound_ms"] == 0.27
+    assert l1["split"] is False
     assert l1["source"] == "veles_tpu_torch/csrc/precise_matmul.cu"
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.kernels_line(kernels, k4,

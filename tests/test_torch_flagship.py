@@ -323,3 +323,79 @@ def test_drafter_matches_jax_and_verify_fn_runs_verify_step():
                           torch.from_numpy(lengths), torch.from_numpy(fed),
                           heads=2, block_size=BS, k=1)[0]
     assert torch.equal(got, want)
+
+
+def _append_kv_loop(pool, blk, off, vals):
+    """The int8 append as it was first written, one position at a time in
+    row-major order: the oracle of the batched passes."""
+    q, s = pool["q"], pool["s"]
+    blocks = blk.reshape(-1).tolist()
+    offsets = off.reshape(-1).tolist()
+    vals = vals.to(torch.float32).reshape((len(blocks),) + q.shape[2:])
+    amax = vals.abs().amax(dim=-1) / 127.0
+    for t, (b, o) in enumerate(zip(blocks, offsets)):
+        s_old = s[b] if o else torch.zeros_like(s[b])
+        s_new = torch.maximum(s_old, amax[t])
+        s_safe = torch.where(s_new > 0, s_new, torch.ones_like(s_new))
+        ratio = torch.where(s_old > 0, s_old / s_safe,
+                            torch.zeros_like(s_old))
+        block = torch.clamp(torch.round(
+            q[b].to(torch.float32) * ratio[None, :, None]), -127, 127)
+        block[o] = torch.clamp(torch.round(vals[t] / s_safe[:, None]),
+                               -127, 127)
+        q[b] = block.to(torch.int8)
+        s[b] = s_new
+    return pool
+
+
+def _append_case(kind):
+    """(blk, off) of one call: a decode step (one position per row, a
+    padding row in the trash block), a prefill spanning several blocks
+    with padding past the prompt, a verify span that writes twice to
+    one block, and rows padded into the trash block."""
+    if kind == "decode":
+        blk = torch.tensor([[3], [0], [5], [2]])
+        off = torch.tensor([[2], [0], [0], [3]])
+    elif kind == "prefill":
+        pos = torch.arange(11)
+        row = torch.tensor([4, 6, 1])
+        blk = torch.where(pos < 9, row[pos // BS], torch.zeros_like(pos))
+        off = pos % BS
+    elif kind == "verify":
+        pos = torch.tensor([[2, 3, 4], [0, 1, 2]])
+        table = torch.tensor([[1, 2], [5, 6]])
+        blk = table[torch.arange(2)[:, None], pos // BS]
+        off = pos % BS
+    else:   # "padded": rows past their capacity scatter into the trash
+        pos = torch.tensor([[6, 7, 8, 9], [1, 2, 3, 4]])
+        table = torch.tensor([[3, 4], [7, 0]])
+        blk = torch.where(pos < 8, table[torch.arange(2)[:, None],
+                                         (pos // BS).clamp(max=1)],
+                          torch.zeros_like(pos))
+        off = pos % BS
+    return blk, off
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill", "verify", "padded"])
+def test_batched_int8_append_equals_the_position_loop(kind):
+    """Two appends in a row (the second finds the first's scales) on a
+    pool with earlier content: every block but the trash block equals
+    the position-by-position loop bit for bit."""
+    rng = numpy.random.RandomState(7)
+    shape = (9, BS, 2, 8)
+    start = {"q": torch.from_numpy(rng.randint(-127, 128, shape)
+                                   .astype(numpy.int8)),
+             "s": torch.from_numpy(rng.uniform(0, 0.05, (9, 2))
+                                   .astype(numpy.float32))}
+    blk, off = _append_case(kind)
+    got = {k: v.clone() for k, v in start.items()}
+    want = {k: v.clone() for k, v in start.items()}
+    for scale in (1.0, 3.0):
+        vals = torch.from_numpy(
+            (rng.standard_normal(tuple(blk.shape) + (2, 8)) * scale)
+            .astype(numpy.float32))
+        tf._append_kv(got, blk, off, vals, "int8")
+        _append_kv_loop(want, blk, off, vals)
+    assert torch.equal(got["q"][1:], want["q"][1:])
+    assert torch.equal(got["s"][1:], want["s"][1:])
+    assert not torch.equal(got["q"][1:], start["q"][1:])

@@ -265,6 +265,50 @@ def test_precise_matmul_refuses_what_the_kernel_cannot_take(cuda):
         gemm.precise_matmul(a, b, 3)
 
 
+@pytest.mark.parametrize("shape", [(60, 784, 100), (37, 1000, 10)])
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_precise_matmul_split_is_bit_equal_to_unsplit(cuda, shape, level):
+    """A shape whose output grid is smaller than the card splits K over
+    its 256-deep tiles (and launches the fold); the top-left corner of
+    operands too large to split gives the same bits."""
+    m, k, n = shape
+    a_big, b_big = _precise_inputs(cuda, 2048, k, 1024, seed=k + level)
+    a, b = a_big[:m].contiguous(), b_big[:, :n].contiguous()
+    launches = gemm.precise_matmul.launches
+    folds = gemm.precise_matmul.fold_launches
+    small = gemm.precise_matmul(a, b, level)
+    assert gemm.precise_matmul.fold_launches == folds + 1
+    big = gemm.precise_matmul(a_big, b_big, level)
+    torch.cuda.synchronize()
+    assert gemm.precise_matmul.fold_launches == folds + 1
+    assert gemm.precise_matmul.launches == launches + 2
+    assert torch.equal(small, big[:m, :n])
+
+
+@pytest.mark.parametrize("shape", [(60, 1027, 10), (200, 515, 37),
+                                   (33, 9, 130), (300, 2049, 70)])
+@pytest.mark.parametrize("layout", ["", "at", "bt", "at bt", "offset"])
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_precise_matmul_ragged_layouts(cuda, shape, layout, level):
+    """K not a multiple of 256 or of 4, N = 10 (rows not 16-byte
+    aligned: the 4-byte copies), either operand a transposed view, and
+    operands whose base is off the 16-byte grid, split or not."""
+    m, k, n = shape
+    a, b = _precise_inputs(cuda, m, k + 1, n + 1, seed=m + k + n)
+    a, b = a[:, 1:], b[1:, 1:]          # "offset": bases one float in
+    if layout != "offset":
+        a, b = a.contiguous(), b.contiguous()
+    if "at" in layout:
+        a = a.t().contiguous().t()
+    if "bt" in layout:
+        b = b.t().contiguous().t()
+    out = gemm.precise_matmul(a, b, level)
+    ref = gemm.precise_matmul_reference(a, b, level)
+    torch.cuda.synchronize()
+    scale = float((a.abs() @ b.abs()).max())
+    assert float((out - ref).abs().max()) <= 1e-6 * scale
+
+
 def _mnist(precise, device):
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device

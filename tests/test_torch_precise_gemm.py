@@ -187,3 +187,85 @@ def test_bad_shapes_and_levels_raise():
         tgemm.precise_matmul(a, b, 1)
     with pytest.raises(ValueError, match="level"):
         tgemm.precise_matmul(a, torch.zeros((5, 3)), 3)
+
+
+# -- 3xTF32, as K4 forms its tile partials on the card ------------------------
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: f32 rounded to 10 explicit mantissa bits, to
+    nearest with ties away from zero, on the bit pattern."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x3_matmul(a, b, level):
+    """The card's K4 in plain PyTorch: each operand split as ``hi + lo``
+    (``hi = tf32(x)``, ``lo = tf32(x - hi)``), each 256-deep tile
+    partial ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (products of TF32
+    values are exact in f32), the running sum compensated at ``level``
+    as in ``precise_matmul_reference``."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    c1, c2 = torch.zeros_like(acc), torch.zeros_like(acc)
+    for k0 in range(0, a.shape[1], tgemm.DEFAULT_BLOCK_K):
+        t = slice(k0, k0 + tgemm.DEFAULT_BLOCK_K)
+        p = (a_lo[:, t] @ b_hi[t] + a_hi[:, t] @ b_lo[t]) + \
+            a_hi[:, t] @ b_hi[t]
+        if level == 0:
+            acc = acc + p
+            continue
+        acc, e = tgemm._two_sum(acc, p)
+        if level == 1:
+            c1 = c1 + e
+        else:
+            c1, e2 = tgemm._two_sum(c1, e)
+            c2 = c2 + e2
+    return acc + (c1 + c2)
+
+
+def test_tf32_rounds_to_nearest_away():
+    x = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -11 - 2 ** -23, 3e7, 1.0])
+    want = [1 + 2 ** -10, 1 + 2 * 2 ** -10, -(1 + 2 ** -10), 1.0,
+            1831.0 * 2 ** 14, 1.0]
+    assert _tf32(x).tolist() == want
+    # hi + lo keeps x to within 2^-23 of itself (22 of its 24 bits)
+    y = torch.from_numpy(numpy.random.RandomState(3).standard_normal(
+        4096).astype(numpy.float32))
+    hi = _tf32(y)
+    rel = ((hi + _tf32(y - hi)).double() - y.double()).abs() / y.abs()
+    assert float(rel.max()) <= 2.0 ** -23
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(60, 784, 100), (130, 1000, 70),
+                                   (257, 2049, 65), (64, 4096, 64)])
+def test_tf32x3_products_hold_the_kernel_tolerance(shape, level):
+    """3xTF32 tile partials stay within the card's K4 limit of the plain
+    f32 version: ``1e-6 * max(|a| @ |b|)``."""
+    m, k, n = shape
+    a, b = (torch.from_numpy(x) for x in _inputs(m, k, n, seed=k + level))
+    got = _tf32x3_matmul(a, b, level)
+    want = tgemm.precise_matmul_reference(a, b, level)
+    scale = float((a.abs() @ b.abs()).max())
+    assert float((got - want).abs().max()) <= RTOL * scale
+
+
+def test_tf32x3_keeps_the_cancellation_and_the_second_carry():
+    """The compensation cases of the card hold with 3xTF32 products:
+    level 1 beats level 0 by 1e4 on the cancellation case, level 2
+    keeps Klein's second carry (``err[2] < err[1] / 1e4``)."""
+    a, b = _cancellation_problem()
+    exact = a.astype(numpy.float64) @ b.astype(numpy.float64)
+    err = {level: numpy.abs(_tf32x3_matmul(
+        torch.from_numpy(a), torch.from_numpy(b), level).numpy()
+        - exact).max() for level in (0, 1, 2)}
+    assert err[0] > 0.1 and err[1] < err[0] / 1e4, err
+    assert err[2] <= err[1] * 1.01, err
+    a, b, exact = _klein_problem(10)
+    err = {level: numpy.abs(_tf32x3_matmul(
+        torch.from_numpy(a), torch.from_numpy(b), level).numpy()
+        - exact).max() for level in (1, 2)}
+    assert err[1] > 0.5 * numpy.abs(exact).max(), err
+    assert err[2] < err[1] / 1e4, err

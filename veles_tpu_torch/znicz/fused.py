@@ -28,16 +28,20 @@ step, and the step's key is ``prng.key(counter)``; the stochastic
 forward at chain index ``i`` runs ``apply_train`` with ``fold_in(key,
 i)``, so its bits equal the JAX step's.  Eval steps run ``apply``.
 
-Not ported: ``compute_dtype`` (bf16 compute), the persistent executable
-cache, the staged-seed path of stochastic units, the ``rng_impl``
-switch, the MSE loss, the switch that turns the confusion matrix off,
-steps fed by a host-side loader and the whole-workflow graph compiler's
-face.
+Not ported: bf16 compute, the persistent executable cache, the
+staged-seed path of stochastic units, the ``rng_impl`` switch, the MSE
+loss, steps fed by a host-side loader and the whole-workflow graph
+compiler's face.  ``compute_dtype``, ``root.common.engine.dtype`` and
+``root.common.engine.rng_impl`` raise ``NotImplementedError`` when set
+to anything but f32 / threefry2x32 (ROADMAP queue A item 9).
+``compute_confusion_matrix=False`` is accepted: the step always
+computes the matrix, which costs a small scatter-add a step.
 """
 
 import numpy
 import torch
 
+from ..config import root
 from ..memory import Array
 from .. import prng
 from ..result_provider import IResultProvider
@@ -61,6 +65,19 @@ class FusedTrainStep(Unit, IResultProvider):
     def __init__(self, workflow, forwards, gd_units, loss="softmax",
                  **kwargs):
         super().__init__(workflow, **kwargs)
+        for knob, value, off in (
+                ("compute_dtype", kwargs.get("compute_dtype"),
+                 (None, "float32")),
+                ("root.common.engine.dtype",
+                 root.common.engine.get("dtype"), (None, "float32")),
+                ("root.common.engine.rng_impl",
+                 root.common.engine.get("rng_impl"),
+                 (None, "threefry2x32"))):
+            if value not in off:
+                raise NotImplementedError(
+                    "%s=%r is not ported yet: the port's step computes "
+                    "in f32 with threefry2x32 (ROADMAP queue A item 9)"
+                    % (knob, value))
         if loss != "softmax":
             raise ValueError("the port's fused step trains softmax heads "
                              "only (loss=%r is not ported yet)" % (loss,))

@@ -22,7 +22,9 @@ per-output-channel scales factor out of the K contraction.
 CUDA tensors launch the kernels; CPU tensors take
 :func:`precise_matmul_reference` / :func:`quantized_matmul_reference`.
 ``precise_matmul.launches`` and ``quantized_matmul.launches`` count the
-kernel launches.
+kernel launches; ``precise_matmul.fold_launches`` counts the K4 calls
+that split K over their 256-deep tiles (small output grids) and so
+launched the fold kernel after the products.
 """
 
 import ctypes
@@ -220,15 +222,38 @@ def _precise_launch(a, b, level):
         raise ValueError("empty operand: a %r, b %r"
                          % (tuple(a.shape), tuple(b.shape)))
     fn = _build.function(_PRECISE_SRC, "vt_precise_matmul",
-                         [_P] * 3 + [_I] * 3 + [_L] * 4 + [_I, _P])
+                         [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _I, _P])
+    split = _precise_split(m, n, k, a.device)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    # split-K: one partial per K tile, folded by the kernel's second launch
+    ws = (torch.empty((split, m, n), dtype=torch.float32, device=a.device)
+          if split else None)
     with torch.cuda.device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  ws.data_ptr() if split else None, m, n, k,
                   a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-                  int(level), _build.stream_ptr(a.device))
+                  int(level), split, _build.stream_ptr(a.device))
     _build.check(_PRECISE_SRC, code, "precise_matmul kernel")
     precise_matmul.launches += 1
+    if split:
+        precise_matmul.fold_launches += 1
     return out
+
+
+_SM_COUNT = {}
+
+
+def _precise_split(m, n, k, device):
+    """The number of 256-deep K tiles K4 splits a call over (0: none):
+    the kernel's rule, given the card's SM count (read once a card)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sms = _SM_COUNT.get(index)
+    if sms is None:
+        sms = _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _build.function(_PRECISE_SRC, "vt_precise_matmul_split",
+                           [_I] * 4)(m, n, k, sms)
 
 
 class _PreciseMatmul(torch.autograd.Function):
@@ -262,5 +287,7 @@ def precise_matmul(a, b, level=1):
 
 
 #: kernel launches since the last reset, forward and backward (CPU
-#: calls do not count)
+#: calls do not count): the products, one a call
 precise_matmul.launches = 0
+#: of those, the calls that split K and launched the fold as well
+precise_matmul.fold_launches = 0

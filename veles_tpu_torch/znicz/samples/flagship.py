@@ -164,36 +164,60 @@ def _kv_arrays(pool):
     return pool, None
 
 
+#: the pool's reserved trash block (``KVBlockPool.TRASH``): padding
+#: positions write there and nothing reads it
+_TRASH = 0
+
+
 def _append_kv(pool, blk, off, vals, kv_dtype):
     """Write ``vals`` at (blk, off) IN PLACE and return the pool.
 
     f32: one ``index_put_``.  int8: the sequential per-position
-    quantized append — a block's bytes depend on the order of its
-    writes, so positions run one at a time, in order (``blk``/``off``
-    may be [N] or [B, S], flattened row-major so the positions of a row
-    stay in causal order)."""
+    quantized append.  ``blk``/``off`` are [N] (one row) or [B, S] (B
+    rows), flattened row-major so the positions of a row stay in causal
+    order.  A block's bytes depend on the order of its writes, so each
+    position gets its rank among the writes to its block, on the
+    device, and one vectorized pass runs per rank: within a pass every
+    block is written at most once, so the passes give the bytes of the
+    position-by-position loop.  Each row is its own sequence and owns
+    its blocks, so a block sees at most min(S, block_size) writes and
+    that many passes run: one for a decode step ([B, 1]), at most
+    block_size for a prefill.  What the passes write to the trash block
+    is left unspecified."""
     if kv_dtype != "int8":
         pool.index_put_((blk.long(), off.long()), vals.to(pool.dtype))
         return pool
     q, s = pool["q"], pool["s"]
-    blocks = blk.reshape(-1).tolist()
-    offsets = off.reshape(-1).tolist()
-    vals = vals.to(torch.float32).reshape((len(blocks),) + q.shape[2:])
+    passes = min(blk.shape[-1] if blk.ndim else 1, q.shape[1])
+    blk = blk.reshape(-1).long()
+    off = off.reshape(-1).long()
+    n = blk.shape[0]
+    vals = vals.to(torch.float32).reshape((n,) + q.shape[2:])
     amax = vals.abs().amax(dim=-1) / 127.0           # [N, H]
-    for t, (b, o) in enumerate(zip(blocks, offsets)):
-        s_old = s[b] if o else torch.zeros_like(s[b])
-        s_new = torch.maximum(s_old, amax[t])
-        s_safe = torch.where(s_new > 0, s_new, torch.ones_like(s_new))
+    reopen = (off == 0)[:, None]
+    pos = torch.arange(n, device=blk.device)
+    dest = blk
+    if passes > 1:
+        # rank[t]: the writes to blk[t] before position t
+        earlier = torch.ones((n, n), dtype=torch.bool,
+                             device=blk.device).tril(-1)
+        rank = ((blk[:, None] == blk[None, :]) & earlier).sum(dim=1)
+    for r in range(passes):
+        s_old = torch.where(reopen, 0.0, s[blk])
+        s_new = torch.maximum(s_old, amax)
+        s_safe = torch.where(s_new > 0, s_new, 1.0)
         # ratio == 0 wipes a freshly opened block; ratio == 1 keeps the
         # existing rows bit-exact when the scale did not grow
-        ratio = torch.where(s_old > 0, s_old / s_safe,
-                            torch.zeros_like(s_old))
-        block = torch.clamp(torch.round(
-            q[b].to(torch.float32) * ratio[None, :, None]), -127, 127)
-        block[o] = torch.clamp(torch.round(vals[t] / s_safe[:, None]),
-                               -127, 127)
-        q[b] = block.to(torch.int8)
-        s[b] = s_new
+        ratio = torch.where(s_old > 0, s_old / s_safe, 0.0)
+        block = (q[blk].to(torch.float32) * ratio[:, None, :, None]
+                 ).round_().clamp_(-127, 127)
+        block[pos, off] = (vals / s_safe[:, :, None]).round_().clamp_(
+            -127, 127)
+        if passes > 1:
+            # the positions of other passes write the trash block
+            dest = torch.where(rank == r, blk, _TRASH)
+        q.index_put_((dest,), block.to(torch.int8))
+        s.index_put_((dest,), s_new)
     return pool
 
 
@@ -288,8 +312,11 @@ def _decode_block(p_i, h, k_pool_i, v_pool_i, page_table, lengths, blk,
     hd = d // heads
     qkv = _rmsnorm(h) @ p_i["qkv"]               # [B, 3d]
     q, kk, vv = _split_qkv(qkv, d, (b, heads, hd))
-    k_pool_i = _append_kv(k_pool_i, blk, off, kk, kv_dtype)
-    v_pool_i = _append_kv(v_pool_i, blk, off, vv, kv_dtype)
+    # one position per row: [B, 1], so the int8 append takes one pass
+    k_pool_i = _append_kv(k_pool_i, blk[:, None], off[:, None],
+                          kk[:, None], kv_dtype)
+    v_pool_i = _append_kv(v_pool_i, blk[:, None], off[:, None],
+                          vv[:, None], kv_dtype)
     kd, ks = _kv_arrays(k_pool_i)
     vd, vs = _kv_arrays(v_pool_i)
     a = paged_attention(q, kd, vd, page_table, lengths + 1,

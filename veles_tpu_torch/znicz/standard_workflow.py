@@ -16,7 +16,12 @@ runs the same workflow on the host.
 
 Not ported yet: graph mode (per-unit GD and evaluator units), the
 epoch scan, meshes, the snapshotter, the status reporter, the graph
-compiler, the prefetcher and the ``mcdnnic_topology`` notation.
+compiler, the prefetcher and the ``mcdnnic_topology`` notation.  Each
+of their knobs raises ``NotImplementedError`` when it is set to
+anything but its default (:data:`REFUSED_KNOBS`), so a config that
+would snapshot, scan or shard under the JAX package never trains
+differently here without a word.  ``web_status`` is accepted and
+ignored: the status reporter only watches a run.
 """
 
 from ..backends import Device
@@ -31,7 +36,18 @@ from .fused import FusedTrainStep
 from . import (activation, all2all, attention, conv, dropout,  # noqa: F401
                gd, gd_conv, gd_pooling, lrn, pooling)
 
-__all__ = ["StandardWorkflow"]
+__all__ = ["StandardWorkflow", "REFUSED_KNOBS"]
+
+#: knobs of the JAX workflow the port does not honour yet: name ->
+#: (the values that mean "off", the ROADMAP queue A item that ports it)
+REFUSED_KNOBS = {
+    "snapshotter": ((None,), "item 8, persistence"),
+    "epoch_scan": ((False, None), "item 7, ScanEpochStep"),
+    "mesh": ((None,), "item 11, distribution"),
+    "model_axis": ((None,), "item 11, distribution"),
+    "tp_mode": (("column",), "item 11, distribution"),
+    "graph_compile": ((None, False), "item 9, graphcomp"),
+}
 
 #: flat layer-config keys that belong to the GD unit
 _GD_KEYS = {"learning_rate", "learning_rate_bias", "weights_decay",
@@ -66,6 +82,12 @@ class StandardWorkflow(Workflow):
 
     def __init__(self, workflow=None, **kwargs):
         super().__init__(workflow, **kwargs)
+        for knob, (off, item) in REFUSED_KNOBS.items():
+            value = kwargs.get(knob, off[0])
+            if value not in off:
+                raise NotImplementedError(
+                    "StandardWorkflow(%s=%r) is not ported yet (ROADMAP "
+                    "queue A %s)" % (knob, value, item))
         if kwargs.get("mcdnnic_topology"):
             raise NotImplementedError(
                 "mcdnnic_topology is not ported yet; pass layers=")
