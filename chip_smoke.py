@@ -12,8 +12,13 @@ Phases (any failure raises and the script exits non-zero):
    shapes, timed with CUDA events beside the least time the card could
    take (``bound_ms``) and, where one PyTorch call computes the same
    function, that call (``library_ms``).  Tolerances: paged attention
-   ``max|kernel - plain| <= 1e-5``; the quantized GEMM
-   ``max|kernel - plain| <= 1e-5 * max|plain|``; the compensated GEMM
+   ``max|kernel - plain| <= 1e-5``; the quantized GEMM (K3, int8 and
+   fp8) ``max|kernel - plain| <= 1e-5 * max|plain|``, timed at the main
+   path's two expert GEMMs and at M = 1, 16 and 256 with K = N = 4096,
+   with CUDA events and the profiler's device time, each record with the
+   tile and the split-K its plan chose (a split call launches the fold
+   too), its bound 4MNK TF32 operations (2xTF32) beside the CUDA-core
+   bound of 2MNK f32 FMAs; the compensated GEMM
    (K4, levels 0/1/2) ``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)``;
    against the exact product, level 1 must beat level 0 by 1e4x on a
    cancellation case, and level 2 must beat level 1 by 1e4x on a case
@@ -166,12 +171,16 @@ def _cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters=20):
+def _device_ms(torch, fn, iters=20, launches=None):
     """Mean device time of the kernels ``fn`` launches, from
-    ``torch.profiler`` (device rows only, after one warm-up call)."""
+    ``torch.profiler`` (device rows only, after one warm-up call).  With
+    ``launches`` (the kernels one call launches), a profile that holds
+    another count lost records and is taken again, as one with no
+    device time is, up to ``TRACE_TRIES`` in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    want = None if launches is None else launches * iters
     for tries in range(1, TRACE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -179,11 +188,13 @@ def _device_ms(torch, fn, iters=20):
                 fn()
             torch.cuda.synchronize()
         rows = device_rows(prof.key_averages())
-        if rows:
+        seen = sum(c for _, c, _ in rows)
+        if rows and want in (None, seen):
             return sum(t for t, _, _ in rows) / 1e3 / iters
-        _log("the profiler saw no device time (try %d of %d)"
-             % (tries, TRACE_TRIES))
-    raise AssertionError("the profiler saw no device time")
+        _log("the profiler saw %d device launches, %s wanted (try %d of %d)"
+             % (seen, want or "some", tries, TRACE_TRIES))
+    raise AssertionError("the profiler saw %d device launches, %s wanted"
+                         % (seen, want or "some"))
 
 
 def _bound(nbytes, flops):
@@ -255,7 +266,14 @@ def _measure_qmm(torch, gemm, dev, label, m, k, n, dtype, seed):
     a = torch.randn((m, k), generator=gen, device=dev)
     w = torch.randn((k, n), generator=gen, device=dev)
     w_q, s = gemm.quantize_weight(w, dtype)
+    tile, split, k_split = gemm.quantized_matmul_plan(m, k, n, dev)
+    folds = gemm.quantized_matmul.fold_launches
     out = gemm.quantized_matmul(a, w_q, s)
+    if (gemm.quantized_matmul.fold_launches > folds) != (split > 1):
+        raise AssertionError("%s: planned split %d, fold launched %d "
+                             "times" % (label, split,
+                                        gemm.quantized_matmul.fold_launches
+                                        - folds))
     ref = gemm.quantized_matmul_reference(a, w_q, s)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
@@ -265,20 +283,56 @@ def _measure_qmm(torch, gemm, dev, label, m, k, n, dtype, seed):
                              "> 1e-5" % (label, rel))
     w_deq = w_q.to(torch.float32) * s[None, :]
     nbytes = m * k * 4 + k * n * w_q.element_size() + n * 4 + m * n * 4
-    bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
+    # the card's least time: two TF32 tensor-core products (4MNK; the
+    # weights are exact in TF32, the activations split in two), or the
+    # bytes; the CUDA-core bound (2MNK f32 FMAs) stands beside it
+    bound_ms, bound_by = _bound(nbytes, 0)
+    t_ops = 4 * m * n * k / TF32_FLOPS * 1e3
+    if t_ops > bound_ms:
+        bound_ms, bound_by = t_ops, "operations"
+    call = lambda: gemm.quantized_matmul(a, w_q, s)  # noqa: E731
     rec = {"shape": "M=%d K=%d N=%d" % (m, k, n),
            "max_abs_err": err, "max_rel_err": rel,
-           "ms": _cuda_ms(torch, lambda: gemm.quantized_matmul(a, w_q, s)),
+           "tile_m": tile, "split": split, "k_split": k_split,
+           "ms": _cuda_ms(torch, call),
+           "device_ms": _device_ms(torch, call,
+                                   launches=2 if split > 1 else 1),
            "plain_ms": _cuda_ms(
                torch, lambda: gemm.quantized_matmul_reference(a, w_q, s)),
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "cuda_core_bound_ms": _bound(nbytes, 2 * m * n * k)[0],
            "library_ms": _cuda_ms(torch, lambda: torch.matmul(a, w_deq))}
-    _log("kernel %s [%s] max_err=%.3g (rel %.3g) kernel_ms=%.4f "
-         "plain_ms=%.4f bound_ms=%.4f (%s) library_ms=%.4f (torch.matmul "
-         "on the dequantized f32 weights)"
-         % (label, rec["shape"], err, rel, rec["ms"], rec["plain_ms"],
-            bound_ms, bound_by, rec["library_ms"]))
+    _log("kernel %s [%s] tile %dx128 split %d (%d deep) max_err=%.3g (rel "
+         "%.3g) kernel_ms=%.4f device_ms=%.4f plain_ms=%.4f bound_ms=%.5f "
+         "(%s; CUDA cores %.5f) library_ms=%.4f (torch.matmul on the "
+         "dequantized f32 weights)"
+         % (label, rec["shape"], tile, split, k_split, err, rel, rec["ms"],
+            rec["device_ms"], rec["plain_ms"], bound_ms, bound_by,
+            rec["cuda_core_bound_ms"], rec["library_ms"]))
     return rec
+
+
+#: (M, K, N) of K3's realistic calls: a lone decode row, the decode
+#: step's 16 rows an expert and a 256-row prefill, at K = N = 4096
+QMM_REALISTIC = ((1, 4096, 4096), (16, 4096, 4096), (256, 4096, 4096))
+
+
+def k3_phase(torch, gemm, dev):
+    """-> {"quantized_matmul_int8" / "_fp8": {"main": record,
+    "realistic": [records]}}: K3 at the main path's two expert GEMMs
+    (16 rows at decode; the first is the kernels line's record) and at
+    ``QMM_REALISTIC``."""
+    out = {}
+    for dtype in ("int8", "fp8"):
+        name = "quantized_matmul_" + dtype
+        main = _measure_qmm(torch, gemm, dev, name, 16, 64, 128, dtype, 3)
+        second = _measure_qmm(torch, gemm, dev, name, 16, 128, 64, dtype, 4)
+        out[name] = {
+            "main": main,
+            "realistic": [second] + [
+                _measure_qmm(torch, gemm, dev, name, m, k, n, dtype, 5 + m)
+                for m, k, n in QMM_REALISTIC]}
+    return out
 
 
 def kernel_phase(torch, pa, gemm, dev):
@@ -300,16 +354,7 @@ def kernel_phase(torch, pa, gemm, dev):
                                    main_lengths, quant, seed=1),
             "realistic": [_measure_paged(torch, pa, dev, name, big_shape,
                                          big_lengths, quant, seed=2)]}
-    for dtype in ("int8", "fp8"):
-        name = "quantized_matmul_" + dtype
-        # the main path's two expert GEMMs at decode (16 rows)
-        main = _measure_qmm(torch, gemm, dev, name, 16, 64, 128, dtype, 3)
-        _measure_qmm(torch, gemm, dev, name, 16, 128, 64, dtype, 4)
-        out[name] = {
-            "main": main,
-            "realistic": [_measure_qmm(torch, gemm, dev, name, m, 4096,
-                                       4096, dtype, 5 + m)
-                          for m in (16, 256)]}
+    out.update(k3_phase(torch, gemm, dev))
     return out
 
 
@@ -371,7 +416,8 @@ def _measure_k4(torch, gemm, dev, level, label, m, k, n, layout, seed,
     rec = {"shape": "M=%d K=%d N=%d %s" % (m, k, n, layout or "row-major"),
            "label": label, "level": level, "max_abs_err": err,
            "split": split, "ms": _cuda_ms(torch, call, iters=iters),
-           "device_ms": _device_ms(torch, call, iters=iters),
+           "device_ms": _device_ms(torch, call, iters=iters,
+                                   launches=1 + split),
            "plain_ms": _cuda_ms(
                torch, lambda: gemm.precise_matmul_reference(a, b, level),
                iters=iters),
@@ -1724,20 +1770,19 @@ def _trace_record(prof, label, card, seconds, top=5):
                if "elementwise" in k and "<long" in k) / 1e3,
            "int64_elementwise_launches": sum(
                c for _, c, k in by_kernel
-               if "elementwise" in k and "<long" in k),
-           # K4's products (every instantiation) and its split-K folds
-           "k4_ms": sum(t for t, _, k in by_kernel
-                        if "precise_matmul_kernel" in k) / 1e3,
-           "k4_launches": sum(c for _, c, k in by_kernel
-                              if "precise_matmul_kernel" in k),
-           "k4_fold_ms": sum(t for t, _, k in by_kernel
-                             if "precise_fold_kernel" in k) / 1e3,
-           "k4_fold_launches": sum(c for _, c, k in by_kernel
-                                   if "precise_fold_kernel" in k)}
-    if rec["k4_launches"]:
-        _log("trace %s: K4 %.3f ms over %d products, fold %.3f ms over %d "
-             "[%s]" % (label, rec["k4_ms"], rec["k4_launches"],
-                       rec["k4_fold_ms"], rec["k4_fold_launches"], card))
+               if "elementwise" in k and "<long" in k)}
+    # K4's and K3's products (every instantiation) and their split-K folds
+    for kid, name in (("k4", "precise"), ("k3", "quantized")):
+        for part, kernel in (("", "_matmul_kernel"),
+                             ("_fold", "_fold_kernel")):
+            rows = [(t, c) for t, c, k in by_kernel if name + kernel in k]
+            rec[kid + part + "_ms"] = sum(t for t, _ in rows) / 1e3
+            rec[kid + part + "_launches"] = sum(c for _, c in rows)
+        if rec[kid + "_launches"]:
+            _log("trace %s: %s %.3f ms over %d products, fold %.3f ms over "
+                 "%d [%s]" % (label, kid.upper(), rec[kid + "_ms"],
+                              rec[kid + "_launches"], rec[kid + "_fold_ms"],
+                              rec[kid + "_fold_launches"], card))
     width = 40 if top <= 5 else 70
     _log("trace %s: %.3f s traced, device busy %.3f ms (%.1f%%) over %d "
          "launches; int64 elementwise %.3f ms x%d; top: %s; copies and "
@@ -1837,9 +1882,15 @@ def kernels_line(kernels, k4, launches):
                  "bound_by": rec["bound_by"],
                  "library_ms": rec["library_ms"], "shape": rec["shape"],
                  "realistic": realistic[name]}
-        if name.startswith("precise_matmul"):
+        if name.startswith(("precise_matmul", "quantized_matmul")):
+            missing = {"device_ms", "split", "cuda_core_bound_ms"} - set(rec)
+            if missing:
+                raise AssertionError("kernel %s: its record lacks %s"
+                                     % (name, ", ".join(sorted(missing))))
             entry.update(device_ms=rec["device_ms"], split=rec["split"],
                          cuda_core_bound_ms=rec["cuda_core_bound_ms"])
+        if name.startswith("quantized_matmul"):
+            entry["tile_m"] = rec["tile_m"]
         if name == "precise_matmul_l1":
             entry["level0"] = k4[0]
         out.append(entry)

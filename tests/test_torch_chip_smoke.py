@@ -8,12 +8,17 @@
   names the device copies and cuDNN's layout transforms, and sums the
   int64 elementwise kernels (dropout's threefry draws).  A traced run
   whose trace holds no device time is traced again on a fresh run, up
-  to ``TRACE_TRIES``; one with no device time in every try fails.
+  to ``TRACE_TRIES``; one with no device time in every try fails.  A
+  traced run sums K3's and K4's products and folds.  A kernel's profile
+  whose launch count is short of the calls' lost records and is taken
+  again.
 - The ``kernels`` line holds every kernel of the main paths (slice 3's
   flash attention K7-K9 and slice 4's LRN pair K5/K6 included), refuses
   one that never launched there or was never measured, and carries K4's
   level 0 (on no main path: ``precise_gemm=0`` means plain matmuls)
-  inside the level-1 entry.
+  inside the level-1 entry.  K3's and K4's entries carry the profiler's
+  device time, the split and the CUDA-core bound (K3 its tile too); a
+  record without them fails.
 - The helpers of the AlexNet and LRN convnet phases: the LRN form is set
   on the LRN layers only, and ``steps_agree`` refuses a step that
   differs past its limits.
@@ -130,6 +135,44 @@ def test_a_run_with_no_device_time_fails_every_try(monkeypatch):
     assert len(made) == n
 
 
+def test_trace_record_sums_k3_and_k4():
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [_Row("void (anonymous namespace)::quantized_matmul_kernel<"
+                 "(anonymous namespace)::Int8, Tile<16, 32>>", 3000.0, 496,
+                 cuda),
+            _Row("void (anonymous namespace)::quantized_matmul_kernel<"
+                 "(anonymous namespace)::Int8, Tile<64, 64>>", 1500.0, 128,
+                 cuda),
+            _Row("(anonymous namespace)::quantized_fold_kernel", 500.0, 20,
+                 cuda),
+            _Row("precise_matmul_kernel<1, true, true>", 2000.0, 10, cuda)]
+    rec = chip_smoke._trace_record(_Prof(rows), "t", "card", 0.5)
+    assert rec["k3_ms"] == pytest.approx(4.5) and rec["k3_launches"] == 624
+    assert rec["k3_fold_ms"] == pytest.approx(0.5)
+    assert rec["k3_fold_launches"] == 20
+    assert rec["k4_ms"] == pytest.approx(2.0) and rec["k4_launches"] == 10
+    assert rec["k4_fold_ms"] == 0 and rec["k4_fold_launches"] == 0
+
+
+def test_a_profile_that_lost_launches_is_taken_again(monkeypatch):
+    cuda = torch.autograd.DeviceType.CUDA
+    short = [_Row("quantized_matmul_kernel", 50.0, 15, cuda)]
+    full = [_Row("quantized_matmul_kernel", 200.0, 20, cuda),
+            _Row("quantized_fold_kernel", 40.0, 20, cuda)]
+    fake = _fake_tracer(monkeypatch, [short, full])
+    calls = []
+    ms = chip_smoke._device_ms(fake, lambda: calls.append(1), iters=20,
+                               launches=2)
+    assert ms == pytest.approx(0.012) and len(calls) == 41
+    fake = _fake_tracer(monkeypatch, [short] * chip_smoke.TRACE_TRIES)
+    with pytest.raises(AssertionError, match="15 device launches, 40"):
+        chip_smoke._device_ms(fake, lambda: None, iters=20, launches=2)
+    # without a count, any profile with device time is taken
+    fake = _fake_tracer(monkeypatch, [short])
+    assert chip_smoke._device_ms(fake, lambda: None, iters=5) == \
+        pytest.approx(0.01)
+
+
 def _rec(ms):
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": 2 * ms,
             "bound_ms": ms / 10, "bound_by": "bytes", "library_ms": None,
@@ -143,6 +186,13 @@ def _k4_rec(ms):
                 cuda_core_bound_ms=ms / 4)
 
 
+def _k3_rec(ms):
+    """A K3 record: its device time, the plan's tile and split, the
+    CUDA-core bound beside the 2xTF32 one."""
+    return dict(_rec(ms), device_ms=ms / 4, tile_m=16, split=1,
+                k_split=64, cuda_core_bound_ms=ms / 8)
+
+
 def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     slice1 = ("paged_attention_f32", "paged_attention_int8",
               "quantized_matmul_int8", "quantized_matmul_fp8")
@@ -151,6 +201,9 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     slice4 = ("lrn_fwd", "lrn_bwd")
     kernels = {name: {"main": _rec(0.1), "realistic": [_rec(0.4)]}
                for name in slice1 + slice3 + slice4}
+    for name in slice1[2:]:
+        kernels[name] = {"main": _k3_rec(0.1),
+                         "realistic": [dict(_k3_rec(0.4), split=8)]}
     k4 = {level: {"main": [_k4_rec(0.08 + level), _k4_rec(0.07)],
                   "realistic": [_k4_rec(7.0)]} for level in (0, 1, 2)}
     launches = dict({name: 64 for name in slice1},
@@ -188,6 +241,19 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     with pytest.raises(AssertionError, match="not measured"):
         chip_smoke.kernels_line(unmeasured, k4, launches)
     by_name = {e["name"]: e for e in line["kernels"]}
+    for name in slice1[2:]:
+        entry = by_name[name]
+        assert entry["id"] == "K3" and entry["device_ms"] == 0.025
+        assert entry["split"] == 1 and entry["tile_m"] == 16
+        assert entry["cuda_core_bound_ms"] == 0.0125
+        assert entry["realistic"][0]["split"] == 8
+        for key in ("device_ms", "split"):
+            bare = dict(kernels)
+            rec = dict(kernels[name]["main"])
+            del rec[key]
+            bare[name] = dict(kernels[name], main=rec)
+            with pytest.raises(AssertionError, match="lacks " + key):
+                chip_smoke.kernels_line(bare, k4, launches)
     for name, kid in zip(slice3, ("K7", "K8", "K9")):
         entry = by_name[name]
         assert entry["id"] == kid and entry["route"] == "cuda"

@@ -17,6 +17,8 @@ geometry where both JAX backward passes are banded (T=256, window 40,
 the port its plain versions, the same function.  Tolerances are the
 JAX tests' own: 2e-5 forward, 5e-4 grads.  The port's
 ``attention_reference`` with ``window`` is held against the JAX one.
+Head dims 192 and 256, past the CUDA kernels' limit of 128, run on the
+CPU as in the JAX package (forward and grads); only a CUDA call raises.
 """
 
 import numpy
@@ -131,6 +133,33 @@ def test_forward_at_untileable_t_matches_jax():
     _close(out.numpy(), want, FWD_TOL)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [192, 256])
+def test_head_dims_past_the_card_limit_match_jax(d, causal):
+    """Head dims past ``MAX_HEAD_DIM`` (the CUDA kernels' own limit) on
+    the CPU: the forward and the grads through the autograd Function
+    against the JAX kernels in interpret mode and ``jax.grad``."""
+    assert d > fa.MAX_HEAD_DIM
+    q, k, v = _mk(1, 128, 2, d, seed=d)
+
+    def jax_out(q, k, v):
+        return jfa.flash_attention(q, k, v, causal, None, 64, 64, None)
+
+    def jax_loss(q, k, v):
+        out = jax_out(q, k, v)
+        return jnp.sum(jnp.sin(out) * out)
+
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_out = jax_out(jq, jk, jv)
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [x.requires_grad_() for x in _tensors(q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal)
+    _close(out.detach().numpy(), want_out, FWD_TOL, "out")
+    got = torch.autograd.grad((torch.sin(out) * out).sum(), leaves)
+    for g, w, name in zip(got, want, "qkv"):
+        _close(g.numpy(), w, GRAD_TOL, "d" + name)
+
+
 @pytest.mark.parametrize("window", [None, 1, 5, 64, 100])
 def test_attention_reference_matches_jax(window):
     q, k, v = _mk(2, 64, 2, 8, seed=6)
@@ -163,7 +192,7 @@ def test_value_errors():
         for w in (0, -3):
             with pytest.raises(ValueError, match=">= 1"):
                 fn(q, k, v, causal=True, window=w)
-    z = torch.zeros((1, 4, 1, fa.MAX_HEAD_DIM + 1))
+    z = torch.zeros((1, 4, 1, 0))
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(z, z, z)
     with pytest.raises(ValueError, match="shape"):

@@ -9,8 +9,9 @@ On a machine with a card, run them without the JAX test configuration:
 
 Tolerances: paged attention ``max|kernel - plain| <= 1e-5`` (another
 summation order and ``expf``); the quantized GEMM
-``max|kernel - plain| <= 1e-5 * max|plain|`` (per-element f32 FMA
-chains against cuBLAS's blocked sums); the precise GEMM
+``max|kernel - plain| <= 1e-5 * max|plain|`` (2xTF32 tensor-core
+products, exact in the weights, summed in another order than cuBLAS's,
+split-K ranges added in K order); the precise GEMM
 ``max|kernel - plain| <= 1e-6 * max(|a| @ |b|)`` (the same K tiles,
 each summed in another order than cuBLAS's); flash attention (K7-K9)
 out and lse ``<= 2e-5``, each gradient ``<= 5e-4 * max(1, max|plain|)``
@@ -158,6 +159,92 @@ def test_quantized_matmul_refuses_what_the_kernel_cannot_take(cuda):
         gemm.quantized_matmul(a.double(), w_q, s)
     with pytest.raises(ValueError):        # weights on the host
         gemm.quantized_matmul(a, w_q.cpu(), s)
+
+
+def _qmm_inputs(dev, m, k, n, dtype, seed):
+    rng = numpy.random.RandomState(seed)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.standard_normal((k, n)), dtype=torch.float32,
+                     device=dev)
+    w[:, 3] = 0.0                          # an all-zero output channel
+    w_q, s = gemm.quantize_weight(w, dtype)
+    return a, w_q, s
+
+
+def _qmm_close(out, a, w_q, s):
+    ref = gemm.quantized_matmul_reference(a, w_q, s)
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    return ref
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 256])
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quantized_matmul_at_decode_and_prefill_rows(cuda, m, dtype):
+    """K = N = 4096: 1 and 16 rows take the 16-row tile, 17 and 256 the
+    64-row one; each grid is thinner than the card, so K splits and the
+    fold launches (counted); two identical calls give the same bits."""
+    a, w_q, s = _qmm_inputs(cuda, m, 4096, 4096, dtype, seed=m)
+    tile, split, k_split = gemm.quantized_matmul_plan(m, 4096, 4096, cuda)
+    assert tile == (16 if m <= 16 else 64)
+    assert split > 1 and (split - 1) * k_split < 4096 <= split * k_split
+    launches = gemm.quantized_matmul.launches
+    folds = gemm.quantized_matmul.fold_launches
+    out = gemm.quantized_matmul(a, w_q, s)
+    again = gemm.quantized_matmul(a, w_q, s)
+    torch.cuda.synchronize()
+    assert gemm.quantized_matmul.launches == launches + 2
+    assert gemm.quantized_matmul.fold_launches == folds + 2
+    assert torch.equal(out, again)
+    _qmm_close(out, a, w_q, s)
+
+
+@pytest.mark.parametrize("shape", [(16, 1000, 4096), (17, 4096, 4100),
+                                   (5, 2048, 4097), (256, 1000, 520)])
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quantized_matmul_split_and_unsplit_match_plain(cuda, shape, dtype):
+    """N not a multiple of 16 (4-byte copies at 4100 and 520, byte loads
+    at 4097), K = 1000 leaving a partial 64-deep stage; the planned call
+    (split) and the same call over one K range both hold the limit."""
+    m, k, n = shape
+    a, w_q, s = _qmm_inputs(cuda, m, k, n, dtype, seed=k + n)
+    tile, split, k_split = gemm.quantized_matmul_plan(m, k, n, cuda)
+    assert split > 1
+    launches = gemm.quantized_matmul.launches
+    folds = gemm.quantized_matmul.fold_launches
+    planned = gemm.quantized_matmul(a, w_q, s)
+    unsplit = gemm._quantized_launch(a, w_q, s, (tile, 1, k))
+    torch.cuda.synchronize()
+    assert gemm.quantized_matmul.launches == launches + 2
+    assert gemm.quantized_matmul.fold_launches == folds + 1
+    _qmm_close(planned, a, w_q, s)
+    _qmm_close(unsplit, a, w_q, s)
+
+
+def test_quantized_matmul_fp8_every_finite_byte(cuda):
+    """fp8 weights over every finite e4m3 bit pattern; column 0 holds
+    only subnormals (0x01-0x07 and their negatives) and is held to its
+    own largest output."""
+    rng = numpy.random.RandomState(11)
+    finite = numpy.array([b for b in range(256) if b & 0x7F != 0x7F],
+                         numpy.uint8)
+    sub = numpy.array([b for b in finite if b & 0x78 == 0 and b & 7],
+                      numpy.uint8)
+    m, k, n = 16, 2048, 384
+    q = finite[rng.randint(0, len(finite), (k, n))]
+    q[:, 0] = sub[rng.randint(0, len(sub), k)]
+    q[:len(finite), 1] = finite
+    w_q = torch.tensor(q, device=cuda).view(gemm.fp8_dtype())
+    s = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32,
+                     device=cuda)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=torch.float32,
+                     device=cuda)
+    out = gemm.quantized_matmul(a, w_q, s)
+    torch.cuda.synchronize()
+    ref = _qmm_close(out, a, w_q, s)
+    assert float((out[:, 0] - ref[:, 0]).abs().max()) <= \
+        1e-5 * float(ref[:, 0].abs().max())
 
 
 def _precise_inputs(dev, m, k, n, seed):
@@ -440,6 +527,19 @@ def test_flash_attention_refuses_what_the_kernels_cannot_take(cuda):
             2, 3), k, v)
     with pytest.raises(ValueError):        # a window without causal
         fa.flash_attention_fwd(q, k, v, causal=False, window=4)
+
+
+def test_flash_attention_head_dims_past_128_raise_on_the_card(cuda):
+    """The plain versions take head dim 192 (the CPU tests hold them to
+    the JAX kernels); on the card every entry refuses it by name."""
+    q, k, v, do = _flash_inputs(cuda, 1, 16, 2, 192, seed=1)
+    lse = torch.zeros((2, 16), device=cuda)
+    for call in (lambda: fa.flash_attention(q, k, v, causal=True),
+                 lambda: fa.flash_attention_fwd(q, k, v),
+                 lambda: fa.flash_attention_dq(q, k, v, do, lse, lse),
+                 lambda: fa.flash_attention_dkv(q, k, v, do, lse, lse)):
+        with pytest.raises(ValueError, match="head dim 192"):
+            call()
 
 
 def test_needle_training_on_the_card_matches_the_cpu(cuda):

@@ -19,7 +19,9 @@ matrix: K/V (or Q) tiles stream through shared memory, and a window
 visits only the tiles inside its band.  They read q, k, v and dO through
 their strides (the head dim must be unit stride), so the views a packed
 QKV projection yields cost no copy; they take any T (a ragged last tile
-is masked in the kernel) and head dims 1-128.  The JAX package's
+is masked in the kernel) and head dims 1-128; a CUDA call past that
+raises, while the plain versions, like the JAX kernels, take any head
+dim.  The JAX package's
 ``block_q``/``block_k`` and their autotune lookup chose TPU VMEM tiles;
 the CUDA kernels choose their own, so neither is carried over.
 
@@ -41,7 +43,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_delta", "flash_fwd_reference",
            "flash_dq_reference", "flash_dkv_reference", "MAX_HEAD_DIM"]
 
-#: the largest head dim the kernels take
+#: the largest head dim the CUDA kernels take (the plain versions take any)
 MAX_HEAD_DIM = 128
 #: bytes of one ``[heads, T, T]`` f32 tensor of a plain version's chunk
 _CHUNK_BYTES = 1 << 30
@@ -72,14 +74,21 @@ def _check(q, k, v, causal, window, *more):
         raise ValueError("want q, k, v of one [B, T, H, D] shape, got %r, "
                          "%r, %r" % (tuple(q.shape), tuple(k.shape),
                                      tuple(v.shape)))
-    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
-        raise ValueError("head dim %d outside 1..%d"
-                         % (q.shape[-1], MAX_HEAD_DIM))
+    if q.shape[-1] < 1:
+        raise ValueError("head dim %d must be >= 1" % q.shape[-1])
     devices = {t.device for t in (q, k, v) + more}
     if len(devices) != 1:
         raise ValueError("operands on several devices: %s"
                          % sorted(map(str, devices)))
     return q.device.type == "cpu"
+
+
+def _card_head_dim(q):
+    """The kernels' own limit on the head dim (K9 already holds 222.7
+    KB of shared memory at 128)."""
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError("head dim %d outside 1..%d: the CUDA kernels take "
+                         "no more" % (q.shape[-1], MAX_HEAD_DIM))
 
 
 def _view(x, name):
@@ -229,6 +238,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, window=None):
     the kernel; CPU operands run :func:`flash_fwd_reference`."""
     if _check(q, k, v, causal, window):
         return flash_fwd_reference(q, k, v, causal, scale, window)
+    _card_head_dim(q)
     b, t, h, _ = q.shape
     args = _view(q, "q") + _view(k, "k") + _view(v, "v")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -259,6 +269,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None,
     if _check(q, k, v, causal, window, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal, scale,
                                   window)
+    _card_head_dim(q)
     args = _backward_args(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = _build.function(_SRC, "vt_flash_dq",
@@ -278,6 +289,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
     if _check(q, k, v, causal, window, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale,
                                    window)
+    _card_head_dim(q)
     args = _backward_args(q, k, v, do, lse, delta)
     dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)

@@ -14,17 +14,20 @@ compensated sum), the carries folded in after the last tile.  It is a
 **Weight-quantized serving GEMM** (:func:`quantized_matmul`, kernel K3
 in ``csrc/quantized_matmul.cu``).  Weights are static at serve time, so
 they quantize ONCE — symmetric, one f32 scale per output channel — and
-the kernel streams int8 or float8-e4m3 bytes, upcasts each tile to f32
-on the card and folds the channel scales into the output after the K
-loop.  That is exact up to the weight quantization itself, because
-per-output-channel scales factor out of the K contraction.
+the kernel streams int8 or float8-e4m3 bytes, upcasts them to f32 in
+registers on the card and folds the channel scales into the output
+after the K loop.  That is exact up to the weight quantization itself,
+because per-output-channel scales factor out of the K contraction.
+:func:`quantized_matmul_plan` gives the tile and the split-K the kernel
+takes for a shape on a card.
 
 CUDA tensors launch the kernels; CPU tensors take
 :func:`precise_matmul_reference` / :func:`quantized_matmul_reference`.
 ``precise_matmul.launches`` and ``quantized_matmul.launches`` count the
 kernel launches; ``precise_matmul.fold_launches`` counts the K4 calls
 that split K over their 256-deep tiles (small output grids) and so
-launched the fold kernel after the products.
+launched the fold kernel after the products, and
+``quantized_matmul.fold_launches`` the K3 calls that split K.
 """
 
 import ctypes
@@ -34,7 +37,8 @@ import torch
 from .. import _build
 
 __all__ = ["precise_matmul", "precise_matmul_reference", "quantize_weight",
-           "quantized_matmul", "quantized_matmul_reference", "fp8_dtype",
+           "quantized_matmul", "quantized_matmul_plan",
+           "quantized_matmul_reference", "fp8_dtype",
            "DEFAULT_BLOCK_K"]
 
 #: K tile of the JAX kernels: the unit of compensated accumulation of
@@ -96,7 +100,8 @@ def quantized_matmul(a, w_q, scales):
     ``a``: f32 [M, K]; ``w_q``: int8 or float8_e4m3fn [K, N] with f32
     ``scales`` [N] from :func:`quantize_weight`.  Returns f32 [M, N].
     CUDA tensors run the kernel (every operand contiguous, on one
-    card); CPU tensors run :func:`quantized_matmul_reference`.
+    card), with the tile and split of :func:`quantized_matmul_plan`;
+    CPU tensors run :func:`quantized_matmul_reference`.
     """
     if a.ndim != 2 or w_q.ndim != 2:
         raise ValueError("want a [M, K] and w_q [K, N], got %r and %r"
@@ -126,20 +131,61 @@ def quantized_matmul(a, w_q, scales):
     if m == 0 or n == 0 or k == 0:
         raise ValueError("empty operand: a %r, w_q %r"
                          % (tuple(a.shape), tuple(w_q.shape)))
+    return _quantized_launch(a, w_q, scales,
+                             quantized_matmul_plan(m, k, n, a.device))
+
+
+def _quantized_launch(a, w_q, scales, plan):
+    """One K3 call on checked CUDA operands with ``plan`` = (tile rows,
+    split, K columns a split); a split call launches the fold too."""
+    (m, k), n = a.shape, w_q.shape[1]
+    tile_m, split, k_split = plan
     symbol = ("vt_quantized_matmul_int8" if w_q.dtype == torch.int8
               else "vt_quantized_matmul_fp8")
-    fn = _build.function(_SRC, symbol, [_P] * 4 + [_I] * 3 + [_P])
+    fn = _build.function(_SRC, symbol, [_P] * 5 + [_I] * 6 + [_P])
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    # split-K: one partial a K range, added up by the kernel's second launch
+    ws = (torch.empty((split, m, n), dtype=torch.float32, device=a.device)
+          if split > 1 else None)
     with torch.cuda.device(a.device):
         code = fn(a.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                  out.data_ptr(), m, n, k, _build.stream_ptr(a.device))
+                  out.data_ptr(), ws.data_ptr() if split > 1 else None,
+                  m, n, k, tile_m, split, k_split,
+                  _build.stream_ptr(a.device))
     _build.check(_SRC, code, "quantized_matmul kernel")
     quantized_matmul.launches += 1
+    if split > 1:
+        quantized_matmul.fold_launches += 1
     return out
 
 
 #: kernel launches since the last reset (CPU calls do not count)
 quantized_matmul.launches = 0
+#: of those, the calls that split K and launched the fold as well
+quantized_matmul.fold_launches = 0
+
+_QMM_PLANS = {}
+
+
+def quantized_matmul_plan(m, k, n, device):
+    """``(tile rows, split, K columns a split)`` K3 takes for an ``[m,
+    k] @ [k, n]`` call on ``device``'s card: the kernel's rule
+    (``vt_quantized_matmul_plan``), asked once a shape and card.  A
+    split of 1 is one launch; above 1, each of ``split`` CTAs of an
+    output tile sums its K range into a workspace and the fold adds the
+    ranges in K order."""
+    index = _device_index(device)
+    key = (m, k, n, index)
+    plan = _QMM_PLANS.get(key)
+    if plan is None:
+        buf = (ctypes.c_int * 3)()
+        code = _build.function(
+            _SRC, "vt_quantized_matmul_plan",
+            [_I] * 4 + [ctypes.POINTER(ctypes.c_int)])(
+                m, n, k, _sm_count(index), buf)
+        _build.check(_SRC, code, "quantized_matmul plan")
+        plan = _QMM_PLANS[key] = tuple(buf)
+    return plan
 
 
 def quantized_matmul_reference(a, w_q, scales):
@@ -243,17 +289,26 @@ def _precise_launch(a, b, level):
 _SM_COUNT = {}
 
 
-def _precise_split(m, n, k, device):
-    """The number of 256-deep K tiles K4 splits a call over (0: none):
-    the kernel's rule, given the card's SM count (read once a card)."""
-    index = device.index if device.index is not None else \
+def _device_index(device):
+    return device.index if device.index is not None else \
         torch.cuda.current_device()
+
+
+def _sm_count(index):
+    """The SM count of card ``index`` (read once a card)."""
     sms = _SM_COUNT.get(index)
     if sms is None:
         sms = _SM_COUNT[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
+    return sms
+
+
+def _precise_split(m, n, k, device):
+    """The number of 256-deep K tiles K4 splits a call over (0: none):
+    the kernel's rule, given the card's SM count."""
     return _build.function(_PRECISE_SRC, "vt_precise_matmul_split",
-                           [_I] * 4)(m, n, k, sms)
+                           [_I] * 4)(m, n, k,
+                                     _sm_count(_device_index(device)))
 
 
 class _PreciseMatmul(torch.autograd.Function):
