@@ -32,12 +32,18 @@ Phases (any failure raises and the script exits non-zero):
    K8 dq, K9 dk/dv) on ``randn * 0.5`` inputs, q/k/v as strided views of
    one packed projection: out and lse ``max|kernel - plain| <= 2e-5``,
    each gradient ``<= 5e-4 * max(1, max|plain|)``; at head dims 4, 8, 16,
-   T = 7, 8, 256, windows 1-256 (untimed), at the main path's shape
-   (B=8, T=2048, H=8, D=64: no mask, causal, causal with window 512) and
-   at the JAX package's bench shapes (B=2, T=2048 causal; B=1, T=16384,
-   window 512); ``library_ms`` is ``scaled_dot_product_attention`` on the
-   same f32 inputs, its forward on K7's row and its backward on K8's and
-   K9's.  LRN (K5 forward, K6 backward) on ``randn * 2`` inputs:
+   T = 7, 8, 256, windows 1-256 and at head dims 129, 192, 256, T = 7,
+   256 (untimed), at the main path's shape (B=8, T=2048, H=8, D=64: no
+   mask, causal, causal with window 512), at the JAX package's bench
+   shapes (B=2, T=2048 causal; B=1, T=16384, window 512) and at head
+   dims 128 and 256 (B=2, T=2048, causal); each timed with CUDA events
+   and the profiler's device time, with the instantiation (head-dim
+   tile) that ran; K8's and K9's bound is 3x their useful operations at
+   the TF32 rate (3xTF32), beside the CUDA-core bound; ``library_ms``
+   is ``scaled_dot_product_attention`` pinned to its memory-efficient
+   backend (3xTF32 ``mma.sync`` on f32 inputs) on the same f32 inputs,
+   its forward on K7's row and its backward on K8's and K9's.  LRN (K5
+   forward, K6 backward) on ``randn * 2`` inputs:
    ``max|kernel - plain| <= 1e-5 * max(1, max|plain|)``, at n 1-5 and C
    1-5000 with alpha 0.5 (untimed), and timed at the main paths' LRN
    shapes: AlexNet's two at minibatch 128 (the first is the kernels
@@ -552,15 +558,22 @@ FLASH_MASKS = ((False, None), (True, None), (True, 512))
 #: the JAX package's measured shapes (bench.py:543 bench_flash_attention,
 #: :577 bench_window_attention)
 FLASH_REALISTIC = (((2, 2048, 8, 64), True, None),
-                   ((1, 16384, 8, 64), True, 512))
+                   ((1, 16384, 8, 64), True, 512),
+                   ((2, 2048, 4, 128), True, None),
+                   ((2, 2048, 2, 256), True, None))
 #: (B, T, H, D, causal, window) held untimed: head dims below a tile, T
 #: below and at a tile, the JAX tests' windows, and T=256 with window
-#: 40, where both backward passes are banded (test_flash_attention.py)
+#: 40, where both backward passes are banded (test_flash_attention.py);
+#: head dims past 128 (the 256 instantiation, zero-padded below 256)
 FLASH_SMALL = tuple(
     [(2, t, 2, d, c, w) for d in (4, 8, 16) for t in (7, 8, 256)
      for c, w in ((False, None), (True, None), (True, 5))] +
     [(1, 256, 2, 16, True, w) for w in (1, 5, 64, 100, 256)] +
-    [(1, 256, 2, 8, True, 40)])
+    [(1, 256, 2, 8, True, 40)] +
+    [(2, t, 2, d, c, w) for d in (129, 192, 256) for t in (7, 256)
+     for c, w in ((False, None), (True, None), (True, 40))])
+#: the head-dim tiles the kernels are instantiated at (csrc dispatch)
+FLASH_D_TILES = (32, 64, 128, 256)
 FLASH_FWD_TOL = 2e-5
 FLASH_GRAD_TOL = 5e-4
 
@@ -620,10 +633,19 @@ def _flash_check(torch, fa, q, k, v, do, causal, window, label):
     return err, ref_out, ref_lse, delta
 
 
+#: the backend the library yardstick is pinned to: on f32 inputs the
+#: memory-efficient kernel, whose products are 3xTF32 on mma.sync
+SDPA_BACKEND = "EFFICIENT_ATTENTION"
+
+
 def _sdpa_calls(torch, q, k, v, do, causal, window):
-    """``scaled_dot_product_attention`` on the same f32 inputs: (forward,
-    backward, forward output) for timing; a window is a boolean band."""
+    """``scaled_dot_product_attention`` on the same f32 inputs, pinned to
+    ``SDPA_BACKEND``: (forward, backward, forward output) for timing; a
+    window is a boolean band.  Each call runs inside the pin, so the
+    yardstick cannot change backend from run to run."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     f = torch.nn.functional
+    backend = getattr(SDPBackend, SDPA_BACKEND)
     qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     kw = {"is_causal": causal}
@@ -632,15 +654,18 @@ def _sdpa_calls(torch, q, k, v, do, causal, window):
         rows = torch.arange(t, device=q.device)[:, None]
         cols = torch.arange(t, device=q.device)[None, :]
         kw = {"attn_mask": (cols <= rows) & (cols > rows - window)}
-    out = f.scaled_dot_product_attention(qh, kh, vh, **kw)
+    with sdpa_kernel(backend):
+        out = f.scaled_dot_product_attention(qh, kh, vh, **kw)
     g = do.transpose(1, 2).contiguous()
 
     def fwd():
-        with torch.no_grad():
+        with torch.no_grad(), sdpa_kernel(backend):
             return f.scaled_dot_product_attention(qh, kh, vh, **kw)
 
     def bwd():
-        return torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+        with sdpa_kernel(backend):
+            return torch.autograd.grad(out, (qh, kh, vh), g,
+                                       retain_graph=True)
 
     return fwd, bwd, out.detach().transpose(1, 2)
 
@@ -662,6 +687,7 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
     library_err = float((sdpa_out - ref_out).abs().max())
     del sdpa_fwd, sdpa_bwd, sdpa_out
     vis, bh, elem = _visible(t, causal, window), b * h, b * t * h * d
+    d_tile = min(x for x in FLASH_D_TILES if x >= d)
     calls = {
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(q, k, v, **kw),
@@ -681,17 +707,27 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
     recs = {}
     for name, (kernel, plain, nbytes, flops, lib_ms, e) in calls.items():
         bound_ms, bound_by = _bound(nbytes, flops)
-        rec = {"shape": label, "max_abs_err": e,
+        rec = {"shape": label, "max_abs_err": e, "d_tile": d_tile,
                "ms": _cuda_ms(torch, kernel),
+               "device_ms": _device_ms(torch, kernel, launches=1),
                "plain_ms": _cuda_ms(torch, plain, iters=3, warmup=1),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": lib_ms, "flops": flops}
-        _log("kernel %s [%s] max_err=%.3g kernel_ms=%.4f plain_ms=%.4f "
-             "bound_ms=%.4f (%s) library_ms=%.4f (scaled_dot_product_"
-             "attention %s; its output within %.3g of the plain one)"
-             % (name, label, e, rec["ms"], rec["plain_ms"], bound_ms,
-                bound_by, lib_ms, "forward" if name.endswith("fwd")
-                else "backward, dq+dk+dv", library_err))
+        if name != "flash_attention_fwd":
+            # K8 / K9: three TF32 tensor-core products a useful one; the
+            # CUDA-core bound stands beside it
+            tc_ms = 3 * flops / TF32_FLOPS * 1e3
+            rec.update(tf32x3_bound_ms=tc_ms, cuda_core_bound_ms=bound_ms)
+            rec["bound_ms"], rec["bound_by"] = max(
+                (tc_ms, "operations"), _bound(nbytes, 0))
+        _log("kernel %s [%s] D tile %d max_err=%.3g kernel_ms=%.4f "
+             "device_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s; CUDA cores "
+             "%.4f) library_ms=%.4f (scaled_dot_product_attention %s on "
+             "%s; its output within %.3g of the plain one)"
+             % (name, label, d_tile, e, rec["ms"], rec["device_ms"],
+                rec["plain_ms"], rec["bound_ms"], rec["bound_by"],
+                bound_ms, lib_ms, "forward" if name.endswith("fwd")
+                else "backward, dq+dk+dv", SDPA_BACKEND, library_err))
         recs[name] = rec
     return recs
 
@@ -705,7 +741,8 @@ def flash_phase(torch, fa, dev):
                      causal, window, "B=%d T=%d H=%d D=%d causal=%s "
                      "window=%s" % (b, t, h, d, causal, window))
     _log("kernel flash attention: %d small cases (head dims 4/8/16, T "
-         "7/8/256, windows 1-256) within the limits" % len(FLASH_SMALL))
+         "7/8/256, windows 1-256; head dims 129/192/256, T 7/256) within "
+         "the limits" % len(FLASH_SMALL))
     cases = [_measure_flash(torch, fa, dev, FLASH_MAIN, causal, window,
                             seed=100 + i)
              for i, (causal, window) in enumerate(FLASH_MASKS)]
@@ -1891,6 +1928,15 @@ def kernels_line(kernels, k4, launches):
                          cuda_core_bound_ms=rec["cuda_core_bound_ms"])
         if name.startswith("quantized_matmul"):
             entry["tile_m"] = rec["tile_m"]
+        if name.startswith("flash_attention"):
+            want = {"device_ms", "d_tile"}
+            if name != "flash_attention_fwd":
+                want |= {"tf32x3_bound_ms", "cuda_core_bound_ms"}
+            missing = want - set(rec)
+            if missing:
+                raise AssertionError("kernel %s: its record lacks %s"
+                                     % (name, ", ".join(sorted(missing))))
+            entry.update((key, rec[key]) for key in sorted(want))
         if name == "precise_matmul_l1":
             entry["level0"] = k4[0]
         out.append(entry)

@@ -17,8 +17,14 @@ geometry where both JAX backward passes are banded (T=256, window 40,
 the port its plain versions, the same function.  Tolerances are the
 JAX tests' own: 2e-5 forward, 5e-4 grads.  The port's
 ``attention_reference`` with ``window`` is held against the JAX one.
-Head dims 192 and 256, past the CUDA kernels' limit of 128, run on the
-CPU as in the JAX package (forward and grads); only a CUDA call raises.
+Head dims 192 and 256 (the kernels' 256 instantiation on the card) run
+on the CPU as in the JAX package (forward and grads).
+
+The card's K8 and K9 form every product in 3xTF32 on the tensor cores
+and join each streamed tile's sum in f32: a plain-torch emulation of
+those sums (TF32 rounding on the bit pattern, the kernels' tiles) is
+held against the JAX kernels within the grads' tolerance and against
+the plain versions within 1e-5 of max(1, max|plain|).
 """
 
 import numpy
@@ -136,10 +142,11 @@ def test_forward_at_untileable_t_matches_jax():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [192, 256])
 def test_head_dims_past_the_card_limit_match_jax(d, causal):
-    """Head dims past ``MAX_HEAD_DIM`` (the CUDA kernels' own limit) on
-    the CPU: the forward and the grads through the autograd Function
-    against the JAX kernels in interpret mode and ``jax.grad``."""
-    assert d > fa.MAX_HEAD_DIM
+    """Head dims past the kernels' former limit of 128, up to
+    ``MAX_HEAD_DIM`` (the 256 instantiation on the card), on the CPU:
+    the forward and the grads through the autograd Function against the
+    JAX kernels in interpret mode and ``jax.grad``."""
+    assert 128 < d <= fa.MAX_HEAD_DIM
     q, k, v = _mk(1, 128, 2, d, seed=d)
 
     def jax_out(q, k, v):
@@ -213,3 +220,87 @@ def test_cpu_calls_launch_nothing():
     assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == before
     assert q.grad is not None and k.grad is not None and v.grad is not None
+
+
+# -- 3xTF32, as K8 and K9 form their sums on the card -------------------------
+
+#: the kernels' streamed tiles by head-dim tile (csrc/flash_attention.cu,
+#: DqPlan / DkvPlan): the keys K8 sums a tile, the queries K9 does
+_KEY_TILE = {32: 64, 64: 32, 128: 32, 256: 16}
+_QUERY_TILE = {32: 64, 64: 32, 128: 32, 256: 16}
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: f32 rounded to 10 explicit mantissa bits, to
+    nearest with ties away from zero, on the bit pattern."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """``a @ b`` in 3xTF32: each operand split as ``hi + lo`` (``hi =
+    tf32(x)``, ``lo = tf32(x - hi)``), ``a_lo b_hi + a_hi b_lo`` first,
+    then ``a_hi b_hi`` (products of TF32 values are exact in f32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _joined(a, b, tile):
+    """``a @ b`` summed a tile of the contraction at a time, from its
+    first index on: each tile's 3xTF32 sum joins the f32 total."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], tile):
+        acc = acc + _mm3(a[..., k0:k0 + tile], b[..., k0:k0 + tile, :])
+    return acc
+
+
+def _emulated_backward(q, k, v, do, lse, delta, causal, window):
+    """dq, dk, dv ([B * H, T, D]) as the card's K8 / K9 sum them."""
+    d = q.shape[-1]
+    scale = 1.0 / numpy.sqrt(d)
+    d_tile = min(x for x in (32, 64, 128, 256) if x >= d)
+    s = _mm3(q, k.transpose(1, 2)) * scale
+    p = torch.exp(s - lse[..., None])
+    mask = fa._mask(q.shape[1], causal, window, q.device)
+    if mask is not None:
+        p = p.masked_fill(mask, 0.0)
+    ds = p * (_mm3(do, v.transpose(1, 2)) - delta[..., None])
+    dq = _joined(ds, k, _KEY_TILE[d_tile]) * scale
+    dk = _joined(ds.transpose(1, 2), q, _QUERY_TILE[d_tile]) * scale
+    dv = _joined(p.transpose(1, 2), do, _QUERY_TILE[d_tile])
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,t,d,causal,window", [
+    (1, 7, 16, False, None), (2, 7, 256, True, None),
+    (1, 64, 64, False, None), (2, 64, 16, True, 40),
+    (1, 64, 256, True, None), (2, 200, 64, True, None),
+    (1, 200, 16, True, 40), (1, 200, 256, True, 40),
+    (2, 200, 64, False, None)])
+def test_tf32x3_backward_matches_jax_kernels(b, t, d, causal, window):
+    """The emulated K8 / K9 sums against the JAX package's ``_dq_kernel``
+    and ``_dkv_kernel`` in interpret mode (``GRAD_TOL``), and against
+    the port's plain versions within 1e-5 of max(1, max|plain|)."""
+    q, k, v, do = _mk(b, t, 2, d, seed=t + d, n=4)
+    blocks = {7: (7, 7), 64: (32, 32), 200: (40, 40)}[t]
+    scale = 1.0 / numpy.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(_bh(x)) for x in (q, k, v, do))
+    out, lse = jfa._flash_fwd_bh(jq, jk, jv, scale, causal, *blocks,
+                                 window=window)
+    delta = numpy.sum(numpy.asarray(jdo) * numpy.asarray(out), axis=-1)
+    want = jfa._flash_bwd_bh(jq, jk, jv, out, lse, jdo, scale, causal,
+                             *blocks, delta=jnp.asarray(delta),
+                             window=window)
+    tlse, tdelta = _tensors(numpy.asarray(lse), delta)
+    got = _emulated_backward(*_tensors(*map(_bh, (q, k, v, do))), tlse,
+                             tdelta, causal, window)
+    tq, tk, tv, tdo = _tensors(q, k, v, do)
+    kw = dict(causal=causal, window=window)
+    plain = (fa.flash_dq_reference(tq, tk, tv, tdo, tlse, tdelta, **kw),) \
+        + fa.flash_dkv_reference(tq, tk, tv, tdo, tlse, tdelta, **kw)
+    for g, w, ref, name in zip(got, want, plain, ("dq", "dk", "dv")):
+        _close(g.numpy(), w, GRAD_TOL, name)
+        ref = torch.tensor(_bh(ref.numpy()))
+        assert float((g - ref).abs().max()) <= \
+            1e-5 * max(1.0, float(ref.abs().max())), name

@@ -18,22 +18,26 @@
 // visited, so windowed work is O(T * W), as the TPU kernel's banded grid
 // makes it.  A ragged T is masked in the kernels: every T takes them.
 //
-// What bounds them on the card: the f32 multiply-adds (4 T^2 D a head
-// forward, 6 T^2 D for dq, 8 T^2 D for dk/dv, halved by a causal mask) at
-// 67 TFLOP/s on the CUDA cores; the bytes are O(T D).  What the design
-// does about it: one CTA of 256 threads per (batch * head, tile of 64
-// rows); each thread owns a 4 x 4 block of the 64 x 64 score tile and a
+// What bounds them on the card: the multiply-adds (4 T^2 D a head
+// forward, 6 T^2 D for dq, 8 T^2 D for dk/dv, halved by a causal mask);
+// the bytes are O(T D).  K7 runs them as f32 FMAs on the CUDA cores (67
+// TFLOP/s): one CTA of 256 threads per (batch * head, tile of 64 rows);
+// each thread owns a 4 x 4 block of the 64 x 64 score tile and a
 // 4 x (DMAX / 16) block of the output tile, both in registers.  The
-// operand tiles of the score products are staged d-major in shared memory
-// so each step of the contraction is two float4 loads for 16 FMAs; the
-// probability tile goes back through shared memory for the second
-// product.  The online-softmax state (m, l) of a row lives in registers,
-// replicated over the 16 threads that share the row (a half warp, reduced
-// with shuffles).  No tensor cores (TF32 stays off), no TMA, no wgmma.
+// operand tiles of the score products are staged d-major in shared
+// memory so each step of the contraction is two float4 loads for 16
+// FMAs; the probability tile goes back through shared memory for the
+// second product.  The online-softmax state (m, l) of a row lives in
+// registers, replicated over the 16 threads that share the row (a half
+// warp, reduced with shuffles).  K8 and K9 run theirs on the tensor cores
+// in 3xTF32 (three TF32 products a step, 495 TFLOP/s for 3x the useful
+// operations; their section below says how).  TF32 alone stays off: every
+// result keeps f32's accuracy.  No TMA, no wgmma.
 //
 // The backward owns its outputs per CTA (dq by Q tiles, dk/dv by K
 // tiles), walks its tiles in a fixed order and uses no atomics: two runs
-// give the same bits.  expf / logf are the full-precision ones.
+// give the same bits.  expf / logf are the full-precision ones.  Head
+// dims 1-256: instantiations at 32, 64, 128 and 256, zero-padded below.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -181,20 +185,6 @@ __device__ __forceinline__ void k_range(int iq, int nk, int causal,
   }
 }
 
-// the Q tiles that see K tile jk: [lo, hi], the band capped at the last
-// Q tile (as _dkv_kernel caps it)
-__device__ __forceinline__ void q_range(int jk, int nq, int causal,
-                                        int window, int& lo, int& hi) {
-  lo = 0;
-  hi = nq - 1;
-  if (!causal) return;
-  lo = jk;  // queries at or after the tile's first key
-  if (window > 0) {
-    const long long last = (long long)jk * kB + kB - 1 + window - 1;
-    hi = (int)min((long long)hi, last / kB);
-  }
-}
-
 // the heaviest tiles (causal: the last) are scheduled first
 __device__ __forceinline__ void tile_of_block(int ntiles, int& bh,
                                               int& tile) {
@@ -293,176 +283,604 @@ flash_fwd_kernel(View q, View k, View v, float* __restrict__ out,
   }
 }
 
+// -- K8 and K9: the backward on the tensor cores, 3xTF32 ----------------------
+//
+// Each CTA owns 64 rows (K8: Q rows, K9: keys), four warps of 16 each,
+// and keeps their operand tiles (K8: Q and dO; K9: K and V) in shared
+// memory for its whole life.  The tiles it streams (K8: K and V; K9: Q,
+// dO and the row stats) come through a ring of kStages buffers filled by
+// cp.async, so the next tile lands while the current one is multiplied
+// (and, kPresplit, split once for all four warps).
+// Every tile is row-major [rows][DMAX + 4], as the operands lie in device
+// memory (16-byte copies, no transpose); the row length is 4 mod 32
+// floats, so each fragment read below hits 32 distinct banks.
+//
+// Every product runs on mma.sync.m16n8k8 (TF32 in, f32 accumulation):
+// each operand splits as x = hi + lo (hi = rna_tf32(x), lo = rna_tf32(x -
+// hi)) and each 8-deep step adds a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the
+// small products first.  A warp's scores (K8: S = Q.K^T and dP = dO.V^T;
+// K9: S^T = K.Q^T and dP^T = V.dO^T) stay in the accumulators, and p and
+// ds are formed there and fed back as the A operand of the next product
+// (K8: dQ += dS.K; K9: dV += P^T.dO, dK += dS^T.Q) with no trip through
+// shared memory: an accumulator holds columns 2 tig and 2 tig + 1, where
+// an A fragment wants tig and tig + 4, so each k8 step takes its keys (K8)
+// or queries (K9) in the order 0 2 4 6 1 3 5 7 and reads the B operand's
+// rows in the same order.  The tensor cores' f32 accumulation drifts over
+// long chains, so each streamed tile's contribution to dQ, dK and dV is
+// summed from zero in the tensor cores and joins the register sum with an
+// IEEE add.
+
+constexpr int kBwdRows = 64;      // rows a CTA owns
+constexpr int kBwdThreads = 128;  // four warps of 16 rows
+
+// the tiles of each instantiation, within the 227 KB a CTA may hold and
+// the 255 registers a thread may: K8 streams kBK keys a tile; K9 streams
+// kBQ queries a tile and writes kDS output columns a CTA (grid.y takes
+// the rest); kG output column tiles are summed side by side.  kPresplit:
+// each streamed tile, once landed, is split into TF32 hi (in place) and lo
+// (a second buffer) once for the CTA, behind one more barrier, where the
+// four warps would each split every value, K8's K and K9's Q and dO
+// twice (they serve two products): faster on an H100 at DMAX 64 and 128
+// (PERF.md).  At 256 the lo buffer leaves no room for 16-row
+// tiles, and 8-row ones were slower than splitting on the spot
 template <int DMAX>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * DMAX * kLd + kB * DMAX + kB * kLd);
+struct DqPlan;
+template <>
+struct DqPlan<32> {
+  static constexpr int kBK = 64, kStages = 3, kG = 4;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct DqPlan<64> {
+  static constexpr int kBK = 32, kStages = 2, kG = 4;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct DqPlan<128> {
+  static constexpr int kBK = 32, kStages = 2, kG = 4;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct DqPlan<256> {
+  static constexpr int kBK = 16, kStages = 2, kG = 2;
+  static constexpr bool kPresplit = false;
+};
+
+template <int DMAX>
+struct DkvPlan;
+template <>
+struct DkvPlan<32> {
+  static constexpr int kBQ = 64, kStages = 3, kDS = 32, kG = 4;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct DkvPlan<64> {
+  static constexpr int kBQ = 32, kStages = 2, kDS = 64, kG = 4;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct DkvPlan<128> {
+  static constexpr int kBQ = 32, kStages = 2, kDS = 128, kG = 2;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct DkvPlan<256> {
+  static constexpr int kBQ = 16, kStages = 2, kDS = 128, kG = 2;
+  static constexpr bool kPresplit = false;
+};
+
+// cvt.rna.tf32.f32 on the bit pattern: round the magnitude to 10
+// mantissa bits, to nearest with ties away from zero (two integer ops;
+// the PTX instruction also tests for NaN and infinity)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo in TF32 (the low 13 bits of each zero)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));  // x - hi is exact
+}
+
+// d += a . b on the tensor cores: a 16 x 8 (row), b 8 x 8 (col) TF32
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + R - 1 of one (b, h) slice into the row-major tile
+// s[R][DMAX + 4] by cp.async; zeros past T and past D.  Each thread
+// copies one fixed 4-column chunk of every kStep-th row (neighbouring
+// threads on neighbouring addresses): 16 bytes at a time when vec (the
+// operand's base and strides are multiples of 16 bytes), else 4
+template <int R, int DMAX>
+__device__ __forceinline__ void copy_rows(float* s, const float* base,
+                                          long long st, int r0, int T,
+                                          int D, bool vec) {
+  constexpr int kChunks = DMAX / 4, kStep = kBwdThreads / kChunks;
+  static_assert(kBwdThreads % kChunks == 0 && R % kStep == 0,
+                "every thread copies whole chunks of every pass");
+  const unsigned tid = threadIdx.x;
+  const int d = (int)(tid % kChunks) * 4;
+  const int n = max(0, min(4, D - d));  // the chunk's columns inside D
+  int t = r0 + (int)(tid / kChunks);
+  float* dst = s + (tid / kChunks) * (DMAX + 4) + d;
+  const float* src = base + (long long)t * st + d;
+#pragma unroll
+  for (int i = 0; i < R / kStep; ++i) {
+    const int m = t < T ? n : 0;
+    if (vec) {
+      cp_async16(dst, m ? src : base, 4 * m);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cp_async4(dst + e, e < m ? src + e : base, e < m ? 4 : 0);
+    }
+    t += kStep;
+    dst += kStep * (DMAX + 4);
+    src += kStep * st;
+  }
+}
+
+// lse and delta of rows q0 .. q0 + BQ - 1 into s[0 .. BQ) and s[BQ ..
+// 2 BQ); zeros past T
+template <int BQ>
+__device__ __forceinline__ void copy_stats(float* s, const float* lse,
+                                           const float* delta, int q0,
+                                           int T) {
+  static_assert(2 * BQ <= kBwdThreads, "one thread a stat");
+  const int i = threadIdx.x;
+  if (i < 2 * BQ) {
+    const float* src = i < BQ ? lse : delta;
+    const int t = q0 + (i < BQ ? i : i - BQ);
+    cp_async4(s + i, t < T ? src + t : src, t < T ? 4 : 0);
+  }
+}
+
+// one m16n8k8 operand fragment, split: A (row) 4 values, B (col) 2
+struct SplitA {
+  uint32_t hi[4], lo[4];
+};
+struct SplitB {
+  uint32_t hi[2], lo[2];
+};
+
+// split the N floats at p into TF32 hi (in place) and lo (to q), 16
+// bytes a step
+template <int N>
+__device__ __forceinline__ void presplit(float* p, float* q) {
+  static_assert(N % 4 == 0, "whole float4s");
+  for (int i = threadIdx.x * 4; i < N; i += 4 * kBwdThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(p + i);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<float4*>(p + i) =
+        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+    *reinterpret_cast<float4*>(q + i) =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// s[j] (16 x 8, columns 8 j ..) = a . b^T over DMAX: a the warp's 16
+// rows of a row-major tile, b NT * 8 rows of another (bl: its lo tile,
+// when PRE).  The A fragment is (row gid / gid + 8, column tig / tig +
+// 4), the B one (row gid, column tig / tig + 4): with rows 4 mod 32
+// floats apart, 32 distinct banks.  (The PRE choice is written out in
+// each helper: behind a shared inline helper ptxas gave K9 at DMAX 64
+// 171 registers, not this form's 213, and a slower schedule.)
+template <int NT, int DMAX, bool PRE>
+__device__ __forceinline__ void tile_qk(float (&s)[NT][4], const float* a,
+                                        const float* b, const float* bl,
+                                        int gid, int tig) {
+  constexpr int LD = DMAX + 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  const float* pa = a + gid * LD + tig;
+  const float* pb = b + gid * LD + tig;
+  const float* pl = bl + gid * LD + tig;
+#pragma unroll 8
+  for (int kk = 0; kk < DMAX; kk += 8) {
+    SplitA fa;
+    split_tf32(pa[kk], fa.hi[0], fa.lo[0]);
+    split_tf32(pa[kk + 8 * LD], fa.hi[1], fa.lo[1]);
+    split_tf32(pa[kk + 4], fa.hi[2], fa.lo[2]);
+    split_tf32(pa[kk + 8 * LD + 4], fa.hi[3], fa.lo[3]);
+    SplitB fb[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if constexpr (PRE) {
+        fb[j].hi[0] = __float_as_uint(pb[j * 8 * LD + kk]);
+        fb[j].hi[1] = __float_as_uint(pb[j * 8 * LD + kk + 4]);
+        fb[j].lo[0] = __float_as_uint(pl[j * 8 * LD + kk]);
+        fb[j].lo[1] = __float_as_uint(pl[j * 8 * LD + kk + 4]);
+      } else {
+        split_tf32(pb[j * 8 * LD + kk], fb[j].hi[0], fb[j].lo[0]);
+        split_tf32(pb[j * 8 * LD + kk + 4], fb[j].hi[1], fb[j].lo[1]);
+      }
+    }
+    // the three products in separate passes, so that no mma waits on
+    // the one just before it
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(s[j], fa.lo, fb[j].hi);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(s[j], fa.hi, fb[j].lo);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(s[j], fa.hi, fb[j].hi);
+  }
+}
+
+// an accumulator tile c (rows gid / gid + 8, columns 2 tig / 2 tig + 1)
+// as the A fragment of a k8 step that takes its columns in the order
+// 0 2 4 6 1 3 5 7: k = tig is column 2 tig, k = tig + 4 is 2 tig + 1
+__device__ __forceinline__ void acc_as_a(const float (&c)[4], SplitA& a) {
+  split_tf32(c[0], a.hi[0], a.lo[0]);
+  split_tf32(c[2], a.hi[1], a.lo[1]);
+  split_tf32(c[1], a.hi[2], a.lo[2]);
+  split_tf32(c[3], a.hi[3], a.lo[3]);
+}
+
+// acc[jd] (16 x 8, columns 8 jd ..) += a . b over the NT k8 steps of a
+// (acc_as_a): b is NT * 8 rows of a row-major tile from its column 0 on
+// (bl: its lo tile, when PRE), its rows read in the steps' order (row
+// 2 tig for k = tig, 2 tig + 1 for tig + 4).  Each output column tile's
+// sum over the NT steps starts at zero in the tensor cores and joins acc
+// with an IEEE add; G of them run side by side
+template <int NT, int KD, int G, int DMAX, bool PRE>
+__device__ __forceinline__ void tile_acc_tc(float (&acc)[KD][4],
+                                            const SplitA (&a)[NT],
+                                            const float* b, const float* bl,
+                                            int gid, int tig) {
+  constexpr int LD = DMAX + 4;
+  static_assert(KD % G == 0, "whole groups of output column tiles");
+  const float* pb = b + 2 * tig * LD + gid;
+  const float* pl = bl + 2 * tig * LD + gid;
+#pragma unroll
+  for (int jd0 = 0; jd0 < KD; jd0 += G) {
+    float t[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[g][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      SplitB fb[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int o = j * 8 * LD + (jd0 + g) * 8;
+        if constexpr (PRE) {
+          fb[g].hi[0] = __float_as_uint(pb[o]);
+          fb[g].hi[1] = __float_as_uint(pb[o + LD]);
+          fb[g].lo[0] = __float_as_uint(pl[o]);
+          fb[g].lo[1] = __float_as_uint(pl[o + LD]);
+        } else {
+          split_tf32(pb[o], fb[g].hi[0], fb[g].lo[0]);
+          split_tf32(pb[o + LD], fb[g].hi[1], fb[g].lo[1]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) mma_tf32(t[g], a[j].lo, fb[g].hi);
+#pragma unroll
+      for (int g = 0; g < G; ++g) mma_tf32(t[g], a[j].hi, fb[g].lo);
+#pragma unroll
+      for (int g = 0; g < G; ++g) mma_tf32(t[g], a[j].hi, fb[g].hi);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[jd0 + g][e] = __fadd_rn(acc[jd0 + g][e], t[g][e]);
+  }
+}
+
+// does the mask cut the tile of rows r_lo..r_hi and keys c_lo..c_hi?
+// (a ragged T, or the causal or window edge through it)
+__device__ __forceinline__ bool tile_masked(int r_lo, int r_hi, int c_lo,
+                                            int c_hi, int T, int causal,
+                                            int window) {
+  if (r_hi >= T || c_hi >= T) return true;
+  if (!causal) return false;
+  return c_hi > r_lo || (window > 0 && c_lo <= r_hi - window);
 }
 
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t dq_smem() {
+  using P = DqPlan<DMAX>;
+  return sizeof(float) * (DMAX + 4) *
+         (2 * kBwdRows + 2 * (P::kStages + P::kPresplit) * P::kBK);
+}
+
+// K8: dq of one Q tile of one (b, h)
+template <int DMAX>
+__global__ void __launch_bounds__(kBwdThreads)
 flash_dq_kernel(View q, View k, View v, View dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
-                int T, int H, int D, float scale, int causal, int window) {
-  constexpr int NDT = DMAX / 16;
+                int T, int H, int D, float scale, int causal, int window,
+                unsigned vec) {
+  using P = DqPlan<DMAX>;
+  constexpr int LD = DMAX + 4, BK = P::kBK, NS = P::kStages;
+  constexpr int NT = BK / 8, KD = DMAX / 8, kStage = 2 * BK * LD;
+  constexpr bool PRE = P::kPresplit;
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DMAX][kLd]
-  float* dot = qt + DMAX * kLd;                 // [DMAX][kLd], dO
-  float* kt = dot + DMAX * kLd;                 // [DMAX][kLd]
-  float* vt = kt + DMAX * kLd;                  // [DMAX][kLd]
-  float* ks = vt + DMAX * kLd;                  // [kB][DMAX]
-  float* dst = ks + kB * DMAX;                  // [kB][kLd]: ds, (key, row)
+  float* qs = reinterpret_cast<float*>(smem4);  // [kBwdRows][LD]
+  float* dos = qs + kBwdRows * LD;              // [kBwdRows][LD], dO
+  float* klo = dos + kBwdRows * LD;             // PRE: K, V lo [BK][LD]
+  float* ring = klo + PRE * kStage;             // NS x K, V [BK][LD]
 
-  const int ntiles = (T + kB - 1) / kB;
+  const int ntiles = (T + kBwdRows - 1) / kBwdRows;
   int bh, iq;
   tile_of_block(ntiles, bh, iq);
   const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = iq * kB;
+  const int q0 = iq * kBwdRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, m0 = warp * 16;
 
-  load_tile<DMAX>(qt, nullptr, row_base(q, b, h), q.st, q0, T, D, 1.f);
-  load_tile<DMAX>(dot, nullptr, row_base(dout, b, h), dout.st, q0, T, D,
-                  1.f);
-  float lse_r[4], delta_r[4], acc[4][NDT];
+  // the K tiles this Q tile sees: lo .. lo + n - 1
+  int lo = 0, hi = (T - 1) / BK;
+  if (causal) {
+    hi = min(hi, (q0 + kBwdRows - 1) / BK);
+    if (window > 0) lo = max(0, q0 - window + 1) / BK;
+  }
+  const int n = hi - lo + 1;
+
+  const float* kb = row_base(k, b, h);
+  const float* vb = row_base(v, b, h);
+  copy_rows<kBwdRows, DMAX>(qs, row_base(q, b, h), q.st, q0, T, D, vec & 1);
+  copy_rows<kBwdRows, DMAX>(dos, row_base(dout, b, h), dout.st, q0, T, D,
+                            vec & 8);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n) {
+      float* st = ring + s * kStage;
+      copy_rows<BK, DMAX>(st, kb, k.st, (lo + s) * BK, T, D, vec & 2);
+      copy_rows<BK, DMAX>(st + BK * LD, vb, v.st, (lo + s) * BK, T, D,
+                          vec & 4);
+    }
+    cp_async_commit();
+  }
+
+  // the thread's rows: q0 + m0 + gid and 8 below
+  float lse_r[2], delta_r[2], acc[KD][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + m0 + gid + 8 * i;
     lse_r[i] = r < T ? lse[(long long)bh * T + r] : 0.f;
     delta_r[i] = r < T ? delta[(long long)bh * T + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NDT; ++j) acc[i][j] = 0.f;
   }
-  int lo, hi;
-  k_range(iq, ntiles, causal, window, lo, hi);
-  for (int jk = lo; jk <= hi; ++jk) {
-    __syncthreads();
-    load_tile<DMAX>(kt, ks, row_base(k, b, h), k.st, jk * kB, T, D, 1.f);
-    load_tile<DMAX>(vt, nullptr, row_base(v, b, h), v.st, jk * kB, T, D,
-                    1.f);
-    __syncthreads();
-    float s[4][4], dov[4][4];
-    tile_dot<DMAX>(qt, kt, ty, tx, s);
-    tile_dot<DMAX>(dot, vt, ty, tx, dov);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+  for (int j = 0; j < KD; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = masked(r, jk * kB + tx * 4 + j, T, causal, window)
-                            ? 0.f
-                            : expf(s[i][j] * scale - lse_r[i]);
-        s[i][j] = p * (dov[i][j] - delta_r[i]);  // ds
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    {  // refill the buffer every thread finished with last iteration
+      const int nx = i + NS - 1;
+      if (nx < n) {
+        float* st = ring + (nx % NS) * kStage;
+        copy_rows<BK, DMAX>(st, kb, k.st, (lo + nx) * BK, T, D, vec & 2);
+        copy_rows<BK, DMAX>(st + BK * LD, vb, v.st, (lo + nx) * BK, T, D,
+                            vec & 4);
       }
+      cp_async_commit();
     }
-    store_t(dst, s, ty, tx);
-    __syncthreads();
-    tile_acc<DMAX>(dst, ks, ty, tx, acc);
+    float* ks = ring + (i % NS) * kStage;
+    if constexpr (PRE) {
+      presplit<kStage>(ks, klo);
+      __syncthreads();
+    }
+    const float* vs = ks + BK * LD;
+    const int c0 = (lo + i) * BK;
+    float s[NT][4], dp[NT][4];
+    tile_qk<NT, DMAX, PRE>(s, qs + m0 * LD, ks, klo, gid, tig);  // q k^T
+    tile_qk<NT, DMAX, PRE>(dp, dos + m0 * LD, vs, klo + BK * LD, gid,
+                           tig);                                 // dO v^T
+    const bool edge = tile_masked(q0 + m0, q0 + m0 + 15, c0, c0 + BK - 1, T,
+                                  causal, window);
+    SplitA a[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + m0 + gid + 8 * (e >> 1);
+        const int c = c0 + j * 8 + 2 * tig + (e & 1);
+        const float p = edge && masked(r, c, T, causal, window)
+                            ? 0.f
+                            : expf(s[j][e] * scale - lse_r[e >> 1]);
+        s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);  // ds
+      }
+      acc_as_a(s[j], a[j]);
+    }
+    tile_acc_tc<NT, KD, P::kG, DMAX, PRE>(acc, a, ks, klo, gid, tig);
   }
+  cp_async_wait<0>();
+
   float* o = dq + ((long long)b * T * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= T) continue;
+  for (int j = 0; j < KD; ++j)
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      const int d = tx * NDT + j;
-      if (d < D) o[(long long)r * H * D + d] = acc[i][j] * scale;
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + m0 + gid + 8 * (e >> 1);
+      const int d = j * 8 + 2 * tig + (e & 1);
+      if (r < T && d < D) o[(long long)r * H * D + d] = acc[j][e] * scale;
     }
-  }
 }
 
 template <int DMAX>
 constexpr size_t dkv_smem() {
+  using P = DkvPlan<DMAX>;
   return sizeof(float) *
-         (4 * DMAX * kLd + 2 * kB * DMAX + kB * kLd + 2 * kB);
+         (2 * (kBwdRows + P::kPresplit * P::kBQ) * (DMAX + 4) +
+          P::kStages * (2 * P::kBQ * (DMAX + 4) + 2 * P::kBQ));
 }
 
+// K9: dk and dv of one K tile of one (b, h), output columns blockIdx.y *
+// kDS ..
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 flash_dkv_kernel(View q, View k, View v, View dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
                  float* __restrict__ dv, int T, int H, int D, float scale,
-                 int causal, int window) {
-  constexpr int NDT = DMAX / 16;
+                 int causal, int window, unsigned vec) {
+  using P = DkvPlan<DMAX>;
+  constexpr int LD = DMAX + 4, BQ = P::kBQ, NS = P::kStages;
+  constexpr int NT = BQ / 8, KD = P::kDS / 8;
+  constexpr int kStage = 2 * BQ * LD + 2 * BQ;
+  constexpr bool PRE = P::kPresplit;
   extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);  // [DMAX][kLd]
-  float* vt = kt + DMAX * kLd;                  // [DMAX][kLd]
-  float* qt = vt + DMAX * kLd;                  // [DMAX][kLd]
-  float* dot = qt + DMAX * kLd;                 // [DMAX][kLd], dO
-  float* qs = dot + DMAX * kLd;                 // [kB][DMAX]
-  float* dos = qs + kB * DMAX;                  // [kB][DMAX], dO
-  float* wt = dos + kB * DMAX;   // [kB][kLd]: p, then ds, (row, key)
-  float* lse_s = wt + kB * kLd;  // [kB]
-  float* delta_s = lse_s + kB;   // [kB]
+  float* ks = reinterpret_cast<float*>(smem4);  // [kBwdRows][LD]
+  float* vs = ks + kBwdRows * LD;               // [kBwdRows][LD]
+  float* qlo = vs + kBwdRows * LD;              // PRE: Q, dO lo [BQ][LD]
+  // NS x Q, dO [BQ][LD], lse, delta [BQ]
+  float* ring = qlo + PRE * 2 * BQ * LD;
 
-  const int ntiles = (T + kB - 1) / kB;
-  int bh, jk;
-  tile_of_block(ntiles, bh, jk);
+  const int ntiles = (T + kBwdRows - 1) / kBwdRows;
+  // causal: the first K tiles see the most queries, and go first
+  const int bh = blockIdx.x / ntiles, jk = blockIdx.x % ntiles;
   const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int c0 = jk * kB;
+  const int c0 = jk * kBwdRows, n0 = blockIdx.y * P::kDS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, m0 = warp * 16;
 
-  // this thread: keys c0 + ty * 4 + i, and (in the score tile) query rows
-  // tx * 4 + j of the current Q tile
-  load_tile<DMAX>(kt, nullptr, row_base(k, b, h), k.st, c0, T, D, 1.f);
-  load_tile<DMAX>(vt, nullptr, row_base(v, b, h), v.st, c0, T, D, 1.f);
-  float dk_acc[4][NDT], dv_acc[4][NDT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NDT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  int lo, hi;
-  q_range(jk, ntiles, causal, window, lo, hi);
-  for (int iq = lo; iq <= hi; ++iq) {
-    const int q0 = iq * kB;
-    __syncthreads();
-    load_tile<DMAX>(qt, qs, row_base(q, b, h), q.st, q0, T, D, 1.f);
-    load_tile<DMAX>(dot, dos, row_base(dout, b, h), dout.st, q0, T, D,
-                    1.f);
-    if (tid < kB) {
-      const int r = q0 + tid;
-      lse_s[tid] = r < T ? lse[(long long)bh * T + r] : 0.f;
-      delta_s[tid] = r < T ? delta[(long long)bh * T + r] : 0.f;
-    }
-    __syncthreads();
-    float p[4][4], ds[4][4];
-    tile_dot<DMAX>(kt, qt, ty, tx, p);    // (q k^T)^T
-    tile_dot<DMAX>(vt, dot, ty, tx, ds);  // (dO v^T)^T
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rl = tx * 4 + j;
-      const float lse_j = lse_s[rl], delta_j = delta_s[rl];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i][j] = masked(q0 + rl, c0 + ty * 4 + i, T, causal, window)
-                      ? 0.f
-                      : expf(p[i][j] * scale - lse_j);
-        ds[i][j] = p[i][j] * (ds[i][j] - delta_j);
-      }
-    }
-    store_t(wt, p, ty, tx);
-    __syncthreads();
-    tile_acc<DMAX>(wt, dos, ty, tx, dv_acc);  // dv += p^T dO
-    __syncthreads();
-    store_t(wt, ds, ty, tx);
-    __syncthreads();
-    tile_acc<DMAX>(wt, qs, ty, tx, dk_acc);   // dk += ds^T q
+  // the Q tiles that see this K tile: lo .. lo + n - 1, the band capped
+  // at the last Q tile (as _dkv_kernel caps it)
+  int lo = 0, hi = (T - 1) / BQ;
+  if (causal) {
+    lo = c0 / BQ;
+    if (window > 0)
+      hi = (int)min((long long)hi,
+                    ((long long)c0 + kBwdRows - 1 + window - 1) / BQ);
   }
+  const int n = hi - lo + 1;
+
+  const float* qb = row_base(q, b, h);
+  const float* ob = row_base(dout, b, h);
+  const float* lse_b = lse + (long long)bh * T;
+  const float* delta_b = delta + (long long)bh * T;
+  copy_rows<kBwdRows, DMAX>(ks, row_base(k, b, h), k.st, c0, T, D, vec & 2);
+  copy_rows<kBwdRows, DMAX>(vs, row_base(v, b, h), v.st, c0, T, D, vec & 4);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n) {
+      float* st = ring + s * kStage;
+      const int r0 = (lo + s) * BQ;
+      copy_rows<BQ, DMAX>(st, qb, q.st, r0, T, D, vec & 1);
+      copy_rows<BQ, DMAX>(st + BQ * LD, ob, dout.st, r0, T, D, vec & 8);
+      copy_stats<BQ>(st + 2 * BQ * LD, lse_b, delta_b, r0, T);
+    }
+    cp_async_commit();
+  }
+
+  // the thread's keys: c0 + m0 + gid and 8 below; columns n0 + 8 j ..
+  float dk_acc[KD][4], dv_acc[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    {  // refill the buffer every thread finished with last iteration
+      const int nx = i + NS - 1;
+      if (nx < n) {
+        float* st = ring + (nx % NS) * kStage;
+        const int r0 = (lo + nx) * BQ;
+        copy_rows<BQ, DMAX>(st, qb, q.st, r0, T, D, vec & 1);
+        copy_rows<BQ, DMAX>(st + BQ * LD, ob, dout.st, r0, T, D, vec & 8);
+        copy_stats<BQ>(st + 2 * BQ * LD, lse_b, delta_b, r0, T);
+      }
+      cp_async_commit();
+    }
+    float* qs = ring + (i % NS) * kStage;
+    if constexpr (PRE) {
+      presplit<2 * BQ * LD>(qs, qlo);
+      __syncthreads();
+    }
+    const float* dos = qs + BQ * LD;
+    const float* dolo = qlo + BQ * LD;
+    const float* lse_s = dos + BQ * LD;
+    const float* delta_s = lse_s + BQ;
+    const int q0 = (lo + i) * BQ;
+    float s[NT][4], dp[NT][4];
+    tile_qk<NT, DMAX, PRE>(s, ks + m0 * LD, qs, qlo, gid, tig);  // (q k^T)^T
+    tile_qk<NT, DMAX, PRE>(dp, vs + m0 * LD, dos, dolo, gid,
+                           tig);                            // (dO v^T)^T
+    const bool edge = tile_masked(q0, q0 + BQ - 1, c0 + m0, c0 + m0 + 15, T,
+                                  causal, window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + m0 + gid + 8 * (e >> 1);
+        const int col = j * 8 + 2 * tig + (e & 1);
+        const float p = edge && masked(q0 + col, c, T, causal, window)
+                            ? 0.f
+                            : expf(s[j][e] * scale - lse_s[col]);
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - delta_s[col]);  // ds
+      }
+    SplitA a[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc_as_a(s[j], a[j]);
+    tile_acc_tc<NT, KD, P::kG, DMAX, PRE>(dv_acc, a, dos + n0, dolo + n0,
+                                          gid, tig);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc_as_a(dp[j], a[j]);
+    tile_acc_tc<NT, KD, P::kG, DMAX, PRE>(dk_acc, a, qs + n0, qlo + n0,
+                                          gid, tig);
+  }
+  cp_async_wait<0>();
+
   const long long off = ((long long)b * T * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= T) continue;
+  for (int j = 0; j < KD; ++j)
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      const int d = tx * NDT + j;
-      if (d < D) {
-        dk[off + (long long)c * H * D + d] = dk_acc[i][j] * scale;
-        dv[off + (long long)c * H * D + d] = dv_acc[i][j];
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + m0 + gid + 8 * (e >> 1);
+      const int d = n0 + j * 8 + 2 * tig + (e & 1);
+      if (c < T && d < D) {
+        dk[off + (long long)c * H * D + d] = dk_acc[j][e] * scale;
+        dv[off + (long long)c * H * D + d] = dv_acc[j][e];
       }
     }
-  }
 }
 
 // opt a kernel into its dynamic shared memory (past the default 48 KB)
@@ -485,6 +903,20 @@ cudaError_t fwd(View q, View k, View v, float* out, float* lse, int B,
   return cudaGetLastError();
 }
 
+// may v's rows be copied 16 bytes at a time? (its base and strides are
+// multiples of 16 bytes; a ragged D zero-fills the last chunk)
+bool rows16(const View& v) {
+  return reinterpret_cast<uintptr_t>(v.p) % 16 == 0 && v.sb % 4 == 0 &&
+         v.st % 4 == 0 && v.sh % 4 == 0;
+}
+
+// the kernels' vec bits: q 1, k 2, v 4, dO 8
+unsigned vec_bits(const View& q, const View& k, const View& v,
+                  const View& dout) {
+  return (unsigned)rows16(q) | (unsigned)rows16(k) << 1 |
+         (unsigned)rows16(v) << 2 | (unsigned)rows16(dout) << 3;
+}
+
 template <int DMAX>
 cudaError_t bwd_dq(View q, View k, View v, View dout, const float* lse,
                    const float* delta, float* dq, int B, int T, int H,
@@ -493,9 +925,11 @@ cudaError_t bwd_dq(View q, View k, View v, View dout, const float* lse,
   constexpr size_t smem = dq_smem<DMAX>();
   const cudaError_t e = allow_smem(flash_dq_kernel<DMAX>, smem);
   if (e != cudaSuccess) return e;
-  const long long blocks = (long long)B * H * ((T + kB - 1) / kB);
-  flash_dq_kernel<DMAX><<<(unsigned)blocks, kThreads, smem, s>>>(
-      q, k, v, dout, lse, delta, dq, T, H, D, scale, causal, window);
+  const long long blocks =
+      (long long)B * H * ((T + kBwdRows - 1) / kBwdRows);
+  flash_dq_kernel<DMAX><<<(unsigned)blocks, kBwdThreads, smem, s>>>(
+      q, k, v, dout, lse, delta, dq, T, H, D, scale, causal, window,
+      vec_bits(q, k, v, dout));
   return cudaGetLastError();
 }
 
@@ -505,21 +939,27 @@ cudaError_t bwd_dkv(View q, View k, View v, View dout, const float* lse,
                     int H, int D, float scale, int causal, int window,
                     cudaStream_t s) {
   constexpr size_t smem = dkv_smem<DMAX>();
+  constexpr int kDS = DkvPlan<DMAX>::kDS;
   const cudaError_t e = allow_smem(flash_dkv_kernel<DMAX>, smem);
   if (e != cudaSuccess) return e;
-  const long long blocks = (long long)B * H * ((T + kB - 1) / kB);
-  flash_dkv_kernel<DMAX><<<(unsigned)blocks, kThreads, smem, s>>>(
-      q, k, v, dout, lse, delta, dk, dv, T, H, D, scale, causal, window);
+  const long long blocks =
+      (long long)B * H * ((T + kBwdRows - 1) / kBwdRows);
+  const dim3 grid((unsigned)blocks, (unsigned)((D + kDS - 1) / kDS));
+  flash_dkv_kernel<DMAX><<<grid, kBwdThreads, smem, s>>>(
+      q, k, v, dout, lse, delta, dk, dv, T, H, D, scale, causal, window,
+      vec_bits(q, k, v, dout));
   return cudaGetLastError();
 }
 
-// the instantiation for a head dim D: the smallest of 32, 64, 128 >= D
+// the instantiation for a head dim D: the smallest of 32, 64, 128, 256
+// >= D (the zero-padded columns cost work, not results)
 template <typename F>
 int dispatch(int B, int T, int D, F&& launch) {
-  if (D < 1 || D > 128 || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 256 || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
   if (D <= 32) return (int)launch(std::integral_constant<int, 32>());
   if (D <= 64) return (int)launch(std::integral_constant<int, 64>());
-  return (int)launch(std::integral_constant<int, 128>());
+  if (D <= 128) return (int)launch(std::integral_constant<int, 128>());
+  return (int)launch(std::integral_constant<int, 256>());
 }
 
 }  // namespace

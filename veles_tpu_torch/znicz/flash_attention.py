@@ -19,9 +19,10 @@ matrix: K/V (or Q) tiles stream through shared memory, and a window
 visits only the tiles inside its band.  They read q, k, v and dO through
 their strides (the head dim must be unit stride), so the views a packed
 QKV projection yields cost no copy; they take any T (a ragged last tile
-is masked in the kernel) and head dims 1-128; a CUDA call past that
+is masked in the kernel) and head dims 1-256; a CUDA call past that
 raises, while the plain versions, like the JAX kernels, take any head
-dim.  The JAX package's
+dim.  K8 and K9 form their products on the tensor cores in 3xTF32,
+which keeps f32's accuracy (TF32 alone stays off).  The JAX package's
 ``block_q``/``block_k`` and their autotune lookup chose TPU VMEM tiles;
 the CUDA kernels choose their own, so neither is carried over.
 
@@ -43,8 +44,10 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_delta", "flash_fwd_reference",
            "flash_dq_reference", "flash_dkv_reference", "MAX_HEAD_DIM"]
 
-#: the largest head dim the CUDA kernels take (the plain versions take any)
-MAX_HEAD_DIM = 128
+#: the largest head dim the CUDA kernels take (the plain versions take any):
+#: at 256, K7's tiles fill 222 KB of the 227 KB of shared memory a CTA
+#: may hold, and K8's dq accumulator 128 registers a thread
+MAX_HEAD_DIM = 256
 #: bytes of one ``[heads, T, T]`` f32 tensor of a plain version's chunk
 _CHUNK_BYTES = 1 << 30
 
@@ -84,8 +87,7 @@ def _check(q, k, v, causal, window, *more):
 
 
 def _card_head_dim(q):
-    """The kernels' own limit on the head dim (K9 already holds 222.7
-    KB of shared memory at 128)."""
+    """The kernels' own limit on the head dim (``MAX_HEAD_DIM``)."""
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError("head dim %d outside 1..%d: the CUDA kernels take "
                          "no more" % (q.shape[-1], MAX_HEAD_DIM))
