@@ -38,7 +38,7 @@ Phases (any failure raises and the script exits non-zero):
    shapes (B=2, T=2048 causal; B=1, T=16384, window 512) and at head
    dims 128 and 256 (B=2, T=2048, causal); each timed with CUDA events
    and the profiler's device time, with the instantiation (head-dim
-   tile) that ran; K8's and K9's bound is 3x their useful operations at
+   tile) that ran; each kernel's bound is 3x its useful operations at
    the TF32 rate (3xTF32), beside the CUDA-core bound; ``library_ms``
    is ``scaled_dot_product_attention`` pinned to its memory-efficient
    backend (3xTF32 ``mma.sync`` on f32 inputs) on the same f32 inputs,
@@ -104,7 +104,8 @@ Phases (any failure raises and the script exits non-zero):
    K5/K6 launched on every step.
 5. Where the time goes: each serving configuration's burst, one
    training epoch of each matmul mode, one full-width attention epoch
-   (causal, window 512) and one AlexNet epoch with each LRN form once
+   of each mask (none; causal, window 512) and one AlexNet epoch with
+   each LRN form once
    more under ``torch.profiler`` (after every untraced measurement):
    the share of the wall time the card is busy, the top kernels, the
    device copies and cuDNN's layout transforms, and the int64
@@ -706,20 +707,18 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
             err["dkv"])}
     recs = {}
     for name, (kernel, plain, nbytes, flops, lib_ms, e) in calls.items():
-        bound_ms, bound_by = _bound(nbytes, flops)
+        # three TF32 tensor-core products a useful one (3xTF32); the
+        # CUDA-core bound stands beside it
+        bound_ms = _bound(nbytes, flops)[0]
+        tc_ms = 3 * flops / TF32_FLOPS * 1e3
         rec = {"shape": label, "max_abs_err": e, "d_tile": d_tile,
                "ms": _cuda_ms(torch, kernel),
                "device_ms": _device_ms(torch, kernel, launches=1),
                "plain_ms": _cuda_ms(torch, plain, iters=3, warmup=1),
-               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tf32x3_bound_ms": tc_ms, "cuda_core_bound_ms": bound_ms,
                "library_ms": lib_ms, "flops": flops}
-        if name != "flash_attention_fwd":
-            # K8 / K9: three TF32 tensor-core products a useful one; the
-            # CUDA-core bound stands beside it
-            tc_ms = 3 * flops / TF32_FLOPS * 1e3
-            rec.update(tf32x3_bound_ms=tc_ms, cuda_core_bound_ms=bound_ms)
-            rec["bound_ms"], rec["bound_by"] = max(
-                (tc_ms, "operations"), _bound(nbytes, 0))
+        rec["bound_ms"], rec["bound_by"] = max((tc_ms, "operations"),
+                                               _bound(nbytes, 0))
         _log("kernel %s [%s] D tile %d max_err=%.3g kernel_ms=%.4f "
              "device_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s; CUDA cores "
              "%.4f) library_ms=%.4f (scaled_dot_product_attention %s on "
@@ -1368,10 +1367,9 @@ def attention_small_run(torch, fa, card):
     return out
 
 
-def trace_attention(torch, card):
-    """One full-width epoch (causal, window 512) under
+def trace_attention(torch, card, label, causal, window):
+    """One full-width epoch of the ``ATTN_CONFIGS`` entry under
     ``torch.profiler``."""
-    label, causal, window = ATTN_CONFIGS[1]
     return _traced(torch, "train " + label, card, lambda: _epoch(
         attention_workflow(ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS, causal,
                            window, epochs=1)))
@@ -1929,9 +1927,8 @@ def kernels_line(kernels, k4, launches):
         if name.startswith("quantized_matmul"):
             entry["tile_m"] = rec["tile_m"]
         if name.startswith("flash_attention"):
-            want = {"device_ms", "d_tile"}
-            if name != "flash_attention_fwd":
-                want |= {"tf32x3_bound_ms", "cuda_core_bound_ms"}
+            want = {"device_ms", "d_tile", "tf32x3_bound_ms",
+                    "cuda_core_bound_ms"}
             missing = want - set(rec)
             if missing:
                 raise AssertionError("kernel %s: its record lacks %s"
@@ -2035,7 +2032,7 @@ def main():
     record["traces"] = (
         [trace_run(torch, card, *config) for config in CONFIGS] +
         [trace_train(torch, card, precise) for precise in (0, 1)] +
-        [trace_attention(torch, card)] +
+        [trace_attention(torch, card, *config) for config in ATTN_CONFIGS] +
         [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS])
     for run, trace in zip(runs, record["traces"]):
         serving_summary(run, trace)

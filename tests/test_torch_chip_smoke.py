@@ -193,13 +193,11 @@ def _k3_rec(ms):
                 k_split=64, cuda_core_bound_ms=ms / 8)
 
 
-def _flash_rec(ms, backward):
-    """A K7-K9 record: its device time and head-dim tile and, for K8 /
-    K9, the 3xTF32 bound beside the CUDA-core one."""
-    rec = dict(_rec(ms), device_ms=ms / 2, d_tile=64)
-    if backward:
-        rec.update(tf32x3_bound_ms=ms / 6, cuda_core_bound_ms=ms / 3)
-    return rec
+def _flash_rec(ms):
+    """A K7-K9 record: its device time and head-dim tile, and the 3xTF32
+    bound beside the CUDA-core one."""
+    return dict(_rec(ms), device_ms=ms / 2, d_tile=64,
+                tf32x3_bound_ms=ms / 6, cuda_core_bound_ms=ms / 3)
 
 
 def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
@@ -214,9 +212,8 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
         kernels[name] = {"main": _k3_rec(0.1),
                          "realistic": [dict(_k3_rec(0.4), split=8)]}
     for name in slice3:
-        backward = name != "flash_attention_fwd"
-        kernels[name] = {"main": _flash_rec(0.6, backward),
-                         "realistic": [_flash_rec(0.3, backward)]}
+        kernels[name] = {"main": _flash_rec(0.6),
+                         "realistic": [_flash_rec(0.3)]}
     k4 = {level: {"main": [_k4_rec(0.08 + level), _k4_rec(0.07)],
                   "realistic": [_k4_rec(7.0)]} for level in (0, 1, 2)}
     launches = dict({name: 64 for name in slice1},
@@ -274,14 +271,11 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
         assert entry["replaces"].startswith(
             "veles_tpu/znicz/flash_attention.py:")
         assert entry["device_ms"] == 0.3 and entry["d_tile"] == 64
-        assert entry.get("tf32x3_bound_ms") == (
-            None if kid == "K7" else pytest.approx(0.1))
-        assert entry.get("cuda_core_bound_ms") == (
-            None if kid == "K7" else pytest.approx(0.2))
-        # a K7-K9 record without its device time fails the line, and a
-        # K8 / K9 record without its 3xTF32 bound
-        keys = ["device_ms"] + ([] if kid == "K7" else ["tf32x3_bound_ms"])
-        for key in keys:
+        assert entry["tf32x3_bound_ms"] == pytest.approx(0.1)
+        assert entry["cuda_core_bound_ms"] == pytest.approx(0.2)
+        # a K7-K9 record without its device time or either bound fails
+        # the line
+        for key in ("device_ms", "tf32x3_bound_ms", "cuda_core_bound_ms"):
             bare = dict(kernels)
             rec = dict(kernels[name]["main"])
             del rec[key]

@@ -20,11 +20,13 @@ JAX tests' own: 2e-5 forward, 5e-4 grads.  The port's
 Head dims 192 and 256 (the kernels' 256 instantiation on the card) run
 on the CPU as in the JAX package (forward and grads).
 
-The card's K8 and K9 form every product in 3xTF32 on the tensor cores
-and join each streamed tile's sum in f32: a plain-torch emulation of
-those sums (TF32 rounding on the bit pattern, the kernels' tiles) is
-held against the JAX kernels within the grads' tolerance and against
-the plain versions within 1e-5 of max(1, max|plain|).
+The card's K7, K8 and K9 form every product in 3xTF32 on the tensor
+cores and join each streamed tile's sum in f32: a plain-torch emulation
+of those sums (TF32 rounding on the bit pattern, the kernels' tiles,
+K7's online softmax a key tile at a time) is held against the JAX
+kernels within their tolerances (forward 2e-5, grads 5e-4) and against
+the plain versions: the forward within 2e-6, the grads within 1e-5 of
+max(1, max|plain|).
 """
 
 import numpy
@@ -225,9 +227,11 @@ def test_cpu_calls_launch_nothing():
 # -- 3xTF32, as K8 and K9 form their sums on the card -------------------------
 
 #: the kernels' streamed tiles by head-dim tile (csrc/flash_attention.cu,
-#: DqPlan / DkvPlan): the keys K8 sums a tile, the queries K9 does
+#: DqPlan / DkvPlan / FwdPlan): the keys K8 sums a tile, the queries K9
+#: does, the keys K7 does
 _KEY_TILE = {32: 64, 64: 32, 128: 32, 256: 16}
 _QUERY_TILE = {32: 64, 64: 32, 128: 32, 256: 16}
+_FWD_KEY_TILE = {32: 64, 64: 32, 128: 32, 256: 32}
 
 
 def _tf32(x):
@@ -255,11 +259,74 @@ def _joined(a, b, tile):
     return acc
 
 
+def _d_tile(d):
+    """The head-dim tile (kernel instantiation) that takes head dim d."""
+    return min(x for x in (32, 64, 128, 256) if x >= d)
+
+
+def _emulated_forward(q, k, v, causal, window):
+    """out [B * H, T, D] and lse [B * H, T] as the card's K7 sums them:
+    q scaled first, S a key tile at a time in 3xTF32, the online softmax
+    with the JAX kernel's guards, and each tile's P.V in 3xTF32 joined to
+    the f32 total as ``acc * alpha + tile``."""
+    bh, t, d = q.shape
+    scale = numpy.float32(1.0 / numpy.sqrt(d))
+    tile = _FWD_KEY_TILE[_d_tile(d)]
+    qs = q * torch.tensor(scale)
+    mask = fa._mask(t, causal, window, q.device)
+    m = torch.full((bh, t, 1), float("-inf"))
+    l_ = torch.zeros((bh, t, 1))
+    acc = torch.zeros((bh, t, d))
+    for c0 in range(0, t, tile):
+        s = _mm3(qs, k[:, c0:c0 + tile].transpose(1, 2))
+        if mask is not None:
+            s = s.masked_fill(mask[:, c0:c0 + tile], float("-inf"))
+        new_m = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        safe_m = torch.where(torch.isneginf(new_m), 0.0, new_m)
+        alpha = torch.where(torch.isneginf(m), 0.0, torch.exp(m - safe_m))
+        p = torch.where(torch.isneginf(s), 0.0, torch.exp(s - safe_m))
+        l_ = l_ * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _mm3(p, v[:, c0:c0 + tile])
+        m = new_m
+    safe_l = torch.where(l_ == 0, 1.0, l_)
+    lse = torch.where(torch.isneginf(m), 0.0, m) + torch.log(safe_l)
+    return acc / safe_l, lse[..., 0]
+
+
+#: the cases of the 3xTF32 emulations: T below, at and past a tile, head
+#: dims below a tile, at one and at the 256 instantiation, every mask
+_TF32X3_CASES = [
+    (1, 7, 16, False, None), (2, 7, 256, True, None),
+    (1, 64, 64, False, None), (2, 64, 16, True, 40),
+    (1, 64, 256, True, None), (2, 200, 64, True, None),
+    (1, 200, 16, True, 40), (1, 200, 256, True, 40),
+    (2, 200, 64, False, None)]
+_JAX_BLOCKS = {7: (7, 7), 64: (32, 32), 200: (40, 40)}
+
+
+@pytest.mark.parametrize("b,t,d,causal,window", _TF32X3_CASES)
+def test_tf32x3_forward_matches_jax_kernel(b, t, d, causal, window):
+    """The emulated K7 sums against the JAX package's ``_fwd_kernel`` in
+    interpret mode (``FWD_TOL``) and against the port's plain version
+    within 2e-6, on out and lse."""
+    q, k, v = _mk(b, t, 2, d, seed=t + d + 1)
+    scale = 1.0 / numpy.sqrt(d)
+    want = jfa._flash_fwd_bh(*(jnp.asarray(_bh(x)) for x in (q, k, v)),
+                             scale, causal, *_JAX_BLOCKS[t], window=window)
+    got = _emulated_forward(*_tensors(*map(_bh, (q, k, v))), causal, window)
+    ref_out, ref_lse = fa.flash_fwd_reference(*_tensors(q, k, v),
+                                              causal=causal, window=window)
+    ref = (torch.tensor(_bh(ref_out.numpy())), ref_lse)
+    for g, w, r, name in zip(got, want, ref, ("out", "lse")):
+        _close(g.numpy(), w, FWD_TOL, name)
+        assert float((g - r).abs().max()) <= 2e-6, name
+
+
 def _emulated_backward(q, k, v, do, lse, delta, causal, window):
     """dq, dk, dv ([B * H, T, D]) as the card's K8 / K9 sum them."""
     d = q.shape[-1]
     scale = 1.0 / numpy.sqrt(d)
-    d_tile = min(x for x in (32, 64, 128, 256) if x >= d)
+    d_tile = _d_tile(d)
     s = _mm3(q, k.transpose(1, 2)) * scale
     p = torch.exp(s - lse[..., None])
     mask = fa._mask(q.shape[1], causal, window, q.device)
@@ -272,18 +339,13 @@ def _emulated_backward(q, k, v, do, lse, delta, causal, window):
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("b,t,d,causal,window", [
-    (1, 7, 16, False, None), (2, 7, 256, True, None),
-    (1, 64, 64, False, None), (2, 64, 16, True, 40),
-    (1, 64, 256, True, None), (2, 200, 64, True, None),
-    (1, 200, 16, True, 40), (1, 200, 256, True, 40),
-    (2, 200, 64, False, None)])
+@pytest.mark.parametrize("b,t,d,causal,window", _TF32X3_CASES)
 def test_tf32x3_backward_matches_jax_kernels(b, t, d, causal, window):
     """The emulated K8 / K9 sums against the JAX package's ``_dq_kernel``
     and ``_dkv_kernel`` in interpret mode (``GRAD_TOL``), and against
     the port's plain versions within 1e-5 of max(1, max|plain|)."""
     q, k, v, do = _mk(b, t, 2, d, seed=t + d, n=4)
-    blocks = {7: (7, 7), 64: (32, 32), 200: (40, 40)}[t]
+    blocks = _JAX_BLOCKS[t]
     scale = 1.0 / numpy.sqrt(d)
     jq, jk, jv, jdo = (jnp.asarray(_bh(x)) for x in (q, k, v, do))
     out, lse = jfa._flash_fwd_bh(jq, jk, jv, scale, causal, *blocks,

@@ -20,24 +20,15 @@
 //
 // What bounds them on the card: the multiply-adds (4 T^2 D a head
 // forward, 6 T^2 D for dq, 8 T^2 D for dk/dv, halved by a causal mask);
-// the bytes are O(T D).  K7 runs them as f32 FMAs on the CUDA cores (67
-// TFLOP/s): one CTA of 256 threads per (batch * head, tile of 64 rows);
-// each thread owns a 4 x 4 block of the 64 x 64 score tile and a
-// 4 x (DMAX / 16) block of the output tile, both in registers.  The
-// operand tiles of the score products are staged d-major in shared
-// memory so each step of the contraction is two float4 loads for 16
-// FMAs; the probability tile goes back through shared memory for the
-// second product.  The online-softmax state (m, l) of a row lives in
-// registers, replicated over the 16 threads that share the row (a half
-// warp, reduced with shuffles).  K8 and K9 run theirs on the tensor cores
-// in 3xTF32 (three TF32 products a step, 495 TFLOP/s for 3x the useful
-// operations; their section below says how).  TF32 alone stays off: every
-// result keeps f32's accuracy.  No TMA, no wgmma.
+// the bytes are O(T D).  All three run them on the tensor cores in 3xTF32
+// (three TF32 products a step, 495 TFLOP/s for 3x the useful
+// operations); TF32 alone stays off, so every result keeps f32's
+// accuracy.  The sections below say how.  No TMA, no wgmma.
 //
-// The backward owns its outputs per CTA (dq by Q tiles, dk/dv by K
-// tiles), walks its tiles in a fixed order and uses no atomics: two runs
-// give the same bits.  expf / logf are the full-precision ones.  Head
-// dims 1-256: instantiations at 32, 64, 128 and 256, zero-padded below.
+// Every output is owned by one CTA, which walks its tiles in a fixed
+// order with no atomics: two runs give the same bits.  expf / logf are
+// the full-precision ones.  Head dims 1-256: instantiations at 32, 64,
+// 128 and 256, zero-padded below.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,9 +39,6 @@
 
 namespace {
 
-constexpr int kB = 64;          // rows of a Q tile, and of a K tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kLd = kB + 4;     // row length of a d-major tile (float4 aligned)
 constexpr float kNegInf = -INFINITY;
 
 // one [B, T, H, D] operand: element (b, t, h, d) at
@@ -65,124 +53,12 @@ __device__ __forceinline__ const float* row_base(const View& v, int b,
   return v.p + (long long)b * v.sb + (long long)h * v.sh;
 }
 
-// N consecutive floats from shared memory (16- or 8-byte aligned)
-template <int N>
-__device__ __forceinline__ void ld(const float* p, float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + i);
-      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = p[i];
-  }
-}
-
-// Rows t0 .. t0 + 63 of one (b, h) slice into shared memory, times mul;
-// zeros past T and past D.  dt (d-major, [DMAX][kLd]) and/or dr
-// (row-major, [kB][DMAX]) may be null.  Consecutive threads read
-// consecutive d: the global loads coalesce.
-template <int DMAX>
-__device__ __forceinline__ void load_tile(float* dt, float* dr,
-                                          const float* base, long long st,
-                                          int t0, int T, int D, float mul) {
-  for (int i = threadIdx.x; i < kB * DMAX; i += kThreads) {
-    const int r = i / DMAX, d = i % DMAX;
-    const int t = t0 + r;
-    const float x =
-        (t < T && d < D) ? base[(long long)t * st + d] * mul : 0.f;
-    if (dt) dt[d * kLd + r] = x;
-    if (dr) dr[r * DMAX + d] = x;
-  }
-}
-
-// s[i][j] = sum_d a[d][ty * 4 + i] * b[d][tx * 4 + j] over d-major tiles
-template <int DMAX>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ty, int tx, float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int kk = 0; kk < DMAX; ++kk) {
-    float av[4], bv[4];
-    ld<4>(a + kk * kLd + ty * 4, av);
-    ld<4>(b + kk * kLd + tx * 4, bv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c w[c][ty * 4 + i] * x[c][tx * NDT + j]: w is a
-// [kB][kLd] tile indexed (c, row), x a row-major [kB][DMAX] tile
-template <int DMAX>
-__device__ __forceinline__ void tile_acc(const float* w, const float* x,
-                                         int ty, int tx,
-                                         float (&acc)[4][DMAX / 16]) {
-  constexpr int NDT = DMAX / 16;
-#pragma unroll 4
-  for (int c = 0; c < kB; ++c) {
-    float wv[4], xv[NDT];
-    ld<4>(w + c * kLd + ty * 4, wv);
-    ld<NDT>(x + c * DMAX + tx * NDT, xv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NDT; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-  }
-}
-
-// write v[i][j] (row ty * 4 + i, column tx * 4 + j of a 64 x 64 tile) to
-// w[column][row], four rows a float4
-__device__ __forceinline__ void store_t(float* w, const float (&v)[4][4],
-                                        int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(w + (tx * 4 + j) * kLd + ty * 4) =
-        make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-}
-
 // is key column c hidden from query row r?
 __device__ __forceinline__ bool masked(int r, int c, int T, int causal,
                                        int window) {
   if (c >= T || r >= T) return true;
   if (!causal) return false;
   return c > r || (window > 0 && c <= r - window);
-}
-
-// reductions over the 16 threads that share a row (a half warp)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// the K tiles Q tile iq sees: [lo, hi]
-__device__ __forceinline__ void k_range(int iq, int nk, int causal,
-                                        int window, int& lo, int& hi) {
-  lo = 0;
-  hi = nk - 1;
-  if (!causal) return;
-  hi = min(hi, iq);  // the last key a Q tile sees is its last row
-  if (window > 0) {
-    const int first = iq * kB - window + 1;
-    lo = first > 0 ? first / kB : 0;
-  }
 }
 
 // the heaviest tiles (causal: the last) are scheduled first
@@ -192,105 +68,14 @@ __device__ __forceinline__ void tile_of_block(int ntiles, int& bh,
   tile = ntiles - 1 - (int)(blockIdx.x % ntiles);
 }
 
-template <int DMAX>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * DMAX * kLd + kB * DMAX + kB * kLd);
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(View q, View k, View v, float* __restrict__ out,
-                 float* __restrict__ lse, int T, int H, int D, float scale,
-                 int causal, int window) {
-  constexpr int NDT = DMAX / 16;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DMAX][kLd], q * scale
-  float* kt = qt + DMAX * kLd;                  // [DMAX][kLd]
-  float* vs = kt + DMAX * kLd;                  // [kB][DMAX]
-  float* pt = vs + kB * DMAX;                   // [kB][kLd]: p, (key, row)
-
-  const int ntiles = (T + kB - 1) / kB;
-  int bh, iq;
-  tile_of_block(ntiles, bh, iq);
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = iq * kB;
-
-  load_tile<DMAX>(qt, nullptr, row_base(q, b, h), q.st, q0, T, D, scale);
-  float m[4], l[4], acc[4][NDT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NDT; ++j) acc[i][j] = 0.f;
-  }
-  int lo, hi;
-  k_range(iq, ntiles, causal, window, lo, hi);
-  for (int jk = lo; jk <= hi; ++jk) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DMAX>(kt, nullptr, row_base(k, b, h), k.st, jk * kB, T, D,
-                    1.f);
-    load_tile<DMAX>(nullptr, vs, row_base(v, b, h), v.st, jk * kB, T, D,
-                    1.f);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<DMAX>(qt, kt, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (masked(r, jk * kB + tx * 4 + j, T, causal, window))
-          s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float new_m = fmaxf(m[i], row_max(mx));
-      // a row with every key so far masked keeps m at -inf:
-      // exp(-inf - -inf) must be 0, not nan (flash_attention.py:173-177)
-      const float safe_m = new_m == kNegInf ? 0.f : new_m;
-      const float alpha = m[i] == kNegInf ? 0.f : expf(m[i] - safe_m);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = s[i][j] == kNegInf ? 0.f : expf(s[i][j] - safe_m);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = new_m;
-#pragma unroll
-      for (int j = 0; j < NDT; ++j) acc[i][j] *= alpha;
-    }
-    store_t(pt, s, ty, tx);
-    __syncthreads();
-    tile_acc<DMAX>(pt, vs, ty, tx, acc);
-  }
-  float* o = out + ((long long)b * T * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= T) continue;
-    const float safe_l = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      const int d = tx * NDT + j;
-      if (d < D) o[(long long)r * H * D + d] = acc[i][j] / safe_l;
-    }
-    if (tx == 0)
-      lse[(long long)bh * T + r] =
-          (m[i] == kNegInf ? 0.f : m[i]) + logf(safe_l);
-  }
-}
-
-// -- K8 and K9: the backward on the tensor cores, 3xTF32 ----------------------
+// -- The design the three kernels share: 3xTF32 on the tensor cores -----------
 //
-// Each CTA owns 64 rows (K8: Q rows, K9: keys), four warps of 16 each,
-// and keeps their operand tiles (K8: Q and dO; K9: K and V) in shared
-// memory for its whole life.  The tiles it streams (K8: K and V; K9: Q,
-// dO and the row stats) come through a ring of kStages buffers filled by
-// cp.async, so the next tile lands while the current one is multiplied
-// (and, kPresplit, split once for all four warps).
+// Each CTA owns 64 rows (K7 and K8: Q rows, K9: keys), four warps of 16
+// each, and keeps their operand tiles (K7: Q; K8: Q and dO; K9: K and V)
+// in shared memory for its whole life.  The tiles it streams (K7 and K8:
+// K and V; K9: Q, dO and the row stats) come through a ring of kStages
+// buffers filled by cp.async, so the next tile lands while the current
+// one is multiplied (and, kPresplit, split once for all four warps).
 // Every tile is row-major [rows][DMAX + 4], as the operands lie in device
 // memory (16-byte copies, no transpose); the row length is 4 mod 32
 // floats, so each fragment read below hits 32 distinct banks.
@@ -298,20 +83,20 @@ flash_fwd_kernel(View q, View k, View v, float* __restrict__ out,
 // Every product runs on mma.sync.m16n8k8 (TF32 in, f32 accumulation):
 // each operand splits as x = hi + lo (hi = rna_tf32(x), lo = rna_tf32(x -
 // hi)) and each 8-deep step adds a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the
-// small products first.  A warp's scores (K8: S = Q.K^T and dP = dO.V^T;
-// K9: S^T = K.Q^T and dP^T = V.dO^T) stay in the accumulators, and p and
-// ds are formed there and fed back as the A operand of the next product
-// (K8: dQ += dS.K; K9: dV += P^T.dO, dK += dS^T.Q) with no trip through
-// shared memory: an accumulator holds columns 2 tig and 2 tig + 1, where
-// an A fragment wants tig and tig + 4, so each k8 step takes its keys (K8)
-// or queries (K9) in the order 0 2 4 6 1 3 5 7 and reads the B operand's
-// rows in the same order.  The tensor cores' f32 accumulation drifts over
-// long chains, so each streamed tile's contribution to dQ, dK and dV is
-// summed from zero in the tensor cores and joins the register sum with an
-// IEEE add.
+// small products first.  A warp's scores (K7: S = Q.K^T; K8: S and dP =
+// dO.V^T; K9: S^T = K.Q^T and dP^T = V.dO^T) stay in the accumulators,
+// and p and ds are formed there and fed back as the A operand of the next
+// product (K7: O += P.V; K8: dQ += dS.K; K9: dV += P^T.dO, dK += dS^T.Q)
+// with no trip through shared memory: an accumulator holds columns 2 tig
+// and 2 tig + 1, where an A fragment wants tig and tig + 4, so each k8
+// step takes its keys (K7, K8) or queries (K9) in the order 0 2 4 6 1 3 5
+// 7 and reads the B operand's rows in the same order.  The tensor cores'
+// f32 accumulation drifts over long chains, so each streamed tile's
+// contribution to O, dQ, dK and dV is summed from zero in the tensor
+// cores and joins the register sum with an IEEE add.
 
-constexpr int kBwdRows = 64;      // rows a CTA owns
-constexpr int kBwdThreads = 128;  // four warps of 16 rows
+constexpr int kRows = 64;      // rows a CTA owns
+constexpr int kThreads = 128;  // four warps of 16 rows
 
 // the tiles of each instantiation, within the 227 KB a CTA may hold and
 // the 255 registers a thread may: K8 streams kBK keys a tile; K9 streams
@@ -425,8 +210,8 @@ template <int R, int DMAX>
 __device__ __forceinline__ void copy_rows(float* s, const float* base,
                                           long long st, int r0, int T,
                                           int D, bool vec) {
-  constexpr int kChunks = DMAX / 4, kStep = kBwdThreads / kChunks;
-  static_assert(kBwdThreads % kChunks == 0 && R % kStep == 0,
+  constexpr int kChunks = DMAX / 4, kStep = kThreads / kChunks;
+  static_assert(kThreads % kChunks == 0 && R % kStep == 0,
                 "every thread copies whole chunks of every pass");
   const unsigned tid = threadIdx.x;
   const int d = (int)(tid % kChunks) * 4;
@@ -456,7 +241,7 @@ template <int BQ>
 __device__ __forceinline__ void copy_stats(float* s, const float* lse,
                                            const float* delta, int q0,
                                            int T) {
-  static_assert(2 * BQ <= kBwdThreads, "one thread a stat");
+  static_assert(2 * BQ <= kThreads, "one thread a stat");
   const int i = threadIdx.x;
   if (i < 2 * BQ) {
     const float* src = i < BQ ? lse : delta;
@@ -478,7 +263,7 @@ struct SplitB {
 template <int N>
 __device__ __forceinline__ void presplit(float* p, float* q) {
   static_assert(N % 4 == 0, "whole float4s");
-  for (int i = threadIdx.x * 4; i < N; i += 4 * kBwdThreads) {
+  for (int i = threadIdx.x * 4; i < N; i += 4 * kThreads) {
     const float4 x = *reinterpret_cast<const float4*>(p + i);
     uint32_t h[4], l[4];
     split_tf32(x.x, h[0], l[0]);
@@ -621,12 +406,12 @@ template <int DMAX>
 constexpr size_t dq_smem() {
   using P = DqPlan<DMAX>;
   return sizeof(float) * (DMAX + 4) *
-         (2 * kBwdRows + 2 * (P::kStages + P::kPresplit) * P::kBK);
+         (2 * kRows + 2 * (P::kStages + P::kPresplit) * P::kBK);
 }
 
 // K8: dq of one Q tile of one (b, h)
 template <int DMAX>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(View q, View k, View v, View dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
@@ -637,32 +422,32 @@ flash_dq_kernel(View q, View k, View v, View dout,
   constexpr int NT = BK / 8, KD = DMAX / 8, kStage = 2 * BK * LD;
   constexpr bool PRE = P::kPresplit;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kBwdRows][LD]
-  float* dos = qs + kBwdRows * LD;              // [kBwdRows][LD], dO
-  float* klo = dos + kBwdRows * LD;             // PRE: K, V lo [BK][LD]
+  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][LD]
+  float* dos = qs + kRows * LD;                 // [kRows][LD], dO
+  float* klo = dos + kRows * LD;                // PRE: K, V lo [BK][LD]
   float* ring = klo + PRE * kStage;             // NS x K, V [BK][LD]
 
-  const int ntiles = (T + kBwdRows - 1) / kBwdRows;
+  const int ntiles = (T + kRows - 1) / kRows;
   int bh, iq;
   tile_of_block(ntiles, bh, iq);
   const int b = bh / H, h = bh % H;
-  const int q0 = iq * kBwdRows;
+  const int q0 = iq * kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3, m0 = warp * 16;
 
   // the K tiles this Q tile sees: lo .. lo + n - 1
   int lo = 0, hi = (T - 1) / BK;
   if (causal) {
-    hi = min(hi, (q0 + kBwdRows - 1) / BK);
+    hi = min(hi, (q0 + kRows - 1) / BK);
     if (window > 0) lo = max(0, q0 - window + 1) / BK;
   }
   const int n = hi - lo + 1;
 
   const float* kb = row_base(k, b, h);
   const float* vb = row_base(v, b, h);
-  copy_rows<kBwdRows, DMAX>(qs, row_base(q, b, h), q.st, q0, T, D, vec & 1);
-  copy_rows<kBwdRows, DMAX>(dos, row_base(dout, b, h), dout.st, q0, T, D,
-                            vec & 8);
+  copy_rows<kRows, DMAX>(qs, row_base(q, b, h), q.st, q0, T, D, vec & 1);
+  copy_rows<kRows, DMAX>(dos, row_base(dout, b, h), dout.st, q0, T, D,
+                         vec & 8);
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < n) {
@@ -746,14 +531,14 @@ template <int DMAX>
 constexpr size_t dkv_smem() {
   using P = DkvPlan<DMAX>;
   return sizeof(float) *
-         (2 * (kBwdRows + P::kPresplit * P::kBQ) * (DMAX + 4) +
+         (2 * (kRows + P::kPresplit * P::kBQ) * (DMAX + 4) +
           P::kStages * (2 * P::kBQ * (DMAX + 4) + 2 * P::kBQ));
 }
 
 // K9: dk and dv of one K tile of one (b, h), output columns blockIdx.y *
 // kDS ..
 template <int DMAX>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(View q, View k, View v, View dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
@@ -765,17 +550,17 @@ flash_dkv_kernel(View q, View k, View v, View dout,
   constexpr int kStage = 2 * BQ * LD + 2 * BQ;
   constexpr bool PRE = P::kPresplit;
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [kBwdRows][LD]
-  float* vs = ks + kBwdRows * LD;               // [kBwdRows][LD]
-  float* qlo = vs + kBwdRows * LD;              // PRE: Q, dO lo [BQ][LD]
+  float* ks = reinterpret_cast<float*>(smem4);  // [kRows][LD]
+  float* vs = ks + kRows * LD;                  // [kRows][LD]
+  float* qlo = vs + kRows * LD;                 // PRE: Q, dO lo [BQ][LD]
   // NS x Q, dO [BQ][LD], lse, delta [BQ]
   float* ring = qlo + PRE * 2 * BQ * LD;
 
-  const int ntiles = (T + kBwdRows - 1) / kBwdRows;
+  const int ntiles = (T + kRows - 1) / kRows;
   // causal: the first K tiles see the most queries, and go first
   const int bh = blockIdx.x / ntiles, jk = blockIdx.x % ntiles;
   const int b = bh / H, h = bh % H;
-  const int c0 = jk * kBwdRows, n0 = blockIdx.y * P::kDS;
+  const int c0 = jk * kRows, n0 = blockIdx.y * P::kDS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3, m0 = warp * 16;
 
@@ -786,7 +571,7 @@ flash_dkv_kernel(View q, View k, View v, View dout,
     lo = c0 / BQ;
     if (window > 0)
       hi = (int)min((long long)hi,
-                    ((long long)c0 + kBwdRows - 1 + window - 1) / BQ);
+                    ((long long)c0 + kRows - 1 + window - 1) / BQ);
   }
   const int n = hi - lo + 1;
 
@@ -794,8 +579,8 @@ flash_dkv_kernel(View q, View k, View v, View dout,
   const float* ob = row_base(dout, b, h);
   const float* lse_b = lse + (long long)bh * T;
   const float* delta_b = delta + (long long)bh * T;
-  copy_rows<kBwdRows, DMAX>(ks, row_base(k, b, h), k.st, c0, T, D, vec & 2);
-  copy_rows<kBwdRows, DMAX>(vs, row_base(v, b, h), v.st, c0, T, D, vec & 4);
+  copy_rows<kRows, DMAX>(ks, row_base(k, b, h), k.st, c0, T, D, vec & 2);
+  copy_rows<kRows, DMAX>(vs, row_base(v, b, h), v.st, c0, T, D, vec & 4);
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < n) {
@@ -883,24 +668,203 @@ flash_dkv_kernel(View q, View k, View v, View dout,
     }
 }
 
+// -- K7: the forward ----------------------------------------------------------
+//
+// A warp's S = (q * scale) . K^T over a streamed tile of kBK keys stays in
+// the accumulators, and the online softmax runs there: each row's max and
+// sum reduce over its quad (__shfl_xor_sync 1 and 2), with the TPU
+// kernel's guards for a row that sees no key yet; p goes back as the A
+// operand of O += P.V.  Each tile's P.V sums from zero in the tensor cores
+// and joins the register sum as acc * alpha + tile in IEEE f32.  The Q
+// tile is scaled once in shared memory, as the TPU kernel scales q before
+// its dot.  Only the tiles the mask cuts (tile_masked) test it score by
+// score, and a warp skips a tile its rows see no key of.
+//
+// Every warp splits the values it reads on the spot: K and V each serve
+// one product, and four warps re-reading a presplit tile's hi and lo cost
+// more shared-memory bandwidth than the splits cost ALU (so does a Q tile
+// kept split; on an H100, PERF.md).  The tiles of each instantiation:
+// kBK keys a streamed tile (K [kBK][DMAX + 4], V [kBK][kDV + 4]) in a
+// two-deep ring; kDV output columns a CTA, grid.y taking the rest (at
+// DMAX 256 the output accumulator alone would be 128 registers a thread,
+// so each of two CTAs recomputes S for 128 columns, and only the first
+// writes lse); kG output column tiles summed side by side.  45, 51, 99
+// and 163 KB of shared memory at DMAX 32, 64, 128 and 256: four CTAs an
+// SM at 32 and 64, two at 128 (by registers), one at 256
+template <int DMAX>
+struct FwdPlan {
+  static constexpr int kDV = DMAX < 128 ? DMAX : 128;
+  static constexpr int kBK = DMAX == 32 ? 64 : 32;
+  static constexpr int kG = DMAX == 128 ? 8 : DMAX == 256 ? 2 : 4;
+};
+constexpr int kFwdStages = 2;
+
+template <int DMAX>
+constexpr size_t fwd_smem() {
+  using P = FwdPlan<DMAX>;
+  return sizeof(float) * (kRows * (DMAX + 4) +
+                          kFwdStages * P::kBK * (DMAX + P::kDV + 8));
+}
+
+// scale the N floats at p by mul, in place
+template <int N>
+__device__ __forceinline__ void scale_tile(float* p, float mul) {
+  static_assert(N % 4 == 0, "whole float4s");
+  for (int i = threadIdx.x * 4; i < N; i += 4 * kThreads) {
+    const float4 t = *reinterpret_cast<const float4*>(p + i);
+    *reinterpret_cast<float4*>(p + i) =
+        make_float4(__fmul_rn(t.x, mul), __fmul_rn(t.y, mul),
+                    __fmul_rn(t.z, mul), __fmul_rn(t.w, mul));
+  }
+}
+
+// K7: out and lse of one Q tile of one (b, h), output columns blockIdx.y *
+// kDV ..
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(View q, View k, View v, float* __restrict__ out,
+                 float* __restrict__ lse, int T, int H, int D, float scale,
+                 int causal, int window, unsigned vec) {
+  using P = FwdPlan<DMAX>;
+  constexpr int LD = DMAX + 4, DV = P::kDV, BK = P::kBK, NS = kFwdStages;
+  constexpr int NT = BK / 8, KD = DV / 8, kStage = BK * (LD + DV + 4);
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][LD], q * scale
+  float* ring = qs + kRows * LD;                // NS x K, V
+
+  const int ntiles = (T + kRows - 1) / kRows;
+  int bh, iq;
+  tile_of_block(ntiles, bh, iq);
+  const int b = bh / H, h = bh % H;
+  const int q0 = iq * kRows, n0 = blockIdx.y * DV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, r0 = q0 + warp * 16;
+
+  // the K tiles this Q tile sees: lo .. lo + n - 1
+  int lo = 0, hi = (T - 1) / BK;
+  if (causal) {
+    hi = min(hi, (q0 + kRows - 1) / BK);
+    if (window > 0) lo = max(0, q0 - window + 1) / BK;
+  }
+  const int n = hi - lo + 1;
+
+  const float* kb = row_base(k, b, h);
+  const float* vb = row_base(v, b, h) + n0;
+  auto load = [&](int i, float* st) {  // K and V tile lo + i into st
+    const int c0 = (lo + i) * BK;
+    copy_rows<BK, DMAX>(st, kb, k.st, c0, T, D, vec & 2);
+    copy_rows<BK, DV>(st + BK * LD, vb, v.st, c0, T, D - n0, vec & 4);
+  };
+  copy_rows<kRows, DMAX>(qs, row_base(q, b, h), q.st, q0, T, D, vec & 1);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n) load(s, ring + s * kStage);
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();  // the Q tile
+  __syncthreads();
+  scale_tile<kRows * LD>(qs, scale);  // read after the loop's first barrier
+
+  // the thread's rows: r0 + gid and 8 below
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, acc[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    {  // refill the buffer every thread finished with last iteration
+      const int nx = i + NS - 1;
+      if (nx < n) load(nx, ring + (nx % NS) * kStage);
+      cp_async_commit();
+    }
+    const float* ks = ring + (i % NS) * kStage;
+    const int c0 = (lo + i) * BK;
+    if (r0 >= T || (causal && (c0 > r0 + 15 ||
+                               (window > 0 && c0 + BK - 1 <= r0 - window))))
+      continue;  // the warp's rows see no key of this tile
+    float s[NT][4];
+    tile_qk<NT, DMAX, false>(s, qs + warp * 16 * LD, ks, ks, gid, tig);
+    if (tile_masked(r0, r0 + 15, c0, c0 + BK - 1, T, causal, window)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (masked(r0 + gid + 8 * (e >> 1), c0 + j * 8 + 2 * tig + (e & 1),
+                     T, causal, window))
+            s[j][e] = kNegInf;
+    }
+    float mx[2] = {m_r[0], m_r[1]}, alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with every key so far masked keeps m at -inf: exp(-inf -
+      // -inf) must be 0, not nan (flash_attention.py:173-177)
+      const float safe_m = mx[r] == kNegInf ? 0.f : mx[r];
+      alpha[r] = m_r[r] == kNegInf ? 0.f : expf(m_r[r] - safe_m);
+      m_r[r] = mx[r];
+      mx[r] = safe_m;
+    }
+    SplitA a[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            s[j][e] == kNegInf ? 0.f : expf(s[j][e] - mx[e >> 1]);
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+      acc_as_a(s[j], a[j]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_r[r] = __fadd_rn(__fmul_rn(l_r[r], alpha[r]), sum[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < KD; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = __fmul_rn(acc[j][e], alpha[e >> 1]);
+    const float* vs = ks + BK * LD;
+    tile_acc_tc<NT, KD, P::kG, DV, false>(acc, a, vs, vs, gid, tig);
+  }
+  cp_async_wait<0>();
+
+  float* o = out + ((long long)b * T * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + gid + 8 * r;
+    if (t >= T) continue;
+    const float safe_l = l_r[r] == 0.f ? 1.f : l_r[r];
+#pragma unroll
+    for (int j = 0; j < KD; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n0 + j * 8 + 2 * tig + e;
+        if (d < D) o[(long long)t * H * D + d] = acc[j][2 * r + e] / safe_l;
+      }
+    if (blockIdx.y == 0 && tig == 0)
+      lse[(long long)bh * T + t] =
+          (m_r[r] == kNegInf ? 0.f : m_r[r]) + logf(safe_l);
+  }
+}
+
 // opt a kernel into its dynamic shared memory (past the default 48 KB)
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <int DMAX>
-cudaError_t fwd(View q, View k, View v, float* out, float* lse, int B,
-                int T, int H, int D, float scale, int causal, int window,
-                cudaStream_t s) {
-  constexpr size_t smem = fwd_smem<DMAX>();
-  const cudaError_t e = allow_smem(flash_fwd_kernel<DMAX>, smem);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (long long)B * H * ((T + kB - 1) / kB);
-  flash_fwd_kernel<DMAX><<<(unsigned)blocks, kThreads, smem, s>>>(
-      q, k, v, out, lse, T, H, D, scale, causal, window);
-  return cudaGetLastError();
 }
 
 // may v's rows be copied 16 bytes at a time? (its base and strides are
@@ -918,6 +882,22 @@ unsigned vec_bits(const View& q, const View& k, const View& v,
 }
 
 template <int DMAX>
+cudaError_t fwd(View q, View k, View v, float* out, float* lse, int B,
+                int T, int H, int D, float scale, int causal, int window,
+                cudaStream_t s) {
+  constexpr size_t smem = fwd_smem<DMAX>();
+  constexpr int kDV = FwdPlan<DMAX>::kDV;
+  const cudaError_t e = allow_smem(flash_fwd_kernel<DMAX>, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)B * H * ((T + kRows - 1) / kRows);
+  const dim3 grid((unsigned)blocks, (unsigned)((D + kDV - 1) / kDV));
+  flash_fwd_kernel<DMAX><<<grid, kThreads, smem, s>>>(
+      q, k, v, out, lse, T, H, D, scale, causal, window,
+      vec_bits(q, k, v, q));
+  return cudaGetLastError();
+}
+
+template <int DMAX>
 cudaError_t bwd_dq(View q, View k, View v, View dout, const float* lse,
                    const float* delta, float* dq, int B, int T, int H,
                    int D, float scale, int causal, int window,
@@ -926,8 +906,8 @@ cudaError_t bwd_dq(View q, View k, View v, View dout, const float* lse,
   const cudaError_t e = allow_smem(flash_dq_kernel<DMAX>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks =
-      (long long)B * H * ((T + kBwdRows - 1) / kBwdRows);
-  flash_dq_kernel<DMAX><<<(unsigned)blocks, kBwdThreads, smem, s>>>(
+      (long long)B * H * ((T + kRows - 1) / kRows);
+  flash_dq_kernel<DMAX><<<(unsigned)blocks, kThreads, smem, s>>>(
       q, k, v, dout, lse, delta, dq, T, H, D, scale, causal, window,
       vec_bits(q, k, v, dout));
   return cudaGetLastError();
@@ -943,9 +923,9 @@ cudaError_t bwd_dkv(View q, View k, View v, View dout, const float* lse,
   const cudaError_t e = allow_smem(flash_dkv_kernel<DMAX>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks =
-      (long long)B * H * ((T + kBwdRows - 1) / kBwdRows);
+      (long long)B * H * ((T + kRows - 1) / kRows);
   const dim3 grid((unsigned)blocks, (unsigned)((D + kDS - 1) / kDS));
-  flash_dkv_kernel<DMAX><<<grid, kBwdThreads, smem, s>>>(
+  flash_dkv_kernel<DMAX><<<grid, kThreads, smem, s>>>(
       q, k, v, dout, lse, delta, dk, dv, T, H, D, scale, causal, window,
       vec_bits(q, k, v, dout));
   return cudaGetLastError();

@@ -21,8 +21,10 @@ their strides (the head dim must be unit stride), so the views a packed
 QKV projection yields cost no copy; they take any T (a ragged last tile
 is masked in the kernel) and head dims 1-256; a CUDA call past that
 raises, while the plain versions, like the JAX kernels, take any head
-dim.  K8 and K9 form their products on the tensor cores in 3xTF32,
-which keeps f32's accuracy (TF32 alone stays off).  The JAX package's
+dim.  All three form their products on the tensor cores in 3xTF32,
+which keeps f32's accuracy (TF32 alone stays off); K7 keeps its online
+softmax in the accumulators of the score tile and joins each key tile's
+``P.V`` to its f32 sum as ``acc * alpha + tile``.  The JAX package's
 ``block_q``/``block_k`` and their autotune lookup chose TPU VMEM tiles;
 the CUDA kernels choose their own, so neither is carried over.
 
@@ -45,8 +47,9 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_dq_reference", "flash_dkv_reference", "MAX_HEAD_DIM"]
 
 #: the largest head dim the CUDA kernels take (the plain versions take any):
-#: at 256, K7's tiles fill 222 KB of the 227 KB of shared memory a CTA
-#: may hold, and K8's dq accumulator 128 registers a thread
+#: at 256, K8's dq accumulator and K9's dk/dv ones take 128 registers a
+#: thread; K7 is held to the same limit, since the autograd Function
+#: pairs it with them (a wider forward would meet a backward that raises)
 MAX_HEAD_DIM = 256
 #: bytes of one ``[heads, T, T]`` f32 tensor of a plain version's chunk
 _CHUNK_BYTES = 1 << 30
