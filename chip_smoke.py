@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit, torch and CUDA
-   versions; build every kernel of ``veles_tpu_torch/csrc`` with nvcc.
+   versions; build every kernel of ``veles_tpu_torch/csrc`` with nvcc
+   and print ptxas's registers and spilled bytes for each instantiation.
 2. Kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main paths give it and at realistic
    shapes, timed with CUDA events beside the least time the card could
@@ -45,11 +46,14 @@ Phases (any failure raises and the script exits non-zero):
    its forward on K7's row and its backward on K8's and K9's.  LRN (K5
    forward, K6 backward) on ``randn * 2`` inputs:
    ``max|kernel - plain| <= 1e-5 * max(1, max|plain|)``, at n 1-5 and C
-   1-5000 with alpha 0.5 (untimed), and timed at the main paths' LRN
-   shapes: AlexNet's two at minibatch 128 (the first is the kernels
-   line's record) and the LRN convnet's two at minibatch 100;
-   ``library_ms`` is ``F.local_response_norm`` on the NCHW view of the
-   same input, its forward on K5's row and its autograd backward on K6's.
+   1-5000 with alpha 0.5 (untimed; how many of them are bitwise equal is
+   printed), and timed at the main paths' LRN shapes with CUDA events
+   and the profiler's device time: AlexNet's two at minibatch 128 (the
+   first is the kernels line's record) and the LRN convnet's two at
+   minibatch 100, each record saying whether kernel and plain version
+   are bitwise equal; ``library_ms`` is ``F.local_response_norm`` on the
+   NCHW view of the same input, its forward on K5's row and its autograd
+   backward on K6's.
 3. End to end, over real HTTP: the port's ``InferenceServer`` serving
    the flagship decode model at the README's decode-quickstart widths
    (stages=2, experts=4, d=64, heads=4, hidden=128, vocab=1024; server
@@ -108,8 +112,9 @@ Phases (any failure raises and the script exits non-zero):
    each LRN form once
    more under ``torch.profiler`` (after every untraced measurement):
    the share of the wall time the card is busy, the top kernels, the
-   device copies and cuDNN's layout transforms, and the int64
-   elementwise kernels (dropout's threefry draws).  Each serving
+   device copies and cuDNN's layout transforms, the int64
+   elementwise kernels (dropout's threefry draws), and the device time
+   of K3, K4 (each with its split-K fold), K5 and K6.  Each serving
    configuration's tok/s and decode step p50 (phase 3) are printed
    beside its traced burst's launches and device-to-device copies.
    A trace that holds no device time is taken again on a fresh run, up
@@ -124,6 +129,8 @@ every number to PATH as well.
 import argparse
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -178,12 +185,14 @@ def _cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters=20, launches=None):
+def _device_ms(torch, fn, iters=20, launches=None, per_launch=False):
     """Mean device time of the kernels ``fn`` launches, from
     ``torch.profiler`` (device rows only, after one warm-up call).  With
     ``launches`` (the kernels one call launches), a profile that holds
     another count lost records and is taken again, as one with no
-    device time is, up to ``TRACE_TRIES`` in all."""
+    device time is, up to ``TRACE_TRIES`` in all.  ``per_launch``, for a
+    call that launches one kernel: the mean over the launches the
+    profile holds, so a record it lost biases nothing."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -196,12 +205,46 @@ def _device_ms(torch, fn, iters=20, launches=None):
             torch.cuda.synchronize()
         rows = device_rows(prof.key_averages())
         seen = sum(c for _, c, _ in rows)
+        if rows and per_launch:
+            return sum(t for t, _, _ in rows) / 1e3 / seen
         if rows and want in (None, seen):
             return sum(t for t, _, _ in rows) / 1e3 / iters
         _log("the profiler saw %d device launches, %s wanted (try %d of %d)"
              % (seen, want or "some", tries, TRACE_TRIES))
     raise AssertionError("the profiler saw %d device launches, %s wanted"
                          % (seen, want or "some"))
+
+
+def ptxas_report(log):
+    """-> [[function, registers, spill-store bytes, spill-load bytes]],
+    one for each entry function of ``nvcc -Xptxas -v`` output ``log``,
+    demangled and shortened where ``c++filt`` or ``cu++filt`` is found."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append([name, int(m.group(1)), *spills])
+            name = None
+    tool = shutil.which("c++filt") or shutil.which("cu++filt") or \
+        shutil.which("cu++filt", path="/usr/local/cuda/bin")
+    if out and tool:
+        names = subprocess.run([tool], input="\n".join(r[0] for r in out),
+                               capture_output=True, text=True, timeout=60)
+        plain = names.stdout.splitlines()
+        if names.returncode == 0 and len(plain) == len(out):
+            for rec, full in zip(out, plain):
+                short = full.replace("(anonymous namespace)::", "")
+                rec[0] = short.split("(")[0].replace("void ", "", 1)
+    return out
 
 
 def _bound(nbytes, flops):
@@ -784,13 +827,14 @@ def _lrn_inputs(torch, dev, shape, seed):
 
 def _lrn_check(torch, lrn_mod, x, g, params, label):
     """K5 and K6 against their plain versions on the same inputs: errors
-    ``max|kernel - plain| <= LRN_TOL * max(1, max|plain|)``."""
+    ``max|kernel - plain| <= LRN_TOL * max(1, max|plain|)``; -> ({"fwd" /
+    "bwd": error}, {"fwd" / "bwd": bitwise equal}, the plain forward)."""
     y = lrn_mod.lrn(x, *params)
     dx = lrn_mod.lrn_backward(x, g, *params)
     ref_y = lrn_mod.lrn_reference(x, *params)
     ref_dx = lrn_mod.lrn_backward_reference(x, g, *params)
     torch.cuda.synchronize()
-    err = {}
+    err, equal = {}, {}
     for name, a, r in (("fwd", y, ref_y), ("bwd", dx, ref_dx)):
         e = float((a - r).abs().max())
         limit = LRN_TOL * max(1.0, float(r.abs().max()))
@@ -798,7 +842,8 @@ def _lrn_check(torch, lrn_mod, x, g, params, label):
             raise AssertionError("LRN %s %s: max|kernel - plain| = %g > %g"
                                  % (name, label, e, limit))
         err[name] = e
-    return err, ref_y
+        equal[name] = bool(torch.equal(a, r))
+    return err, equal, ref_y
 
 
 def _measure_lrn(torch, lrn_mod, dev, label, shape, seed):
@@ -806,7 +851,7 @@ def _measure_lrn(torch, lrn_mod, dev, label, shape, seed):
     f = torch.nn.functional
     x, g = _lrn_inputs(torch, dev, shape, seed)
     n = LRN_PARAMS[0]
-    err, ref_y = _lrn_check(torch, lrn_mod, x, g, LRN_PARAMS, label)
+    err, equal, ref_y = _lrn_check(torch, lrn_mod, x, g, LRN_PARAMS, label)
     # the library's LRN takes NCHW: the channels_last view of NHWC x
     xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
     lib_out = f.local_response_norm(xl, *LRN_PARAMS)
@@ -834,15 +879,19 @@ def _measure_lrn(torch, lrn_mod, dev, label, shape, seed):
     for name, (kernel, plain, nbytes, flops, lib, e) in calls.items():
         bound_ms, bound_by = _bound(nbytes, flops)
         rec = {"shape": shape_s, "max_abs_err": e,
+               "bitwise": equal[name[4:]],
                "ms": _cuda_ms(torch, kernel),
+               "device_ms": _device_ms(torch, kernel, per_launch=True),
                "plain_ms": _cuda_ms(torch, plain, iters=5),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": _cuda_ms(torch, lib, iters=10)}
-        _log("kernel %s [%s] max_err=%.3g kernel_ms=%.4f plain_ms=%.4f "
-             "bound_ms=%.4f (%s) library_ms=%.4f (F.local_response_norm %s;"
-             " its output within %.3g of the plain one)"
-             % (name, shape_s, e, rec["ms"], rec["plain_ms"], bound_ms,
-                bound_by, rec["library_ms"], "forward" if name == "lrn_fwd"
+        _log("kernel %s [%s] max_err=%.3g bitwise=%s kernel_ms=%.4f "
+             "device_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+             "library_ms=%.4f (F.local_response_norm %s; its output within "
+             "%.3g of the plain one)"
+             % (name, shape_s, e, rec["bitwise"], rec["ms"],
+                rec["device_ms"], rec["plain_ms"], bound_ms, bound_by,
+                rec["library_ms"], "forward" if name == "lrn_fwd"
                 else "autograd backward", lib_err))
         recs[name] = rec
     return recs
@@ -852,11 +901,13 @@ def lrn_phase(torch, lrn_mod, dev):
     """-> {kernel name: {"main": record, "realistic": [records]}}: the
     small cases untimed, then the main paths' shapes timed (AlexNet's
     first LRN is the main record)."""
+    equal = 0
     for i, (shape, params) in enumerate(LRN_SMALL):
         x, g = _lrn_inputs(torch, dev, shape, 300 + i)
-        _lrn_check(torch, lrn_mod, x, g, params, "%r %r" % (shape, params))
-    _log("kernel LRN: %d small cases (n 1-5, C 1-5000) within the limits"
-         % len(LRN_SMALL))
+        equal += all(_lrn_check(torch, lrn_mod, x, g, params,
+                                "%r %r" % (shape, params))[1].values())
+    _log("kernel LRN: %d small cases (n 1-5, C 1-5000) within the limits, "
+         "%d of them bitwise equal" % (len(LRN_SMALL), equal))
     cases = [_measure_lrn(torch, lrn_mod, dev, label, shape, seed=400 + i)
              for i, (label, shape) in enumerate(LRN_SHAPES)]
     return {name: {"main": cases[0][name],
@@ -1818,6 +1869,15 @@ def _trace_record(prof, label, card, seconds, top=5):
                  "%d [%s]" % (label, kid.upper(), rec[kid + "_ms"],
                               rec[kid + "_launches"], rec[kid + "_fold_ms"],
                               rec[kid + "_fold_launches"], card))
+    # the LRN pair's (every instantiation)
+    for kid, kernel in (("k5", "lrn_fwd_kernel"), ("k6", "lrn_bwd_kernel")):
+        rows = [(t, c) for t, c, k in by_kernel if kernel in k]
+        rec[kid + "_ms"] = sum(t for t, _ in rows) / 1e3
+        rec[kid + "_launches"] = sum(c for _, c in rows)
+    if rec["k5_launches"] or rec["k6_launches"]:
+        _log("trace %s: K5 %.3f ms over %d launches, K6 %.3f ms over %d "
+             "[%s]" % (label, rec["k5_ms"], rec["k5_launches"],
+                       rec["k6_ms"], rec["k6_launches"], card))
     width = 40 if top <= 5 else 70
     _log("trace %s: %.3f s traced, device busy %.3f ms (%.1f%%) over %d "
          "launches; int64 elementwise %.3f ms x%d; top: %s; copies and "
@@ -1890,6 +1950,17 @@ def serving_launches(runs):
     return launches
 
 
+#: (name prefix, keys): what a kernel's entry in the kernels line carries
+#: beside the keys every entry has
+LINE_KEYS = (
+    ("precise_matmul", ("device_ms", "split", "cuda_core_bound_ms")),
+    ("quantized_matmul", ("device_ms", "split", "cuda_core_bound_ms",
+                          "tile_m")),
+    ("flash_attention", ("device_ms", "d_tile", "tf32x3_bound_ms",
+                         "cuda_core_bound_ms")),
+    ("lrn", ("device_ms", "bitwise")))
+
+
 def kernels_line(kernels, k4, launches):
     """The ``kernels`` JSON line: every kernel of ``KERNEL_META``, as
     measured in phase 2, with its launches on its main path.  K4's
@@ -1917,23 +1988,13 @@ def kernels_line(kernels, k4, launches):
                  "bound_by": rec["bound_by"],
                  "library_ms": rec["library_ms"], "shape": rec["shape"],
                  "realistic": realistic[name]}
-        if name.startswith(("precise_matmul", "quantized_matmul")):
-            missing = {"device_ms", "split", "cuda_core_bound_ms"} - set(rec)
-            if missing:
-                raise AssertionError("kernel %s: its record lacks %s"
-                                     % (name, ", ".join(sorted(missing))))
-            entry.update(device_ms=rec["device_ms"], split=rec["split"],
-                         cuda_core_bound_ms=rec["cuda_core_bound_ms"])
-        if name.startswith("quantized_matmul"):
-            entry["tile_m"] = rec["tile_m"]
-        if name.startswith("flash_attention"):
-            want = {"device_ms", "d_tile", "tf32x3_bound_ms",
-                    "cuda_core_bound_ms"}
-            missing = want - set(rec)
-            if missing:
-                raise AssertionError("kernel %s: its record lacks %s"
-                                     % (name, ", ".join(sorted(missing))))
-            entry.update((key, rec[key]) for key in sorted(want))
+        want = next((keys for prefix, keys in LINE_KEYS
+                     if name.startswith(prefix)), ())
+        missing = set(want) - set(rec)
+        if missing:
+            raise AssertionError("kernel %s: its record lacks %s"
+                                 % (name, ", ".join(sorted(missing))))
+        entry.update((key, rec[key]) for key in want)
         if name == "precise_matmul_l1":
             entry["level0"] = k4[0]
         out.append(entry)
@@ -1967,13 +2028,13 @@ def main():
     built = _build.build(verbose=True)
     _log("built %s in %.2f s" % (", ".join(sorted(built)),
                                  time.perf_counter() - t0))
-    for name, (_, log) in sorted(built.items()):
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                _log("  %s: %s" % (name, line.strip()))
-
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "phase_s": {}}
+              "cuda": torch.version.cuda, "phase_s": {}, "ptxas": {}}
+    for name, (_, log) in sorted(built.items()):
+        record["ptxas"][name] = ptxas_report(log)
+        for fn, regs, stores, loads in record["ptxas"][name]:
+            _log("  ptxas %s: %s: %d registers, %d + %d bytes spilled "
+                 "(stores + loads)" % (name, fn, regs, stores, loads))
     clock = [time.perf_counter()]
 
     def phase_done(name):

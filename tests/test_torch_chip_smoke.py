@@ -154,6 +154,26 @@ def test_trace_record_sums_k3_and_k4():
     assert rec["k4_fold_ms"] == 0 and rec["k4_fold_launches"] == 0
 
 
+def test_trace_record_sums_k5_and_k6():
+    """The LRN pair's device time and launches over every instantiation
+    of each kernel, none where the run took the band form."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [_Row("void (anonymous namespace)::lrn_fwd_kernel<5, true>("
+                 "float const*, float*, (anonymous namespace)::Plan, float, "
+                 "float, float)", 800.0, 4, cuda),
+            _Row("void (anonymous namespace)::lrn_fwd_kernel<0, false>",
+                 100.0, 2, cuda),
+            _Row("void (anonymous namespace)::lrn_bwd_kernel<5, true>",
+                 1200.0, 4, cuda),
+            _Row("sgemm", 5000.0, 10, cuda)]
+    rec = chip_smoke._trace_record(_Prof(rows), "t", "card", 0.5)
+    assert rec["k5_ms"] == pytest.approx(0.9) and rec["k5_launches"] == 6
+    assert rec["k6_ms"] == pytest.approx(1.2) and rec["k6_launches"] == 4
+    rec = chip_smoke._trace_record(_Prof(rows[3:]), "t", "card", 0.5)
+    assert (rec["k5_ms"], rec["k5_launches"], rec["k6_launches"]) == \
+        (0, 0, 0)
+
+
 def test_a_profile_that_lost_launches_is_taken_again(monkeypatch):
     cuda = torch.autograd.DeviceType.CUDA
     short = [_Row("quantized_matmul_kernel", 50.0, 15, cuda)]
@@ -171,6 +191,21 @@ def test_a_profile_that_lost_launches_is_taken_again(monkeypatch):
     fake = _fake_tracer(monkeypatch, [short])
     assert chip_smoke._device_ms(fake, lambda: None, iters=5) == \
         pytest.approx(0.01)
+
+
+def test_per_launch_device_time_takes_the_launches_the_profile_holds(
+        monkeypatch):
+    """A one-kernel call's mean over the records the profile kept: 15 of
+    20 launches seen at 50 us in all is 3.33 us a launch, not 2.5; a
+    profile with no device time is taken again."""
+    cuda = torch.autograd.DeviceType.CUDA
+    cpu = torch.autograd.DeviceType.CPU
+    short = [_Row("lrn_fwd_kernel<5, true>", 50.0, 15, cuda)]
+    fake = _fake_tracer(monkeypatch, [[_Row("aten::empty", 1.0, 20, cpu)],
+                                      short])
+    ms = chip_smoke._device_ms(fake, lambda: None, iters=20,
+                               per_launch=True)
+    assert ms == pytest.approx(50.0 / 15 / 1e3)
 
 
 def _rec(ms):
@@ -200,6 +235,54 @@ def _flash_rec(ms):
                 tf32x3_bound_ms=ms / 6, cuda_core_bound_ms=ms / 3)
 
 
+def _lrn_rec(ms):
+    """A K5/K6 record: its device time, and whether it equals the plain
+    version bit for bit."""
+    return dict(_rec(ms), device_ms=ms / 2, bitwise=True)
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114lrn_fwd_kernelILi5ELb1EEEvPKfPfNS_4PlanEfff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114lrn_fwd_kernelILi5ELb1EEEvPKfPfNS_4PlanEfff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114lrn_bwd_kernelILi0ELb0EEEvPKfS2_PfNS_4PlanEfffff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114lrn_bwd_kernelILi0ELb0EEEvPKfS2_PfNS_4PlanEfffff
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 440 bytes cmem[0]
+"""  # noqa: E501
+
+
+def test_ptxas_report_names_each_instantiation(monkeypatch):
+    """One record an entry function: registers and spilled bytes, the
+    name demangled where a demangler is found and kept as it is else."""
+    monkeypatch.setattr(chip_smoke.shutil, "which", lambda *a, **k: None)
+    report = chip_smoke.ptxas_report(PTXAS_LOG)
+    assert [r[1:] for r in report] == [[38, 0, 0], [64, 12, 8]]
+    assert report[0][0].startswith("_ZN12_GLOBAL__N_114lrn_fwd_kernel")
+    assert chip_smoke.ptxas_report("no ptxas lines") == []
+    monkeypatch.undo()
+    if chip_smoke.shutil.which("c++filt"):
+        names = [r[0] for r in chip_smoke.ptxas_report(PTXAS_LOG)]
+        assert names == ["lrn_fwd_kernel<5, true>",
+                         "lrn_bwd_kernel<0, false>"]
+
+
+def test_lrn_ab_refuses_to_run_without_a_card(monkeypatch):
+    """tools/lrn_ab.py times kernels on the card only: without one it
+    stops before building anything."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(chip_smoke.__file__).parent / "tools" / "lrn_ab.py"
+    spec = importlib.util.spec_from_file_location("lrn_ab", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tool, "build", lambda _: pytest.fail("built"))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tool.main()
+
+
 def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     slice1 = ("paged_attention_f32", "paged_attention_int8",
               "quantized_matmul_int8", "quantized_matmul_fp8")
@@ -214,6 +297,8 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     for name in slice3:
         kernels[name] = {"main": _flash_rec(0.6),
                          "realistic": [_flash_rec(0.3)]}
+    for name in slice4:
+        kernels[name] = {"main": _lrn_rec(0.2), "realistic": [_lrn_rec(0.1)]}
     k4 = {level: {"main": [_k4_rec(0.08 + level), _k4_rec(0.07)],
                   "realistic": [_k4_rec(7.0)]} for level in (0, 1, 2)}
     launches = dict({name: 64 for name in slice1},
@@ -294,6 +379,16 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
         assert entry["id"] == kid and entry["route"] == "cuda"
         assert entry["source"] == "veles_tpu_torch/csrc/lrn.cu"
         assert entry["replaces"].startswith("veles_tpu/znicz/lrn.py:")
+        assert entry["device_ms"] == 0.1 and entry["bitwise"] is True
+        # a K5/K6 record without its device time or its bitwise flag
+        # fails the line
+        for key in ("device_ms", "bitwise"):
+            bare = dict(kernels)
+            rec = dict(kernels[name]["main"])
+            del rec[key]
+            bare[name] = dict(kernels[name], main=rec)
+            with pytest.raises(AssertionError, match="lacks " + key):
+                chip_smoke.kernels_line(bare, k4, launches)
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.kernels_line(kernels, k4, dict(launches, lrn_bwd=0))
     without_k5 = dict(kernels)

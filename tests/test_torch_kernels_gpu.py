@@ -20,8 +20,10 @@ T = 16384 K7 within 2e-6 and K8/K9 within 1e-5 of max(1, max|plain|)
 (the figures their per-tile joins of the tensor cores' sums are held
 to); LRN (K5,
 K6) ``<= 1e-5 * max(1, max|plain|)`` (the same formula, powf against
-torch.pow a few ulps apart), and ``F.local_response_norm`` agrees with
-K5 within the same limit.  AlexNet (full widths at the JAX test's side
+torch.pow a few ulps apart), bitwise equal wherever torch.pow takes its
+general path (beta 0.75 and 0.6 here: the same powf, IEEE divide and
+summation order), and ``F.local_response_norm`` agrees with K5 within
+1e-5.  AlexNet (full widths at the JAX test's side
 67) takes two train steps on the card and on the CPU: losses within
 1e-4 relative, each parameter tensor within 1e-4 of its largest
 magnitude (chip_smoke's limits); threefry bits on the card equal the
@@ -737,12 +739,109 @@ def test_lrn_refuses_what_the_kernels_cannot_take(cuda):
         lrn.lrn(x.double())
     with pytest.raises(ValueError):        # rows not dense
         lrn.lrn(x.permute(0, 3, 1, 2))
-    with pytest.raises(ValueError):        # channels past the limit
-        lrn.lrn(torch.zeros((1, lrn.MAX_CHANNELS + 1), device=cuda))
+    with pytest.raises(ValueError):        # no channels
+        lrn.lrn(torch.zeros((2, 0), device=cuda))
     with pytest.raises(ValueError):        # operands on two devices
         lrn.lrn_backward(x, x.cpu())
     with pytest.raises(ValueError):        # g of another shape
         lrn.lrn_backward(x, x[:1])
+
+
+# Bit equality: where torch.pow takes its general path (beta 0.75 and
+# 0.6 here; not 0.5, 1, 2 or 3) K5 and K6 give the plain versions' bits.
+
+def _lrn_bitwise(x, g, params):
+    """K5 and K6 against their plain versions, bit for bit, each launched
+    once."""
+    before = lrn.lrn.launches, lrn.lrn_backward.launches
+    y = lrn.lrn(x, *params)
+    dx = lrn.lrn_backward(x, g, *params)
+    torch.cuda.synchronize()
+    assert (lrn.lrn.launches, lrn.lrn_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, lrn.lrn_reference(x, *params))
+    assert torch.equal(dx, lrn.lrn_backward_reference(x, g, *params))
+
+
+def _lrn_xg(dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=dev) * 2.0,
+            torch.randn(shape, generator=gen, device=dev))
+
+
+@pytest.mark.parametrize("c", [1, 7, 32, 96, 256, 5000])
+@pytest.mark.parametrize("n", [1, 2, 4, 5])
+def test_lrn_kernels_equal_plain_bitwise(cuda, n, c):
+    _lrn_bitwise(*_lrn_xg(cuda, (3, 5, 7, c), n * 10000 + c),
+                 (n, 0.5, 0.75, 2.0))
+
+
+@pytest.mark.parametrize("label,shape", chip_smoke.LRN_SHAPES)
+def test_lrn_kernels_bitwise_at_the_main_paths_shapes(cuda, label, shape):
+    """AlexNet's two LRN layers at minibatch 128 and the LRN convnet's
+    two at minibatch 100."""
+    _lrn_bitwise(*_lrn_xg(cuda, shape, shape[-1]), chip_smoke.LRN_PARAMS)
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.LRN_SMALL)))
+def test_lrn_kernels_bitwise_at_chip_smokes_small_cases(cuda, case):
+    shape, params = chip_smoke.LRN_SMALL[case]
+    _lrn_bitwise(*_lrn_xg(cuda, shape, 300 + case), params)
+
+
+@pytest.mark.parametrize("c", [5, 96, 1030])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 9])
+def test_lrn_kernels_bitwise_every_window(cuda, n, c):
+    """n 1-5 unrolled, 7 and 9 at run time; C % 4 != 0 (scalar copies),
+    whole rows of quads, and rows split into chunks."""
+    _lrn_bitwise(*_lrn_xg(cuda, (4, 3, c), 70 * n + c), (n, 0.5, 0.75, 2.0))
+
+
+@pytest.mark.parametrize("c", [96, 7])
+def test_lrn_kernels_bitwise_on_misaligned_bases(cuda, c):
+    """Dense rows whose base is 4 bytes past a 16-byte boundary take the
+    scalar instantiation, x and g alike."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    rows = 37
+    buf = torch.randn(2 * rows * c + 3, generator=gen, device=cuda) * 2.0
+    x = buf[1:1 + rows * c].view(rows, c)
+    g = buf[rows * c + 2:2 * rows * c + 2].view(rows, c)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    _lrn_bitwise(x, g, (5, 0.5, 0.75, 2.0))
+    aligned = x.clone()
+    _lrn_bitwise(aligned, g, (5, 0.5, 0.75, 2.0))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 7, 9, 1001])
+def test_lrn_kernels_bitwise_on_ragged_row_counts(cuda, rows):
+    """Row counts that fill no whole tile (C = 96: 8 rows a tile), a
+    single row among them."""
+    _lrn_bitwise(*_lrn_xg(cuda, (rows, 96), rows), (5, 1e-4, 0.75, 2.0))
+
+
+def test_lrn_kernels_bitwise_past_one_wave_of_ctas(cuda):
+    """Many more CTAs than the card holds at once (C = 32: a CTA takes 32
+    rows, so 8449 CTAs against about 1300 resident, the last ragged)."""
+    _lrn_bitwise(*_lrn_xg(cuda, (8448 * 32 + 5, 32), 17),
+                 (5, 1e-4, 0.75, 2.0))
+
+
+@pytest.mark.parametrize("c", [1025, 4100, 20000])
+def test_lrn_kernels_bitwise_on_split_rows(cuda, c):
+    """Rows past 1024 channels are cut into chunks whose pads carry their
+    neighbours' squares and inner terms: any C, 20000 the widest here."""
+    _lrn_bitwise(*_lrn_xg(cuda, (3, c), c), (5, 0.5, 0.75, 2.0))
+    _lrn_bitwise(*_lrn_xg(cuda, (2, c), c + 1), (7, 0.5, 0.6, 1.5))
+
+
+def test_lrn_kernels_are_bitwise_repeatable(cuda):
+    """Two calls of each kernel at AlexNet's first LRN give the same bits
+    (every element is one thread's, computed in a fixed order)."""
+    x, g = _lrn_xg(cuda, (128, 55, 55, 96), 3)
+    runs = [(lrn.lrn(x), lrn.lrn_backward(x, g)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_threefry_bits_on_the_card_equal_the_cpu(cuda):

@@ -8,7 +8,8 @@
   window), C in {7, 16, 96}, with the parameters of
   tests/test_conv_stack.py:217-262 (alpha 1e-4 for n = 5, 0.5 for even
   n) and a beta other than 0.75 (the band form's general power).
-  Tolerances: values 1e-5, gradients 1e-4 (the JAX test's).
+  Tolerances: values 1e-5, gradients 1e-4 (the JAX test's).  Also rows
+  of 1030 and 5000 channels and windows 3, 5 and 7 at alpha 0.5.
 - ``lrn`` and ``lrn_backward`` take the plain versions for CPU tensors
   and count no launch; ``lrn_pair``'s backward is K6's plain version
   (the same bits); a tensor on another device raises.
@@ -72,6 +73,24 @@ def test_plain_pair_matches_pallas_lrn_and_its_vjp(n, c, alpha, beta, k):
                                      gt)
     numpy.testing.assert_allclose(band_dx.numpy(), dx, rtol=1e-4,
                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("n,c", [(5, 1030), (7, 1030), (3, 5000)])
+def test_plain_pair_matches_pallas_lrn_on_wide_rows(n, c):
+    """Rows past 1024 channels (the card's kernels cut them into chunks)
+    and a window past 5 (a run-time n there): the plain pair against the
+    JAX kernel pair, which takes any C in interpret mode."""
+    from veles_tpu.znicz.lrn import pallas_lrn
+    x, g = _xg(c, seed=n + c, shape=(3,))
+    want, pull = jax.vjp(lambda v: pallas_lrn(v, n, 0.5, 0.75, 2.0),
+                         jnp.asarray(x))
+    (want_dx,) = pull(jnp.asarray(g))
+    xt, gt = torch.tensor(x), torch.tensor(g)
+    numpy.testing.assert_allclose(tl.lrn_reference(xt, n, 0.5).numpy(),
+                                  numpy.asarray(want), rtol=1e-5, atol=1e-5)
+    numpy.testing.assert_allclose(
+        tl.lrn_backward_reference(xt, gt, n, 0.5).numpy(),
+        numpy.asarray(want_dx), rtol=1e-4, atol=1e-4)
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():
