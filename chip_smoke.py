@@ -13,7 +13,14 @@ Phases (any failure raises and the script exits non-zero):
    shapes, timed with CUDA events beside the least time the card could
    take (``bound_ms``) and, where one PyTorch call computes the same
    function, that call (``library_ms``).  Tolerances: paged attention
-   ``max|kernel - plain| <= 1e-5``; the quantized GEMM (K3, int8 and
+   (K1 f32, K2 int8) ``max|kernel - plain| <= 1e-5``, at ``paged_cases``
+   (the main path's shape, a realistic batch and a 65536-token context
+   past a dense score row in shared memory), each record with
+   the plan's split, the profiler's device time a call (the kernel and,
+   split, the merge) and ``library_ms``: ``scaled_dot_product_attention``
+   pinned to ``SDPA_BACKEND`` over the same valid tokens as a dense [B,
+   H, Tmax, D] f32 cache (K2's dequantized) with a boolean length mask,
+   the gather that builds it untimed; the quantized GEMM (K3, int8 and
    fp8) ``max|kernel - plain| <= 1e-5 * max|plain|``, timed at the main
    path's two expert GEMMs and at M = 1, 16 and 256 with K = N = 4096,
    with CUDA events and the profiler's device time, each record with the
@@ -114,7 +121,8 @@ Phases (any failure raises and the script exits non-zero):
    the share of the wall time the card is busy, the top kernels, the
    device copies and cuDNN's layout transforms, the int64
    elementwise kernels (dropout's threefry draws), and the device time
-   of K3, K4 (each with its split-K fold), K5 and K6.  Each serving
+   of K1 and K2 (with their merge), K3, K4 (each with its split-K
+   fold), K5 and K6.  Each serving
    configuration's tok/s and decode step p50 (phase 3) are printed
    beside its traced burst's launches and device-to-device copies.
    A trace that holds no device time is taken again on a fresh run, up
@@ -191,8 +199,9 @@ def _device_ms(torch, fn, iters=20, launches=None, per_launch=False):
     ``launches`` (the kernels one call launches), a profile that holds
     another count lost records and is taken again, as one with no
     device time is, up to ``TRACE_TRIES`` in all.  ``per_launch``, for a
-    call that launches one kernel: the mean over the launches the
-    profile holds, so a record it lost biases nothing."""
+    call that launches each of its kernels once: the sum of each
+    kernel's mean over the launches the profile holds, so a record it
+    lost biases nothing."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -206,7 +215,7 @@ def _device_ms(torch, fn, iters=20, launches=None, per_launch=False):
         rows = device_rows(prof.key_averages())
         seen = sum(c for _, c, _ in rows)
         if rows and per_launch:
-            return sum(t for t, _, _ in rows) / 1e3 / seen
+            return sum(t / c for t, c, _ in rows) / 1e3
         if rows and want in (None, seen):
             return sum(t for t, _, _ in rows) / 1e3 / iters
         _log("the profiler saw %d device launches, %s wanted (try %d of %d)"
@@ -284,30 +293,78 @@ def _paged_case(torch, pa, dev, b, h, d, bs, nb, lengths, quant, seed):
     return (q, kp, vp, table, lens), kw, nbytes, flops
 
 
+def _sdpa_paged(torch, pa, args, kw, scale):
+    """``scaled_dot_product_attention`` over the same valid tokens laid
+    out as a dense [B, H, Tmax, D] f32 cache (K2's dequantized) with a
+    boolean length mask, pinned to ``SDPA_BACKEND``: (call, its output).
+    The gather that builds the cache stays outside the call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q, kp, vp, table, lens = args
+    b, h, d = q.shape
+    t_max = int(lens.max())
+    if kw:
+        kp = pa.dequantize_pool(kp, kw["k_scales"])
+        vp = pa.dequantize_pool(vp, kw["v_scales"])
+    k, v = (p[table.long()].reshape(b, -1, h, d)[:, :t_max]
+            .permute(0, 2, 1, 3).contiguous() for p in (kp, vp))
+    del kp, vp
+    mask = (torch.arange(t_max, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    qh = q[:, :, None, :]
+    backend = getattr(SDPBackend, SDPA_BACKEND)
+
+    def run():
+        with sdpa_kernel(backend):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask, scale=scale)
+    return run, run()[:, :, 0]
+
+
 def _measure_paged(torch, pa, dev, label, shape, lengths, quant, seed):
     b, h, d, bs, nb = shape
     args, kw, nbytes, flops = _paged_case(torch, pa, dev, b, h, d, bs, nb,
                                           lengths, quant, seed)
+    plan = pa._cached_plan(b, h, d, bs, nb, quant, dev)
+    merges = pa.paged_attention.merge_launches
     out = pa.paged_attention(*args, **kw)
+    if (pa.paged_attention.merge_launches > merges) != (plan.split > 1):
+        raise AssertionError("%s: planned split %d, merge launched %d "
+                             "times" % (label, plan.split,
+                                        pa.paged_attention.merge_launches
+                                        - merges))
     ref = pa.paged_attention_reference(*args, **kw)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     if not err <= 1e-5:
         raise AssertionError("%s: max|kernel - plain| = %g > 1e-5"
                              % (label, err))
+    library, lib_out = _sdpa_paged(torch, pa, args, kw, 1.0 / math.sqrt(d))
+    live = args[4] > 0          # SDPA gives no zeros for a length-0 row
+    lib_err = float((lib_out[live] - ref[live]).abs().max())
+    del out, ref, lib_out
     bound_ms, bound_by = _bound(nbytes, flops)
+    call = lambda: pa.paged_attention(*args, **kw)  # noqa: E731
     rec = {"shape": "B=%d H=%d D=%d bs=%d nb=%d tokens=%d"
                     % (b, h, d, bs, nb, sum(lengths)),
-           "max_abs_err": err,
-           "ms": _cuda_ms(torch, lambda: pa.paged_attention(*args, **kw)),
+           "max_abs_err": err, "split": plan.split,
+           "plan": list(plan),
+           "ms": _cuda_ms(torch, call),
+           "device_ms": _device_ms(torch, call, per_launch=True),
            "plain_ms": _cuda_ms(
                torch, lambda: pa.paged_attention_reference(*args, **kw),
                iters=5),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    _log("kernel %s [%s] max_err=%.3g kernel_ms=%.4f plain_ms=%.4f "
-         "bound_ms=%.4f (%s) library_ms=none"
-         % (label, rec["shape"], err, rec["ms"], rec["plain_ms"],
-            bound_ms, bound_by))
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": _cuda_ms(torch, library, iters=10),
+           "library_max_abs_err": lib_err}
+    _log("kernel %s [%s] split %d (%d blocks) tile %d "
+         "max_err=%.3g kernel_ms=%.4f device_ms=%.4f (a call: the kernel "
+         "and, split, the merge) plain_ms=%.4f bound_ms=%.4f (%s) "
+         "library_ms=%.4f (scaled_dot_product_attention %s over a dense "
+         "[B, H, Tmax, D] f32 cache with a length mask, the gather "
+         "untimed; within %.3g of the plain version on rows of length > "
+         "0)" % (label, rec["shape"], *plan, err, rec["ms"],
+                 rec["device_ms"], rec["plain_ms"], bound_ms, bound_by,
+                 rec["library_ms"], SDPA_BACKEND, lib_err))
     return rec
 
 
@@ -385,25 +442,32 @@ def k3_phase(torch, gemm, dev):
     return out
 
 
+def paged_cases():
+    """[(label, (B, H, D, block_size, max_blocks), lengths)] of K1/K2:
+    the main path (README widths: H=4, D=16, bs=16, 16 blocks a row;
+    decode lengths 1 .. 160, prompt <= 128 plus 32 new tokens), a
+    serving-realistic batch (B=32, H=8, D=128, bs=16, 128 blocks a row,
+    ragged lengths in [0, 2048] with one empty and one full row) and a
+    long context (B=2, 4096 blocks a row, 65536 and 40000 tokens: 1.07
+    GB of f32 pools; a dense score row of it would pass shared memory)."""
+    rng = numpy.random.RandomState(0)
+    main_lengths = [1] + rng.randint(1, 161, 15).tolist()
+    big_lengths = [0, 2048] + rng.randint(0, 2049, 30).tolist()
+    return [("main", (16, 4, 16, 16, 16), main_lengths),
+            ("realistic", (32, 8, 128, 16, 128), big_lengths),
+            ("long", (2, 8, 128, 16, 4096), [65536, 40000])]
+
+
 def kernel_phase(torch, pa, gemm, dev):
     """-> {kernel name: {"main": record, "realistic": [records]}}."""
-    rng = numpy.random.RandomState(0)
-    # the main path: README widths (H=4, D=16, bs=16, 16 blocks a row),
-    # decode lengths 1 .. 160 (prompt <= 128 plus 32 new tokens)
-    main_shape = (16, 4, 16, 16, 16)
-    main_lengths = [1] + rng.randint(1, 161, 15).tolist()
-    # serving-realistic: B=32, H=8, D=128, bs=16, 128 blocks a row,
-    # ragged lengths in [0, 2048] with one empty and one full row
-    big_shape = (32, 8, 128, 16, 128)
-    big_lengths = [0, 2048] + rng.randint(0, 2049, 30).tolist()
     out = {}
     for name, quant in (("paged_attention_f32", False),
                         ("paged_attention_int8", True)):
-        out[name] = {
-            "main": _measure_paged(torch, pa, dev, name, main_shape,
-                                   main_lengths, quant, seed=1),
-            "realistic": [_measure_paged(torch, pa, dev, name, big_shape,
-                                         big_lengths, quant, seed=2)]}
+        recs = [_measure_paged(torch, pa, dev, name, shape, lengths, quant,
+                               seed=1 if label == "main" else 2)
+                for label, shape, lengths in paged_cases()]
+        out[name] = {"main": recs[0], "realistic": recs[1:]}
+        torch.cuda.empty_cache()
     out.update(k3_phase(torch, gemm, dev))
     return out
 
@@ -1869,6 +1933,20 @@ def _trace_record(prof, label, card, seconds, top=5):
                  "%d [%s]" % (label, kid.upper(), rec[kid + "_ms"],
                               rec[kid + "_launches"], rec[kid + "_fold_ms"],
                               rec[kid + "_fold_launches"], card))
+    # K1's and K2's (f32 and int8 pools, every instantiation) and the
+    # merge of their split calls
+    for kid, kernel in (("k1", "paged_decode_kernel<float"),
+                        ("k2", "paged_decode_kernel<signed char"),
+                        ("paged_merge", "paged_merge_kernel")):
+        rows = [(t, c) for t, c, k in by_kernel if kernel in k]
+        rec[kid + "_ms"] = sum(t for t, _ in rows) / 1e3
+        rec[kid + "_launches"] = sum(c for _, c in rows)
+    if rec["k1_launches"] or rec["k2_launches"]:
+        _log("trace %s: K1 %.3f ms over %d launches, K2 %.3f ms over %d, "
+             "merge %.3f ms over %d [%s]"
+             % (label, rec["k1_ms"], rec["k1_launches"], rec["k2_ms"],
+                rec["k2_launches"], rec["paged_merge_ms"],
+                rec["paged_merge_launches"], card))
     # the LRN pair's (every instantiation)
     for kid, kernel in (("k5", "lrn_fwd_kernel"), ("k6", "lrn_bwd_kernel")):
         rows = [(t, c) for t, c, k in by_kernel if kernel in k]
@@ -1953,6 +2031,7 @@ def serving_launches(runs):
 #: (name prefix, keys): what a kernel's entry in the kernels line carries
 #: beside the keys every entry has
 LINE_KEYS = (
+    ("paged_attention", ("device_ms", "split", "library_ms")),
     ("precise_matmul", ("device_ms", "split", "cuda_core_bound_ms")),
     ("quantized_matmul", ("device_ms", "split", "cuda_core_bound_ms",
                           "tile_m")),
@@ -1980,6 +2059,12 @@ def kernels_line(kernels, k4, launches):
             raise AssertionError("kernel %s never launched on its main "
                                  "path" % name)
         rec = main[name]
+        want = next((keys for prefix, keys in LINE_KEYS
+                     if name.startswith(prefix)), ())
+        missing = set(want) - set(rec)
+        if missing:
+            raise AssertionError("kernel %s: its record lacks %s"
+                                 % (name, ", ".join(sorted(missing))))
         entry = {"name": name, "id": kid, "route": "cuda",
                  "source": "veles_tpu_torch/" + src, "replaces": replaces,
                  "launches": launches[name],
@@ -1988,12 +2073,6 @@ def kernels_line(kernels, k4, launches):
                  "bound_by": rec["bound_by"],
                  "library_ms": rec["library_ms"], "shape": rec["shape"],
                  "realistic": realistic[name]}
-        want = next((keys for prefix, keys in LINE_KEYS
-                     if name.startswith(prefix)), ())
-        missing = set(want) - set(rec)
-        if missing:
-            raise AssertionError("kernel %s: its record lacks %s"
-                                 % (name, ", ".join(sorted(missing))))
         entry.update((key, rec[key]) for key in want)
         if name == "precise_matmul_l1":
             entry["level0"] = k4[0]

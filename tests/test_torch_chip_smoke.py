@@ -9,7 +9,8 @@
   int64 elementwise kernels (dropout's threefry draws).  A traced run
   whose trace holds no device time is traced again on a fresh run, up
   to ``TRACE_TRIES``; one with no device time in every try fails.  A
-  traced run sums K3's and K4's products and folds.  A kernel's profile
+  traced run sums K1's and K2's launches (and their merge), K3's and
+  K4's products and folds.  A kernel's profile
   whose launch count is short of the calls' lost records and is taken
   again.
 - The ``kernels`` line holds every kernel of the main paths (slice 3's
@@ -174,6 +175,31 @@ def test_trace_record_sums_k5_and_k6():
         (0, 0, 0)
 
 
+def test_trace_record_sums_k1_k2_and_their_merge():
+    """Paged attention's device time and launches: K1 over every f32
+    instantiation, K2 over every int8 one, the merge of split calls
+    apart; none where the run launched none."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [_Row("void (anonymous namespace)::paged_decode_kernel<float, "
+                 "4, false>((anonymous namespace)::Args)", 700.0, 60, cuda),
+            _Row("void (anonymous namespace)::paged_decode_kernel<float, "
+                 "1, false>((anonymous namespace)::Args)", 20.0, 2, cuda),
+            _Row("void (anonymous namespace)::paged_decode_kernel<signed "
+                 "char, 16, true>((anonymous namespace)::Args)", 300.0, 30,
+                 cuda),
+            _Row("void (anonymous namespace)::paged_merge_kernel(float "
+                 "const*, float*, int, int, int, int)", 40.0, 8, cuda),
+            _Row("sgemm", 5000.0, 10, cuda)]
+    rec = chip_smoke._trace_record(_Prof(rows), "t", "card", 0.5)
+    assert rec["k1_ms"] == pytest.approx(0.72) and rec["k1_launches"] == 62
+    assert rec["k2_ms"] == pytest.approx(0.3) and rec["k2_launches"] == 30
+    assert rec["paged_merge_ms"] == pytest.approx(0.04)
+    assert rec["paged_merge_launches"] == 8
+    rec = chip_smoke._trace_record(_Prof(rows[4:]), "t", "card", 0.5)
+    assert (rec["k1_launches"], rec["k2_launches"],
+            rec["paged_merge_launches"]) == (0, 0, 0)
+
+
 def test_a_profile_that_lost_launches_is_taken_again(monkeypatch):
     cuda = torch.autograd.DeviceType.CUDA
     short = [_Row("quantized_matmul_kernel", 50.0, 15, cuda)]
@@ -212,6 +238,12 @@ def _rec(ms):
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": 2 * ms,
             "bound_ms": ms / 10, "bound_by": "bytes", "library_ms": None,
             "shape": "M=60 K=784 N=100"}
+
+
+def _paged_rec(ms):
+    """A K1/K2 record: its device time, the plan's split, the library
+    yardstick (SDPA over the dense cache)."""
+    return dict(_rec(ms), device_ms=ms / 3, split=1, library_ms=ms * 2)
 
 
 def _k4_rec(ms):
@@ -283,6 +315,42 @@ def test_lrn_ab_refuses_to_run_without_a_card(monkeypatch):
         tool.main()
 
 
+def test_paged_ab_refuses_to_run_without_a_card(monkeypatch):
+    """tools/paged_ab.py times kernels on the card only: without one it
+    stops before building anything."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(chip_smoke.__file__).parent / "tools" / \
+        "paged_ab.py"
+    spec = importlib.util.spec_from_file_location("paged_ab", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tool, "build", lambda _: pytest.fail("built"))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tool.main()
+
+
+def test_paged_cases_cover_the_main_path_and_the_long_context():
+    """K1/K2's timed shapes: the main path's (one launch, no split), the
+    realistic batch and the long context, whose dense score row would
+    pass 227 KB of shared memory and which splits."""
+    from veles_tpu_torch.znicz import paged_attention as pa
+    cases = {label: (shape, lengths)
+             for label, shape, lengths in chip_smoke.paged_cases()}
+    assert list(cases) == ["main", "realistic", "long"]
+    assert cases == {label: (shape, lengths) for label, shape, lengths
+                     in chip_smoke.paged_cases()}     # seeded
+    (b, h, d, bs, nb), lengths = cases["main"]
+    assert len(lengths) == b and max(lengths) <= 160 <= nb * bs
+    assert pa.paged_attention_plan(b, h, d, bs, nb, 132).split == 1
+    (b, h, d, bs, nb), lengths = cases["long"]
+    assert lengths == [65536, 40000] and nb * bs * 4 > 232448
+    for quant in (False, True):
+        assert pa.paged_attention_plan(b, h, d, bs, nb, 132,
+                                       quantized=quant).split > 1
+
+
 def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     slice1 = ("paged_attention_f32", "paged_attention_int8",
               "quantized_matmul_int8", "quantized_matmul_fp8")
@@ -291,6 +359,9 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     slice4 = ("lrn_fwd", "lrn_bwd")
     kernels = {name: {"main": _rec(0.1), "realistic": [_rec(0.4)]}
                for name in slice1 + slice3 + slice4}
+    for name in slice1[:2]:
+        kernels[name] = {"main": _paged_rec(0.03),
+                         "realistic": [dict(_paged_rec(0.3), split=3)]}
     for name in slice1[2:]:
         kernels[name] = {"main": _k3_rec(0.1),
                          "realistic": [dict(_k3_rec(0.4), split=8)]}
@@ -336,6 +407,22 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     with pytest.raises(AssertionError, match="not measured"):
         chip_smoke.kernels_line(unmeasured, k4, launches)
     by_name = {e["name"]: e for e in line["kernels"]}
+    for name, kid in zip(slice1[:2], ("K1", "K2")):
+        entry = by_name[name]
+        assert entry["id"] == kid and entry["route"] == "cuda"
+        assert entry["source"] == "veles_tpu_torch/csrc/paged_attention.cu"
+        assert entry["device_ms"] == pytest.approx(0.01)
+        assert entry["split"] == 1 and entry["library_ms"] == 0.06
+        assert entry["realistic"][0]["split"] == 3
+        # a K1/K2 record without its device time, its split or its
+        # library yardstick fails the line
+        for key in ("device_ms", "split", "library_ms"):
+            bare = dict(kernels)
+            rec = dict(kernels[name]["main"])
+            del rec[key]
+            bare[name] = dict(kernels[name], main=rec)
+            with pytest.raises(AssertionError, match="lacks " + key):
+                chip_smoke.kernels_line(bare, k4, launches)
     for name in slice1[2:]:
         entry = by_name[name]
         assert entry["id"] == "K3" and entry["device_ms"] == 0.025

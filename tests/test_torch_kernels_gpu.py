@@ -74,18 +74,27 @@ def _paged_inputs(dev, b, h, d, bs, nb, lengths, seed=0, pool=None):
     return q, kp, vp, table, lens
 
 
-@pytest.mark.parametrize("d", [16, 24, 128, 200, 256])
+def _quantized(kp, vp, quant):
+    if not quant:
+        return kp, vp, {}
+    kp, ks = pa.quantize_pool(kp)
+    vp, vs = pa.quantize_pool(vp)
+    return kp, vp, {"k_scales": ks, "v_scales": vs}
+
+
+def _paged_err(out, q, kp, vp, table, lens, **scales):
+    ref = pa.paged_attention_reference(q, kp, vp, table, lens, **scales)
+    return float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize("d", [16, 24, 128, 200, 256, 320, 512])
 @pytest.mark.parametrize("quant", [False, True])
 def test_paged_attention_matches_plain(cuda, d, quant):
     bs, nb = 4, 6
     lengths = [0, 1, bs - 1, bs + 1, nb * bs, 7]
     q, kp, vp, table, lens = _paged_inputs(cuda, len(lengths), 3, d, bs,
                                            nb, lengths, seed=d)
-    scales = {}
-    if quant:
-        kp, ks = pa.quantize_pool(kp)
-        vp, vs = pa.quantize_pool(vp)
-        scales = {"k_scales": ks, "v_scales": vs}
+    kp, vp, scales = _quantized(kp, vp, quant)
     before = pa.paged_attention.launches
     out = pa.paged_attention(q, kp, vp, table, lens, **scales)
     torch.cuda.synchronize()
@@ -95,9 +104,49 @@ def test_paged_attention_matches_plain(cuda, d, quant):
     assert torch.equal(out[0], torch.zeros_like(out[0]))   # length 0
 
 
+@pytest.mark.parametrize("d", [257, 1024, 4096])
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_head_dims_past_a_register_accumulator(cuda, d,
+                                                               quant):
+    """Past 128 column chunks a thread (f32 D > 512, int8 D > 2048) the
+    accumulator sits in shared memory and q is read from it; D = 257
+    takes scalar reads."""
+    bs, nb = 4, 6
+    lengths = [0, 1, bs + 1, nb * bs]
+    q, kp, vp, table, lens = _paged_inputs(cuda, len(lengths), 2, d, bs,
+                                           nb, lengths, seed=d)
+    kp, vp, scales = _quantized(kp, vp, quant)
+    out = pa.paged_attention(q, kp, vp, table, lens, **scales)
+    torch.cuda.synchronize()
+    assert _paged_err(out, q, kp, vp, table, lens, **scales) <= 1e-5
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("d", [1, 5, 6, 12, 18])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_paged_attention_ragged_head_dims_and_misaligned_pools(
+        cuda, d, quant, offset):
+    """Head dims off the 16-byte vector (8-, 4- and 1-byte copies,
+    scalar reads) and pools whose base is off by one element."""
+    bs, nb, h = 4, 40, 4
+    lengths = [0, 1, bs + 1, 77, nb * bs]
+    q, kp, vp, table, lens = _paged_inputs(cuda, len(lengths), h, d, bs,
+                                           nb, lengths, seed=d + offset)
+    kp, vp, scales = _quantized(kp, vp, quant)
+    if offset:
+        kp, vp = (torch.cat([p.flatten()[:1], p.flatten()])[1:].view(
+            p.shape) for p in (kp, vp))
+        assert kp.data_ptr() % 16 != 0
+    out = pa.paged_attention(q, kp, vp, table, lens, **scales)
+    torch.cuda.synchronize()
+    assert _paged_err(out, q, kp, vp, table, lens, **scales) <= 1e-5
+
+
 def test_paged_attention_large_score_row(cuda):
-    """A score row past 48 KB of shared memory takes the opt-in path."""
-    bs, nb = 64, 256                     # 16384 scores = 64 KB
+    """A row of 16384 tokens: the score row a dense softmax keeps in
+    shared memory is gone, the online softmax streams it."""
+    bs, nb = 64, 256
     lengths = [bs * nb, 5000, 0]
     q, kp, vp, table, lens = _paged_inputs(cuda, 3, 2, 32, bs, nb,
                                            lengths, seed=3)
@@ -114,10 +163,103 @@ def test_paged_attention_refuses_what_the_kernel_cannot_take(cuda):
                            kp, vp, table, lens)
     with pytest.raises(ValueError):        # int64 lengths
         pa.paged_attention(q, kp, vp, table, lens.long())
-    big = torch.zeros((2, 60000), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):        # score row past 227 KB
-        pa.paged_attention(q, kp[:, :1].contiguous(),
-                           vp[:, :1].contiguous(), big, lens)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_takes_a_60000_block_table(cuda, quant):
+    """A 60000-block table (a dense score row of it would not fit the
+    card's 227 KB of shared memory) runs: 469 splits of 128 blocks."""
+    nb = 60000
+    q, kp, vp, table, lens = _paged_inputs(cuda, 2, 2, 8, 1, nb,
+                                           [nb, 41234], seed=4)
+    kp, vp, scales = _quantized(kp, vp, quant)
+    plan = pa._cached_plan(2, 2, 8, 1, nb, quant, q.device)
+    assert plan.split > 1 and plan.split * plan.blocks_per_split >= nb
+    merges = pa.paged_attention.merge_launches
+    out = pa.paged_attention(q, kp, vp, table, lens, **scales)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.merge_launches == merges + 1
+    assert _paged_err(out, q, kp, vp, table, lens, **scales) <= 1e-5
+
+
+def _split_case(dev, quant, seed=5):
+    """A table that splits: lengths at, one before and one past each
+    split boundary, and a length-0 row among long rows."""
+    h, d, bs, nb = 2, 64, 16, 128
+    plan = pa.paged_attention_plan(24, h, d, bs, nb, 132, quantized=quant)
+    edge = plan.blocks_per_split * bs
+    lengths = [nb * bs, 0]
+    for k in range(1, plan.split):
+        lengths += [k * edge - 1, k * edge, k * edge + 1]
+    lengths = (lengths + [5] * 24)[:24]
+    q, kp, vp, table, lens = _paged_inputs(dev, 24, h, d, bs, nb, lengths,
+                                           seed=seed)
+    kp, vp, scales = _quantized(kp, vp, quant)
+    return (q, kp, vp, table, lens), scales
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_split_boundaries(cuda, quant):
+    args, scales = _split_case(cuda, quant)
+    q, kp, _, table, _ = args
+    assert pa._cached_plan(*q.shape, kp.shape[1], table.shape[1], quant,
+                           cuda).split > 1
+    before = (pa.paged_attention.launches, pa.paged_attention.merge_launches)
+    out = pa.paged_attention(*args, **scales)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.launches,
+            pa.paged_attention.merge_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert _paged_err(out, *args, **scales) <= 1e-5
+    assert torch.equal(out[1], torch.zeros_like(out[1]))    # length 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_split_equals_unsplit(cuda, quant):
+    """The planned split against one CTA a row (split 1) and other
+    tiles, through the launch helper with a forced plan: within 1e-5
+    (another order of the same sums)."""
+    args, scales = _split_case(cuda, quant, seed=6)
+    ks, vs = scales.get("k_scales"), scales.get("v_scales")
+    q, kp, vp, table, lens = args
+    b, h, d = q.shape
+    nb = table.shape[1]
+    plan = pa._cached_plan(b, h, d, kp.shape[1], nb, quant, cuda)
+    split = pa._paged_launch(*args, None, ks, vs, plan)
+    for forced in (pa.PagedPlan(1, nb, plan.tile), pa.PagedPlan(1, nb, 5),
+                   pa.PagedPlan(5, 26, 3)):
+        other = pa._paged_launch(*args, None, ks, vs, forced)
+        torch.cuda.synchronize()
+        assert float((split - other).abs().max()) <= 1e-5, forced
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_two_calls_bitwise_equal(cuda, quant):
+    args, scales = _split_case(cuda, quant, seed=7)
+    first = pa.paged_attention(*args, **scales)
+    second = pa.paged_attention(*args, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_paged_attention_adds_no_host_sync(cuda):
+    """The plan comes from static shapes: under sync debug mode "error"
+    a call (split and unsplit, after a first call that cached each
+    plan) raises nothing."""
+    args, scales = _split_case(cuda, True, seed=8)
+    small = _paged_inputs(cuda, 3, 2, 16, 4, 6, [0, 5, 24], seed=8)
+    pa.paged_attention(*args, **scales)
+    pa.paged_attention(*small)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pa.paged_attention(*args, **scales)
+        small_out = pa.paged_attention(*small)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _paged_err(out, *args, **scales) <= 1e-5
+    assert _paged_err(small_out, *small) <= 1e-5
 
 
 def test_prefill_and_verify_wrappers_match_plain(cuda):
@@ -133,6 +275,31 @@ def test_prefill_and_verify_wrappers_match_plain(cuda):
     out = pa.paged_verify_attention(span, kp, vp, table, lens)
     ref = pa.paged_verify_attention_reference(span, kp, vp, table, lens)
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_prefill_and_verify_wrappers_on_a_split_plan(cuda, quant):
+    bs, nb, h, d = 16, 128, 2, 64
+    q, kp, vp, table, lens = _paged_inputs(cuda, 3, h, d, bs, nb,
+                                           [0, 700, 2000], seed=10)
+    kp, vp, scales = _quantized(kp, vp, quant)
+    chunk = torch.randn((8, h, d), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    assert pa._cached_plan(8, h, d, bs, nb, quant, cuda).split > 1
+    assert pa._cached_plan(6, h, d, bs, nb, quant, cuda).split > 1
+    merges = pa.paged_attention.merge_launches
+    for start, length in ((0, 5), (1500, 1504), (2040, 2048)):
+        out = pa.paged_prefill_attention(chunk, kp, vp, table[2], start,
+                                         length, **scales)
+        ref = pa.paged_prefill_attention_reference(
+            chunk, kp, vp, table[2], start, length, **scales)
+        assert float((out - ref).abs().max()) <= 1e-5
+    span = torch.stack([q, q.flip(0)], dim=1).contiguous()  # [3, 2, H, D]
+    out = pa.paged_verify_attention(span, kp, vp, table, lens, **scales)
+    ref = pa.paged_verify_attention_reference(span, kp, vp, table, lens,
+                                              **scales)
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert pa.paged_attention.merge_launches == merges + 4
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 128), (16, 128, 64),

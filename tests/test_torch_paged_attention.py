@@ -12,9 +12,16 @@ must give identical int8 bytes (both round half to even).  The cases
 mirror ``tests/test_paged_attention.py``: ragged lengths including 0,
 block straddles, single tokens, the trash block poisoned, physical
 placement; plus int8 pools and the prefill and verify wrappers.
+
+The CUDA kernel itself runs only on the card; here ``_emulate`` repeats
+its arithmetic in plain torch (the plan's split ranges, the online
+softmax tile by tile, the merge in split order) and is held to the same
+tolerance against the JAX package, past the 227 KB score row the first
+CUDA version refused and at a head dim past 256.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -195,3 +202,182 @@ def test_argument_checks_follow_the_jax_package():
     with pytest.raises(ValueError):        # scales of the wrong shape
         tpa.paged_attention(t["q"], kq, kq, t["table"], lengths,
                             k_scales=ks[:3], v_scales=ks)
+
+
+# -- the kernel's arithmetic, emulated ----------------------------------------
+
+def _emulate(q, kp, vp, table, lengths, plan, k_scales=None,
+             v_scales=None):
+    """K1/K2's arithmetic in plain torch: each (row, head) split into
+    ``plan.split`` ranges of ``plan.blocks_per_split`` blocks; in each, an
+    online softmax over tiles of ``plan.tile`` tokens (running max m, sum
+    l and accumulator rescaled tile by tile; a tile with no valid token
+    is never visited); then split 1 normalizes, and more splits merge in
+    split order: sum_s acc_s * exp(m_s - M) / sum_s l_s * exp(m_s - M)."""
+    b, h, d = q.shape
+    bs, nb = kp.shape[1], table.shape[1]
+    per = plan.blocks_per_split * bs
+    k, v = (p[table.long()].to(torch.float32) for p in (kp, vp))
+    if k_scales is not None:     # float(int8) * scale[physical block, head]
+        k = k * k_scales[table.long()][:, :, None, :, None]
+        v = v * v_scales[table.long()][:, :, None, :, None]
+    pad = plan.split * per - nb * bs
+    k, v = (torch.nn.functional.pad(
+        x.reshape(b, nb * bs, h, d).permute(0, 2, 1, 3), (0, 0, 0, pad))
+        .reshape(b, h, plan.split, per, d) for x in (k, v))
+    qs = q.to(torch.float32) * (1.0 / math.sqrt(d))
+    length = lengths.long().clamp(0, nb * bs)
+    count = (length[:, None] - torch.arange(plan.split)[None, :] * per
+             ).clamp(0, per)[:, None, :]                 # [B, 1, S]
+    m = torch.full((b, h, plan.split), float("-inf"))
+    l = torch.zeros((b, h, plan.split))
+    acc = torch.zeros((b, h, plan.split, d))
+    for t0 in range(0, per, plan.tile):
+        sl = slice(t0, min(t0 + plan.tile, per))
+        pos = torch.arange(sl.start, sl.stop)
+        valid = pos[None, None, None, :] < count[..., None]
+        seen = count > t0                                # tile visited
+        sc = (k[:, :, :, sl] * qs[:, :, None, None]).sum(-1)
+        sc = torch.where(valid, sc, torch.full_like(sc, float("-inf")))
+        m_new = torch.where(seen, torch.maximum(m, sc.amax(-1)), m)
+        alpha = torch.where(seen, torch.exp(m - m_new), torch.ones_like(m))
+        p = torch.where(valid, torch.exp(sc - m_new[..., None]),
+                        torch.zeros_like(sc))
+        acc = acc * alpha[..., None] + (p[..., None] * v[:, :, :, sl]).sum(3)
+        l = l * alpha + p.sum(-1)
+        m = m_new
+    if plan.split == 1:
+        return acc[:, :, 0] / torch.where(l == 0, torch.ones_like(l),
+                                          l)[:, :, 0, None]
+    big = m.amax(-1, keepdim=True)
+    w = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                    torch.exp(m - torch.where(torch.isneginf(big),
+                                              torch.zeros_like(big), big)))
+    num = acc[:, :, 0] * w[:, :, 0, None]
+    den = l[:, :, 0] * w[:, :, 0]
+    for s_ in range(1, plan.split):                      # split order
+        num = num + acc[:, :, s_] * w[:, :, s_, None]
+        den = den + l[:, :, s_] * w[:, :, s_]
+    return num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+
+
+#: plans beside the planned one: splits of 2 and 3 blocks, tiles that
+#: straddle blocks (3, 5 tokens) and cut them (1, 2)
+FORCED = [tpa.PagedPlan(3, 2, 3), tpa.PagedPlan(2, 3, 5),
+          tpa.PagedPlan(6, 1, 1), tpa.PagedPlan(1, NB, 2)]
+
+
+def _planned(b, h, d, quant=False):
+    return tpa.paged_attention_plan(b, h, d, BLOCK, NB, 132, quantized=quant)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pair(lengths, seed, quant):
+    """(inputs, kernel out, reference out) of the JAX package, once a
+    case: the Pallas kernel in interpret mode and the dense reference."""
+    q, kp, vp, table = _setup(seed=seed)
+    lv = numpy.asarray(lengths, numpy.int32)
+    kw, jkw = {}, {}
+    if quant:
+        kp, ks = (numpy.array(a) for a in jpa.quantize_pool(jnp.asarray(kp)))
+        vp, vs = (numpy.array(a) for a in jpa.quantize_pool(jnp.asarray(vp)))
+        kw = {"k_scales": ks, "v_scales": vs}
+        jkw = {n: jnp.asarray(a) for n, a in kw.items()}
+    args = (q, kp, vp, table, lv)
+    return (args, kw, _jax(_jax_kernel(), *args, **jkw),
+            _jax(jpa.paged_attention_reference, *args, **jkw))
+
+
+def _emulated(args, kw, plan):
+    t = [torch.from_numpy(numpy.ascontiguousarray(a)) for a in args]
+    tkw = {n: torch.from_numpy(a) for n, a in kw.items()}
+    return _emulate(*t, plan, **tkw).numpy()
+
+
+@pytest.mark.parametrize("plan", [None] + FORCED, ids=lambda p: str(
+    tuple(p)) if p else "planned")
+@pytest.mark.parametrize("lengths", [
+    (1, 2, 3, 5),
+    (BLOCK, 2 * BLOCK, 3 * BLOCK, T_MAX),
+    (BLOCK - 1, BLOCK + 1, T_MAX - 1, 1),
+    (0, 1, T_MAX, 7),
+])
+def test_kernel_arithmetic_matches_jax(lengths, plan):
+    """The emulated kernel (planned: one split, one tile; forced: split
+    ranges and tiles that cut and straddle blocks) against the Pallas
+    kernel in interpret mode and the dense reference."""
+    args, kw, kernel, ref = _jax_pair(lengths, 3, False)
+    out = _emulated(args, kw, plan or _planned(B, H, D))
+    numpy.testing.assert_allclose(out, kernel, **TOL)
+    numpy.testing.assert_allclose(out, ref, **TOL)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert numpy.array_equal(out[b], numpy.zeros_like(out[b]))
+
+
+@pytest.mark.parametrize("plan", [None] + FORCED, ids=lambda p: str(
+    tuple(p)) if p else "planned")
+def test_kernel_arithmetic_int8_matches_jax(plan):
+    args, kw, kernel, ref = _jax_pair((0, 5, T_MAX, BLOCK + 1), 21, True)
+    out = _emulated(args, kw, plan or _planned(B, H, D, quant=True))
+    numpy.testing.assert_allclose(out, kernel, **TOL)
+    numpy.testing.assert_allclose(out, ref, **TOL)
+
+
+def _long_case(b, h, d, bs, nb, lengths, seed, quant):
+    rng = numpy.random.RandomState(seed)
+    n_pool = b * nb + 1
+    q = rng.standard_normal((b, h, d)).astype(numpy.float32)
+    kp = rng.standard_normal((n_pool, bs, h, d)).astype(numpy.float32)
+    vp = rng.standard_normal((n_pool, bs, h, d)).astype(numpy.float32)
+    table = (1 + rng.permutation(n_pool - 1)).reshape(b, nb).astype(
+        numpy.int32)
+    kw = {}
+    if quant:
+        kp, ks = (numpy.array(a) for a in jpa.quantize_pool(jnp.asarray(kp)))
+        vp, vs = (numpy.array(a) for a in jpa.quantize_pool(jnp.asarray(vp)))
+        kw = {"k_scales": ks, "v_scales": vs}
+    args = (q, kp, vp, table, numpy.asarray(lengths, numpy.int32))
+    ref = _jax(jpa.paged_attention_reference, *args,
+               **{n: jnp.asarray(a) for n, a in kw.items()})
+    return args, kw, ref
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_kernel_arithmetic_past_the_old_score_row_limit(quant):
+    """65536 tokens in a row at H=1, D=8, bs=64, nb=1024: the dense score
+    row a dense-softmax kernel keeps in shared memory (256 KB) is past the
+    card's 227 KB; the plan splits the row into 256 ranges."""
+    b, h, d, bs, nb = 2, 1, 8, 64, 1024
+    plan = tpa.paged_attention_plan(b, h, d, bs, nb, 132, quantized=quant)
+    assert plan.split > 1 and nb * bs * 4 > 232448
+    args, kw, ref = _long_case(b, h, d, bs, nb, [nb * bs, 30001], 31, quant)
+    numpy.testing.assert_allclose(_emulated(args, kw, plan), ref, **TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_kernel_arithmetic_at_head_dim_320(quant):
+    args, kw, ref = _long_case(3, 2, 320, BLOCK, NB, [0, 5, T_MAX], 32,
+                               quant)
+    for plan in (_planned(3, 2, 320, quant), tpa.PagedPlan(3, 2, 3)):
+        numpy.testing.assert_allclose(_emulated(args, kw, plan), ref,
+                                      **TOL)
+
+
+def test_plan_is_a_function_of_static_shapes():
+    """The plan takes shapes and the SM count, never lengths: one launch
+    at the main path's table (16 blocks of 16), a split past it; the
+    splits cover the table and none is empty of blocks."""
+    main = (16, 4, 16, 16, 16)
+    assert tpa.paged_attention_plan(*main, 132).split == 1
+    assert tpa.paged_attention_plan(*main, 132, quantized=True).split == 1
+    for quant in (False, True):
+        for shape in ((2, 8, 128, 16, 4096), (32, 8, 128, 16, 128),
+                      (2, 2, 8, 1, 60000)):
+            plan = tpa.paged_attention_plan(*shape, 132, quantized=quant)
+            nb = shape[-1]
+            assert plan.split > 1
+            assert plan.split * plan.blocks_per_split >= nb
+            assert (plan.split - 1) * plan.blocks_per_split < nb
+            assert plan == tpa.paged_attention_plan(*shape, 132,
+                                                    quantized=quant)

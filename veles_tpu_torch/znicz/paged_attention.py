@@ -10,7 +10,9 @@ are the only things that change from step to step.
 tensors (kernels K1, f32 pools, and K2, int8 pools with per-(block,
 head) f32 scales) and takes :func:`paged_attention_reference` for CPU
 tensors.  A CUDA tensor never falls back: the kernel launches or the
-call raises.  ``paged_attention.launches`` counts the kernel launches.
+call raises.  ``paged_attention.launches`` counts the kernel launches,
+``paged_attention.merge_launches`` those of them that split the context
+over CTAs and launched the merge too (:func:`paged_attention_plan`).
 
 Padding rows (``length == 0``) return zeros; padding page-table entries
 point at physical block 0, which the serving pool reserves as the trash
@@ -19,6 +21,7 @@ a chunk or a speculative span into the batch axis with per-query causal
 lengths and call :func:`paged_attention`.
 """
 
+import collections
 import ctypes
 import math
 
@@ -26,18 +29,16 @@ import torch
 
 from .. import _build
 
-__all__ = ["DEFAULT_BLOCK_SIZE", "paged_attention",
-           "paged_attention_reference", "paged_prefill_attention",
-           "paged_prefill_attention_reference", "paged_verify_attention",
-           "paged_verify_attention_reference", "required_blocks",
+__all__ = ["DEFAULT_BLOCK_SIZE", "PagedPlan", "paged_attention",
+           "paged_attention_plan", "paged_attention_reference",
+           "paged_prefill_attention", "paged_prefill_attention_reference",
+           "paged_verify_attention", "paged_verify_attention_reference",
+           "required_blocks",
            "quantize_pool", "dequantize_pool"]
 
 #: KV page size (tokens per pool block) the decode scheduler builds
 #: pools with when nothing is pinned
 DEFAULT_BLOCK_SIZE = 8
-
-#: shared memory one block of the card may use (H100: 227 KB)
-_MAX_SMEM = 232448
 
 _SRC = "paged_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -130,9 +131,9 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, scale=None,
     ``k_scales``/``v_scales``: f32 [num_blocks, H], required iff the
     pools are int8.
 
-    Returns f32 [B, H, D].  CUDA tensors run the kernel (every operand
-    contiguous, on one card); CPU tensors run
-    :func:`paged_attention_reference`.
+    Returns f32 [B, H, D].  CUDA tensors run the kernel with the plan of
+    :func:`paged_attention_plan` (every operand contiguous, on one card;
+    no host sync); CPU tensors run :func:`paged_attention_reference`.
     """
     _check_shapes(q, k_pool, v_pool, page_table, lengths)
     quantized = _check_quant_args(k_pool, v_pool, k_scales, v_scales)
@@ -144,7 +145,6 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, scale=None,
     b, h, d = q.shape
     _, bs, _, _ = k_pool.shape
     nb = page_table.shape[1]
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     operands = [("q", q, torch.float32), ("k_pool", k_pool, None),
                 ("v_pool", v_pool, None),
                 ("page_table", page_table, torch.int32),
@@ -164,44 +164,114 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, scale=None,
     if not quantized and k_pool.dtype != torch.float32:
         raise ValueError("pools must be float32 or int8, got %s"
                          % k_pool.dtype)
-    if d > 256:
-        raise ValueError("head dim %d > 256 is not supported" % d)
     if b == 0 or h == 0 or d == 0 or nb == 0:
         raise ValueError("empty operand: q %r, page_table %r"
                          % (tuple(q.shape), tuple(page_table.shape)))
-    smem_fn = _build.function(_SRC, "vt_paged_attention_smem_bytes",
-                              [_I, _I, _I], restype=ctypes.c_size_t)
-    smem = smem_fn(d, nb, bs)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            "max_blocks x block_size = %d x %d needs %d bytes of shared "
-            "memory for the score row, past the card's %d"
-            % (nb, bs, smem, _MAX_SMEM))
+    plan = _cached_plan(b, h, d, bs, nb, quantized, q.device)
+    return _paged_launch(q, k_pool, v_pool, page_table, lengths, scale,
+                         k_scales, v_scales, plan)
+
+
+def _paged_launch(q, k_pool, v_pool, page_table, lengths, scale, k_scales,
+                  v_scales, plan):
+    """One K1/K2 call on checked CUDA operands with ``plan`` (a
+    :class:`PagedPlan`); a split call launches the merge too."""
+    b, h, d = q.shape
+    _, bs, _, _ = k_pool.shape
+    nb = page_table.shape[1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    # split > 1: a partial (acc [D], m, l) a (row, head, split), merged
+    # in split order by the kernel's second launch
+    ws = (torch.empty(b * h * plan.split * (d + 2), dtype=torch.float32,
+                      device=q.device) if plan.split > 1 else None)
+    geometry = (b, h, d, bs, nb, *plan, scale)
     with torch.cuda.device(q.device):
         stream = _build.stream_ptr(q.device)
-        if quantized:
+        ws_ptr = ws.data_ptr() if ws is not None else None
+        if k_pool.dtype == torch.int8:
             fn = _build.function(_SRC, "vt_paged_attention_int8",
-                                 [_P] * 8 + [_I] * 5
+                                 [_P] * 9 + [_I] * 8
                                  + [ctypes.c_float, _P])
             code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                       page_table.data_ptr(), lengths.data_ptr(),
                       k_scales.data_ptr(), v_scales.data_ptr(),
-                      out.data_ptr(), b, h, d, bs, nb, scale, stream)
+                      out.data_ptr(), ws_ptr, *geometry, stream)
         else:
             fn = _build.function(_SRC, "vt_paged_attention_f32",
-                                 [_P] * 6 + [_I] * 5
+                                 [_P] * 7 + [_I] * 8
                                  + [ctypes.c_float, _P])
             code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                       page_table.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), b, h, d, bs, nb, scale, stream)
+                      out.data_ptr(), ws_ptr, *geometry, stream)
     _build.check(_SRC, code, "paged_attention kernel")
     paged_attention.launches += 1
+    if plan.split > 1:
+        paged_attention.merge_launches += 1
     return out
 
 
 #: kernel launches since the last reset (CPU calls do not count)
 paged_attention.launches = 0
+#: of those, the calls that split the context and launched the merge too
+paged_attention.merge_launches = 0
+
+
+class PagedPlan(collections.namedtuple(
+        "PagedPlan", "split blocks_per_split tile")):
+    """How K1/K2 cut one call: a CTA a (row, head, split), the context
+    split over ``split`` CTAs of ``blocks_per_split`` blocks each, the
+    online softmax over tiles of ``tile`` tokens."""
+
+
+#: bytes of K (and as many of V) one stage of the kernel's ring holds,
+#: and the most tokens a stage takes
+_TILE_BYTES = 8192
+_MAX_TILE = 64
+#: the CTAs a call aims at, per SM; a split covers at least
+#: _SPLIT_TOKENS tokens of the table and at most _MAX_SPLIT_BLOCKS blocks
+#: (their page-table entries and scales sit in shared memory)
+_CTAS_PER_SM = 4
+_SPLIT_TOKENS = 256
+_MAX_SPLIT_BLOCKS = 128
+
+
+def paged_attention_plan(b, h, d, block_size, max_blocks, sms,
+                         quantized=False):
+    """The :class:`PagedPlan` of a K1 (``quantized``: K2) call on ``[b,
+    h, d]`` queries over a ``[b, max_blocks]`` table of ``block_size``
+    token blocks, on a card of ``sms`` SMs.
+
+    A function of those static shapes only, never of ``lengths`` (which
+    lives on the card: reading it would sync the host every decode
+    step).  The context splits until the grid holds about
+    ``_CTAS_PER_SM`` CTAs an SM, while a split keeps at least
+    ``_SPLIT_TOKENS`` tokens of the table; so a short table (the serving
+    path's 16 blocks of 16) stays one launch.
+    """
+    elem = 1 if quantized else 4
+    tile = max(1, min(_MAX_TILE, _TILE_BYTES // (d * elem)))
+    split = -(-_CTAS_PER_SM * sms // (b * h))
+    split = min(split, -(-max_blocks * block_size // _SPLIT_TOKENS))
+    split = min(max(1, split, -(-max_blocks // _MAX_SPLIT_BLOCKS)),
+                max_blocks)
+    per_split = -(-max_blocks // split)
+    return PagedPlan(-(-max_blocks // per_split), per_split, tile)
+
+
+_PLANS = {}
+
+
+def _cached_plan(b, h, d, block_size, max_blocks, quantized, device):
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (b, h, d, block_size, max_blocks, quantized, index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        plan = _PLANS[key] = paged_attention_plan(
+            b, h, d, block_size, max_blocks, sms, quantized=quantized)
+    return plan
 
 
 def _prefill_table_lengths(block_row, start, length, chunk):
