@@ -60,7 +60,16 @@ Phases (any failure raises and the script exits non-zero):
    minibatch 100, each record saying whether kernel and plain version
    are bitwise equal; ``library_ms`` is ``F.local_response_norm`` on the
    NCHW view of the same input, its forward on K5's row and its autograd
-   backward on K6's.
+   backward on K6's.  The int8-KV append (``csrc/kv_append.cu``, a hand
+   kernel that is no TPU kernel) from a pool holding earlier content:
+   every block but the trash block and every scale bitwise equal to
+   the plain version's, at ``append_cases`` (the README prefill of a
+   100-token prompt padded to 128 positions, H 4, hd 16, blocks of 16;
+   a verify span [16, 5]; a 2048-position prefill at H 8, hd 128),
+   timed with CUDA events and the profiler's device time; its bound is
+   the touched blocks read and written once plus the values and
+   indices read once, over the HBM rate; no PyTorch call computes it
+   (``library_ms`` null).
 3. End to end, over real HTTP: the port's ``InferenceServer`` serving
    the flagship decode model at the README's decode-quickstart widths
    (stages=2, experts=4, d=64, heads=4, hidden=128, vocab=1024; server
@@ -71,6 +80,20 @@ Phases (any failure raises and the script exits non-zero):
    equals the same model run by the port on the CPU (plain versions).
    Each run resets the kernels' launch counts just before it and reads
    them just after; every kernel must have launched in its run.
+3b. End to end with the scheduler options (slice 12): the same model
+   and server with ``prefix_caching=True, prefill_chunk_tokens=32,
+   spec_depth=4`` (``OPTIONS_SERVER``), f32 and int8 KV.  Turn 1: 8
+   concurrent requests sharing a 64-token system prefix, each with its
+   own 8-24-token suffix; turn 2: each turn-1 prompt with its answer
+   and 8 more tokens, resubmitted; 32 new tokens each.  f32: every
+   answer equals ``generate_reference`` on the card; int8: the port on
+   the CPU with the same options.  The same traffic then goes through
+   the core scheduler (no options), held to the same oracles (int8: the
+   CPU's core scheduler); f32 answers must equal the options run's.
+   Printed: prefix hits, dedup blocks, chunks, drafted / accepted /
+   rejected tokens and rollbacks, the launches of paged attention and
+   the append, TTFT p50 of each turn, tok/s, and ``GET
+   /api/flagship/kv``'s integrity list, which must be empty.
 4. Training (slice 2): the MNIST sample through ``create_workflow()``
    → ``initialize()`` → ``run()`` on the card at the gate's settings
    (784-100-10, minibatch 60, 25 epochs, fail_iterations 12, loader
@@ -122,9 +145,12 @@ Phases (any failure raises and the script exits non-zero):
    device copies and cuDNN's layout transforms, the int64
    elementwise kernels (dropout's threefry draws), and the device time
    of K1 and K2 (with their merge), K3, K4 (each with its split-K
-   fold), K5 and K6.  Each serving
+   fold), K5 and K6; then phase 3b's two turns with the options (f32,
+   int8).  Each serving
    configuration's tok/s and decode step p50 (phase 3) are printed
-   beside its traced burst's launches and device-to-device copies.
+   beside its traced burst's launches and device-to-device copies, and
+   int8-kv's beside the burst's numbers before the append kernel
+   (``PASSES_INT8_KV``).
    A trace that holds no device time is taken again on a fresh run, up
    to ``TRACE_TRIES`` times in all; a run with none in every try fails.
 6. The ``kernels`` JSON line, the card's line, and the result line.
@@ -470,6 +496,108 @@ def kernel_phase(torch, pa, gemm, dev):
         torch.cuda.empty_cache()
     out.update(k3_phase(torch, gemm, dev))
     return out
+
+
+# -- phase 2, the int8-KV append (not a TPU kernel) ---------------------------
+
+def append_cases():
+    """[(label, pool shape (num_blocks, block_size, H, hd), blk, off)] of
+    the int8-KV append, numpy int64 (``blk`` 0 is the trash block): the
+    README prefill (128 positions, H 4, hd 16, blocks of 16) of a
+    100-token prompt, padding past it into the trash block; a verify
+    span [16, 5] over rows of ragged lengths (one padding row, one row
+    whose span runs past its table); and a realistic prefill of 2048
+    positions at H 8, hd 128, blocks of 16."""
+    rng = numpy.random.RandomState(11)
+    cases = []
+    pos = numpy.arange(128)
+    row = 1 + rng.permutation(40)[:8]
+    cases.append(("prefill", (41, 16, 4, 16),
+                  numpy.where(pos < 100, row[pos // 16], 0), pos % 16))
+    nb = 4
+    table = (1 + rng.permutation(16 * nb)).reshape(16, nb)
+    lengths = rng.randint(1, nb * 16 - 4, 16)
+    lengths[3], table[3] = 0, 0          # a padding row: the trash block
+    lengths[5] = nb * 16 - 2             # its span runs past the table
+    span = lengths[:, None] + numpy.arange(5)[None, :]
+    blk = numpy.where(span < nb * 16,
+                      table[numpy.arange(16)[:, None],
+                            numpy.minimum(span // 16, nb - 1)], 0)
+    cases.append(("verify", (16 * nb + 1, 16, 4, 16), blk, span % 16))
+    pos = numpy.arange(2048)
+    row = 1 + rng.permutation(160)[:128]
+    cases.append(("realistic", (161, 16, 8, 128), row[pos // 16],
+                  pos % 16))
+    return cases
+
+
+def append_inputs(torch, dev, shape, blk, off, seed, scale=1.0):
+    """(q, s, blk, off, vals) on ``dev``: a pool holding earlier content
+    (int8 in [-127, 127], scales in [0, 0.05)) and f32 values
+    ``randn * scale`` for each write."""
+    rng = numpy.random.RandomState(seed)
+    q = torch.tensor(rng.randint(-127, 128, shape), dtype=torch.int8,
+                     device=dev)
+    s = torch.tensor(rng.uniform(0, 0.05, (shape[0], shape[2])),
+                     dtype=torch.float32, device=dev)
+    vals = torch.tensor(rng.standard_normal(blk.shape + shape[2:]) * scale,
+                        dtype=torch.float32, device=dev)
+    return (q, s, torch.tensor(blk, device=dev),
+            torch.tensor(off, device=dev), vals)
+
+
+def append_equal(torch, pa, q, s, blk, off, vals):
+    """Kernel and plain version from the same pool: whether every block
+    but the trash block and every scale come out bitwise equal, and the
+    largest byte difference."""
+    kq, ks = q.clone(), s.clone()
+    pa.kv_append_int8(kq, ks, blk, off, vals)
+    rq, rs = q.clone(), s.clone()
+    pa.kv_append_int8_reference(rq, rs, blk, off, vals)
+    torch.cuda.synchronize()
+    err = int((kq[1:].int() - rq[1:].int()).abs().max())
+    return (torch.equal(kq[1:], rq[1:]) and torch.equal(ks[1:], rs[1:]),
+            err)
+
+
+def _measure_append(torch, pa, dev, label, shape, blk, off, seed):
+    q, s, tblk, toff, vals = append_inputs(torch, dev, shape, blk, off,
+                                           seed)
+    bitwise, err = append_equal(torch, pa, q, s, tblk, toff, vals)
+    if not bitwise:
+        raise AssertionError("kv_append_int8 %s: kernel and plain version "
+                             "differ (max byte difference %d)"
+                             % (label, err))
+    _, bs, h, d = shape
+    blocks = len(set(blk.reshape(-1).tolist()) - {0})
+    # each touched block's bytes and scales read and written once, each
+    # value and index read once
+    nbytes = (blocks * 2 * (bs * h * d + h * 4) + vals.numel() * 4
+              + 2 * blk.size * 8)
+    bound_ms, bound_by = _bound(nbytes, 0)
+    call = lambda: pa.kv_append_int8(q, s, tblk, toff, vals)  # noqa: E731
+    rec = {"shape": "%s: %d writes %r into %d blocks of [%d, %d, %d]"
+                    % (label, blk.size, list(blk.shape), blocks, bs, h, d),
+           "max_abs_err": float(err), "bitwise": bitwise,
+           "ms": _cuda_ms(torch, call),
+           "device_ms": _device_ms(torch, call, launches=1),
+           "plain_ms": _cuda_ms(torch, lambda: pa.kv_append_int8_reference(
+               q, s, tblk, toff, vals), iters=5),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    _log("kernel kv_append_int8 [%s] bitwise=%s kernel_ms=%.4f "
+         "device_ms=%.4f plain_ms=%.4f bound_ms=%.5f (%s) library_ms=none "
+         "(no single PyTorch call computes the append)"
+         % (rec["shape"], bitwise, rec["ms"], rec["device_ms"],
+            rec["plain_ms"], bound_ms, bound_by))
+    return rec
+
+
+def append_phase(torch, pa, dev):
+    """-> {"kv_append_int8": {"main": README prefill record,
+    "realistic": [the verify span's, the 2048-position prefill's]}}."""
+    recs = [_measure_append(torch, pa, dev, label, shape, blk, off, 20 + i)
+            for i, (label, shape, blk, off) in enumerate(append_cases())]
+    return {"kv_append_int8": {"main": recs[0], "realistic": recs[1:]}}
 
 
 # -- phase 2, K4: the compensated GEMM ----------------------------------------
@@ -1043,9 +1171,11 @@ def e2e_run(pa, gemm, card, label, kv_dtype, weight_dtype):
     prompts = _prompts()
     try:
         pa.paged_attention.launches = 0
+        pa.kv_append_int8.launches = 0
         gemm.quantized_matmul.launches = 0
         answers, seconds = _post_all(server.url, prompts)
         launches = {"paged_attention": pa.paged_attention.launches,
+                    "kv_append_int8": pa.kv_append_int8.launches,
                     "quantized_matmul": gemm.quantized_matmul.launches}
         with urllib.request.urlopen(server.url + "/metrics",
                                     timeout=60) as resp:
@@ -1093,6 +1223,180 @@ def e2e_run(pa, gemm, card, label, kv_dtype, weight_dtype):
             rec["ttft_p50_ms"], rec["ttft_p99_ms"], rec["step_ms_p50"],
             rec["step_ms_p99"], steps, launches, oracle, card))
     return rec
+
+
+# -- phase 3b: prefix caching, chunked prefill, speculation over HTTP ---------
+
+#: the scheduler options phase 3b turns on
+OPTIONS_SERVER = dict(prefix_caching=True, prefill_chunk_tokens=32,
+                      spec_depth=4)
+SYSTEM_TOKENS, SUFFIX_TOKENS, TURN2_TOKENS = 64, (8, 24), 8
+
+
+def turn1_prompts():
+    """8 prompts that share a 64-token system prefix, each with its own
+    8-24-token suffix."""
+    rng = numpy.random.RandomState(13)
+    vocab = README_MODEL["vocab"]
+    system = rng.randint(0, vocab, SYSTEM_TOKENS).tolist()
+    return [system + rng.randint(0, vocab, int(rng.randint(
+        SUFFIX_TOKENS[0], SUFFIX_TOKENS[1] + 1))).tolist()
+        for _ in range(N_REQUESTS)]
+
+
+def turn2_prompts(turn1, answers):
+    """Each turn-1 prompt, its answer and 8 more tokens: the
+    conversation resubmitted."""
+    rng = numpy.random.RandomState(14)
+    return [p + list(a) + rng.randint(0, README_MODEL["vocab"],
+                                      TURN2_TOKENS).tolist()
+            for p, a in zip(turn1, answers)]
+
+
+def _scheduler_turns(sched, turn1, turn2=None):
+    """Both turns through a scheduler directly: -> tokens of turn 1 and
+    of turn 2 (each turn submitted at once, the second after the first
+    finished; ``turn2`` defaults to the conversations resubmitted)."""
+    out = []
+    for prompts in (turn1, turn2):
+        if prompts is None:
+            prompts = turn2_prompts(turn1, out[0])
+        futures = [sched.submit(p, NEW_TOKENS) for p in prompts]
+        out.append([f.result(900)["tokens"] for f in futures])
+    return out
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def options_run(pa, card, label, kv_dtype, options, turn2=None):
+    """Both turns over HTTP through ``InferenceServer`` with the
+    scheduler ``options`` (none: the core scheduler) and the README
+    widths: -> the record, with every answer's tokens.  ``turn2``
+    defaults to the conversations resubmitted."""
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype)
+    server = InferenceServer({"flagship": model}, kv_dtype=kv_dtype,
+                             **README_SERVER, **options)
+    turn1 = turn1_prompts()
+    try:
+        pa.paged_attention.launches = 0
+        pa.kv_append_int8.launches = 0
+        first, s1 = _post_all(server.url, turn1)
+        if turn2 is None:
+            turn2 = turn2_prompts(turn1, [a["tokens"] for a in first])
+        second, s2 = _post_all(server.url, turn2)
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "kv_append_int8": pa.kv_append_int8.launches}
+        metrics = _get_json(server.url + "/metrics")["flagship"]
+        dump = _get_json(server.url + "/api/flagship/kv")
+    finally:
+        server.stop()
+    if dump["integrity"]:
+        raise AssertionError("%s: the KV dump's integrity list: %s"
+                             % (label, dump["integrity"]))
+    tokens = [a["tokens"] for a in first + second]
+    if any(len(t) != NEW_TOKENS for t in tokens):
+        raise AssertionError("%s: wrong token counts" % label)
+    ttft = [sorted(a["ttft_s"] for a in turn) for turn in (first, second)]
+    rec = {"label": label, "kv_dtype": kv_dtype, "options": options,
+           "card": card, "prompts": turn1 + turn2, "tokens": tokens,
+           "seconds": s1 + s2, "tok_s": sum(map(len, tokens)) / (s1 + s2),
+           "ttft_p50_ms": [1e3 * statistics.median(t) for t in ttft],
+           "step_ms_p50": metrics["step_latency"]["p50_ms"],
+           "launches": launches, "integrity": dump["integrity"]}
+    for key in ("prefix_hits", "dedup_blocks", "chunks", "draft_tokens",
+                "accepted_tokens", "rejected_tokens", "verify_steps",
+                "steps"):
+        rec[key] = metrics[key]
+    for key in ("draft_rollbacks", "rolled_back_tokens", "published_blocks",
+                "dedup_ratio"):
+        rec[key] = dump[key]
+    _log("e2e %s: %d requests in two turns, %d tokens in %.3f s = %.1f "
+         "tok/s; TTFT p50 turn 1 %.1f ms, turn 2 %.1f ms; decode step p50 "
+         "%s ms; prefix hits %d, dedup blocks %d, chunks %d; drafted %d, "
+         "accepted %d, rejected %d over %d verify passes, rollbacks %d "
+         "(%d tokens); launches %s; kv integrity %s [%s]"
+         % (label, len(tokens), sum(map(len, tokens)), rec["seconds"],
+            rec["tok_s"], *rec["ttft_p50_ms"], rec["step_ms_p50"],
+            rec["prefix_hits"], rec["dedup_blocks"], rec["chunks"],
+            rec["draft_tokens"], rec["accepted_tokens"],
+            rec["rejected_tokens"], rec["verify_steps"],
+            rec["draft_rollbacks"], rec["rolled_back_tokens"], launches,
+            dump["integrity"] or "[] (empty)", card))
+    return rec
+
+
+def _cpu_turns(kv_dtype, options, turn1, turn2):
+    """The same two turns through the port on the CPU (plain versions)
+    with the same scheduler options."""
+    from veles_tpu_torch.serving import DecodeScheduler
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype,
+                                device="cpu")
+    sched = DecodeScheduler(model, name="cpu-oracle", device="cpu",
+                            kv_dtype=kv_dtype, **README_SERVER, **options)
+    try:
+        first, second = _scheduler_turns(sched, turn1, turn2)
+    finally:
+        sched.close()
+    return first + second
+
+
+def options_phase(pa, card):
+    """Phase 3b: for f32 and int8 KV, both turns with ``OPTIONS_SERVER``
+    and through the core scheduler, each held to its oracle (f32: the
+    cache-free ``generate_reference`` on the card; int8: the port on the
+    CPU with the same options)."""
+    from veles_tpu_torch.znicz.samples.flagship import (
+        FlagshipDecodeModel, generate_reference)
+    out = []
+    turn1 = turn1_prompts()
+    for kv_dtype in ("f32", "int8"):
+        runs = [options_run(pa, card, kv_dtype + " options", kv_dtype,
+                            OPTIONS_SERVER)]
+        # the core scheduler serves the same traffic: the options run's
+        # second turn as it was sent
+        turn2 = runs[0]["prompts"][len(turn1):]
+        runs.append(options_run(pa, card, kv_dtype + " core", kv_dtype, {},
+                                turn2))
+        for run in runs:
+            if kv_dtype == "f32":
+                if run is runs[0]:
+                    params = FlagshipDecodeModel(**README_MODEL).params
+                    want = [generate_reference(params, p, NEW_TOKENS,
+                                               heads=README_MODEL["heads"])
+                            for p in run["prompts"]]
+                oracle = "cache-free generate_reference on the card"
+            else:
+                want = _cpu_turns(kv_dtype, run["options"], turn1, turn2)
+                oracle = "the same options on the CPU"
+            bad = [i for i, (g, w) in enumerate(zip(run["tokens"], want))
+                   if g != w]
+            if bad:
+                raise AssertionError("%s: answers %s differ from %s"
+                                     % (run["label"], bad, oracle))
+            run["oracle"] = oracle
+        opts, core = runs
+        same = sum(a == b for a, b in zip(opts["tokens"], core["tokens"]))
+        opts["core_equal"] = same
+        if kv_dtype == "f32" and same != len(opts["tokens"]):
+            raise AssertionError("f32: the core scheduler's answers differ "
+                                 "from the options run's")
+        _log("e2e %s: tokens equal %s; core scheduler on the same traffic: "
+             "%.1f tok/s, TTFT p50 %.1f / %.1f ms, tokens equal %s and "
+             "%d of %d equal to the options run's; TTFT p50 turn 2 / turn "
+             "1 with options %.3f, core %.3f [%s]"
+             % (kv_dtype, opts["oracle"], core["tok_s"],
+                *core["ttft_p50_ms"], core["oracle"], same,
+                len(opts["tokens"]),
+                opts["ttft_p50_ms"][1] / opts["ttft_p50_ms"][0],
+                core["ttft_p50_ms"][1] / core["ttft_p50_ms"][0], card))
+        out += runs
+    return out
 
 
 # -- phase 4: training, MNIST on the unit engine ------------------------------
@@ -1819,6 +2123,11 @@ def trace_run(torch, card, label, kv_dtype, weight_dtype):
     return _traced(torch, label, card, burst)
 
 
+#: the int8-kv burst before the append kernel: PERF.md section 5's traced
+#: launches and TTFT p50 range (its runs with the vectorized passes)
+PASSES_INT8_KV = {"traced_launches": 23792, "ttft_p50_ms": (130.3, 171.0)}
+
+
 def serving_summary(run, trace):
     """Phase 3's tok/s and decode step p50 of a serving configuration
     beside its burst traced in phase 5: launches and device-to-device
@@ -1830,6 +2139,31 @@ def serving_summary(run, trace):
          "%d launches, %d device-to-device copies [%s]"
          % (run["label"], run["tok_s"], run["step_ms_p50"],
             run["traced_launches"], run["traced_dtod_copies"], run["card"]))
+    if run["kv_dtype"] == "int8":
+        _log("serving %s through the append kernel: %d append launches, "
+             "TTFT p50 %.1f ms, traced burst %d launches; with the "
+             "vectorized passes (PERF.md section 5) TTFT p50 %.1f-%.1f ms "
+             "and %d launches [%s]"
+             % (run["label"], run["launches"]["kv_append_int8"],
+                run["ttft_p50_ms"], run["traced_launches"],
+                *PASSES_INT8_KV["ttft_p50_ms"],
+                PASSES_INT8_KV["traced_launches"], run["card"]))
+
+
+def trace_options_run(torch, card, kv_dtype):
+    """Phase 3b's two turns once more under ``torch.profiler``, through
+    the scheduler directly, with ``OPTIONS_SERVER``."""
+    from veles_tpu_torch.serving import DecodeScheduler
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+
+    def turns():
+        model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype)
+        sched = DecodeScheduler(model, name="trace-options-" + kv_dtype,
+                                kv_dtype=kv_dtype, **README_SERVER,
+                                **OPTIONS_SERVER)
+        return (lambda: _scheduler_turns(sched, turn1_prompts()),
+                sched.close)
+    return _traced(torch, "%s options" % kv_dtype, card, turns)
 
 
 def device_rows(events):
@@ -1956,6 +2290,13 @@ def _trace_record(prof, label, card, seconds, top=5):
         _log("trace %s: K5 %.3f ms over %d launches, K6 %.3f ms over %d "
              "[%s]" % (label, rec["k5_ms"], rec["k5_launches"],
                        rec["k6_ms"], rec["k6_launches"], card))
+    # the int8-KV append's (both index types)
+    rows = [(t, c) for t, c, k in by_kernel if "kv_append_int8_kernel" in k]
+    rec["append_ms"] = sum(t for t, _ in rows) / 1e3
+    rec["append_launches"] = sum(c for _, c in rows)
+    if rec["append_launches"]:
+        _log("trace %s: the int8-KV append %.3f ms over %d launches [%s]"
+             % (label, rec["append_ms"], rec["append_launches"], card))
     width = 40 if top <= 5 else 70
     _log("trace %s: %.3f s traced, device busy %.3f ms (%.1f%%) over %d "
          "launches; int64 elementwise %.3f ms x%d; top: %s; copies and "
@@ -2006,6 +2347,11 @@ KERNEL_META = {
     "flash_attention_dkv": (
         "K9", "csrc/flash_attention.cu",
         "veles_tpu/znicz/flash_attention.py:307 (_dkv_kernel)"),
+    "kv_append_int8": (
+        "append", "csrc/kv_append.cu",
+        "none: not a TPU kernel; the JAX package's int8 append is "
+        "veles_tpu/znicz/samples/flagship.py:330 (_append_kv's "
+        "fori_loop)"),
 }
 
 
@@ -2022,9 +2368,14 @@ def serving_launches(runs):
             by_label["int8-weights"]["launches"]["quantized_matmul"],
         "quantized_matmul_fp8":
             by_label["fp8-weights"]["launches"]["quantized_matmul"],
+        "kv_append_int8":
+            by_label["int8-kv"]["launches"]["kv_append_int8"],
     }
     if by_label["f32"]["launches"]["quantized_matmul"]:
         raise AssertionError("the f32 model launched the quantized GEMM")
+    if any(r["launches"]["kv_append_int8"] for r in runs
+           if r["kv_dtype"] == "f32"):
+        raise AssertionError("f32 pools launched the int8 append")
     return launches
 
 
@@ -2037,7 +2388,8 @@ LINE_KEYS = (
                           "tile_m")),
     ("flash_attention", ("device_ms", "d_tile", "tf32x3_bound_ms",
                          "cuda_core_bound_ms")),
-    ("lrn", ("device_ms", "bitwise")))
+    ("lrn", ("device_ms", "bitwise")),
+    ("kv_append", ("device_ms", "bitwise")))
 
 
 def kernels_line(kernels, k4, launches):
@@ -2127,12 +2479,20 @@ def main():
     record["k4"] = k4
     kernels.update(flash_phase(torch, fa, dev))
     kernels.update(lrn_phase(torch, lrn_mod, dev))
+    kernels.update(append_phase(torch, pa, dev))
     phase_done("2 kernels")
     runs = [e2e_run(pa, gemm, card, label, kv, wd)
             for label, kv, wd in CONFIGS]
     launches = serving_launches(runs)
     record["e2e"] = runs
     phase_done("3 serving")
+    options = options_phase(pa, card)
+    for run in options:
+        launches["paged_attention_" + run["kv_dtype"]] += \
+            run["launches"]["paged_attention"]
+        launches["kv_append_int8"] += run["launches"]["kv_append_int8"]
+    record["e2e_options"] = options
+    phase_done("3b serving with prefix caching, chunks and speculation")
     train = [train_run(torch, gemm, card, precise) for precise in (0, 1, 2)]
     record["first_epoch_vs_cpu"] = first_epoch_on_the_cpu(train[1], gemm)
     for run in train:
@@ -2173,7 +2533,8 @@ def main():
         [trace_run(torch, card, *config) for config in CONFIGS] +
         [trace_train(torch, card, precise) for precise in (0, 1)] +
         [trace_attention(torch, card, *config) for config in ATTN_CONFIGS] +
-        [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS])
+        [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS] +
+        [trace_options_run(torch, card, kv) for kv in ("f32", "int8")])
     for run, trace in zip(runs, record["traces"]):
         serving_summary(run, trace)
     phase_done("5 traces")

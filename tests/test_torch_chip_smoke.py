@@ -10,7 +10,7 @@
   whose trace holds no device time is traced again on a fresh run, up
   to ``TRACE_TRIES``; one with no device time in every try fails.  A
   traced run sums K1's and K2's launches (and their merge), K3's and
-  K4's products and folds.  A kernel's profile
+  K4's products and folds, and the int8-KV append's.  A kernel's profile
   whose launch count is short of the calls' lost records and is taken
   again.
 - The ``kernels`` line holds every kernel of the main paths (slice 3's
@@ -20,6 +20,10 @@
   inside the level-1 entry.  K3's and K4's entries carry the profiler's
   device time, the split and the CUDA-core bound (K3 its tile too); a
   record without them fails.
+- The int8-KV append's phase-2 cases are the README prefill (padded
+  into the trash block), a verify span and a realistic prefill, each
+  block's writes one contiguous run; phase 3b's two turns share the
+  system prefix and fit the README server.
 - The helpers of the AlexNet and LRN convnet phases: the LRN form is set
   on the LRN layers only, and ``steps_agree`` refuses a step that
   differs past its limits.
@@ -173,6 +177,53 @@ def test_trace_record_sums_k5_and_k6():
     rec = chip_smoke._trace_record(_Prof(rows[3:]), "t", "card", 0.5)
     assert (rec["k5_ms"], rec["k5_launches"], rec["k6_launches"]) == \
         (0, 0, 0)
+
+
+def test_trace_record_sums_the_append():
+    """The int8-KV append's device time and launches over both index
+    types, none in a run with f32 pools."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [_Row("void (anonymous namespace)::kv_append_int8_kernel<long>"
+                 "(signed char*, float*, long const*, long const*, float "
+                 "const*, int, int, int, int)", 40.0, 4, cuda),
+            _Row("void (anonymous namespace)::kv_append_int8_kernel<int>",
+                 10.0, 2, cuda),
+            _Row("sgemm", 5000.0, 10, cuda)]
+    rec = chip_smoke._trace_record(_Prof(rows), "t", "card", 0.5)
+    assert rec["append_ms"] == pytest.approx(0.05)
+    assert rec["append_launches"] == 6
+    rec = chip_smoke._trace_record(_Prof(rows[2:]), "t", "card", 0.5)
+    assert (rec["append_ms"], rec["append_launches"]) == (0, 0)
+
+
+def test_append_cases_and_turn_prompts():
+    """Each append case writes every block in one contiguous run (what
+    the kernel relies on), the prefill pads into the trash block, the
+    verify span is [16, 5]; phase 3b's turns share a 64-token prefix
+    and fit the README server."""
+    cases = {label: (shape, blk, off)
+             for label, shape, blk, off in chip_smoke.append_cases()}
+    assert list(cases) == ["prefill", "verify", "realistic"]
+    for label, (shape, blk, off) in cases.items():
+        flat = blk.reshape(-1).tolist()
+        runs = [b for i, b in enumerate(flat)
+                if b and (i == 0 or flat[i - 1] != b)]
+        assert len(runs) == len(set(runs)), label
+        assert max(flat) < shape[0] and off.max() < shape[1]
+    assert cases["prefill"][1].shape == (128,)
+    assert (cases["prefill"][1][100:] == 0).all()
+    assert cases["verify"][1].shape == (16, 5)
+    assert cases["realistic"][2].shape == (2048,)
+    assert cases["realistic"][0][2:] == (8, 128)
+    turn1 = chip_smoke.turn1_prompts()
+    answers = [[1] * chip_smoke.NEW_TOKENS for _ in turn1]
+    turn2 = chip_smoke.turn2_prompts(turn1, answers)
+    assert len(turn1) == len(turn2) == chip_smoke.N_REQUESTS
+    system = turn1[0][:chip_smoke.SYSTEM_TOKENS]
+    for p, q in zip(turn1, turn2):
+        assert p[:64] == system and 72 <= len(p) <= 88
+        assert q[:len(p)] == p and len(q) == len(p) + 32 + 8
+        assert len(q) <= chip_smoke.README_SERVER["max_prompt_len"]
 
 
 def test_trace_record_sums_k1_k2_and_their_merge():
@@ -370,19 +421,23 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
                          "realistic": [_flash_rec(0.3)]}
     for name in slice4:
         kernels[name] = {"main": _lrn_rec(0.2), "realistic": [_lrn_rec(0.1)]}
+    kernels["kv_append_int8"] = {"main": _lrn_rec(0.01),
+                                 "realistic": [_lrn_rec(0.05)]}
     k4 = {level: {"main": [_k4_rec(0.08 + level), _k4_rec(0.07)],
                   "realistic": [_k4_rec(7.0)]} for level in (0, 1, 2)}
     launches = dict({name: 64 for name in slice1},
                     precise_matmul_l1=26700, precise_matmul_l2=26700,
                     flash_attention_fwd=600, flash_attention_dq=450,
-                    flash_attention_dkv=450, lrn_fwd=700, lrn_bwd=300)
+                    flash_attention_dkv=450, lrn_fwd=700, lrn_bwd=300,
+                    kv_append_int8=1000)
     line = chip_smoke.kernels_line(kernels, k4, launches)
     names = [e["name"] for e in line["kernels"]]
     assert names == list(slice1) + ["precise_matmul_l1",
                                     "precise_matmul_l2"] + list(slice4) + \
-        list(slice3)
+        list(slice3) + ["kv_append_int8"]
     ids = [e["id"] for e in line["kernels"]]
-    assert sorted(set(ids)) == ["K%d" % i for i in range(1, 10)]
+    assert sorted(set(ids)) == ["K%d" % i for i in range(1, 10)] + \
+        ["append"]
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -482,6 +537,23 @@ def test_kernels_line_holds_what_ran_and_refuses_what_did_not():
     del without_k5["lrn_fwd"]
     with pytest.raises(AssertionError, match="not measured"):
         chip_smoke.kernels_line(without_k5, k4, launches)
+    # the int8-KV append: a hand kernel that is no TPU kernel, no library
+    # call computes it
+    entry = by_name["kv_append_int8"]
+    assert entry["route"] == "cuda" and entry["library_ms"] is None
+    assert entry["source"] == "veles_tpu_torch/csrc/kv_append.cu"
+    assert entry["replaces"].startswith("none: not a TPU kernel")
+    assert entry["launches"] == 1000 and entry["bitwise"] is True
+    for key in ("device_ms", "bitwise"):
+        bare = dict(kernels)
+        rec = dict(kernels["kv_append_int8"]["main"])
+        del rec[key]
+        bare["kv_append_int8"] = dict(kernels["kv_append_int8"], main=rec)
+        with pytest.raises(AssertionError, match="lacks " + key):
+            chip_smoke.kernels_line(bare, k4, launches)
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.kernels_line(kernels, k4,
+                                dict(launches, kv_append_int8=0))
 
 
 @pytest.mark.parametrize("t,causal,window", [

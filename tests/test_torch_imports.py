@@ -13,7 +13,9 @@
   ``monkeypatch`` so the check means the same on any machine): the
   serving face, and the AlexNet and CIFAR samples' workflows, the LRN
   unit and the threefry draws (slice 4); the LRN wrappers run on their
-  operand's device.
+  operand's device; ``ToyDecodeModel`` and the int8-KV append wrapper
+  (slice 12), which takes its plain version for CPU tensors without
+  counting a launch.
 """
 
 import ast
@@ -68,7 +70,9 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "znicz.flash_attention", "parallel.ring", "znicz.conv",
                  "znicz.gd_conv", "znicz.pooling", "znicz.gd_pooling",
                  "znicz.lrn", "znicz.dropout", "znicz.activation",
-                 "znicz.samples.alexnet", "znicz.samples.cifar"):
+                 "znicz.samples.alexnet", "znicz.samples.cifar",
+                 "serving.toydecode", "serving.kvcache",
+                 "znicz.paged_attention"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -160,3 +164,32 @@ def test_slice4_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         prng.bernoulli(prng.key(1), 0.5, (4,))
     assert prng.bernoulli(prng.key(1), 0.5, (4,), "cpu").shape == (4,)
+
+
+def test_slice12_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """``ToyDecodeModel`` keeps its pools on the card by default and
+    raises without one; the int8-KV append runs on its operands' device
+    (a CPU tensor is the ask) and counts only kernel launches."""
+    from veles_tpu_torch.serving import DecodeScheduler, ToyDecodeModel
+    from veles_tpu_torch.znicz import paged_attention as pa
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        ToyDecodeModel(vocab=31)
+    toy = ToyDecodeModel(vocab=31, device="cpu")
+    k_pools, _ = toy.make_pools(4, 4)
+    assert k_pools[0].device == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        DecodeScheduler(toy, max_prompt_len=4, max_new_tokens=4,
+                        prefill_chunk_tokens=4, prefix_caching=True)
+    q = torch.zeros((3, 4, 2, 8), dtype=torch.int8)
+    s = torch.zeros((3, 2))
+    blk = torch.tensor([1, 1, 2])
+    off = torch.tensor([0, 1, 0])
+    vals = torch.ones((3, 2, 8))
+    launches = pa.kv_append_int8.launches
+    pa.kv_append_int8(q, s, blk, off, vals)
+    want_q, want_s = torch.zeros_like(q), torch.zeros_like(s)
+    pa.kv_append_int8_reference(want_q, want_s, blk, off, vals)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert int(q[1, 0].max()) == 127 and pa.kv_append_int8.launches == \
+        launches

@@ -1040,3 +1040,109 @@ def test_alexnet_steps_on_the_card_match_the_cpu(cuda):
     keys = [[f.last_key for f in wf.forwards if f.stochastic]
             for wf in wfs.values()]
     assert keys[0] == keys[1] and len(keys[0]) == 2
+
+
+# -- the int8-KV append (csrc/kv_append.cu) -----------------------------------
+
+def _append_case(label):
+    return next(c for c in chip_smoke.append_cases() if c[0] == label)[1:]
+
+
+def _append_bitwise(q, s, blk, off, vals):
+    """Kernel and plain version from clones of the same pool: every block
+    but the trash block and every scale bitwise equal; the kernel's pool
+    is returned for further appends."""
+    kq, ks, rq, rs = q.clone(), s.clone(), q.clone(), s.clone()
+    before = pa.kv_append_int8.launches
+    pa.kv_append_int8(kq, ks, blk, off, vals)
+    pa.kv_append_int8_reference(rq, rs, blk, off, vals)
+    torch.cuda.synchronize()
+    assert pa.kv_append_int8.launches == before + 1
+    assert torch.equal(kq[1:], rq[1:])
+    assert torch.equal(ks[1:], rs[1:])
+    return kq, ks
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("label", ["prefill", "verify", "realistic"])
+def test_kv_append_int8_bitwise_at_the_phase2_shapes(cuda, label,
+                                                     index_dtype):
+    """chip_smoke's three phase-2 shapes, two appends in a row (the
+    second reads the scales the first left)."""
+    shape, blk, off = _append_case(label)
+    q, s, tblk, toff, vals = chip_smoke.append_inputs(torch, cuda, shape,
+                                                      blk, off, seed=3)
+    tblk, toff = tblk.to(index_dtype), toff.to(index_dtype)
+    q, s = _append_bitwise(q, s, tblk, toff, vals)
+    _append_bitwise(q, s, tblk, toff, vals * 3.0)
+
+
+def test_kv_append_int8_reopens_a_block_at_offset_zero(cuda):
+    """A write at offset 0 wipes the block's earlier tenant: the bytes
+    equal an append into a zeroed pool."""
+    shape, blk, off = _append_case("prefill")
+    q, s, tblk, toff, vals = chip_smoke.append_inputs(torch, cuda, shape,
+                                                      blk, off, seed=4)
+    assert bool((q[tblk[0]] != 0).any())
+    kq, ks = _append_bitwise(q, s, tblk, toff, vals)
+    zq, zs = torch.zeros_like(q), torch.zeros_like(s)
+    pa.kv_append_int8(zq, zs, tblk, toff, vals)
+    live = tblk[tblk > 0].unique()
+    assert torch.equal(kq[live], zq[live])
+    assert torch.equal(ks[live], zs[live])
+
+
+def test_kv_append_int8_scale_grows_mid_block(cuda):
+    """Values that grow along a block make each write raise the scale
+    and rescale the rows before it."""
+    bs, h, d = 16, 4, 16
+    q = torch.zeros((3, bs, h, d), dtype=torch.int8, device=cuda)
+    s = torch.zeros((3, h), dtype=torch.float32, device=cuda)
+    blk = torch.tensor([1] * bs + [2] * 5, device=cuda)
+    off = torch.tensor(list(range(bs)) + list(range(5)), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    growth = torch.arange(1, bs + 6, device=cuda, dtype=torch.float32)
+    vals = (torch.randn((bs + 5, h, d), generator=gen, device=cuda)
+            * growth[:, None, None] ** 2)
+    kq, ks = _append_bitwise(q, s, blk, off, vals)
+    amax = vals[:bs].abs().amax(dim=(0, 2)) / 127.0
+    assert float((ks[1] - amax).abs().max()) <= 1e-6 * float(amax.max())
+    assert int(kq[1, 0].abs().max()) < 127      # rescaled down
+
+
+def test_kv_append_int8_all_zero_rows(cuda):
+    """An all-zero row opening a block (scale 0, stored as is), then a
+    zero row mid-block, then a row that opens the scale."""
+    bs, h, d = 8, 2, 16
+    q = torch.full((2, bs, h, d), 5, dtype=torch.int8, device=cuda)
+    s = torch.full((2, h), 0.5, dtype=torch.float32, device=cuda)
+    blk = torch.ones(4, dtype=torch.int32, device=cuda)
+    off = torch.arange(4, dtype=torch.int32, device=cuda)
+    vals = torch.zeros((4, h, d), device=cuda)
+    vals[2] = torch.linspace(-2.0, 3.0, h * d, device=cuda).reshape(h, d)
+    kq, ks = _append_bitwise(q, s, blk, off, vals)
+    assert int(kq[1, :2].abs().max()) == 0 and int(kq[1, 2].abs().max()) > 0
+    assert int(kq[1, 4:].abs().max()) == 0      # reopened: wiped
+
+
+def test_kv_append_int8_chunked_equals_one_call_and_adds_no_sync(cuda):
+    """The README prefill written in 32-position chunks gives the bytes
+    of one call, and a call under sync debug mode "error" raises
+    nothing."""
+    shape, blk, off = _append_case("prefill")
+    q, s, tblk, toff, vals = chip_smoke.append_inputs(torch, cuda, shape,
+                                                      blk, off, seed=6)
+    whole_q, whole_s = q.clone(), s.clone()
+    pa.kv_append_int8(whole_q, whole_s, tblk, toff, vals)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for start in range(0, tblk.numel(), 32):
+            pa.kv_append_int8(q, s, tblk[start:start + 32],
+                              toff[start:start + 32],
+                              vals[start:start + 32])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(q[1:], whole_q[1:]) and torch.equal(s[1:],
+                                                           whole_s[1:])

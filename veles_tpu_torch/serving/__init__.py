@@ -8,9 +8,10 @@ from .registry import DecodeServedModel, ModelRegistry
 from .scheduler import (DeadlineExpired, SchedulerClosed,
                         SchedulerOverflow, bucket_sizes, deadline_expired)
 from .server import InferenceServer
+from .toydecode import ToyDecodeModel
 
 __all__ = ["DecodeScheduler", "KVBlockPool", "key_chain",
            "required_blocks", "DecodeMetrics", "LatencyWindow",
            "DecodeServedModel", "ModelRegistry", "DeadlineExpired",
            "SchedulerClosed", "SchedulerOverflow", "bucket_sizes",
-           "deadline_expired", "InferenceServer"]
+           "deadline_expired", "InferenceServer", "ToyDecodeModel"]

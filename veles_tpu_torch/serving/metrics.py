@@ -1,7 +1,10 @@
 """Decode-serving metrics: registry-backed counters and latency quantiles.
 
-The part of ``veles_tpu/serving/metrics.py`` the core decode scheduler
-touches.  Counter state lives in the process-global
+The part of ``veles_tpu/serving/metrics.py`` the decode scheduler
+touches: the core counters, the prefix-cache and chunked-prefill
+counters, and the speculation series (draft, accept and reject counts,
+verify passes and the windowed acceptance rate).  Counter state lives
+in the process-global
 :class:`~veles_tpu_torch.observability.registry.MetricsRegistry`
 (labelled by model), so the numbers ``GET /metrics`` reports are the
 ones a Prometheus scrape of the registry would see; :class:`DecodeMetrics`
@@ -78,13 +81,49 @@ _DECODE_COUNTERS = {
     "expired": ("veles_serving_decode_deadline_expired_total",
                 "Generate requests shed because their deadline passed "
                 "before prefill (HTTP 504)"),
+    "prefix_hits": ("veles_serving_kv_prefix_hits_total",
+                    "Admits that attached to >= 1 already-resident "
+                    "KV block (prefix cache hit)"),
+    "dedup_blocks": ("veles_serving_kv_blocks_dedup",
+                     "KV blocks attached already-resident at admit "
+                     "instead of re-prefilled (cumulative)"),
+    "chunks": ("veles_serving_prefill_chunks_total",
+               "Prefill chunk executions (the chunked path interleaved "
+               "with decode steps)"),
+    "draft_tokens": ("veles_serving_spec_draft_tokens_total",
+                     "Draft tokens proposed by the speculative drafter"),
+    "accepted_tokens": ("veles_serving_spec_accepted_tokens_total",
+                        "Draft tokens the verify pass accepted"),
+    "rejected_tokens": ("veles_serving_spec_rejected_tokens_total",
+                        "Draft tokens the verify pass rejected (their KV "
+                        "writes are rolled back)"),
+    "verify_steps": ("veles_serving_spec_verify_steps_total",
+                     "Speculative verify-pass executions"),
 }
+
+#: draft/accept outcomes kept for the windowed acceptance-rate gauge
+_ACCEPT_WINDOW = 1024
+
+#: resident-prefix fraction bands of the split TTFT histogram: how much
+#: of the prompt was already cached when the sequence was admitted
+_PREFIX_BANDS = ((0.5, "major"), (0.0, "minor"))
+
+
+def _prefix_band(resident):
+    if not resident:
+        return "none"
+    for floor, band in _PREFIX_BANDS:
+        if resident >= floor:
+            return band
+    return "none"
 
 
 class DecodeMetrics:
     """Per-model counters for the token-level decode scheduler: per-step
     latency quantiles (about the inter-token latency), time to first
-    token, batch-row utilization, KV-block occupancy and bytes."""
+    token (also split by the resident share of the prompt), batch-row
+    utilization, KV-block occupancy and bytes, prefix reuse, prefill
+    chunks and the speculation outcomes."""
 
     RATE_WINDOW = 4096  # (timestamp, tokens) pairs for the recent view
 
@@ -109,6 +148,16 @@ class DecodeMetrics:
             "veles_serving_decode_ttft_seconds",
             "Submit-to-first-token latency (queue + prefill)",
             ("model",)).labels(model=model)
+        # TTFT split by how much of the prompt was already resident at
+        # admit (bands: none / minor (< 50%) / major (>= 50%))
+        self._h_ttft_prefix = self.registry.histogram(
+            "veles_serving_decode_ttft_by_prefix_seconds",
+            "Submit-to-first-token latency split by resident-prefix "
+            "fraction at admit", ("model", "resident"))
+        self._g_chunk_queue = self.registry.gauge(
+            "veles_serving_prefill_chunk_queue",
+            "Sequences currently mid-chunked-prefill",
+            ("model",)).labels(model=model)
         self._g_active = self.registry.gauge(
             "veles_serving_decode_active_rows",
             "Sequences currently decoding", ("model",)).labels(model=model)
@@ -128,6 +177,19 @@ class DecodeMetrics:
             "veles_serving_decode_step_quantile_ms",
             "Exact decode-step quantiles over the recent window",
             ("model", "quantile"))
+        # speculation: verify-batch-size histogram and a windowed
+        # acceptance-rate gauge, refreshed at scrape time from the recent
+        # (drafted, accepted) pairs (a lifetime ratio would hide
+        # acceptance drifting with the workload)
+        self._h_verify = self.registry.histogram(
+            "veles_serving_spec_verify_batch_tokens",
+            "Tokens per speculative verify pass (rows x (depth + 1))",
+            ("model",)).labels(model=model)
+        self._g_acceptance = self.registry.gauge(
+            "veles_serving_spec_acceptance_rate",
+            "Accepted / drafted tokens over the recent window",
+            ("model",)).labels(model=model)
+        self._acceptance = collections.deque(maxlen=_ACCEPT_WINDOW)
         self.registry.register_collector(self)
         self._emissions = collections.deque(maxlen=self.RATE_WINDOW)
 
@@ -140,14 +202,36 @@ class DecodeMetrics:
         raise AttributeError(name)
 
     # -- recording (scheduler worker thread) ---------------------------------
-    def record_admit(self, prompt_tokens):
+    def record_admit(self, prompt_tokens, prefilled=None):
+        """``prefilled``: the prompt tokens the prefill has to process
+        (the prompt minus its resident prefix); default the whole
+        prompt."""
         self._c["sequences"].inc()
-        self._c["prefill_tokens"].inc(int(prompt_tokens))
+        self._c["prefill_tokens"].inc(int(
+            prompt_tokens if prefilled is None else prefilled))
 
-    def record_first_token(self, seconds):
-        """TTFT for one sequence: submit -> prefill's first token."""
+    def record_prefix(self, matched_blocks):
+        """One admission's prefix-reuse outcome: 0 matched blocks is a
+        miss, anything else a hit of that many dedup'd blocks."""
+        if matched_blocks:
+            self._c["prefix_hits"].inc()
+            self._c["dedup_blocks"].inc(int(matched_blocks))
+
+    def record_chunk(self):
+        self._c["chunks"].inc()
+
+    def set_chunk_queue(self, depth):
+        self._g_chunk_queue.set(int(depth))
+
+    def record_first_token(self, seconds, resident=None):
+        """TTFT for one sequence: submit -> prefill's first token.
+        ``resident``: the fraction of the prompt already cached at admit
+        (None or 0 when prefix caching is off or nothing matched)."""
         self.ttft.record(seconds)
         self._h_ttft.observe(seconds)
+        self._h_ttft_prefix.labels(
+            model=self.model,
+            resident=_prefix_band(resident)).observe(seconds)
         self._c["tokens"].inc()
         with self._lock:
             self._emissions.append((time.time(), 1))
@@ -163,6 +247,46 @@ class DecodeMetrics:
             self._emissions.append((time.time(), int(active_rows)))
         events.span("serving.decode", seconds, model=self.model,
                     rows=int(active_rows), max_rows=int(max_rows))
+
+    def record_extra_tokens(self, n):
+        """Tokens emitted beyond one a row in a speculative iteration
+        (accepted drafts): keeps the tokens counter and the recent tok/s
+        window honest about what speculation emits."""
+        self._c["tokens"].inc(int(n))
+        with self._lock:
+            self._emissions.append((time.time(), int(n)))
+
+    def record_draft(self, rows, depth, seconds):
+        """One drafter call: ``rows`` live rows each proposed ``depth``
+        tokens."""
+        self._c["draft_tokens"].inc(int(rows) * int(depth))
+        events.span("serving.draft", seconds, model=self.model,
+                    rows=int(rows), depth=int(depth))
+
+    def record_verify(self, rows, span, accepted, rejected, seconds):
+        """One verify pass over ``rows`` live rows x ``span`` fed
+        positions; ``accepted``/``rejected`` are the batch's draft
+        outcomes as the host-side accept step decided them."""
+        self._c["verify_steps"].inc()
+        self._c["accepted_tokens"].inc(int(accepted))
+        self._c["rejected_tokens"].inc(int(rejected))
+        self._h_verify.observe(int(rows) * int(span))
+        with self._lock:
+            self._acceptance.append((int(accepted) + int(rejected),
+                                     int(accepted)))
+        events.span("serving.verify", seconds, model=self.model,
+                    rows=int(rows), span=int(span),
+                    accepted=int(accepted), rejected=int(rejected))
+
+    def acceptance_rate(self):
+        """Accepted / drafted over the recent window (None before any
+        speculative step)."""
+        with self._lock:
+            pairs = list(self._acceptance)
+        drafted = sum(d for d, _ in pairs)
+        if not drafted:
+            return None
+        return sum(a for _, a in pairs) / drafted
 
     def record_complete(self, generated, ok=True):
         self._c["completed" if ok else "failed"].inc()
@@ -194,6 +318,9 @@ class DecodeMetrics:
             if value is not None:
                 self._g_quantile.labels(model=self.model,
                                         quantile=q).set(value)
+        rate = self.acceptance_rate()
+        if rate is not None:
+            self._g_acceptance.set(rate)
 
     # -- reader --------------------------------------------------------------
     def snapshot(self):
@@ -219,4 +346,7 @@ class DecodeMetrics:
             "step_latency": self.step_latency.summary(),
             "ttft": self.ttft.summary(),
         })
+        rate = self.acceptance_rate()
+        if rate is not None:
+            out["acceptance_rate"] = round(rate, 4)
         return out

@@ -18,7 +18,8 @@ __all__ = ["DecodeServedModel", "ModelRegistry"]
 #: the scheduler defaults a registry forwards to DecodeScheduler
 _DECODE_KWARGS = ("max_batch", "block_size", "max_prompt_len",
                   "max_new_tokens", "num_blocks", "queue_limit",
-                  "kv_dtype", "device")
+                  "prefix_caching", "prefill_chunk_tokens", "spec_depth",
+                  "kvtier", "kv_dtype", "device")
 
 
 class DecodeServedModel:
@@ -49,6 +50,9 @@ class DecodeServedModel:
                 "block_size": stats["block_size"],
                 "num_blocks": stats["num_blocks"],
                 "kv_dtype": stats["kv_dtype"],
+                "prefix_caching": stats["prefix_caching"],
+                "prefill_chunk_tokens": stats["prefill_chunk_tokens"],
+                "spec_depth": stats.get("spec_depth"),
                 "active_sequences": stats["active_sequences"],
                 "queue_depth": stats["queue_depth"],
                 "queue_limit": stats["queue_limit"]}
@@ -88,9 +92,13 @@ class ModelRegistry:
 
     def add_decode(self, name, model, default=False, **decode_kwargs):
         """Register a decode adapter under ``name`` — warms its decode
-        step now, serves ``POST /api/<name>/generate``.  Explicit
-        kwargs override the registry-wide defaults."""
-        kwargs = dict(self._scheduler_defaults, **decode_kwargs)
+        step now, serves ``POST /api/<name>/generate``.  The model's own
+        ``decode_defaults`` (e.g. a ToyDecodeModel's spec geometry)
+        override the registry-wide defaults; explicit kwargs override
+        both."""
+        kwargs = dict(self._scheduler_defaults)
+        kwargs.update(getattr(model, "decode_defaults", None) or {})
+        kwargs.update(decode_kwargs)
         scheduler = DecodeScheduler(model, name=name, **kwargs)
         entry = DecodeServedModel(name, scheduler,
                                   source=type(model).__name__)

@@ -17,6 +17,7 @@ Endpoints:
     GET  /readyz                   503 until every model is warm
     GET  /metrics                  per-model decode metrics + stats
     GET  /models                   registry description
+    GET  /api/<model>/kv           the KV pool's dump and integrity list
 
 Shutdown is a graceful drain: stop accepting, finish every admitted and
 queued sequence, then stop the HTTP front end.  The classifier route
@@ -77,6 +78,19 @@ class _ServingHandler(JsonRequestHandler):
             self.send_json(200, srv.registry.metrics_snapshot())
         elif path == "/models":
             self.send_json(200, srv.registry.describe())
+        elif path.startswith("/api/") and path.endswith("/kv"):
+            # live KV pool introspection: resident prefixes, refcounts,
+            # dedupe ratio, speculation tallies, integrity verdict
+            name = path[len("/api/"):-len("/kv")] or None
+            entry = srv.registry.get(name)
+            if entry is None:
+                self.send_json(404, {"error": "no decode model %r"
+                                     % name})
+                return
+            try:
+                self.send_json(200, entry.scheduler.kv_dump())
+            except Exception as exc:  # noqa: BLE001 — draining et al.
+                self.send_json(503, {"error": str(exc)})
         else:
             self.send_json(404, {"error": "not found"})
 
@@ -199,8 +213,10 @@ class InferenceServer:
     construction; more can be added later through ``registry``.
     ``scheduler_defaults`` (``max_batch``, ``block_size``,
     ``max_prompt_len``, ``max_new_tokens``, ``num_blocks``,
-    ``queue_limit``, ``kv_dtype``, ``device``) apply to every model
-    registered through this server; ``device`` defaults to the card.
+    ``queue_limit``, ``prefix_caching``, ``prefill_chunk_tokens``,
+    ``spec_depth``, ``kv_dtype``, ``device``) apply to every model
+    registered through this server, under a model's own
+    ``decode_defaults``; ``device`` defaults to the card.
     """
 
     def __init__(self, models=None, port=0, host="127.0.0.1",

@@ -19,6 +19,11 @@ point at physical block 0, which the serving pool reserves as the trash
 block.  The prefill and verify entry points add no kernel: they flatten
 a chunk or a speculative span into the batch axis with per-query causal
 lengths and call :func:`paged_attention`.
+
+:func:`kv_append_int8` writes K or V into an int8 pool: the sequential
+quantized append of the serving path, one launch of
+``csrc/kv_append.cu`` a call on the card (``kv_append_int8.launches``),
+its plain version :func:`kv_append_int8_reference` for CPU tensors.
 """
 
 import collections
@@ -33,15 +38,20 @@ __all__ = ["DEFAULT_BLOCK_SIZE", "PagedPlan", "paged_attention",
            "paged_attention_plan", "paged_attention_reference",
            "paged_prefill_attention", "paged_prefill_attention_reference",
            "paged_verify_attention", "paged_verify_attention_reference",
-           "required_blocks",
-           "quantize_pool", "dequantize_pool"]
+           "required_blocks", "quantize_pool", "dequantize_pool",
+           "kv_append_int8", "kv_append_int8_reference"]
 
 #: KV page size (tokens per pool block) the decode scheduler builds
 #: pools with when nothing is pinned
 DEFAULT_BLOCK_SIZE = 8
 
 _SRC = "paged_attention"
+_APPEND_SRC = "kv_append"
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: the reserved trash block of a serving pool (``KVBlockPool.TRASH``):
+#: padding positions write there and nothing reads it
+_TRASH = 0
 
 
 def required_blocks(length, block_size):
@@ -72,6 +82,119 @@ def dequantize_pool(q, scales):
     """Inverse of :func:`quantize_pool`: ``int8 * scale`` per
     (block, head)."""
     return q.to(torch.float32) * scales.to(torch.float32)[:, None, :, None]
+
+
+def kv_append_int8_reference(q, s, blk, off, vals):
+    """Plain version of :func:`kv_append_int8`: vectorized passes.
+
+    A block's bytes depend on the order of its writes, so each position
+    gets its rank among the writes to its block, on the device, and one
+    pass runs per rank: within a pass every block is written at most
+    once, so the passes give the bytes of the position-by-position loop.
+    Each row of a [B, S] call is its own sequence and owns its blocks,
+    so a block sees at most min(S, block_size) writes and that many
+    passes run: one for a decode step ([B, 1]), at most block_size for
+    a prefill.  What the passes write to the trash block is left
+    unspecified.  ``/ 127`` divides by a tensor on the pool's device, so
+    it is an IEEE divide on the card too (a Python scalar divisor makes
+    PyTorch's CUDA division multiply by its reciprocal)."""
+    passes = min(blk.shape[-1] if blk.ndim else 1, q.shape[1])
+    blk = blk.reshape(-1).long()
+    off = off.reshape(-1).long()
+    n = blk.shape[0]
+    vals = vals.to(torch.float32).reshape((n,) + q.shape[2:])
+    amax = vals.abs().amax(dim=-1) / torch.full((), 127.0,
+                                                device=vals.device)
+    reopen = (off == 0)[:, None]
+    pos = torch.arange(n, device=blk.device)
+    dest = blk
+    if passes > 1:
+        # rank[t]: the writes to blk[t] before position t
+        earlier = torch.ones((n, n), dtype=torch.bool,
+                             device=blk.device).tril(-1)
+        rank = ((blk[:, None] == blk[None, :]) & earlier).sum(dim=1)
+    for r in range(passes):
+        s_old = torch.where(reopen, 0.0, s[blk])
+        s_new = torch.maximum(s_old, amax)
+        s_safe = torch.where(s_new > 0, s_new, 1.0)
+        # ratio == 0 wipes a freshly opened block; ratio == 1 keeps the
+        # existing rows bit-exact when the scale did not grow
+        ratio = torch.where(s_old > 0, s_old / s_safe, 0.0)
+        block = (q[blk].to(torch.float32) * ratio[:, None, :, None]
+                 ).round_().clamp_(-127, 127)
+        block[pos, off] = (vals / s_safe[:, :, None]).round_().clamp_(
+            -127, 127)
+        if passes > 1:
+            # the positions of other passes write the trash block
+            dest = torch.where(rank == r, blk, _TRASH)
+        q.index_put_((dest,), block.to(torch.int8))
+        s.index_put_((dest,), s_new)
+
+
+def kv_append_int8(q, s, blk, off, vals):
+    """Write ``vals`` into an int8 KV pool, IN PLACE, as the sequential
+    quantized append.
+
+    ``q``: int8 [num_blocks, block_size, H, D]; ``s``: f32 [num_blocks,
+    H] per-(block, head) scales; ``blk``/``off``: the block and row of
+    each write, [N] (one sequence) or [B, S] (B sequences), flattened
+    row-major so each sequence's positions stay in causal order; ``vals``
+    f32 [..., H, D], one [H, D] row a write.  For each write, in order:
+    offset 0 reopens the block (its old scale counts as 0), the scale
+    grows to ``max(old, max|v| / 127)``, the block's rows are rescaled
+    by ``old / new`` and the row is written as ``round(v / scale)``, all
+    clamped to +-127.  So a block's bytes depend only on the tokens
+    written into it since it was reopened, and writing a span in one
+    call or in consecutive calls gives the same bytes.
+
+    Each sequence owns its blocks and its valid positions are a prefix
+    of its span, so the writes to one block are a contiguous run (the
+    kernel relies on that); writes to the trash block 0 are
+    unspecified.  CUDA tensors launch ``csrc/kv_append.cu`` once (no
+    host sync); CPU tensors run :func:`kv_append_int8_reference`."""
+    if q.device.type == "cpu":
+        return kv_append_int8_reference(q, s, blk, off, vals)
+    if q.ndim != 4 or q.dtype != torch.int8:
+        raise ValueError("q must be an int8 [num_blocks, block_size, H, D] "
+                         "pool, got %s %r" % (q.dtype, tuple(q.shape)))
+    nblocks, bs, h, d = q.shape
+    if s.dtype != torch.float32 or tuple(s.shape) != (nblocks, h):
+        raise ValueError("s must be f32 [num_blocks, H] == (%d, %d), got "
+                         "%s %r" % (nblocks, h, s.dtype, tuple(s.shape)))
+    if blk.shape != off.shape:
+        raise ValueError("blk %r and off %r differ in shape"
+                         % (tuple(blk.shape), tuple(off.shape)))
+    if blk.dtype not in (torch.int32, torch.int64):
+        raise ValueError("blk must be int32 or int64, got %s" % blk.dtype)
+    n = blk.numel()
+    if vals.numel() != n * h * d:
+        raise ValueError("vals %r is not %d rows of [%d, %d]"
+                         % (tuple(vals.shape), n, h, d))
+    for name, t in (("s", s), ("blk", blk), ("off", off), ("vals", vals)):
+        if t.device != q.device:
+            raise ValueError("%s is on %s, q on %s"
+                             % (name, t.device, q.device))
+    if not (q.is_contiguous() and s.is_contiguous()):
+        raise ValueError("q and s must be contiguous")
+    if n == 0:
+        return
+    blk = blk.reshape(-1).contiguous()
+    off = off.reshape(-1).to(blk.dtype).contiguous()
+    vals = vals.to(torch.float32).reshape(n, h, d).contiguous()
+    symbol = ("vt_kv_append_int8_i32" if blk.dtype == torch.int32
+              else "vt_kv_append_int8_i64")
+    with torch.cuda.device(q.device):
+        fn = _build.function(_APPEND_SRC, symbol, [_P] * 5 + [_I] * 4
+                             + [_P])
+        code = fn(q.data_ptr(), s.data_ptr(), blk.data_ptr(),
+                  off.data_ptr(), vals.data_ptr(), n, bs, h, d,
+                  _build.stream_ptr(q.device))
+    _build.check(_APPEND_SRC, code, "kv_append_int8 kernel")
+    kv_append_int8.launches += 1
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+kv_append_int8.launches = 0
 
 
 def _check_quant_args(k_pool, v_pool, k_scales, v_scales):

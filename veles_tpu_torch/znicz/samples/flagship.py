@@ -39,7 +39,8 @@ from ...device import resolve_device
 from ...parallel.moe import moe_reference
 from ...parallel.ring import attention_reference
 from ..gemm import _quantize, quantized_matmul
-from ..paged_attention import (paged_attention, paged_prefill_attention,
+from ..paged_attention import (kv_append_int8, paged_attention,
+                               paged_prefill_attention,
                                paged_verify_attention)
 
 __all__ = ["init_params", "init_decode_params", "prefill",
@@ -164,60 +165,18 @@ def _kv_arrays(pool):
     return pool, None
 
 
-#: the pool's reserved trash block (``KVBlockPool.TRASH``): padding
-#: positions write there and nothing reads it
-_TRASH = 0
-
-
 def _append_kv(pool, blk, off, vals, kv_dtype):
     """Write ``vals`` at (blk, off) IN PLACE and return the pool.
 
     f32: one ``index_put_``.  int8: the sequential per-position
-    quantized append.  ``blk``/``off`` are [N] (one row) or [B, S] (B
-    rows), flattened row-major so the positions of a row stay in causal
-    order.  A block's bytes depend on the order of its writes, so each
-    position gets its rank among the writes to its block, on the
-    device, and one vectorized pass runs per rank: within a pass every
-    block is written at most once, so the passes give the bytes of the
-    position-by-position loop.  Each row is its own sequence and owns
-    its blocks, so a block sees at most min(S, block_size) writes and
-    that many passes run: one for a decode step ([B, 1]), at most
-    block_size for a prefill.  What the passes write to the trash block
-    is left unspecified."""
+    quantized append, one :func:`..paged_attention.kv_append_int8` call
+    (one kernel launch on the card).  ``blk``/``off`` are [N] (one row)
+    or [B, S] (B rows), flattened row-major so the positions of a row
+    stay in causal order."""
     if kv_dtype != "int8":
         pool.index_put_((blk.long(), off.long()), vals.to(pool.dtype))
         return pool
-    q, s = pool["q"], pool["s"]
-    passes = min(blk.shape[-1] if blk.ndim else 1, q.shape[1])
-    blk = blk.reshape(-1).long()
-    off = off.reshape(-1).long()
-    n = blk.shape[0]
-    vals = vals.to(torch.float32).reshape((n,) + q.shape[2:])
-    amax = vals.abs().amax(dim=-1) / 127.0           # [N, H]
-    reopen = (off == 0)[:, None]
-    pos = torch.arange(n, device=blk.device)
-    dest = blk
-    if passes > 1:
-        # rank[t]: the writes to blk[t] before position t
-        earlier = torch.ones((n, n), dtype=torch.bool,
-                             device=blk.device).tril(-1)
-        rank = ((blk[:, None] == blk[None, :]) & earlier).sum(dim=1)
-    for r in range(passes):
-        s_old = torch.where(reopen, 0.0, s[blk])
-        s_new = torch.maximum(s_old, amax)
-        s_safe = torch.where(s_new > 0, s_new, 1.0)
-        # ratio == 0 wipes a freshly opened block; ratio == 1 keeps the
-        # existing rows bit-exact when the scale did not grow
-        ratio = torch.where(s_old > 0, s_old / s_safe, 0.0)
-        block = (q[blk].to(torch.float32) * ratio[:, None, :, None]
-                 ).round_().clamp_(-127, 127)
-        block[pos, off] = (vals / s_safe[:, :, None]).round_().clamp_(
-            -127, 127)
-        if passes > 1:
-            # the positions of other passes write the trash block
-            dest = torch.where(rank == r, blk, _TRASH)
-        q.index_put_((dest,), block.to(torch.int8))
-        s.index_put_((dest,), s_new)
+    kv_append_int8(pool["q"], pool["s"], blk, off, vals)
     return pool
 
 
@@ -312,7 +271,7 @@ def _decode_block(p_i, h, k_pool_i, v_pool_i, page_table, lengths, blk,
     hd = d // heads
     qkv = _rmsnorm(h) @ p_i["qkv"]               # [B, 3d]
     q, kk, vv = _split_qkv(qkv, d, (b, heads, hd))
-    # one position per row: [B, 1], so the int8 append takes one pass
+    # one position per row: [B, 1]
     k_pool_i = _append_kv(k_pool_i, blk[:, None], off[:, None],
                           kk[:, None], kv_dtype)
     v_pool_i = _append_kv(v_pool_i, blk[:, None], off[:, None],
@@ -507,9 +466,23 @@ class FlagshipDecodeModel:
                            kv_dtype=dt)
         return fn
 
-    def decode_fn(self, block_size, kv_dtype=None):
+    def prefill_chunk_fn(self, block_size, kv_dtype=None):
+        """(tokens[C], start, length, k_pools, v_pools, block_row) ->
+        (token, pools): the fixed-size chunked-prefill step."""
+        params, heads, k, dev = self.params, self.heads, self.k, self.device
+        dt = self._kv(kv_dtype)
+
+        def fn(tokens, start, length, k_pools, v_pools, block_row):
+            return prefill_chunk(params, _index(tokens, dev), int(start),
+                                 int(length), k_pools, v_pools,
+                                 _index(block_row, dev), heads=heads,
+                                 block_size=block_size, k=k, kv_dtype=dt)
+        return fn
+
+    def decode_fn(self, block_size, kv_dtype=None, with_logits=False):
         """(k_pools, v_pools, page_table, lengths, tokens) ->
-        (next tokens, pools)."""
+        (next tokens, pools), and the [B, V] logits last with
+        ``with_logits``."""
         params, heads, k, dev = self.params, self.heads, self.k, self.device
         dt = self._kv(kv_dtype)
 
@@ -518,8 +491,13 @@ class FlagshipDecodeModel:
                                _index(page_table, dev),
                                _index(lengths, dev), _index(tokens, dev),
                                heads=heads, block_size=block_size, k=k,
-                               kv_dtype=dt)
+                               kv_dtype=dt, with_logits=with_logits)
         return fn
+
+    def logits_fn(self, block_size, kv_dtype=None):
+        """Like :meth:`decode_fn` but also returns the [B, V] logits: the
+        hook for measuring quantization error against the f32 oracle."""
+        return self.decode_fn(block_size, kv_dtype, with_logits=True)
 
     def _unigram_table(self):
         """The drafter: a [vocab] next-token table distilled from the
