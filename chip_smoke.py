@@ -94,6 +94,39 @@ Phases (any failure raises and the script exits non-zero):
    rejected tokens and rollbacks, the launches of paged attention and
    the append, TTFT p50 of each turn, tok/s, and ``GET
    /api/flagship/kv``'s integrity list, which must be empty.
+3c. The tiered KV cache, KV checkpoints and live session migration
+   (slice 13), the README model in f32 (K1) and int8 KV (K2 and the
+   append).  Tiers: ``InferenceServer`` with prefix caching, chunks of
+   32, a pool of ``TIER_BLOCKS`` blocks and ``kvtier`` (a host tier of
+   ``TIER_HOST_BLOCKS`` blocks' wire bytes over a disk tier in a
+   temporary directory); turn 1 of phase 3b, 16 filler prompts that
+   churn the pool, then turn 2, which readmits the conversations from
+   host RAM and disk.  Every answer equals the cache-free oracle (f32)
+   or the port on the CPU with the same options and tiers (int8); the
+   KV dump's integrity list (the tiers' included) is empty; demotions
+   to both tiers, promotions and disk readmits are all > 0.  Printed:
+   TTFT p50 of both turns beside phase 3b's, the prompt tokens turn 2
+   prefilled, the tier counters and bytes.  Checkpoint: the 8 turn-1
+   requests through the README scheduler, ``checkpoint_kv`` with every
+   one mid-generation, then ``restore_kv`` into a fresh scheduler on
+   the card; each resumed sequence emits the uninterrupted run's
+   tokens.  Printed: checkpoint bytes, save and restore seconds.
+   Migration: two servers with ``enable_admin``; a burst of 8 on A is
+   exported mid-generation (``POST /admin/sessions/export``), imported
+   on B and released on A; every client is answered 307 at A and its
+   follow-up with its ``session_id`` completes on B with the oracle's
+   tokens (f32: the cache-free oracle; int8: the CPU); nothing answered
+   twice or lost.  Printed: export and import ms a session and wire
+   bytes a session.  Each path's kernels are counted from 0 just before
+   it (the restore, the import) and must have launched.  Then phase
+   2's long-context pool (4096 blocks of [16, 8, 128], 2 stages x K/V,
+   1.07 GB of f32; int8 a quarter plus scales): ``save_state`` /
+   ``load_state`` of the pools (bitwise, GB/s); one block's demote and
+   readmit through the host and the disk tier, p50 of 63 blocks, step
+   by step (bitwise; the card's wire bytes equal the CPU's on a small
+   pool); a ``checkpoint_kv`` / ``restore_kv`` of 8 sessions of 2000
+   tokens over that pool (each restored session emits the
+   uninterrupted run's tokens).  Temporary directories are removed.
 4. Training (slice 2): the MNIST sample through ``create_workflow()``
    → ``initialize()`` → ``run()`` on the card at the gate's settings
    (784-100-10, minibatch 60, 25 epochs, fail_iterations 12, loader
@@ -168,8 +201,10 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy
@@ -1115,7 +1150,7 @@ def _prompts():
             for _ in range(N_REQUESTS)]
 
 
-def _post_all(url, prompts):
+def _post_all(url, prompts, new_tokens=NEW_TOKENS):
     """POST every prompt concurrently; -> (answers in order, seconds)."""
     answers = [None] * len(prompts)
     errors = []
@@ -1125,7 +1160,7 @@ def _post_all(url, prompts):
             req = urllib.request.Request(
                 url + "/api/flagship/generate",
                 json.dumps({"prompt": prompts[i],
-                            "max_new_tokens": NEW_TOKENS}).encode(),
+                            "max_new_tokens": new_tokens}).encode(),
                 {"Content-Type": "application/json"})
             with urllib.request.urlopen(req, timeout=600) as resp:
                 answers[i] = json.loads(resp.read())
@@ -1396,6 +1431,615 @@ def options_phase(pa, card):
                 opts["ttft_p50_ms"][1] / opts["ttft_p50_ms"][0],
                 core["ttft_p50_ms"][1] / core["ttft_p50_ms"][0], card))
         out += runs
+    return out
+
+
+# -- phase 3c: the tiered KV cache, KV checkpoints, session migration ---------
+
+#: phase 3c's tiered server: phase 3b's prefix caching and chunks (no
+#: speculation), a pool of TIER_BLOCKS blocks, which turn 1's chains must
+#: leave once the fillers come, and a host tier of TIER_HOST_BLOCKS
+#: blocks' wire bytes, so the rest cascade to disk
+TIER_OPTIONS = dict(prefix_caching=True, prefill_chunk_tokens=32)
+TIER_BLOCKS, TIER_HOST_BLOCKS = 48, 12
+N_FILLERS, FILLER_TOKENS, FILLER_NEW = 16, 112, 16
+#: the migration source's pinned host time a step, so the export lands
+#: mid-generation (32 steps take ~0.3 s instead of ~0.1 s)
+MIGRATE_STEP_DELAY = 0.005
+#: phase 2's long-context pool: blocks, block size, heads, head dim (2
+#: stages x K/V of f32: 1.07 GB); the 8 sessions checkpointed on it
+REAL_POOL = (4096, 16, 8, 128)
+REAL_SESSIONS, REAL_PROMPT, REAL_NEW = 8, 2000, 16
+#: blocks demoted and readmitted per tier to time the round trip
+REAL_TIER_BLOCKS = 64
+
+
+def filler_prompts():
+    """16 distinct 112-token prompts that churn the pool between the
+    turns."""
+    rng = numpy.random.RandomState(15)
+    return [rng.randint(0, README_MODEL["vocab"], FILLER_TOKENS).tolist()
+            for _ in range(N_FILLERS)]
+
+
+def _post_json(url, payload, headers=None, timeout=600):
+    """POST ``payload`` -> (status, body, headers), error statuses
+    included."""
+    req = urllib.request.Request(
+        url, json.dumps(payload).encode(),
+        dict({"Content-Type": "application/json"}, **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def _block_wire_bytes(model, kv_dtype):
+    """The serialized size of one block of ``model``'s pools (what a
+    tier holds per block)."""
+    from veles_tpu_torch.serving.decode import _gather
+    from veles_tpu_torch.serving.sessions import pack_block
+    k, v = model.make_pools(2, README_SERVER["block_size"],
+                            kv_dtype=kv_dtype)
+    return len(pack_block({"kv_k": _gather(k, 1), "kv_v": _gather(v, 1)}))
+
+
+def _reset_launches(pa):
+    pa.paged_attention.launches = 0
+    pa.kv_append_int8.launches = 0
+
+
+def _read_launches(pa, label, kv_dtype):
+    """The path's launches since the reset; a path that ran no paged
+    attention (or, int8, no append) fails the run."""
+    got = {"paged_attention": pa.paged_attention.launches,
+           "kv_append_int8": pa.kv_append_int8.launches}
+    if got["paged_attention"] <= 0 or \
+            (kv_dtype == "int8") != (got["kv_append_int8"] > 0):
+        raise AssertionError("%s: the kernels did not run as the path "
+                             "needs: %s" % (label, got))
+    return got
+
+
+def _held(label, got, want, oracle):
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad or len(got) != len(want):
+        raise AssertionError("%s: answers %s differ from %s"
+                             % (label, bad, oracle))
+
+
+def _card_oracle(prompts_new):
+    """Cache-free ``generate_reference`` on the card for each (prompt,
+    new tokens)."""
+    from veles_tpu_torch.znicz.samples.flagship import (
+        FlagshipDecodeModel, generate_reference)
+    params = FlagshipDecodeModel(**README_MODEL).params
+    return [generate_reference(params, p, n, heads=README_MODEL["heads"])
+            for p, n in prompts_new]
+
+
+def _tier_server_options(model, kv_dtype, tier_dir):
+    host = TIER_HOST_BLOCKS * _block_wire_bytes(model, kv_dtype)
+    return dict(README_SERVER, **TIER_OPTIONS, num_blocks=TIER_BLOCKS,
+                kvtier={"host_bytes": host, "disk_dir": tier_dir})
+
+
+def _cpu_tier_turns(kv_dtype, traffic):
+    """The tier run's traffic (a list of (prompts, new tokens) bursts)
+    through the port on the CPU with the same options and its own disk
+    tier."""
+    from veles_tpu_torch.serving import DecodeScheduler
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype,
+                                device="cpu")
+    tier_dir = tempfile.mkdtemp(prefix="veles-kvtier-cpu-")
+    sched = DecodeScheduler(model, name="cpu-tiers", device="cpu",
+                            kv_dtype=kv_dtype,
+                            **_tier_server_options(model, kv_dtype,
+                                                   tier_dir))
+    try:
+        out = []
+        for prompts, new in traffic:
+            futures = [sched.submit(p, new) for p in prompts]
+            out += [f.result(900)["tokens"] for f in futures]
+        return out
+    finally:
+        sched.close()
+        shutil.rmtree(tier_dir, ignore_errors=True)
+
+
+def tier_run(pa, card, kv_dtype):
+    """Phase 3c's tiers: turn 1 over HTTP through a server whose pool
+    cannot keep the conversations, 16 fillers that churn them out to
+    host RAM and disk, then turn 2 (each conversation resubmitted),
+    which readmits them.  Every answer is held to its oracle; the tier
+    counters and the KV dump's integrity list are checked."""
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    label = kv_dtype + " tiers"
+    model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype)
+    tier_dir = tempfile.mkdtemp(prefix="veles-kvtier-")
+    options = _tier_server_options(model, kv_dtype, tier_dir)
+    server = InferenceServer({"flagship": model}, kv_dtype=kv_dtype,
+                             **options)
+    turn1, fillers = turn1_prompts(), filler_prompts()
+    try:
+        _reset_launches(pa)
+        first, s1 = _post_all(server.url, turn1)
+        turn2 = turn2_prompts(turn1, [a["tokens"] for a in first])
+        churn, s_fill = _post_all(server.url, fillers, FILLER_NEW)
+        before = _get_json(server.url + "/metrics")["flagship"]
+        second, s2 = _post_all(server.url, turn2)
+        launches = _read_launches(pa, label, kv_dtype)
+        metrics = _get_json(server.url + "/metrics")["flagship"]
+        dump = _get_json(server.url + "/api/flagship/kv")
+    finally:
+        server.stop()
+        shutil.rmtree(tier_dir, ignore_errors=True)
+    if dump["integrity"]:
+        raise AssertionError("%s: the KV dump's integrity list (the "
+                             "tiers' included): %s"
+                             % (label, dump["integrity"]))
+    tiers = metrics["kvtier"]
+    moved = {"demotions host": tiers["demotions"]["host"],
+             "demotions disk": tiers["demotions"]["disk"],
+             "promotions": sum(tiers["promotions"].values()),
+             "disk_readmits": tiers["disk_readmits"]}
+    if min(moved.values()) <= 0:
+        raise AssertionError("%s: the tiers were not all used: %s"
+                             % (label, moved))
+    traffic = [(turn1, NEW_TOKENS), (fillers, FILLER_NEW),
+               (turn2, NEW_TOKENS)]
+    got = [a["tokens"] for a in first + churn + second]
+    if kv_dtype == "f32":
+        want = _card_oracle([(p, n) for ps, n in traffic for p in ps])
+        oracle = "cache-free generate_reference on the card"
+    else:
+        want = _cpu_tier_turns(kv_dtype, traffic)
+        oracle = "the same options and tiers on the CPU"
+    _held(label, got, want, oracle)
+    prompt2 = sum(map(len, turn2))
+    prefilled2 = metrics["prefill_tokens"] - before["prefill_tokens"]
+    ttft = [sorted(a["ttft_s"] for a in turn) for turn in (first, second)]
+    rec = {"label": label, "kv_dtype": kv_dtype, "card": card,
+           "options": {k: v for k, v in options.items() if k != "kvtier"},
+           "host_bytes": options["kvtier"]["host_bytes"],
+           "seconds": [s1, s_fill, s2],
+           "ttft_p50_ms": [1e3 * statistics.median(t) for t in ttft],
+           "turn2_prompt_tokens": prompt2,
+           "turn2_prefilled_tokens": prefilled2,
+           "tiers": tiers, "launches": launches, "oracle": oracle,
+           "integrity": dump["integrity"]}
+    _log("e2e %s: turn 1, %d fillers, turn 2 over a %d-block pool with a "
+         "%d-byte host tier and a disk tier; TTFT p50 turn 1 %.1f ms, turn "
+         "2 %.1f ms; turn 2 prefilled %d of %d prompt tokens; demotions "
+         "%s, promotions %s, disk readmits %d, tier bytes host %d disk %d; "
+         "launches %s; tokens equal %s; kv integrity [] (empty) [%s]"
+         % (label, N_FILLERS, TIER_BLOCKS, rec["host_bytes"],
+            *rec["ttft_p50_ms"], prefilled2, prompt2, tiers["demotions"],
+            tiers["promotions"], tiers["disk_readmits"],
+            tiers["host_bytes"], tiers["disk_bytes"], launches, oracle,
+            card))
+    return rec
+
+
+def _wait_rows(sched, n, timeout=120):
+    """Block until ``n`` sessions hold decode rows (read on the worker in
+    one job): the cut that follows lands mid-generation."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if sched._run_job(lambda: len(sched._sessions)) >= n:
+            return
+        time.sleep(0.001)
+    raise AssertionError("%d sessions never started decoding" % n)
+
+
+def _cut_and_restore(pa, make, prompts, new, label, kv_dtype):
+    """Submit ``prompts`` to a scheduler from ``make(name)``,
+    ``checkpoint_kv`` it with every sequence mid-generation, let it
+    finish (the uninterrupted run), then ``restore_kv`` into a fresh
+    scheduler, which finishes from the cut.  -> (record, the
+    uninterrupted tokens); each restored sequence must emit the
+    uninterrupted run's tokens."""
+    from veles_tpu_torch.checkpoint import load_state, open_checkpoint
+    tmp = tempfile.mkdtemp(prefix="veles-kvckpt-")
+    src = make(label + "-src")
+    try:
+        futures = [src.submit(p, new) for p in prompts]
+        _wait_rows(src, len(prompts))
+        t0 = time.perf_counter()
+        path = src.checkpoint_kv(tmp)
+        save_s = time.perf_counter() - t0
+        whole = [f.result(900)["tokens"] for f in futures]
+    finally:
+        src.close()
+    try:
+        _, man, _ = open_checkpoint(path)
+        saved = load_state(path)["sessions"]
+        if len(saved) != len(prompts) or any(
+                not 0 < len(s["generated"]) < new for s in saved):
+            raise AssertionError("%s: the cut holds %d sessions, not all "
+                                 "mid-generation" % (label, len(saved)))
+        by_row = {s["row"]: [int(t) for t in s["prompt"]] for s in saved}
+        _reset_launches(pa)
+        dst = make(label + "-dst")
+        try:
+            t0 = time.perf_counter()
+            restored = dst.restore_kv(path)
+            restore_s = time.perf_counter() - t0
+            resumed = {row: f.result(900)["tokens"]
+                       for row, f in restored.items()}
+        finally:
+            dst.close()
+        launches = _read_launches(pa, label, kv_dtype)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row, tokens in resumed.items():
+        if tokens != whole[prompts.index(by_row[row])]:
+            raise AssertionError("%s: row %d resumed with other tokens "
+                                 "than the uninterrupted run's"
+                                 % (label, row))
+    unique = {c["digest"]: c["bytes"] for e in man.tensors.values()
+              for c in e["chunks"]}
+    rec = {"label": label, "kv_dtype": kv_dtype, "sessions": len(saved),
+           "checkpoint_bytes": man.total_bytes(),
+           "unique_chunk_bytes": sum(unique.values()), "save_s": save_s,
+           "restore_s": restore_s,
+           "save_gb_s": man.total_bytes() / 1e9 / save_s,
+           "restore_gb_s": man.total_bytes() / 1e9 / restore_s,
+           "launches": launches}
+    return rec, whole
+
+
+def checkpoint_run(pa, card, kv_dtype):
+    """Phase 3c's checkpoint: the 8 turn-1 requests through the README
+    server's scheduler, cut mid-generation with ``checkpoint_kv`` and
+    finished by a fresh scheduler on the card after ``restore_kv``."""
+    from veles_tpu_torch.serving import DecodeScheduler
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype)
+
+    def make(name):
+        return DecodeScheduler(model, name=name, kv_dtype=kv_dtype,
+                               **README_SERVER)
+    rec, _ = _cut_and_restore(pa, make, turn1_prompts(), NEW_TOKENS,
+                              kv_dtype + " checkpoint", kv_dtype)
+    rec["card"] = card
+    _log("e2e %s: %d sessions cut mid-generation; checkpoint %d bytes, "
+         "save %.4f s, restore %.4f s; every restored session emitted the "
+         "uninterrupted run's tokens; launches after the restore %s [%s]"
+         % (rec["label"], rec["sessions"], rec["checkpoint_bytes"],
+            rec["save_s"], rec["restore_s"], rec["launches"], card))
+    return rec
+
+
+def migration_run(pa, card, kv_dtype):
+    """Phase 3c's migration: a burst of 8 on server A, exported
+    mid-generation over ``POST /admin/sessions/export``, imported on
+    server B, released on A; every client is answered 307 at A and its
+    follow-up with its ``session_id`` completes on B with the oracle's
+    tokens, nothing answered twice or lost."""
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    label = kv_dtype + " migration"
+    prompts = turn1_prompts()
+    sids = ["m%d" % i for i in range(len(prompts))]
+    model_a = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype)
+    model_a.step_host_delay = MIGRATE_STEP_DELAY
+    model_b = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype)
+    a = InferenceServer({"flagship": model_a}, kv_dtype=kv_dtype,
+                        enable_admin=True, **README_SERVER)
+    b = InferenceServer({"flagship": model_b}, kv_dtype=kv_dtype,
+                        enable_admin=True, **README_SERVER)
+    first = {}
+
+    def client(i):
+        first[sids[i]] = _post_json(
+            a.url + "/api/flagship/generate",
+            {"prompt": prompts[i], "max_new_tokens": NEW_TOKENS,
+             "session_id": sids[i]})
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    try:
+        for t in threads:
+            t.start()
+        _wait_rows(a.registry.get("flagship").scheduler, len(prompts))
+        t0 = time.perf_counter()
+        status, exp, _ = _post_json(a.url + "/admin/sessions/export", {})
+        export_s = time.perf_counter() - t0
+        if status != 200 or exp["count"] != len(prompts) or not all(
+                s.get("kv_k") for s in exp["sessions"]):
+            raise AssertionError("%s: export caught %s of %d sessions "
+                                 "mid-generation" % (label, exp.get("count"),
+                                                     len(prompts)))
+        wire = [len(json.dumps(s)) for s in exp["sessions"]]
+        _reset_launches(pa)
+        t0 = time.perf_counter()
+        status, imp, _ = _post_json(b.url + "/admin/sessions/import",
+                                    {"sessions": exp["sessions"]})
+        import_s = time.perf_counter() - t0
+        if status != 200 or imp["errors"] or \
+                sorted(imp["imported"]) != sorted(sids):
+            raise AssertionError("%s: import answered %d %s"
+                                 % (label, status, imp))
+        status, rel, _ = _post_json(a.url + "/admin/sessions/release",
+                                    {"session_ids": imp["imported"],
+                                     "target": b.url})
+        for t in threads:
+            t.join(600)
+        follow = {}
+        for sid, prompt in zip(sids, prompts):
+            code, body, headers = first[sid]
+            if code != 307 or headers["X-Veles-Migrated"] != sid:
+                raise AssertionError("%s: %s was answered %d at the "
+                                     "source" % (label, sid, code))
+            follow[sid] = _post_json(
+                b.url + "/api/flagship/generate",
+                {"prompt": prompt, "max_new_tokens": NEW_TOKENS,
+                 "session_id": sid}, {"X-Veles-Attach": "1"})
+        launches = _read_launches(pa, label, kv_dtype)
+        again = _post_json(a.url + "/admin/sessions/release",
+                           {"session_ids": sids})[1]["released"]
+        listed_a = _get_json(a.url + "/admin/sessions")["sessions"][
+            "flagship"]
+        listed_b = _get_json(b.url + "/admin/sessions")["sessions"][
+            "flagship"]
+    finally:
+        a.stop()
+        b.stop()
+    if any(follow[sid][0] != 200 for sid in sids):
+        raise AssertionError("%s: follow-ups answered %s" % (
+            label, [follow[sid][0] for sid in sids]))
+    if again or listed_a["migrating"] or listed_a["active"] or \
+            listed_b["active"] or sorted(listed_b["finished"]) != sorted(
+                sids):
+        raise AssertionError("%s: a session was answered twice or lost "
+                             "(A %s, B %s, second release %s)"
+                             % (label, listed_a, listed_b, again))
+    got = [follow[sid][1]["tokens"] for sid in sids]
+    if kv_dtype == "f32":
+        want = _card_oracle([(p, NEW_TOKENS) for p in prompts])
+        oracle = "cache-free generate_reference on the card"
+    else:
+        want = _cpu_tokens(dict(README_MODEL, kv_dtype=kv_dtype), prompts,
+                           kv_dtype)
+        oracle = "the same model on the CPU"
+    _held(label, got, want, oracle)
+    rec = {"label": label, "kv_dtype": kv_dtype, "card": card,
+           "sessions": len(sids), "export_ms_per_session":
+               1e3 * export_s / len(sids),
+           "import_ms_per_session": 1e3 * import_s / len(sids),
+           "wire_bytes_per_session": statistics.mean(wire),
+           "wire_bytes": wire, "launches": launches, "oracle": oracle}
+    _log("e2e %s: %d sessions moved mid-generation from server A to B "
+         "over /admin/sessions; export %.3f ms and import %.3f ms a "
+         "session (HTTP included), %.0f wire bytes a session; every "
+         "client answered 307 at A and 200 at B; launches on B %s; tokens "
+         "equal %s [%s]"
+         % (label, len(sids), rec["export_ms_per_session"],
+            rec["import_ms_per_session"], rec["wire_bytes_per_session"],
+            launches, oracle, card))
+    return rec
+
+
+def real_pools(torch, dev, kv_dtype, seed, geometry=REAL_POOL,
+               on_host=False):
+    """(k_pools, v_pools) of 2 stages at ``geometry`` on ``dev``, in the
+    flagship's layout, filled from ``seed`` (int8: random bytes and
+    positive scales) by ``dev``'s generator, or with ``on_host`` by the
+    CPU's and copied (the same values on any device)."""
+    nb, bs, h, hd = geometry
+    src = torch.device("cpu") if on_host else dev
+    gen = torch.Generator(device=src).manual_seed(seed)
+
+    def pool():
+        if kv_dtype == "int8":
+            made = {"q": torch.randint(-127, 128, (nb, bs, h, hd),
+                                       generator=gen, device=src,
+                                       dtype=torch.int8),
+                    "s": torch.rand((nb, h), generator=gen, device=src)}
+            return {key: t.to(dev) for key, t in made.items()}
+        return torch.randn((nb, bs, h, hd), generator=gen,
+                           device=src).to(dev)
+    return (pool(), pool()), (pool(), pool())
+
+
+def tier_round_trip(torch, dev, kv_dtype, geometry, blocks, store,
+                    seed=0, on_host=False):
+    """Demote each of ``blocks`` of seeded pools on ``dev``
+    (:func:`real_pools`) into ``store`` (gather to the host,
+    ``pack_block``, put) and readmit it into another block (get,
+    ``unpack_block``, scatter), as the scheduler does.  -> (the wire
+    bytes of each block, the pools' leaves on the host afterwards,
+    per-step seconds of each block).  The readmitted block must equal
+    the demoted one bit for bit."""
+    from veles_tpu_torch.serving.decode import (_gather, _host_tensors,
+                                                _leaves, _scatter)
+    from veles_tpu_torch.serving.sessions import pack_block, unpack_block
+    k, v = real_pools(torch, dev, kv_dtype, seed, geometry, on_host)
+    nb = geometry[0]
+    wires, steps = [], []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for i, block in enumerate(blocks):
+        key = b"block-%d" % block
+        dst = nb - 1 - i
+        t = [time.perf_counter()]
+        payload = {"kv_k": _gather(k, block), "kv_v": _gather(v, block)}
+        t.append(time.perf_counter())
+        data = pack_block(payload)
+        t.append(time.perf_counter())
+        store.demote(key, data)
+        t.append(time.perf_counter())
+        tier, got = store.lookup(key)
+        t.append(time.perf_counter())
+        back = unpack_block(got)
+        t.append(time.perf_counter())
+        _scatter(k, dst, _host_tensors(k, back["kv_k"], (), "a block"))
+        _scatter(v, dst, _host_tensors(v, back["kv_v"], (), "a block"))
+        sync()
+        t.append(time.perf_counter())
+        steps.append([b - a for a, b in zip(t, t[1:])])
+        wires.append(data)
+        for leaf in _leaves(k) + _leaves(v):
+            if not torch.equal(leaf[dst], leaf[block]):
+                raise AssertionError("block %d readmitted from the %s tier "
+                                     "differs from the demoted one"
+                                     % (block, tier))
+    host = [leaf.cpu().numpy() for leaf in _leaves(k) + _leaves(v)]
+    return wires, host, steps
+
+
+#: the steps of one block's round trip, as tier_round_trip times them
+ROUND_TRIP_STEPS = ("gather", "pack_block", "put", "get", "unpack_block",
+                    "scatter")
+
+
+def _save_load(torch, dev, kv_dtype, tmp):
+    """``save_state`` / ``load_state`` of seeded pools at REAL_POOL; the
+    loaded leaves must equal the saved ones bit for bit.  Then two of
+    the save's steps timed alone on the same pools: the copy to the
+    host and the sha256 of its 16 MiB bands."""
+    from veles_tpu_torch.checkpoint import load_state, save_state
+    from veles_tpu_torch.checkpoint.store import digest_of
+    from veles_tpu_torch.serving.decode import _leaves
+    k, v = real_pools(torch, dev, kv_dtype, seed=1)
+    leaves = _leaves(k) + _leaves(v)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_state(tmp, "pools-" + kv_dtype, {"k": k, "v": v})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_state(path)
+    load_s = time.perf_counter() - t0
+    got = _leaves(back["k"]) + _leaves(back["v"])
+    if len(got) != len(leaves) or not all(
+            torch.equal(leaf.cpu(), torch.from_numpy(arr))
+            for leaf, arr in zip(leaves, got)):
+        raise AssertionError("%s pools restored by load_state differ from "
+                             "the saved ones" % kv_dtype)
+    shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    host = [leaf.to("cpu", copy=True).numpy() for leaf in leaves]
+    copy_s = time.perf_counter() - t0
+    band = 16 << 20
+    t0 = time.perf_counter()
+    for arr in host:
+        flat = arr.reshape(-1).view(numpy.uint8)
+        for start in range(0, flat.size, band):
+            digest_of(flat[start:start + band])
+    hash_s = time.perf_counter() - t0
+    return {"kv_dtype": kv_dtype, "bytes": nbytes, "save_s": save_s,
+            "load_s": load_s, "save_gb_s": nbytes / 1e9 / save_s,
+            "load_gb_s": nbytes / 1e9 / load_s, "bitwise": True,
+            "copy_to_host_s": copy_s, "sha256_s": hash_s}
+
+
+def realistic_tiers(torch, pa, card, dev):
+    """Phase 3c at phase 2's long-context pool: ``save_state`` /
+    ``load_state`` of f32 and int8 pools (bitwise, GB/s); one block's
+    demote and readmit through the host and the disk tier, step by step
+    (the card's wire bytes must equal the CPU's on a small pool); and a
+    ``checkpoint_kv`` / ``restore_kv`` of 8 sessions whose blocks spread
+    over the 4096-block pool."""
+    from veles_tpu_torch.kvtier import TieredKVStore
+    from veles_tpu_torch.serving import DecodeScheduler
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    out = {"geometry": list(REAL_POOL), "card": card, "save_load": [],
+           "round_trip": []}
+    for kv_dtype in ("f32", "int8"):
+        rec = _save_load(torch, dev, kv_dtype,
+                         tempfile.mkdtemp(prefix="veles-pools-"))
+        out["save_load"].append(rec)
+        _log("realistic %s pools (%d bytes): save_state %.3f s = %.2f "
+             "GB/s (alone: the copy to the host %.3f s, sha256 %.3f s), "
+             "load_state %.3f s = %.2f GB/s, restored bitwise [%s]"
+             % (kv_dtype, rec["bytes"], rec["save_s"], rec["save_gb_s"],
+                rec["copy_to_host_s"], rec["sha256_s"], rec["load_s"],
+                rec["load_gb_s"], card))
+        blocks = list(range(1, REAL_POOL[0] - REAL_TIER_BLOCKS,
+                            REAL_POOL[0] // REAL_TIER_BLOCKS))
+        for tier in ("host", "disk"):
+            tmp = tempfile.mkdtemp(prefix="veles-kvtier-")
+            store = (TieredKVStore(host_bytes=1 << 34) if tier == "host"
+                     else TieredKVStore(disk_dir=tmp))
+            wires, _, steps = tier_round_trip(torch, dev, kv_dtype,
+                                              REAL_POOL, blocks, store)
+            shutil.rmtree(tmp, ignore_errors=True)
+            med = {name: 1e3 * statistics.median(s[i] for s in steps)
+                   for i, name in enumerate(ROUND_TRIP_STEPS)}
+            rec = {"kv_dtype": kv_dtype, "tier": tier,
+                   "blocks": len(blocks), "wire_bytes": len(wires[0]),
+                   "step_ms_p50": med,
+                   "demote_ms_p50": 1e3 * statistics.median(
+                       sum(s[:3]) for s in steps),
+                   "readmit_ms_p50": 1e3 * statistics.median(
+                       sum(s[3:]) for s in steps)}
+            out["round_trip"].append(rec)
+            _log("realistic %s %s tier: one block (%d wire bytes) demotes "
+                 "in %.3f ms and readmits in %.3f ms (p50 of %d; steps "
+                 "%s ms), bitwise [%s]"
+                 % (kv_dtype, tier, rec["wire_bytes"],
+                    rec["demote_ms_p50"], rec["readmit_ms_p50"],
+                    len(blocks), {k: round(x, 4) for k, x in med.items()},
+                    card))
+        # the same round trip on the CPU gives the card's bytes
+        small = (64, 16, 8, 128)
+        pair = [tier_round_trip(torch, d, kv_dtype, small, [3, 17],
+                                TieredKVStore(host_bytes=1 << 30),
+                                on_host=True)
+                for d in (dev, torch.device("cpu"))]
+        if pair[0][0] != pair[1][0] or not all(
+                numpy.array_equal(a, b)
+                for a, b in zip(pair[0][1], pair[1][1])):
+            raise AssertionError("%s: a block's round trip on the card "
+                                 "differs from the CPU's" % kv_dtype)
+    # checkpoint_kv of 8 sessions over the 4096-block pool (heads 8,
+    # head dim 128: d 1024)
+    nb, bs, h, hd = REAL_POOL
+    model = FlagshipDecodeModel(stages=2, experts=2, d=h * hd, heads=h,
+                                hidden=1024, vocab=1024, seed=0)
+    rng = numpy.random.RandomState(16)
+    prompts = [rng.randint(0, 1024, REAL_PROMPT).tolist()
+               for _ in range(REAL_SESSIONS)]
+
+    def make(name):
+        return DecodeScheduler(model, name=name, max_batch=REAL_SESSIONS,
+                               block_size=bs, max_prompt_len=REAL_PROMPT,
+                               max_new_tokens=REAL_NEW, num_blocks=nb)
+    rec, _ = _cut_and_restore(pa, make, prompts, REAL_NEW,
+                              "realistic checkpoint", "f32")
+    out["checkpoint_kv"] = rec
+    _log("realistic checkpoint_kv: %d sessions of %d tokens cut "
+         "mid-generation over a %d-block pool: %d bytes (%d in distinct "
+         "chunks), save %.3f s = %.2f GB/s, "
+         "restore %.3f s = %.2f GB/s; every restored session emitted the "
+         "uninterrupted run's tokens [%s]"
+         % (rec["sessions"], REAL_PROMPT, nb, rec["checkpoint_bytes"],
+            rec["unique_chunk_bytes"], rec["save_s"], rec["save_gb_s"],
+            rec["restore_s"], rec["restore_gb_s"], card))
+    return out
+
+
+def tiers_phase(torch, pa, card, dev, options):
+    """Phase 3c: tiers, checkpoint and migration at the README widths in
+    f32 (K1) and int8 (K2 and the append), then the realistic pool.
+    ``options``: phase 3b's runs, whose TTFT are printed beside."""
+    out = {"tiers": [], "checkpoint": [], "migration": []}
+    for kv_dtype in ("f32", "int8"):
+        tiers = tier_run(pa, card, kv_dtype)
+        hbm = next(r for r in options if r["kv_dtype"] == kv_dtype
+                   and r["options"])
+        _log("e2e %s: TTFT p50 of turn 2 from the tiers %.1f ms (turn 1 "
+             "%.1f ms); phase 3b's turn 2 from HBM %.1f ms (turn 1 %.1f ms, "
+             "with speculation and a full-size pool) [%s]"
+             % (kv_dtype, tiers["ttft_p50_ms"][1], tiers["ttft_p50_ms"][0],
+                hbm["ttft_p50_ms"][1], hbm["ttft_p50_ms"][0], card))
+        out["tiers"].append(tiers)
+        out["checkpoint"].append(checkpoint_run(pa, card, kv_dtype))
+        out["migration"].append(migration_run(pa, card, kv_dtype))
+    out["realistic"] = realistic_tiers(torch, pa, card, dev)
     return out
 
 
@@ -2493,6 +3137,14 @@ def main():
         launches["kv_append_int8"] += run["launches"]["kv_append_int8"]
     record["e2e_options"] = options
     phase_done("3b serving with prefix caching, chunks and speculation")
+    tiers = tiers_phase(torch, pa, card, dev, options)
+    for run in (tiers["tiers"] + tiers["checkpoint"] + tiers["migration"]
+                + [tiers["realistic"]["checkpoint_kv"]]):
+        launches["paged_attention_" + run["kv_dtype"]] += \
+            run["launches"]["paged_attention"]
+        launches["kv_append_int8"] += run["launches"]["kv_append_int8"]
+    record["e2e_tiers"] = tiers
+    phase_done("3c tiers, checkpoints and session migration")
     train = [train_run(torch, gemm, card, precise) for precise in (0, 1, 2)]
     record["first_epoch_vs_cpu"] = first_epoch_on_the_cpu(train[1], gemm)
     for run in train:

@@ -24,6 +24,12 @@
   into the trash block), a verify span and a realistic prefill, each
   block's writes one contiguous run; phase 3b's two turns share the
   system prefix and fit the README server.
+- Phase 3c's traffic overflows its tiered pool (so turn 1's chains must
+  leave the card) and fits the README server; its realistic pool is
+  phase 2's 1.07 GB; a path that launched no paged attention (or, int8,
+  no append, or f32, an append) fails, as does a differing answer; a
+  block's demote and readmit is bitwise on the CPU and a readmit that
+  differs fails.
 - The helpers of the AlexNet and LRN convnet phases: the LRN form is set
   on the LRN layers only, and ``steps_agree`` refuses a step that
   differs past its limits.
@@ -224,6 +230,73 @@ def test_append_cases_and_turn_prompts():
         assert p[:64] == system and 72 <= len(p) <= 88
         assert q[:len(p)] == p and len(q) == len(p) + 32 + 8
         assert len(q) <= chip_smoke.README_SERVER["max_prompt_len"]
+
+
+def test_phase3c_traffic_and_sizes():
+    cs = chip_smoke
+    fillers = cs.filler_prompts()
+    assert len(fillers) == cs.N_FILLERS == len({tuple(f) for f in fillers})
+    assert all(len(f) == cs.FILLER_TOKENS for f in fillers)
+    bs = cs.README_SERVER["block_size"]
+    context = (cs.README_SERVER["max_prompt_len"]
+               + cs.README_SERVER["max_new_tokens"])
+    assert cs.TIER_BLOCKS - 1 >= -(-context // bs)    # one max context fits
+
+    def blocks(prompts, new):
+        return sum(-(-(len(p) + new) // bs) for p in prompts)
+    # turn 1's conversations and the fillers cannot all stay on the card
+    turn1 = cs.turn1_prompts()
+    assert blocks(turn1, cs.NEW_TOKENS) + blocks(
+        fillers, cs.FILLER_NEW) > 2 * cs.TIER_BLOCKS
+    assert cs.TIER_HOST_BLOCKS < blocks(turn1, cs.NEW_TOKENS)
+    nb, bs_real, h, hd = cs.REAL_POOL
+    assert 4 * nb * bs_real * h * hd * 4 == 1 << 30      # 1.07 GB of f32
+    assert cs.REAL_SESSIONS * -(-(cs.REAL_PROMPT + cs.REAL_NEW)
+                                // bs_real) < nb
+
+
+def test_phase3c_refuses_missing_launches_and_wrong_answers():
+    class Counted:
+        def __init__(self, n):
+            self.launches = n
+
+    class Pa:
+        def __init__(self, paged, append):
+            self.paged_attention = Counted(paged)
+            self.kv_append_int8 = Counted(append)
+    assert chip_smoke._read_launches(Pa(3, 0), "f32", "f32") == {
+        "paged_attention": 3, "kv_append_int8": 0}
+    assert chip_smoke._read_launches(Pa(3, 2), "int8", "int8")[
+        "kv_append_int8"] == 2
+    for paged, append, kv in ((0, 0, "f32"), (3, 1, "f32"), (3, 0, "int8"),
+                              (0, 2, "int8")):
+        with pytest.raises(AssertionError, match="did not run"):
+            chip_smoke._read_launches(Pa(paged, append), kv, kv)
+    chip_smoke._held("x", [[1, 2]], [[1, 2]], "oracle")
+    with pytest.raises(AssertionError, match="differ from oracle"):
+        chip_smoke._held("x", [[1, 2], [3]], [[1, 2], [4]], "oracle")
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_tier_round_trip_is_bitwise_and_refuses_a_bad_readmit(
+        monkeypatch, tmp_path, kv_dtype):
+    from veles_tpu_torch.kvtier import TieredKVStore
+    from veles_tpu_torch.serving import decode
+    cpu = torch.device("cpu")
+    wires, host, steps = chip_smoke.tier_round_trip(
+        torch, cpu, kv_dtype, (16, 4, 2, 8), [2, 5],
+        TieredKVStore(disk_dir=str(tmp_path)), on_host=True)
+    assert len(wires) == len(steps) == 2 and wires[0] != wires[1]
+    assert all(len(s) == len(chip_smoke.ROUND_TRIP_STEPS) for s in steps)
+    assert host[0].shape == (16, 4, 2, 8)
+    real = decode._scatter
+
+    def off_by_one(pools, blocks, host):
+        real(pools, blocks if blocks is None else blocks - 1, host)
+    monkeypatch.setattr(decode, "_scatter", off_by_one)
+    with pytest.raises(AssertionError, match="differs from the demoted"):
+        chip_smoke.tier_round_trip(torch, cpu, kv_dtype, (16, 4, 2, 8),
+                                   [2], TieredKVStore(host_bytes=1 << 20))
 
 
 def test_trace_record_sums_k1_k2_and_their_merge():

@@ -72,7 +72,10 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "znicz.lrn", "znicz.dropout", "znicz.activation",
                  "znicz.samples.alexnet", "znicz.samples.cifar",
                  "serving.toydecode", "serving.kvcache",
-                 "znicz.paged_attention"):
+                 "znicz.paged_attention", "serving.sessions", "checkpoint",
+                 "checkpoint.store", "checkpoint.manifest",
+                 "checkpoint.tensors", "checkpoint.snapshot", "kvtier",
+                 "kvtier.store", "kvtier.directory"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")

@@ -27,7 +27,10 @@ summation order), and ``F.local_response_norm`` agrees with K5 within
 67) takes two train steps on the card and on the CPU: losses within
 1e-4 relative, each parameter tensor within 1e-4 of its largest
 magnitude (chip_smoke's limits); threefry bits on the card equal the
-CPU's.
+CPU's.  A KV block demoted from f32 and int8 pools on the card and
+readmitted gives the CPU's wire bytes and pools bit for bit;
+``restore_kv`` of a CPU checkpoint on the card resumes with the CPU
+run's tokens.
 """
 
 import os
@@ -1146,3 +1149,67 @@ def test_kv_append_int8_chunked_equals_one_call_and_adds_no_sync(cuda):
     torch.cuda.synchronize()
     assert torch.equal(q[1:], whole_q[1:]) and torch.equal(s[1:],
                                                            whole_s[1:])
+
+
+# -- the tiered KV cache and KV checkpoints -----------------------------------
+
+@pytest.mark.parametrize("tier", ["host", "disk"])
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_tier_round_trip_on_the_card_equals_the_cpu(cuda, tmp_path,
+                                                    kv_dtype, tier):
+    """The same seeded pools on the card and on the CPU: each block's
+    demote (gather, ``pack_block``, put) and readmit (get,
+    ``unpack_block``, scatter) gives the same wire bytes and the same
+    pools, bit for bit."""
+    from veles_tpu_torch.kvtier import TieredKVStore
+    runs = []
+    for i, dev in enumerate((cuda, torch.device("cpu"))):
+        store = (TieredKVStore(host_bytes=1 << 30) if tier == "host"
+                 else TieredKVStore(disk_dir=str(tmp_path / str(i))))
+        runs.append(chip_smoke.tier_round_trip(
+            torch, dev, kv_dtype, (64, 16, 8, 128), [3, 17, 40], store,
+            on_host=True))
+    assert runs[0][0] == runs[1][0]
+    assert len(runs[0][1]) == (8 if kv_dtype == "int8" else 4)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert a.dtype == b.dtype and numpy.array_equal(a, b)
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_restore_kv_on_the_card_resumes_with_the_cpu_tokens(cuda, tmp_path,
+                                                            kv_dtype):
+    """A scheduler cut mid-generation on the CPU restores into one on the
+    card: the pools land on the card, and each resumed sequence (K1, or
+    K2 and the append) emits the CPU run's tokens."""
+    from veles_tpu_torch.checkpoint import load_state
+    from veles_tpu_torch.serving import DecodeScheduler
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    geo = dict(stages=2, experts=2, d=16, heads=2, hidden=32, vocab=32,
+               seed=0, kv_dtype=kv_dtype)
+    geom = dict(max_batch=4, block_size=4, max_prompt_len=8,
+                max_new_tokens=16, kv_dtype=kv_dtype)
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], [5, 3, 5, 8, 9, 7]]
+    cpu_model = FlagshipDecodeModel(**geo, device="cpu")
+    cpu_model.step_host_delay = 0.02
+    src = DecodeScheduler(cpu_model, name="ckcpu", device="cpu", **geom)
+    try:
+        futures = [src.submit(p, 16) for p in prompts]
+        chip_smoke._wait_rows(src, len(prompts))
+        path = src.checkpoint_kv(str(tmp_path))
+        whole = [f.result(60)["tokens"] for f in futures]
+    finally:
+        src.close()
+    by_row = {s["row"]: [int(t) for t in s["prompt"]]
+              for s in load_state(path)["sessions"]}
+    assert len(by_row) == len(prompts)
+    launches = pa.paged_attention.launches
+    dst = DecodeScheduler(FlagshipDecodeModel(**geo), name="ckcard", **geom)
+    try:
+        restored = dst.restore_kv(path)
+        assert all(t.device.type == "cuda" for t in dst._pool_tensors())
+        for row, future in restored.items():
+            assert future.result(60)["tokens"] == \
+                whole[prompts.index(by_row[row])], row
+    finally:
+        dst.close()
+    assert pa.paged_attention.launches > launches

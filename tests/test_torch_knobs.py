@@ -10,11 +10,18 @@ accepted: ``web_status`` (ignored), ``precision_level`` (the port is
 IEEE f32 already) and ``compute_confusion_matrix=False`` (the port
 always computes the matrix).  The MNIST sample at a cut size is the
 workflow under test (construction only).
+
+The decode scheduler's options follow the same rule: ``"auto"`` for
+``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype`` raises naming
+ROADMAP queue A item 3; ``kvtier`` is taken (a host tier, a disk tier,
+both, or a ready ``TieredKVStore``).
 """
 
 import pytest
 
 from veles_tpu_torch.backends import Device
+from veles_tpu_torch.kvtier import TieredKVStore
+from veles_tpu_torch.serving import DecodeScheduler, ToyDecodeModel
 from veles_tpu_torch.config import root
 from veles_tpu_torch.znicz.samples import mnist
 
@@ -72,3 +79,39 @@ def test_ignored_knobs_are_refused(engine, label, overrides, settings,
     engine(**settings)
     with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
         mnist.create_workflow(loader=LOADER, **overrides)
+
+
+SCHED = dict(max_batch=2, block_size=4, max_prompt_len=8,
+             max_new_tokens=4, prefix_caching=True, prefill_chunk_tokens=4,
+             device="cpu")
+
+
+@pytest.mark.parametrize("option", ["prefill_chunk_tokens", "spec_depth",
+                                    "kv_dtype"])
+def test_scheduler_auto_options_are_refused(option):
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        DecodeScheduler(ToyDecodeModel(vocab=31, device="cpu"),
+                        name="auto", **dict(SCHED, **{option: "auto"}))
+
+
+@pytest.mark.parametrize("tier", ["host", "disk", "both", "store"])
+def test_scheduler_kvtier_is_taken(tmp_path, tier):
+    """``kvtier`` no longer raises: the scheduler builds its tier stack
+    from the config (or adopts a ready store, wiring its observer) and
+    serves the oracle's tokens."""
+    cfg = {"host": {"host_bytes": 1 << 20},
+           "disk": {"disk_dir": str(tmp_path)},
+           "both": {"host_bytes": 1 << 20, "disk_dir": str(tmp_path)},
+           "store": TieredKVStore(disk_dir=str(tmp_path))}[tier]
+    toy = ToyDecodeModel(vocab=31, device="cpu")
+    sched = DecodeScheduler(toy, name="tiered", kvtier=cfg, **SCHED)
+    try:
+        assert sched._kvtier.observer is sched.metrics
+        assert (sched._kvtier.host is not None) == (tier in ("host",
+                                                             "both"))
+        assert (sched._kvtier.disk is not None) == (tier != "host")
+        assert sched.generate([1, 2, 3, 4, 5], 4, timeout=60)["tokens"] == \
+            toy.generate_reference([1, 2, 3, 4, 5], 4)
+        assert "kvtier" in sched.stats() and "kv_tiers" in sched.load()
+    finally:
+        sched.close()

@@ -499,7 +499,6 @@ def test_knobs_off_equal_the_core_scheduler(kv_dtype):
     ("prefill_chunk_tokens", "auto", "queue A item 3"),
     ("spec_depth", "auto", "queue A item 3"),
     ("kv_dtype", "auto", "queue A item 3"),
-    ("kvtier", {"host_bytes": 1 << 20}, "queue A item 1, its third bullet"),
 ])
 def test_unported_options_raise_naming_their_item(toy, option, value,
                                                   item):

@@ -381,16 +381,31 @@ def test_plain_metrics_have_no_acceptance(toy):
 ])
 def test_from_spec_parses_as_the_jax_package(spec):
     """The port's spec form gives the JAX package's knobs and scheduler
-    geometry; ``spec=auto`` and the tier keys reach the scheduler, which
-    refuses them by name."""
+    geometry; ``spec=auto`` reaches the scheduler, which refuses it by
+    name, and the tier keys reach it as ``kvtier``, which (as in the JAX
+    package) needs prefix caching."""
     port, ref = from_spec(spec, device="cpu"), jax_from_spec(spec)
     assert port.decode_defaults == ref.decode_defaults
     for knob in ("vocab", "step_host_delay", "prefill_host_delay",
                  "draft_host_delay", "draft_agreement"):
         assert getattr(port, knob) == getattr(ref, knob)
-    if "auto" in spec or "tier" in spec:
+    if "auto" in spec:
         with pytest.raises(NotImplementedError, match="queue A item"):
             DecodeScheduler(port, name="refused", device="cpu",
                             **port.decode_defaults)
+    if "tier" in spec:
+        with pytest.raises(ValueError, match="kvtier requires "
+                           "prefix_caching"):
+            DecodeScheduler(port, name="noprefix", device="cpu",
+                            **port.decode_defaults)
+        sched = DecodeScheduler(port, name="tiered", device="cpu",
+                                prefix_caching=True,
+                                prefill_chunk_tokens=4,
+                                **port.decode_defaults)
+        try:
+            assert sched.stats()["kvtier"]["host_blocks"] == 0
+            assert sched._kvtier.host.capacity_bytes == 4096
+        finally:
+            sched.close()
     with pytest.raises(ValueError, match="unknown toydecode spec key"):
         from_spec(spec + ",bogus=1", device="cpu")

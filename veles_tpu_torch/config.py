@@ -256,6 +256,10 @@ root.update({
             # precise_gemm=N)) or for every unit through
             # ``engine.precise_gemm``, read with a default of 0
         },
+        "snapshot": {
+            # checkpoint/save_state: target chunk size for tensor bands
+            "chunk_bytes": 16 << 20,
+        },
         "trace": {"enabled": False, "file": None},
         "timings": set(),
         "random_seed": 1234,

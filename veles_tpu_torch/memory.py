@@ -242,7 +242,25 @@ class Array(Pickleable):
     def __getstate__(self):
         """Device values are pulled to host before pickling (reference
         memory.py:284-299); shallow_pickle drops the payload for huge
-        datasets."""
+        datasets.  Inside a checkpoint extraction context
+        (checkpoint/tensors.py) a large payload is diverted into the sink
+        instead: the device-current tensor (copied to the host once, by
+        the sink) or the host array."""
+        from .checkpoint.tensors import TensorStub, active_sink
+        sink = active_sink()
+        if sink is not None and not self.shallow_pickle:
+            if self._device_dirty_ and self._devmem_ is not None:
+                payload = self._devmem_
+            else:
+                payload = self._mem
+            if isinstance(payload, torch.Tensor):
+                nbytes = _tensor_bytes(payload)
+            else:        # None or a stub: nothing to divert
+                nbytes = getattr(payload, "nbytes", None)
+            if nbytes is not None and nbytes >= sink.min_bytes:
+                state = super().__getstate__()
+                state["_mem"] = TensorStub(sink.add(payload, copy=True))
+                return state
         self.map_read()
         state = super().__getstate__()
         if self.shallow_pickle:

@@ -28,12 +28,33 @@ scheduling decisions happen **every token step**, not every request —
 - K/V lives in fixed-size blocks of a preallocated device pool
   (:mod:`.kvcache` owns placement; the paged-attention kernel gathers
   through the page table), so memory is allocated per sequence LENGTH;
+- with ``kvtier`` set (it needs ``prefix_caching``), a cached chain the
+  pool evicts is demoted instead of dropped: gathered to the host,
+  serialized (:func:`.sessions.pack_block`) and parked in host RAM,
+  cascading to disk (:mod:`veles_tpu_torch.kvtier`); an admit whose
+  prefix is no longer on the device readmits it from there into a fresh
+  block, with no re-prefill;
+- :meth:`checkpoint_kv` / :meth:`restore_kv` save and resume the whole
+  decode state (pools, page table, pool accounting, live sessions) at a
+  step boundary, through :mod:`veles_tpu_torch.checkpoint`;
+- live sessions migrate between schedulers mid-generation
+  (:meth:`export_sessions`, :meth:`import_sessions`,
+  :meth:`release_migrated`, :meth:`attach`): a session's state is its
+  token bookkeeping plus its blocks' contents, in the wire format of
+  :mod:`.sessions`, which both packages read and write;
 - backpressure is a bounded queue: beyond ``queue_limit`` outstanding
   requests :meth:`submit` raises :class:`SchedulerOverflow` and the
   server answers 429 + Retry-After.
 
 Every option defaults OFF, which is the core scheduler exactly: the
 ladder prefill, the plain free-list pool and the per-token step.
+
+The pools hold per-stage K and V tensors (f32), or ``{"q", "s"}`` dicts
+(int8 data and f32 scales).  Wherever they leave the device — a demoted
+block, an exported session, a checkpoint — they travel as flat leaf
+lists in the JAX package's order (``jax.tree_util.tree_leaves`` of the
+per-stage tuple: a dict's keys sorted), with the same shapes per block,
+so the bytes read the same in either package.
 
 PyTorch runs eagerly, so the JAX scheduler's ``jax.jit``, persistent
 compile cache and AOT warmup have no counterpart here: the model's
@@ -47,10 +68,11 @@ request.
 
 Not taken by this port yet, and refused with ``NotImplementedError``
 naming the ROADMAP item (:data:`REFUSED_OPTIONS`): ``"auto"`` for
-``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype`` (autotuning)
-and ``kvtier``.  Sessions and migration, ``checkpoint_kv`` and the
-flight recorder are not ported either.  The geometry defaults to the
-JAX scheduler's tuner-off ``(max_batch, block_size) = (8, 8)``.
+``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype`` (autotuning).
+The flight recorder is not ported either: an export carries no
+``trace_id`` or ``flight`` timeline, and an import ignores both.  The
+geometry defaults to the JAX scheduler's tuner-off ``(max_batch,
+block_size) = (8, 8)``.
 
 The single worker thread owns every mutable: the block pool, the page
 table, the session map and the device pools.  ``submit`` only validates
@@ -59,6 +81,7 @@ request (and per :meth:`kv_dump`).
 """
 
 import collections
+import os
 import queue
 import threading
 import time
@@ -69,17 +92,24 @@ import numpy
 import torch
 
 from ..device import resolve_device
+from ..checkpoint import delete_checkpoint, load_state, save_state
+from ..kvtier import DIR_ENV, TieredKVStore, advert_key
 from ..logger import events
 from ..znicz.paged_attention import DEFAULT_BLOCK_SIZE
 from .kvcache import KVBlockPool, key_chain, required_blocks
 from .metrics import DecodeMetrics
 from .scheduler import (DeadlineExpired, SchedulerClosed,
                         SchedulerOverflow, bucket_sizes, deadline_expired)
+from .sessions import pack_block, unpack_block
 
 __all__ = ["DecodeScheduler", "DEFAULT_PREFILL_CHUNK",
            "DEFAULT_SPEC_DEPTH", "REFUSED_OPTIONS"]
 
 _STOP = object()
+
+#: completed results kept for session re-attach (a migrated session's
+#: follow-up, or a retry, can land after completion)
+_FINISHED_KEEP = 256
 
 #: the JAX scheduler's tuner-off batch (its block size is the paged
 #: attention module's DEFAULT_BLOCK_SIZE)
@@ -91,36 +121,106 @@ DEFAULT_PREFILL_CHUNK = 32
 DEFAULT_SPEC_DEPTH = 2
 
 #: scheduler options of the JAX package the port does not honour yet:
-#: option -> (the refused values, or None for any set value; the
-#: ROADMAP queue A item that ports it)
+#: option -> (the refused values, the ROADMAP queue A item that ports
+#: them)
 REFUSED_OPTIONS = {
     "prefill_chunk_tokens": (("auto",), "item 3, autotune"),
     "spec_depth": (("auto",), "item 3, autotune"),
     "kv_dtype": (("auto",), "item 3, autotune"),
-    "kvtier": (None, "item 1, its third bullet (kvtier)"),
 }
 
 
 def _refuse_unported(options):
     for name, value in options.items():
         refused, item = REFUSED_OPTIONS[name]
-        if (value in refused) if refused else value:
+        if value in refused:
             raise NotImplementedError(
                 "DecodeScheduler(%s=%r) is not ported yet (ROADMAP queue "
                 "A %s)" % (name, value, item))
+
+
+def _leaves(pools):
+    """The pools' tensors in the JAX package's leaf order
+    (``jax.tree_util.tree_leaves`` of the per-stage tuple: a dict's keys
+    sorted, so an int8 pool gives its data, then its scales)."""
+    out = []
+    for pool in pools:
+        if isinstance(pool, dict):
+            out.extend(pool[key] for key in sorted(pool))
+        else:
+            out.append(pool)
+    return out
+
+
+def _gather(pools, blocks):
+    """Host numpy copies of the contents of ``blocks``, one per leaf: an
+    int gives each leaf's block without the leading axis (a demoted
+    block), a list gives ``[len(blocks), ...]`` (a session's blocks)."""
+    out = []
+    for leaf in _leaves(pools):
+        if isinstance(blocks, int):
+            part = leaf[blocks]
+        else:
+            part = leaf.index_select(0, torch.as_tensor(
+                blocks, dtype=torch.long, device=leaf.device))
+        out.append(part.detach().to("cpu", copy=True).numpy())
+    return out
+
+
+def _host_tensors(pools, host, lead, what):
+    """``host`` (numpy leaves, the wire's order) as CPU tensors after
+    checking them against the pools: the leaf count, each leaf's dtype,
+    and its shape (``lead`` + the per-block shape; ``lead`` None is the
+    whole pool).  Raises ValueError naming ``what`` before anything is
+    written."""
+    leaves = _leaves(pools)
+    if len(host) != len(leaves):
+        raise ValueError("%s carries %d KV leaves, the pools hold %d"
+                         % (what, len(host), len(leaves)))
+    out = []
+    for leaf, arr in zip(leaves, host):
+        arr = numpy.asarray(arr)
+        shape = (tuple(leaf.shape) if lead is None
+                  else tuple(lead) + tuple(leaf.shape[1:]))
+        src = torch.from_numpy(arr.copy() if not arr.flags.writeable
+                               or not arr.flags.c_contiguous else arr)
+        if src.dtype != leaf.dtype or tuple(src.shape) != shape:
+            raise ValueError(
+                "%s: a KV leaf of %s %s does not fit a pool leaf of %s %s"
+                % (what, src.dtype, tuple(src.shape), leaf.dtype, shape))
+        out.append(src)
+    return out
+
+
+def _scatter(pools, blocks, host):
+    """Write checked host leaves (:func:`_host_tensors`) into the pools
+    in place: at block ``blocks`` (an int), at each of ``blocks`` (a
+    list), or over the whole pool (None)."""
+    for leaf, src in zip(_leaves(pools), host):
+        src = src.to(leaf.device)
+        if blocks is None:
+            leaf.copy_(src)
+        elif isinstance(blocks, int):
+            leaf[blocks].copy_(src)
+        else:
+            leaf.index_copy_(0, torch.as_tensor(
+                blocks, dtype=torch.long, device=leaf.device), src)
 
 
 class _Request:
     __slots__ = ("prompt", "max_new_tokens", "future", "enqueued",
                  "deadline", "sid")
 
-    def __init__(self, prompt, max_new_tokens, deadline=None):
+    def __init__(self, prompt, max_new_tokens, session_id=None,
+                 deadline=None):
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.future = Future()
         self.enqueued = time.perf_counter()
         self.deadline = deadline    # absolute time.monotonic() or None
-        self.sid = uuid.uuid4().hex[:16]    # names it in kv_dump
+        # every sequence is addressable: an explicit session id or a
+        # fresh one (migration, re-attach and kv_dump key on it)
+        self.sid = str(session_id) if session_id else uuid.uuid4().hex[:16]
 
 
 class _Job:
@@ -138,7 +238,8 @@ class _Session:
     """One admitted sequence: its row, blocks, and token state."""
 
     __slots__ = ("req", "row", "blocks", "length", "next_input",
-                 "generated", "first_token_s", "shared", "prefilled")
+                 "generated", "first_token_s", "shared", "prefilled",
+                 "tier")
 
     def __init__(self, req, row, blocks):
         self.req = req
@@ -150,6 +251,7 @@ class _Session:
         self.first_token_s = None
         self.shared = 0          # leading blocks attached already-resident
         self.prefilled = 0       # prompt tokens prefilled so far (chunked)
+        self.tier = None         # deepest tier serving the prefix hit
 
     @property
     def done(self):
@@ -174,8 +276,12 @@ class DecodeScheduler:
     admission also waits for free blocks.
 
     Options, each off by default: ``prefill_chunk_tokens`` (an int, the
-    chunk size), ``prefix_caching`` (needs ``prefill_chunk_tokens``) and
-    ``spec_depth`` (an int, the draft tokens an iteration).
+    chunk size), ``prefix_caching`` (needs ``prefill_chunk_tokens``),
+    ``spec_depth`` (an int, the draft tokens an iteration) and
+    ``kvtier`` (needs ``prefix_caching``): ``{"host_bytes",
+    "disk_dir", "disk_bytes"}`` or a ready
+    :class:`~veles_tpu_torch.kvtier.TieredKVStore`; ``"disk_dir": True``
+    reads the directory from :data:`~veles_tpu_torch.kvtier.DIR_ENV`.
 
     ``device`` (default: the card) must be the model's device.
     ``kv_dtype`` ("f32" or "int8") is passed through to the model's
@@ -188,8 +294,7 @@ class DecodeScheduler:
                  prefill_chunk_tokens=None, spec_depth=None, kvtier=None,
                  kv_dtype=None, device=None):
         _refuse_unported({"prefill_chunk_tokens": prefill_chunk_tokens,
-                          "spec_depth": spec_depth, "kv_dtype": kv_dtype,
-                          "kvtier": kvtier})
+                          "spec_depth": spec_depth, "kv_dtype": kv_dtype})
         self.name = name
         self.model = model
         self.device = resolve_device(device)
@@ -251,6 +356,15 @@ class DecodeScheduler:
                 "sequence (%d tokens need %d blocks of %d)"
                 % (num_blocks, self.max_context, self.max_blocks,
                    self.block_size))
+        # tiered KV cache: None (default) keeps the evict-means-die pool
+        # exactly; otherwise the pool's eviction hook demotes refcount-0
+        # chains to host RAM / disk and admits readmit them
+        self._kvtier = self._resolve_kvtier(kvtier)
+        self._advert = None          # {"hbm": [...], "host": [...], ...}
+        self._advert_sig = None
+        if self._kvtier is not None:
+            self._pool.on_evict = self._demote_block
+            self._refresh_advert()   # disk chains advertise pre-traffic
         self._k_pools, self._v_pools = model.make_pools(
             num_blocks, self.block_size, **self._model_kw)
         # per-block byte footprint across every pool tensor (int8 pools
@@ -287,6 +401,9 @@ class DecodeScheduler:
         self._np_tokens = numpy.zeros(self.max_batch, numpy.int32)
         self._sessions = {}          # row -> _Session (decoding)
         self._chunking = collections.deque()   # _Session mid-prefill
+        self._by_sid = {}            # session id -> live _Session
+        self._migrating = {}         # session id -> parked Future
+        self._finished = collections.OrderedDict()  # sid -> result (LRU)
         self._pending = collections.deque()
         self._queue = queue.Queue()
         self._depth = 0              # queued + pending + active
@@ -301,9 +418,7 @@ class DecodeScheduler:
         self._worker.start()
 
     def _pool_tensors(self):
-        for pool in self._k_pools + self._v_pools:
-            yield from (pool.values() if isinstance(pool, dict)
-                        else (pool,))
+        return _leaves(self._k_pools) + _leaves(self._v_pools)
 
     def warmup(self):
         """Run each step function once on padding over all-trash block
@@ -358,10 +473,11 @@ class DecodeScheduler:
                 % (self.max_new_tokens, max_new_tokens))
         return prompt
 
-    def submit(self, prompt, max_new_tokens=None, deadline=None):
+    def submit(self, prompt, max_new_tokens=None, session_id=None,
+               deadline=None):
         """Enqueue one generate request -> Future of ``{"tokens": [...],
-        "ttft_s": float, "prompt_tokens": n}``.  Raises
-        SchedulerOverflow / SchedulerClosed / DeadlineExpired /
+        "ttft_s": float, "prompt_tokens": n, "session_id": sid}``.
+        Raises SchedulerOverflow / SchedulerClosed / DeadlineExpired /
         ValueError."""
         if max_new_tokens is None:
             max_new_tokens = self.max_new_tokens
@@ -380,14 +496,15 @@ class DecodeScheduler:
                     "decode queue full (%d outstanding, limit %d)"
                     % (self._depth, self.queue_limit))
             self._depth += 1
-        req = _Request(prompt, max_new_tokens, deadline=deadline)
+        req = _Request(prompt, max_new_tokens, session_id=session_id,
+                       deadline=deadline)
         self._queue.put(req)
         return req.future
 
     def generate(self, prompt, max_new_tokens=None, timeout=None,
-                 deadline=None):
+                 session_id=None, deadline=None):
         """Blocking :meth:`submit`."""
-        return self.submit(prompt, max_new_tokens,
+        return self.submit(prompt, max_new_tokens, session_id=session_id,
                            deadline=deadline).result(timeout)
 
     # -- worker --------------------------------------------------------------
@@ -456,10 +573,15 @@ class DecodeScheduler:
                 self._fail(item, exc)
         while self._chunking:
             session = self._chunking.popleft()
+            self._by_sid.pop(session.req.sid, None)
             self._release_session_blocks(session, publish=False)
             self._fail(session.req, exc)
         for session in list(self._sessions.values()):
             self._retire(session, error=exc)
+        for sid in list(self._migrating):
+            future = self._migrating.pop(sid)
+            if future.set_running_or_notify_cancel():
+                future.set_exception(exc)
 
     # -- admission / prefill -------------------------------------------------
     def _set_occupancy(self):
@@ -516,12 +638,15 @@ class DecodeScheduler:
                 rows.insert(0, row)
                 continue
             self._sessions[row] = session
+            self._by_sid[req.sid] = session
             self.metrics.record_admit(len(req.prompt))
             if session.done:        # max_new_tokens == 1: prefill was all
                 self._retire(session)
                 rows.insert(0, row)
         self.metrics.set_chunk_queue(len(self._chunking))
         self._set_occupancy()
+        if self._kvtier is not None:
+            self._refresh_advert()
 
     def _admit_chunked(self, req, need, rows):
         """Admit the head-of-line request onto the chunked path: attach
@@ -529,7 +654,7 @@ class DecodeScheduler:
         the rest as private blocks, queue the session for chunk steps.
         Returns False when the pool cannot serve it yet."""
         length = len(req.prompt)
-        matched = []
+        matched, tier_hit = [], None
         if self.prefix_caching:
             # never match the whole prompt: the first output token needs
             # the hidden state at position length-1, which only a
@@ -538,6 +663,10 @@ class DecodeScheduler:
                              kv_dtype=self.kv_dtype)[
                                  :(length - 1) // self.block_size]
             matched = self._pool.acquire_prefix(keys)
+            if self._kvtier is not None and len(matched) < len(keys):
+                matched, tier_hit = self._extend_from_tiers(keys, matched)
+            if tier_hit is None and matched:
+                tier_hit = "hbm"
         private = self._pool.alloc(need - len(matched))
         if private is None:
             if matched:
@@ -547,11 +676,13 @@ class DecodeScheduler:
         row = rows.pop(0)
         session = _Session(req, row, list(matched) + private)
         session.shared = len(matched)
+        session.tier = tier_hit
         session.prefilled = len(matched) * self.block_size
         # the page-table row stays zeroed (trash) until the final chunk
         # lands: decode steps treat the row as padding, and a stray
         # write never touches a shared block
         self._chunking.append(session)
+        self._by_sid[req.sid] = session
         self.metrics.record_admit(length,
                                   prefilled=length - session.prefilled)
         self.metrics.record_prefix(len(matched))
@@ -613,6 +744,7 @@ class DecodeScheduler:
             if end >= length:
                 first = int(first)   # device -> host sync, last chunk only
         except Exception as exc:  # noqa: BLE001 — fail THIS request
+            self._by_sid.pop(req.sid, None)
             self._release_session_blocks(session, publish=False)
             self._fail(req, exc)
             return
@@ -631,7 +763,8 @@ class DecodeScheduler:
             return
         self._start_decoding(
             session, first,
-            resident=session.shared * self.block_size / length)
+            resident=session.shared * self.block_size / length,
+            tier=session.tier)
         self._sessions[session.row] = session
         self._publish_prompt(session)
         if session.done:            # max_new_tokens == 1
@@ -680,6 +813,103 @@ class DecodeScheduler:
             self._pool.release(shared)
         if private:
             self._pool.free(private)
+
+    # -- tiered KV cache (veles_tpu_torch/kvtier) ----------------------------
+    def _resolve_kvtier(self, kvtier):
+        if not kvtier:
+            return None
+        if not self.prefix_caching:
+            raise ValueError(
+                "kvtier requires prefix_caching=True — only "
+                "content-addressed chains can demote and readmit")
+        if isinstance(kvtier, TieredKVStore):
+            if kvtier.observer is None:
+                kvtier.observer = self.metrics
+            return kvtier
+        cfg = dict(kvtier)
+        disk_dir = cfg.get("disk_dir")
+        if disk_dir is True:
+            disk_dir = os.environ.get(DIR_ENV)
+            if not disk_dir:
+                raise ValueError(
+                    "kvtier disk tier requested but %s is not set "
+                    "(the fleet supervisor exports it per replica)"
+                    % DIR_ENV)
+        return TieredKVStore(host_bytes=int(cfg.get("host_bytes") or 0),
+                             disk_dir=disk_dir,
+                             disk_bytes=int(cfg.get("disk_bytes") or 0),
+                             observer=self.metrics)
+
+    def _demote_block(self, block, key):
+        """Pool eviction hook: copy the block's device contents (still
+        intact: eviction only reclaims the slot) to the host and park
+        them in the tier stack.  Runs on the worker at a step
+        boundary."""
+        block = int(block)
+        payload = {"kv_k": _gather(self._k_pools, block),
+                   "kv_v": _gather(self._v_pools, block)}
+        self._kvtier.demote(key, pack_block(payload))
+
+    def _extend_from_tiers(self, keys, matched):
+        """Continue an :meth:`KVBlockPool.acquire_prefix` match down the
+        tier stack: each further chain key found in host RAM or on disk
+        is written back into a fresh device block, published under its
+        key and attached to the session — the readmit that makes a chain
+        evicted from the device cost no re-prefill.  A payload that does
+        not fit the pools ends the match (the rest is prefilled).
+        Returns (matched_blocks, deepest_tier_hit)."""
+        deepest = None
+        for key in keys[len(matched):]:
+            found = self._kvtier.lookup(key)
+            if found is None:
+                break
+            tier, data = found
+            alloc = self._pool.alloc(1)
+            if alloc is None:
+                break                # pool full: prefill the rest
+            block = alloc[0]
+            payload = unpack_block(data)
+            try:
+                host_k = _host_tensors(self._k_pools, payload["kv_k"], (),
+                                       "a tier block")
+                host_v = _host_tensors(self._v_pools, payload["kv_v"], (),
+                                       "a tier block")
+            except (KeyError, ValueError):
+                self._pool.free([block])
+                break
+            _scatter(self._k_pools, block, host_k)
+            _scatter(self._v_pools, block, host_v)
+            if not self._pool.publish(block, key):
+                # the key became resident between the miss and now
+                # (cannot happen on the single worker, but stay safe):
+                # drop our copy and attach to the resident one
+                self._pool.free([block])
+                revived = self._pool.acquire_prefix([key])
+                if not revived:
+                    break
+                block = revived[0]
+            matched.append(block)
+            if deepest != "disk":
+                deepest = tier
+        return matched, deepest
+
+    def _refresh_advert(self):
+        """Rebuild the resident-chain advertisement (the ``kv_tiers``
+        payload :meth:`load` carries on the router's /readyz poll) when
+        residency changed.  Keys travel truncated-hex, capped per tier —
+        a router only needs enough to rank replicas."""
+        cap = 256
+        sig = (self._pool.published_blocks, self._pool.evicted_blocks,
+               self._kvtier.version)
+        if sig == self._advert_sig:
+            return
+        self._advert_sig = sig
+        advert = {"hbm": sorted(advert_key(k) for k in
+                                self._pool.resident_keys())[:cap]}
+        for tier, keys in self._kvtier.resident_keys().items():
+            advert[tier] = sorted(advert_key(k) for k in keys)[:cap]
+        self._advert = advert
+        self.metrics.set_tier_bytes(**self._kvtier.used_bytes())
 
     # -- the per-token step --------------------------------------------------
     def _step(self):
@@ -781,6 +1011,7 @@ class DecodeScheduler:
 
     def _retire(self, session, error=None):
         self._sessions.pop(session.row, None)
+        self._by_sid.pop(session.req.sid, None)
         self._release_session_blocks(session, publish=error is None)
         self._np_table[session.row, :] = 0
         self._np_lengths[session.row] = 0
@@ -796,12 +1027,18 @@ class DecodeScheduler:
                 "tokens": [int(t) for t in session.generated],
                 "prompt_tokens": len(session.req.prompt),
                 "ttft_s": round(session.first_token_s, 6),
+                "session_id": session.req.sid,
             }
+            # kept for re-attach: a migrated session's follow-up (or a
+            # retry) may arrive after completion
+            self._finished[session.req.sid] = result
+            while len(self._finished) > _FINISHED_KEEP:
+                self._finished.popitem(last=False)
             if future.set_running_or_notify_cancel():
                 future.set_result(result)
         self._release()
 
-    # -- pool introspection --------------------------------------------------
+    # -- jobs on the worker --------------------------------------------------
     def _run_job(self, fn, timeout=120.0):
         """Ship ``fn`` to the worker thread and wait for its result (the
         worker runs jobs only at step boundaries)."""
@@ -811,6 +1048,415 @@ class DecodeScheduler:
         job = _Job(fn)
         self._queue.put(job)
         return job.future.result(timeout)
+
+    # -- KV checkpoint / restore ---------------------------------------------
+    def checkpoint_kv(self, directory, name="kv"):
+        """Checkpoint the whole decode state — the device K/V pools, the
+        page-table mirrors, the block pool's accounting and every live
+        session's token state — under ``directory``
+        (:func:`veles_tpu_torch.checkpoint.save_state`).  Runs on the
+        worker at a step boundary, after finishing any chunked prefill
+        in flight, so the state is a consistent token-step cut.  Returns
+        the checkpoint path."""
+        return self._run_job(lambda: self._checkpoint_kv(directory, name))
+
+    def restore_kv(self, path):
+        """Load a :meth:`checkpoint_kv` checkpoint (of either package)
+        into this idle scheduler and resume its sequences
+        mid-generation.  Geometry and ``kv_dtype`` must match; the pools
+        are written in place on this scheduler's device.  Returns ``{row:
+        Future}`` — the futures of the resumed sequences (the originals
+        died with the old scheduler); they emit exactly the tokens the
+        uninterrupted run would have."""
+        return self._run_job(lambda: self._restore_kv(path))
+
+    def _geometry(self):
+        return {"max_batch": self.max_batch,
+                "block_size": self.block_size,
+                "max_prompt_len": self.max_prompt_len,
+                "max_new_tokens": self.max_new_tokens,
+                "num_blocks": self._pool.num_blocks,
+                "prefix_caching": self.prefix_caching}
+
+    def _checkpoint_kv(self, directory, name):
+        # finish chunked prefills in flight first: a session with half a
+        # prompt in the pool has no consistent cut to save
+        while self._chunking:
+            self._chunk_step()
+        state = {
+            "geometry": dict(self._geometry(), kv_dtype=self.kv_dtype),
+            "k_pools": self._k_pools,
+            "v_pools": self._v_pools,
+            "table": self._np_table.copy(),
+            "lengths": self._np_lengths.copy(),
+            "tokens": self._np_tokens.copy(),
+            "pool": self._pool.state_dict(),
+            "sessions": [{
+                "row": int(s.row),
+                "blocks": [int(b) for b in s.blocks],
+                "length": int(s.length),
+                "next_input": int(s.next_input),
+                "generated": [int(t) for t in s.generated],
+                "first_token_s": float(s.first_token_s or 0.0),
+                "prompt": numpy.array(s.req.prompt),
+                "max_new_tokens": int(s.req.max_new_tokens),
+                "shared": int(s.shared),
+            } for s in self._sessions.values()],
+        }
+        return save_state(directory, name, state,
+                          meta={"kind": "decode_kv", "scheduler": self.name})
+
+    def _restore_kv(self, path):
+        if self._sessions or self._pending or self._chunking:
+            raise RuntimeError(
+                "restore_kv into a busy scheduler (restore before "
+                "serving traffic)")
+        state = load_state(path)
+        geo = dict(state["geometry"])
+        # dtype first, and by name: int8 blocks restored into f32 pools
+        # (or the reverse) would reinterpret quantized bytes
+        ck_dtype = str(geo.pop("kv_dtype", "f32"))
+        if ck_dtype != self.kv_dtype:
+            raise ValueError(
+                "kv_dtype mismatch: checkpoint holds %s pools but this "
+                "scheduler serves %s" % (ck_dtype, self.kv_dtype))
+        mine = self._geometry()
+        if geo != mine:
+            raise ValueError("geometry mismatch: checkpoint %s vs "
+                             "scheduler %s" % (geo, mine))
+        host_k = _host_tensors(self._k_pools, _leaves(state["k_pools"]),
+                               None, "the checkpoint")
+        host_v = _host_tensors(self._v_pools, _leaves(state["v_pools"]),
+                               None, "the checkpoint")
+        self._pool.load_state(state["pool"])
+        _scatter(self._k_pools, None, host_k)
+        _scatter(self._v_pools, None, host_v)
+        self._np_table[:] = state["table"]
+        self._np_lengths[:] = state["lengths"]
+        self._np_tokens[:] = state["tokens"]
+        futures = {}
+        for saved in state["sessions"]:
+            req = _Request(numpy.asarray(saved["prompt"], numpy.int32),
+                           saved["max_new_tokens"])
+            session = _Session(req, int(saved["row"]),
+                               [int(b) for b in saved["blocks"]])
+            session.length = int(saved["length"])
+            session.next_input = int(saved["next_input"])
+            session.generated = [int(t) for t in saved["generated"]]
+            session.first_token_s = saved["first_token_s"]
+            session.shared = int(saved.get("shared", 0))
+            self._sessions[session.row] = session
+            self._by_sid[req.sid] = session
+            with self._depth_lock:
+                self._depth += 1
+            futures[session.row] = req.future
+        self._set_occupancy()
+        return futures
+
+    # -- live session migration ----------------------------------------------
+    # A session's state at a step boundary is its token bookkeeping plus
+    # the K/V contents of ITS blocks, gathered to the host: portable to
+    # any peer scheduler (of either package) with the same block size
+    # and kv_dtype, where it is one more row of the running batch.
+    # Export PARKS the original request future instead of completing
+    # it: the source answers (with a "migrated" redirect marker) only
+    # after release_migrated confirms the import, so a client's
+    # follow-up never races an import that failed.
+
+    def export_sessions(self, session_ids=None):
+        """Export live sessions (all, or the given ids) as portable state
+        dicts at a step boundary.  Exported sessions leave this scheduler
+        (rows and blocks freed, futures parked) — follow with
+        :meth:`import_sessions` on a peer and :meth:`release_migrated`
+        here, or re-import here to abort."""
+        return self._run_job(lambda: self._export_sessions(session_ids))
+
+    def import_sessions(self, states):
+        """Adopt exported sessions mid-generation.  Each state imports on
+        its own; returns ``(imported_ids, errors)`` with errors as
+        ``[(sid, reason), ...]``."""
+        def job():
+            done, errors = [], []
+            for state in states:
+                try:
+                    done.append(self._import_session(state))
+                except Exception as exc:  # noqa: BLE001 — per session
+                    errors.append((str(state.get("session_id")),
+                                   str(exc)))
+            return done, errors
+        return self._run_job(job)
+
+    def release_migrated(self, session_ids, target=None):
+        """Complete the parked futures of exported sessions with a
+        ``{"migrated": True, "target": ...}`` marker — the source's
+        commit, made only after the target imported."""
+        return self._run_job(
+            lambda: self._release_migrated(session_ids, target))
+
+    def attach(self, session_id):
+        """Re-attach to a session by id: ``("live", future)`` while it
+        decodes, waits or is parked mid-migration, ``("finished",
+        result)`` after completion, None when unknown."""
+        return self._run_job(lambda: self._attach(session_id))
+
+    def session_ids(self):
+        """Session-id snapshot: active / migrating / finished."""
+        return self._run_job(lambda: {
+            "active": sorted(self._by_sid)
+            + sorted(r.sid for r in self._pending),
+            "migrating": sorted(self._migrating),
+            "finished": list(self._finished)})
+
+    def spill_session(self, session_id, directory):
+        """Spill one live session to a host checkpoint under
+        ``directory`` and free its row and blocks; its waiter gets a
+        ``{"spilled": True, "path": ...}`` marker.  Readmit it later
+        with :meth:`readmit_session`."""
+        return self._run_job(
+            lambda: self._spill_session(session_id, directory))
+
+    def readmit_session(self, path, delete=True):
+        """Readmit a spilled session into the running batch; returns its
+        id (collect the result with :meth:`attach`)."""
+        return self._run_job(lambda: self._readmit_session(path, delete))
+
+    def _export_sessions(self, session_ids=None):
+        want = None if session_ids is None else set(session_ids)
+        states = []
+        for session in list(self._sessions.values()):
+            if want is not None and session.req.sid not in want:
+                continue
+            states.append(self._export_one(session))
+        # mid-prefill sessions drop their partial KV and travel as
+        # prompt-only states (the peer prefills them, from its own
+        # resident prefixes where it has them)
+        keep_chunking = collections.deque()
+        while self._chunking:
+            session = self._chunking.popleft()
+            if want is not None and session.req.sid not in want:
+                keep_chunking.append(session)
+                continue
+            self._by_sid.pop(session.req.sid, None)
+            self._release_session_blocks(session, publish=False)
+            states.append(self._fresh_state(session.req))
+            self._migrating[session.req.sid] = session.req.future
+            self._release()
+        self._chunking = keep_chunking
+        # queued requests ride along as prompt-only states too
+        keep = collections.deque()
+        while self._pending:
+            req = self._pending.popleft()
+            if want is not None and req.sid not in want:
+                keep.append(req)
+                continue
+            states.append(self._fresh_state(req))
+            self._migrating[req.sid] = req.future
+            self._release()
+        self._pending = keep
+        if states:
+            self.metrics.record_migrate(len(states), "out")
+            self.metrics.set_occupancy(
+                len(self._sessions),
+                self._pool.live_blocks / max(self._pool.capacity, 1))
+        return states
+
+    def _fresh_state(self, req):
+        """A prompt-only state.  The JAX package adds the request's
+        ``trace_id`` and flight timeline here; the port has no flight
+        recorder yet and leaves both out."""
+        return {"session_id": req.sid,
+                "prompt": numpy.array(req.prompt),
+                "max_new_tokens": int(req.max_new_tokens),
+                "block_size": self.block_size,
+                "kv_dtype": self.kv_dtype,
+                "deadline_left_s": None if req.deadline is None
+                else max(req.deadline - time.monotonic(), 0.0)}
+
+    def _export_one(self, session):
+        req = session.req
+        # with the tier stack on, the leading run of published blocks
+        # travels BY HASH: chain keys are content addresses a peer
+        # resolves against its own pool and tiers, so the wire carries
+        # device bytes only for the private tail
+        hash_keys = []
+        if self._kvtier is not None:
+            for b in session.blocks:
+                key = self._pool.key_of(b)
+                if key is None:
+                    break
+                hash_keys.append(key)
+        tail = [int(b) for b in session.blocks[len(hash_keys):]]
+        state = self._fresh_state(req)
+        state.update({
+            "length": int(session.length),
+            "next_input": int(session.next_input),
+            "generated": [int(t) for t in session.generated],
+            "first_token_s": float(session.first_token_s or 0.0),
+            "kv_k": _gather(self._k_pools, tail),
+            "kv_v": _gather(self._v_pools, tail),
+        })
+        if hash_keys:
+            state["kv_hash"] = [k.hex() for k in hash_keys]
+        self._sessions.pop(session.row, None)
+        self._by_sid.pop(req.sid, None)
+        self._release_session_blocks(session, publish=False)
+        self._np_table[session.row, :] = 0
+        self._np_lengths[session.row] = 0
+        self._np_tokens[session.row] = 0
+        self._migrating[req.sid] = req.future
+        self._release()
+        return state
+
+    def _import_session(self, state):
+        """Adopt one exported state (``trace_id`` and ``flight``, which
+        the JAX package's exports carry, are ignored)."""
+        sid = str(state["session_id"])
+        if sid in self._by_sid or any(r.sid == sid for r in self._pending):
+            raise ValueError("session %r is already live here" % sid)
+        if int(state["block_size"]) != self.block_size:
+            raise ValueError(
+                "block_size mismatch: session %s vs scheduler %s"
+                % (state["block_size"], self.block_size))
+        prompt = self.validate(numpy.asarray(state["prompt"]),
+                               state["max_new_tokens"])
+        deadline = None
+        if state.get("deadline_left_s") is not None:
+            deadline = time.monotonic() + float(state["deadline_left_s"])
+        req = _Request(prompt, state["max_new_tokens"], session_id=sid,
+                       deadline=deadline)
+        # the parked future, when this is the source taking its own
+        # export back: the original waiter stays attached
+        parked = self._migrating.pop(sid, None)
+        if parked is not None:
+            req.future = parked
+
+        def refuse(exc, lead=(), blocks=()):
+            if lead:
+                self._pool.release(lead)
+            if blocks:
+                self._pool.free(blocks)
+            if parked is not None:          # re-park: the caller may retry
+                self._migrating[sid] = parked
+            raise exc
+
+        # prompt-only states carry no KV bytes and import under any pool
+        # dtype; states with KV must match (int8 payloads in f32 pools
+        # would be garbage)
+        if state.get("kv_k") is not None \
+                and str(state.get("kv_dtype", "f32")) != self.kv_dtype:
+            refuse(ValueError(
+                "kv_dtype mismatch: session %s travels %s KV blocks but "
+                "this scheduler serves %s"
+                % (sid, state.get("kv_dtype", "f32"), self.kv_dtype)))
+        if state.get("kv_k") is None:       # prompt-only: just enqueue
+            self._pending.append(req)
+            with self._depth_lock:
+                self._depth += 1
+            return sid
+        rows = self._free_rows()
+        # hash-referenced lead blocks resolve against local content:
+        # device chains first, then the tier stack
+        hash_hexes = [str(h) for h in state.get("kv_hash") or []]
+        lead = []
+        if hash_hexes:
+            if not self.prefix_caching:
+                refuse(ValueError(
+                    "session %r carries hashed prefix blocks but this "
+                    "scheduler has prefix_caching off" % sid))
+            keys = [bytes.fromhex(h) for h in hash_hexes]
+            lead = self._pool.acquire_prefix(keys)
+            if self._kvtier is not None and len(lead) < len(keys):
+                lead, _ = self._extend_from_tiers(keys, lead)
+            if len(lead) < len(keys):
+                refuse(ValueError(
+                    "cannot resolve hashed prefix of session %r (%d/%d "
+                    "chain keys resident)"
+                    % (sid, len(lead), len(hash_hexes))), lead)
+        n_blocks = int(numpy.shape(state["kv_k"][0])[0])
+        blocks = self._pool.alloc(n_blocks) if rows else None
+        if blocks is None:
+            refuse(RuntimeError(
+                "no capacity to import session %r (%d blocks, %d free; %d "
+                "rows free)" % (sid, n_blocks, self._pool.free_blocks,
+                                len(rows))), lead)
+        try:
+            host_k = _host_tensors(self._k_pools, state["kv_k"],
+                                   (n_blocks,), "session %s" % sid)
+            host_v = _host_tensors(self._v_pools, state["kv_v"],
+                                   (n_blocks,), "session %s" % sid)
+        except ValueError as exc:
+            refuse(exc, lead, blocks)
+        _scatter(self._k_pools, blocks, host_k)
+        _scatter(self._v_pools, blocks, host_v)
+        row = rows.pop(0)
+        session = _Session(req, row, list(lead) + blocks)
+        session.shared = len(lead)
+        session.length = int(state["length"])
+        session.next_input = int(state["next_input"])
+        session.generated = [int(t) for t in state["generated"]]
+        session.first_token_s = float(state["first_token_s"])
+        self._np_table[row, :] = self._block_row(session)
+        self._np_lengths[row] = session.length
+        self._np_tokens[row] = session.next_input
+        self._sessions[row] = session
+        self._by_sid[sid] = session
+        with self._depth_lock:
+            self._depth += 1
+        self.metrics.record_migrate(1, "in")
+        self._set_occupancy()
+        return sid
+
+    def _release_migrated(self, session_ids, target):
+        released = []
+        for sid in session_ids:
+            future = self._migrating.pop(sid, None)
+            if future is None:
+                continue
+            if future.set_running_or_notify_cancel():
+                future.set_result({"migrated": True, "session_id": sid,
+                                   "target": target})
+            released.append(sid)
+        return released
+
+    def _attach(self, session_id):
+        sid = str(session_id)
+        session = self._by_sid.get(sid)
+        if session is not None:
+            return "live", session.req.future
+        for req in self._pending:
+            if req.sid == sid:
+                return "live", req.future
+        if sid in self._migrating:
+            return "live", self._migrating[sid]
+        if sid in self._finished:
+            return "finished", self._finished[sid]
+        return None
+
+    def _spill_session(self, session_id, directory):
+        sid = str(session_id)
+        session = self._by_sid.get(sid)
+        if session is None:
+            raise KeyError("no live session %r to spill" % sid)
+        state = self._export_one(session)
+        path = save_state(directory, "session-" + sid, state,
+                          meta={"kind": "decode_session",
+                                "scheduler": self.name,
+                                "session_id": sid})
+        future = self._migrating.pop(sid, None)
+        if future is not None and future.set_running_or_notify_cancel():
+            future.set_result({"spilled": True, "session_id": sid,
+                               "path": str(path)})
+        events.event("serving.session_spill", model=self.name, session=sid)
+        return str(path)
+
+    def _readmit_session(self, path, delete):
+        state = load_state(path)
+        sid = self._import_session(state)
+        if delete:
+            delete_checkpoint(path)
+        events.event("serving.session_readmit", model=self.name,
+                     session=sid)
+        return sid
 
     def kv_dump(self):
         """Live-pool introspection (``GET /api/<name>/kv``): resident
@@ -838,6 +1484,15 @@ class DecodeScheduler:
                 problems.append("session %s references unallocated "
                                 "block(s) %s"
                                 % (entry["session_id"], missing))
+        if self._kvtier is not None:
+            problems.extend(self._kvtier.check_integrity())
+            tiers = self._kvtier.stats()
+            resident = {"hbm": sorted(k.hex()[:12] for k in
+                                      self._pool.resident_keys())}
+            for tier, keys in self._kvtier.resident_keys().items():
+                resident[tier] = sorted(str(k)[:12] for k in keys)
+            tiers["resident"] = resident
+            dump["kvtier"] = tiers
         dump["kv_dtype"] = self.kv_dtype
         if self.kv_dtype != "f32":
             dump["quant"] = self._quant_stats()
@@ -923,15 +1578,22 @@ class DecodeScheduler:
         """Cheap backpressure snapshot for routers (int/float reads
         only — poll-safe)."""
         depth = self._depth
-        return {"kind": "decode",
-                "queue_depth": depth,
-                "queue_limit": self.queue_limit,
-                "utilization": round(depth / self.queue_limit, 4),
-                "active_rows": len(self._sessions),
-                "chunking_sessions": len(self._chunking),
-                "kv_occupancy": round(
-                    self._pool.live_blocks /
-                    max(self._pool.capacity, 1), 4)}
+        out = {"kind": "decode",
+               "queue_depth": depth,
+               "queue_limit": self.queue_limit,
+               "utilization": round(depth / self.queue_limit, 4),
+               "active_rows": len(self._sessions),
+               "chunking_sessions": len(self._chunking),
+               "kv_occupancy": round(
+                   self._pool.live_blocks /
+                   max(self._pool.capacity, 1), 4)}
+        advert = self._advert
+        if advert is not None:
+            # the resident-chain advertisement a router reads off the
+            # /readyz load poll: a snapshot the worker swaps in whole,
+            # so reading it here is still poll-safe
+            out["kv_tiers"] = advert
+        return out
 
     def retry_after_s(self, cap=30):
         """Computed ``Retry-After`` for shed generate requests: gangs
@@ -958,6 +1620,7 @@ class DecodeScheduler:
             "queue_limit": self.queue_limit,
             "max_batch": self.max_batch,
             "active_sequences": len(self._sessions),
+            "migrating_sessions": len(self._migrating),
             "block_size": self.block_size,
             "num_blocks": pool["num_blocks"],
             "free_blocks": pool["free_blocks"],
@@ -990,4 +1653,6 @@ class DecodeScheduler:
             out.update((key, pool[key]) for key in (
                 "prefix_hits", "dedup_blocks", "published_blocks",
                 "evicted_blocks", "shared_blocks", "cached_blocks"))
+        if self._kvtier is not None:
+            out["kvtier"] = self._kvtier.stats()
         return out

@@ -3,9 +3,9 @@
 The port of ``veles_tpu/serving/kvcache.py``, host-only code: the
 free-list pool of the core decode scheduler, its content-addressed half
 (``prefix_caching=True``: shared, refcounted and cached blocks keyed by
-:func:`key_chain`), and the speculative-decoding rollback tallies.  Not
-ported yet: the tiered store's ``on_evict`` demotion hook and the
-``state_dict``/``load_state`` pair of ``checkpoint_kv``.
+:func:`key_chain`), the speculative-decoding rollback tallies, the
+tiered store's ``on_evict`` demotion hook and the ``state_dict`` /
+``load_state`` pair of ``checkpoint_kv``.
 
 The device side is dumb on purpose — two preallocated pool tensors per
 layer ([num_blocks, block_size, heads, head_dim]) that the decode step
@@ -101,6 +101,12 @@ class KVBlockPool:
         # private and masked: never published, never readable)
         self.draft_rollbacks = 0         # iterations that rolled back
         self.rolled_back_tokens = 0      # positions written, then dropped
+        # demotion hook: called as on_evict(block, key) just before a
+        # cached chain block is reclaimed, while its device contents are
+        # still intact; the tiered KV store (veles_tpu_torch/kvtier)
+        # captures the block here and parks it in host RAM or on disk
+        # instead of letting the content die with the eviction
+        self.on_evict = None
 
     @property
     def free_blocks(self):
@@ -148,6 +154,8 @@ class KVBlockPool:
 
     def _evict_one(self):
         block, key = self._cached.popitem(last=False)   # LRU
+        if self.on_evict is not None:
+            self.on_evict(block, key)
         del self._key_of[block]
         del self._by_key[key]
         self._free.append(block)
@@ -264,7 +272,34 @@ class KVBlockPool:
         cached)."""
         return list(self._by_key)
 
-    # -- introspection -------------------------------------------------------
+    # -- persistence / introspection -----------------------------------------
+    def state_dict(self):
+        """Picklable index state for ``checkpoint_kv`` (keys as hex; the
+        reference's layout, so either package restores the other's)."""
+        return {"free": [int(b) for b in self._free],
+                "live": sorted(int(b) for b in self._live),
+                "refs": {str(b): int(c) for b, c in self._refs.items()},
+                "cached": [[int(b), k.hex()]
+                           for b, k in self._cached.items()],
+                "keys": {str(b): k.hex()
+                         for b, k in self._key_of.items()}}
+
+    def load_state(self, state):
+        self._free = [int(b) for b in state["free"]]
+        self._live = set(int(b) for b in state["live"])
+        self._refs = {int(b): int(c)
+                      for b, c in state.get("refs", {}).items()}
+        self._cached = OrderedDict(
+            (int(b), bytes.fromhex(k))
+            for b, k in state.get("cached", []))
+        self._key_of = {int(b): bytes.fromhex(k)
+                        for b, k in state.get("keys", {}).items()}
+        self._by_key = {k: b for b, k in self._key_of.items()}
+        violations = self.check_integrity()
+        if violations:
+            raise ValueError("corrupt pool state: %s"
+                             % "; ".join(violations))
+
     def check_integrity(self):
         """List of invariant violations (empty == healthy pool)."""
         bad = []

@@ -2,8 +2,10 @@
 
 The part of ``veles_tpu/serving/metrics.py`` the decode scheduler
 touches: the core counters, the prefix-cache and chunked-prefill
-counters, and the speculation series (draft, accept and reject counts,
-verify passes and the windowed acceptance rate).  Counter state lives
+counters, the speculation series (draft, accept and reject counts,
+verify passes and the windowed acceptance rate), the tiered KV cache's
+``veles_kvtier_*`` series (the tier store's duck-typed observer surface)
+and the session-migration counters.  Counter state lives
 in the process-global
 :class:`~veles_tpu_torch.observability.registry.MetricsRegistry`
 (labelled by model), so the numbers ``GET /metrics`` reports are the
@@ -81,6 +83,10 @@ _DECODE_COUNTERS = {
     "expired": ("veles_serving_decode_deadline_expired_total",
                 "Generate requests shed because their deadline passed "
                 "before prefill (HTTP 504)"),
+    "migrated_out": ("veles_serving_decode_migrated_out_total",
+                     "Live sessions exported to a peer or spilled"),
+    "migrated_in": ("veles_serving_decode_migrated_in_total",
+                    "Live sessions imported mid-generation"),
     "prefix_hits": ("veles_serving_kv_prefix_hits_total",
                     "Admits that attached to >= 1 already-resident "
                     "KV block (prefix cache hit)"),
@@ -154,6 +160,40 @@ class DecodeMetrics:
             "veles_serving_decode_ttft_by_prefix_seconds",
             "Submit-to-first-token latency split by resident-prefix "
             "fraction at admit", ("model", "resident"))
+        # tiered-KV-cache families (veles_tpu_torch/kvtier): demote and
+        # promote flow per tier, byte occupancy gauges, and TTFT banded
+        # by the deepest tier that served the admit's longest prefix hit
+        # (hbm / host / disk / none)
+        self._c_tier_demote = self.registry.counter(
+            "veles_kvtier_demotions_total",
+            "KV chain blocks demoted into the tier (HBM evictions land "
+            "in host RAM, host-RAM overflow cascades to disk)",
+            ("model", "tier"))
+        self._c_tier_promote = self.registry.counter(
+            "veles_kvtier_promotions_total",
+            "KV chain blocks promoted out of the tier on readmit",
+            ("model", "tier"))
+        self._c_disk_readmit = self.registry.counter(
+            "veles_kvtier_disk_readmits_total",
+            "Chain blocks readmitted into HBM from the disk tier "
+            "(zero re-prefill instead of recompute)",
+            ("model",)).labels(model=model)
+        self._g_tier_bytes = self.registry.gauge(
+            "veles_kvtier_bytes",
+            "Byte occupancy of the KV tier", ("model", "tier"))
+        self._h_ttft_tier = self.registry.histogram(
+            "veles_serving_decode_ttft_by_tier_seconds",
+            "Submit-to-first-token latency split by the deepest KV "
+            "tier serving the admit's longest prefix hit",
+            ("model", "tier"))
+        self._tier_children = {
+            (kind, tier): family.labels(model=model, tier=tier)
+            for kind, family in (("demotions", self._c_tier_demote),
+                                 ("promotions", self._c_tier_promote))
+            for tier in ("host", "disk")}
+        self._tier_base = {key: child.value
+                           for key, child in self._tier_children.items()}
+        self._base_disk_readmit = self._c_disk_readmit.value
         self._g_chunk_queue = self.registry.gauge(
             "veles_serving_prefill_chunk_queue",
             "Sequences currently mid-chunked-prefill",
@@ -223,18 +263,46 @@ class DecodeMetrics:
     def set_chunk_queue(self, depth):
         self._g_chunk_queue.set(int(depth))
 
-    def record_first_token(self, seconds, resident=None):
+    def record_first_token(self, seconds, resident=None, tier=None):
         """TTFT for one sequence: submit -> prefill's first token.
         ``resident``: the fraction of the prompt already cached at admit
-        (None or 0 when prefix caching is off or nothing matched)."""
+        (None or 0 when prefix caching is off or nothing matched).
+        ``tier``: the deepest KV tier the admit's longest prefix hit
+        came from ('hbm' | 'host' | 'disk'); defaults from
+        ``resident``."""
         self.ttft.record(seconds)
         self._h_ttft.observe(seconds)
         self._h_ttft_prefix.labels(
             model=self.model,
             resident=_prefix_band(resident)).observe(seconds)
+        if tier is None:
+            tier = "hbm" if resident else "none"
+        self._h_ttft_tier.labels(model=self.model,
+                                 tier=tier).observe(seconds)
         self._c["tokens"].inc()
         with self._lock:
             self._emissions.append((time.time(), 1))
+
+    # -- tiered KV cache (the kvtier observer surface) -----------------------
+    def record_tier_demotion(self, tier, nbytes=0):
+        self._tier_children[("demotions", tier)].inc()
+
+    def record_tier_promotion(self, tier, nbytes=0):
+        self._tier_children[("promotions", tier)].inc()
+
+    def record_disk_readmit(self):
+        self._c_disk_readmit.inc()
+
+    def set_tier_bytes(self, host=0, disk=0):
+        self._g_tier_bytes.labels(model=self.model,
+                                  tier="host").set(int(host))
+        self._g_tier_bytes.labels(model=self.model,
+                                  tier="disk").set(int(disk))
+
+    def _tier_count(self, kind, tier):
+        key = (kind, tier)
+        return int(round(self._tier_children[key].value
+                         - self._tier_base[key]))
 
     def record_step(self, active_rows, max_rows, seconds):
         self.step_latency.record(seconds)
@@ -299,6 +367,10 @@ class DecodeMetrics:
         self._c["expired"].inc()
         events.event("serving.decode_deadline_expired", model=self.model)
 
+    def record_migrate(self, n, direction="out"):
+        self._c["migrated_out" if direction == "out"
+                else "migrated_in"].inc(int(n))
+
     def set_occupancy(self, active_rows, kv_ratio):
         self._g_active.set(int(active_rows))
         self._g_kv.set(float(kv_ratio))
@@ -349,4 +421,15 @@ class DecodeMetrics:
         rate = self.acceptance_rate()
         if rate is not None:
             out["acceptance_rate"] = round(rate, 4)
+        disk_readmits = int(round(self._c_disk_readmit.value
+                                  - self._base_disk_readmit))
+        tiers = {"demotions": {t: self._tier_count("demotions", t)
+                               for t in ("host", "disk")},
+                 "promotions": {t: self._tier_count("promotions", t)
+                                for t in ("host", "disk")},
+                 "disk_readmits": disk_readmits}
+        if disk_readmits or any(v for d in (tiers["demotions"],
+                                            tiers["promotions"])
+                                for v in d.values()):
+            out["kvtier"] = tiers
         return out

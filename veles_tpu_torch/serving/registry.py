@@ -33,10 +33,13 @@ class DecodeServedModel:
         self.source = source
 
     def generate(self, prompt, max_new_tokens=None, timeout=None,
-                 deadline=None):
-        """-> the result dict (tokens, ttft_s, prompt_tokens)."""
+                 session_id=None, deadline=None):
+        """-> the result dict (tokens, ttft_s, prompt_tokens,
+        session_id)."""
         return self.scheduler.generate(prompt, max_new_tokens,
-                                       timeout=timeout, deadline=deadline)
+                                       timeout=timeout,
+                                       session_id=session_id,
+                                       deadline=deadline)
 
     def describe(self):
         stats = self.scheduler.stats()

@@ -11,18 +11,32 @@ never leaves the process.  Every answer carries ``X-Trace-Id`` (the
 client's, or a fresh one).
 
 Endpoints:
-    POST /api/<model>/generate     autoregressive decode
+    POST /api/<model>/generate     autoregressive decode (``session_id``
+                                   in the body or ``X-Session-Id``:
+                                   re-attach to that session if it is
+                                   known here, else start it under that
+                                   id)
     POST /api/generate             the same on the default model
     GET  /healthz                  liveness + model listing
     GET  /readyz                   503 until every model is warm
     GET  /metrics                  per-model decode metrics + stats
     GET  /models                   registry description
     GET  /api/<model>/kv           the KV pool's dump and integrity list
+    POST /admin/sessions/export    live-session migration, behind
+    POST /admin/sessions/import    ``enable_admin`` (404 without it)
+    POST /admin/sessions/release
+    GET  /admin/sessions           session ids: active, migrating,
+                                   finished
+
+A generate whose session migrated away while the request waited is
+answered 307 with ``X-Veles-Migrated`` (and ``X-Veles-Session-Target``
+when the exporter named one); a follow with ``X-Veles-Attach: 1`` for
+a session unknown here is answered 410.
 
 Shutdown is a graceful drain: stop accepting, finish every admitted and
 queued sequence, then stop the HTTP front end.  The classifier route
-(``POST /api/<model>``), the admin hot-load and the session-migration
-endpoints are not ported yet.
+(``POST /api/<model>``) and the admin hot-load (``POST /admin/models``)
+are not ported yet.
 """
 
 import logging
@@ -38,10 +52,15 @@ from ..observability import trace as _trace
 from .registry import ModelRegistry
 from .scheduler import (DeadlineExpired, SchedulerClosed,
                         SchedulerOverflow, deadline_expired)
+from .sessions import pack_state, unpack_states
 
 __all__ = ["InferenceServer"]
 
 log = logging.getLogger("veles_tpu_torch.serving")
+
+#: how long a migration follow (``X-Veles-Attach: 1``) waits for the
+#: session's import to commit before answering 410
+ATTACH_WAIT_S = 5.0
 
 
 class _ServingHandler(JsonRequestHandler):
@@ -52,7 +71,9 @@ class _ServingHandler(JsonRequestHandler):
 
     def do_POST(self):
         path = self.path.split("?", 1)[0].rstrip("/")
-        if path == "/api/generate":
+        if path.startswith("/admin/sessions/"):
+            self._admin_sessions(path[len("/admin/sessions/"):])
+        elif path == "/api/generate":
             self._generate(None)
         elif path.startswith("/api/") and path.endswith("/generate"):
             self._generate(path[len("/api/"):-len("/generate")])
@@ -91,6 +112,10 @@ class _ServingHandler(JsonRequestHandler):
                 self.send_json(200, entry.scheduler.kv_dump())
             except Exception as exc:  # noqa: BLE001 — draining et al.
                 self.send_json(503, {"error": str(exc)})
+        elif path == "/admin/sessions" and srv.enable_admin:
+            self.send_json(200, {"sessions": {
+                name: entry.scheduler.session_ids()
+                for name, entry in self._decode_entries()}})
         else:
             self.send_json(404, {"error": "not found"})
 
@@ -127,6 +152,93 @@ class _ServingHandler(JsonRequestHandler):
                        headers=headers)
         return 429
 
+    # -- admin: session migration --------------------------------------------
+    def _decode_entries(self, model=None):
+        """(name, entry) pairs, optionally of one model name."""
+        srv = self.server_ref
+        out = []
+        for name in ([model] if model else srv.registry.names()):
+            entry = srv.registry.get(name)
+            if entry is not None:
+                out.append((name, entry))
+        return out
+
+    def _admin_sessions(self, action):
+        """``POST /admin/sessions/{export,import,release}``: the
+        migration surface (``enable_admin`` only).
+
+        export:  {"model"?, "session_ids"?} -> {"sessions": [packed]}
+                 (each tagged with its model name; exported sessions
+                 are PARKED here until release confirms the import)
+        import:  {"sessions": [packed]} -> {"imported": [...],
+                 "errors": [[sid, reason], ...]}; each session lands on
+                 its own, and 409 means nothing landed
+        release: {"session_ids": [...], "target"?} -> completes the
+                 parked futures with a redirect marker
+        """
+        if not self.server_ref.enable_admin:
+            self.send_json(404, {"error": "not found"})
+            return
+        try:
+            payload = self.read_json_body() if int(
+                self.headers.get("Content-Length", 0)) else {}
+            if not isinstance(payload, dict):
+                raise ClientError("body is not a JSON object")
+        except ClientError as exc:
+            self.send_json(400, {"error": str(exc)})
+            return
+        try:
+            if action == "export":
+                sids = payload.get("session_ids")
+                sessions = []
+                for name, entry in self._decode_entries(
+                        payload.get("model")):
+                    for state in entry.scheduler.export_sessions(sids):
+                        sessions.append(dict(pack_state(state), model=name))
+                self.send_json(200, {"sessions": sessions,
+                                     "count": len(sessions)})
+            elif action == "import":
+                raw = payload.get("sessions") or []
+                by_model = {}
+                for packed in raw:
+                    by_model.setdefault(packed.get("model"),
+                                        []).append(packed)
+                imported, errors = [], []
+                for model, group in by_model.items():
+                    entries = self._decode_entries(model)
+                    if not entries:
+                        errors.extend((p.get("session_id"),
+                                       "no decode model %r" % model)
+                                      for p in group)
+                        continue
+                    states = unpack_states(group)
+                    for state in states:
+                        state.pop("model", None)
+                    done, errs = entries[0][1].scheduler.import_sessions(
+                        states)
+                    imported.extend(done)
+                    errors.extend(errs)
+                # 409 when NOTHING landed (and something was sent): the
+                # exporter keeps everything and aborts the migration
+                self.send_json(409 if raw and not imported else 200, {
+                    "imported": imported,
+                    "errors": [[sid, str(reason)]
+                               for sid, reason in errors]})
+            elif action == "release":
+                sids = payload.get("session_ids") or []
+                released = []
+                for _, entry in self._decode_entries(payload.get("model")):
+                    released.extend(entry.scheduler.release_migrated(
+                        sids, target=payload.get("target")))
+                self.send_json(200, {"released": released})
+            else:
+                self.send_json(404, {"error": "unknown session action %r"
+                                     % action})
+        except Exception as exc:  # noqa: BLE001 — report, keep serving
+            log.exception("admin session %s failed", action)
+            self.send_json(500, {"error": "%s failed: %s"
+                                 % (action, str(exc)[:300])})
+
     # -- the decode path -----------------------------------------------------
     def _generate(self, name):
         with _trace.span_context(
@@ -138,7 +250,8 @@ class _ServingHandler(JsonRequestHandler):
                         model=name or "<default>", status=status)
 
     def _read_generate_payload(self):
-        """{"prompt": [...], "max_new_tokens": n?} -> (prompt, n)."""
+        """{"prompt": [...], "max_new_tokens": n?, "session_id": s?} ->
+        (prompt, n, session_id)."""
         payload = self.read_json_body()
         if not isinstance(payload, dict) or "prompt" not in payload:
             raise ClientError(
@@ -146,7 +259,10 @@ class _ServingHandler(JsonRequestHandler):
         max_new = payload.get("max_new_tokens")
         if max_new is not None and not isinstance(max_new, int):
             raise ClientError("'max_new_tokens' must be an integer")
-        return payload["prompt"], max_new
+        sid = payload.get("session_id")
+        if sid is not None and not isinstance(sid, str):
+            raise ClientError("'session_id' must be a string")
+        return payload["prompt"], max_new, sid
 
     def _generate_traced(self, name, ctx):
         """The request body; returns the HTTP status it answered."""
@@ -154,7 +270,8 @@ class _ServingHandler(JsonRequestHandler):
         entry = srv.registry.resolve(name)
         trace_hdr = {"X-Trace-Id": ctx.trace_id}
         try:
-            prompt, max_new = self._read_generate_payload()
+            prompt, max_new, sid = self._read_generate_payload()
+            sid = self.headers.get("X-Session-Id") or sid
             if entry is None:
                 self.send_json(404, {
                     "error": "unknown model %r" % (name or "<default>"),
@@ -172,10 +289,22 @@ class _ServingHandler(JsonRequestHandler):
             self.send_json(504, {"error": "deadline expired"},
                            headers=trace_hdr)
             return 504
+        # a migration follow: the session is (or shortly will be) live
+        # here, so attach instead of generating again
+        attach = self.headers.get("X-Veles-Attach") == "1"
         try:
-            result = entry.generate(prompt, max_new,
-                                    timeout=self._result_timeout(deadline),
-                                    deadline=deadline)
+            result = None
+            if sid:
+                result = self._session_result(entry, sid, deadline, attach)
+            if result is None:
+                if attach:
+                    self.send_json(410, {"error": "unknown session",
+                                         "session_id": sid},
+                                   headers=trace_hdr)
+                    return 410
+                result = entry.generate(
+                    prompt, max_new, timeout=self._result_timeout(deadline),
+                    session_id=sid, deadline=deadline)
         except SchedulerOverflow as e:
             return self._shed(entry, "server overloaded: %s" % e, trace_hdr)
         except SchedulerClosed:
@@ -201,9 +330,43 @@ class _ServingHandler(JsonRequestHandler):
                                  "model": entry.name, "id": error_id},
                            headers=trace_hdr)
             return 500
+        if result.get("migrated"):
+            # the session moved while this request waited: a redirect a
+            # router follows to the session's new home (its tokens so
+            # far moved with it, so the target answers the whole,
+            # bitwise-identical sequence)
+            headers = dict(trace_hdr)
+            headers["X-Veles-Migrated"] = str(
+                result.get("session_id") or sid or "")
+            if result.get("target"):
+                headers["X-Veles-Session-Target"] = str(result["target"])
+            self.send_json(307, dict(result, model=entry.name),
+                           headers=headers)
+            return 307
         self.send_json(200, dict(result, model=entry.name),
                        headers=trace_hdr)
         return 200
+
+    def _session_result(self, entry, sid, deadline, attach):
+        """The result of an EXISTING session ``sid``: waits on its live
+        future, returns a finished result at once, or None when the id
+        is unknown here (the caller starts it).  A migration follow
+        (``attach``) polls for up to :data:`ATTACH_WAIT_S`: the redirect
+        can land a beat before the target's import commits."""
+        scheduler = entry.scheduler
+        wait_until = time.monotonic() + (ATTACH_WAIT_S if attach else 0.0)
+        while True:
+            found = scheduler.attach(sid)
+            if found is not None:
+                break
+            if time.monotonic() >= wait_until or \
+                    deadline_expired(deadline):
+                return None
+            time.sleep(0.02)
+        kind, value = found
+        if kind == "finished":
+            return value
+        return value.result(self._result_timeout(deadline))
 
 
 class InferenceServer:
@@ -214,15 +377,18 @@ class InferenceServer:
     ``scheduler_defaults`` (``max_batch``, ``block_size``,
     ``max_prompt_len``, ``max_new_tokens``, ``num_blocks``,
     ``queue_limit``, ``prefix_caching``, ``prefill_chunk_tokens``,
-    ``spec_depth``, ``kv_dtype``, ``device``) apply to every model
-    registered through this server, under a model's own
+    ``spec_depth``, ``kvtier``, ``kv_dtype``, ``device``) apply to every
+    model registered through this server, under a model's own
     ``decode_defaults``; ``device`` defaults to the card.
+    ``enable_admin`` opens the ``/admin/sessions`` surface.
     """
 
     def __init__(self, models=None, port=0, host="127.0.0.1",
-                 request_timeout=60.0, **scheduler_defaults):
+                 request_timeout=60.0, enable_admin=False,
+                 **scheduler_defaults):
         self.registry = ModelRegistry(**scheduler_defaults)
         self.request_timeout = request_timeout
+        self.enable_admin = bool(enable_admin)
         self.started = time.time()
         self.draining = False
         if models:

@@ -337,8 +337,9 @@ def from_spec(spec, device=None):
     its scheduler geometry in ``decode_defaults`` (vocab, delay, pdelay,
     ddelay and agree are model knobs; the rest are geometry).
     ``spec=K`` turns on speculative decoding at depth K.  The JAX
-    package's keys all parse; ``spec=auto`` and the ``tier_*`` keys
-    reach the scheduler, which refuses them (not ported yet)."""
+    package's keys all parse; ``spec=auto`` reaches the scheduler, which
+    refuses it (not ported yet), and the ``tier_*`` keys its ``kvtier``
+    (``tier_disk=1``: the directory from ``VELES_KVTIER_DIR``)."""
     body = spec.partition(":")[2]
     vocab, delay, pdelay, ddelay, agree = 97, 0.0, 0.0, 0.0, 1.0
     defaults = {}
