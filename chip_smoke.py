@@ -40,17 +40,20 @@ Phases (any failure raises and the script exits non-zero):
    K8 dq, K9 dk/dv) on ``randn * 0.5`` inputs, q/k/v as strided views of
    one packed projection: out and lse ``max|kernel - plain| <= 2e-5``,
    each gradient ``<= 5e-4 * max(1, max|plain|)``; at head dims 4, 8, 16,
-   T = 7, 8, 256, windows 1-256 and at head dims 129, 192, 256, T = 7,
-   256 (untimed), at the main path's shape (B=8, T=2048, H=8, D=64: no
-   mask, causal, causal with window 512), at the JAX package's bench
-   shapes (B=2, T=2048 causal; B=1, T=16384, window 512) and at head
-   dims 128 and 256 (B=2, T=2048, causal); each timed with CUDA events
-   and the profiler's device time, with the instantiation (head-dim
-   tile) that ran; each kernel's bound is 3x its useful operations at
-   the TF32 rate (3xTF32), beside the CUDA-core bound; ``library_ms``
-   is ``scaled_dot_product_attention`` pinned to its memory-efficient
-   backend (3xTF32 ``mma.sync`` on f32 inputs) on the same f32 inputs,
-   its forward on K7's row and its backward on K8's and K9's.  LRN (K5
+   T = 7, 8, 256, windows 1-256 and at head dims 129, 192, 256, 320,
+   512, 1024, T = 7, 256 (untimed), at the main path's shape (B=8,
+   T=2048, H=8, D=64: no mask, causal, causal with window 512), at the
+   JAX package's bench shapes (B=2, T=2048 causal; B=1, T=16384, window
+   512), at head dims 128 and 256 (B=2, T=2048, causal) and at head dim
+   512 (B=1, T=2048, H=2, causal: the wide path); each timed with CUDA
+   events and the profiler's device time, with the instantiation
+   (head-dim tile, or "wide") that ran; each kernel's bound is 3x its
+   useful operations at the TF32 rate (3xTF32), beside the CUDA-core
+   bound; ``library_ms`` is ``scaled_dot_product_attention`` pinned to
+   its memory-efficient backend (3xTF32 ``mma.sync`` on f32 inputs; the
+   math backend where it refuses the head dim, named in the record) on
+   the same f32 inputs, its forward on K7's row and its backward on
+   K8's and K9's.  LRN (K5
    forward, K6 backward) on ``randn * 2`` inputs:
    ``max|kernel - plain| <= 1e-5 * max(1, max|plain|)``, at n 1-5 and C
    1-5000 with alpha 0.5 (untimed; how many of them are bitwise equal is
@@ -65,8 +68,9 @@ Phases (any failure raises and the script exits non-zero):
    every block but the trash block and every scale bitwise equal to
    the plain version's, at ``append_cases`` (the README prefill of a
    100-token prompt padded to 128 positions, H 4, hd 16, blocks of 16;
-   a verify span [16, 5]; a 2048-position prefill at H 8, hd 128),
-   timed with CUDA events and the profiler's device time; its bound is
+   a verify span [16, 5]; a 2048-position prefill at H 8, hd 128; the
+   same prefill with values that grow the scale on every write), timed
+   with CUDA events and the profiler's device time; its bound is
    the touched blocks read and written once plus the values and
    indices read once, over the HBM rate; no PyTorch call computes it
    (``library_ms`` null).
@@ -150,7 +154,12 @@ Phases (any failure raises and the script exits non-zero):
    versions): n_err of each class within 1, weights within
    ``max|card - cpu| <= 1e-4``.  Then the JAX test's own run (T=8, D=8,
    2 heads, 600 sequences, minibatch 50, 25 epochs) must reach a best
-   validation error < 40 %.
+   validation error < 40 %.  Then the unit with one head (head dim 512:
+   K7-K9's wide path) at T=2048 takes 2 train steps on 24 sequences
+   (minibatch 8) on the card and on the CPU (``use_pallas=True``): each
+   loss within 1e-4 relative, each parameter tensor within 1e-4 of its
+   largest magnitude; K7, K8 and K9 counted from 0 over the card's
+   steps, once a step each.
 4c. Training (slice 4): the AlexNet sample at its published widths
    (227x227x3, conv 96/256/384/384/256 with LRN after the first two, fc
    4096/4096 with dropout 0.5, softmax 1000, minibatch 128) through
@@ -566,17 +575,25 @@ def append_cases():
     return cases
 
 
-def append_inputs(torch, dev, shape, blk, off, seed, scale=1.0):
+def append_inputs(torch, dev, shape, blk, off, seed, scale=1.0,
+                  growing=False):
     """(q, s, blk, off, vals) on ``dev``: a pool holding earlier content
     (int8 in [-127, 127], scales in [0, 0.05)) and f32 values
-    ``randn * scale`` for each write."""
+    ``randn * scale`` for each write.  ``growing``: each write's values
+    are ``uniform(-1, 1) * g`` with one of them ``g = 1.25 ** off``, so
+    a block's scale grows on every write (every ratio differs from 1)."""
     rng = numpy.random.RandomState(seed)
     q = torch.tensor(rng.randint(-127, 128, shape), dtype=torch.int8,
                      device=dev)
     s = torch.tensor(rng.uniform(0, 0.05, (shape[0], shape[2])),
                      dtype=torch.float32, device=dev)
-    vals = torch.tensor(rng.standard_normal(blk.shape + shape[2:]) * scale,
-                        dtype=torch.float32, device=dev)
+    if growing:
+        g = (1.25 ** off.astype(numpy.float64))[..., None, None]
+        v = rng.uniform(-1, 1, blk.shape + shape[2:]) * g
+        v[..., 0] = g[..., 0]
+    else:
+        v = rng.standard_normal(blk.shape + shape[2:]) * scale
+    vals = torch.tensor(v, dtype=torch.float32, device=dev)
     return (q, s, torch.tensor(blk, device=dev),
             torch.tensor(off, device=dev), vals)
 
@@ -597,7 +614,7 @@ def append_equal(torch, pa, q, s, blk, off, vals):
 
 def _measure_append(torch, pa, dev, label, shape, blk, off, seed):
     q, s, tblk, toff, vals = append_inputs(torch, dev, shape, blk, off,
-                                           seed)
+                                           seed, growing=label == "growing")
     bitwise, err = append_equal(torch, pa, q, s, tblk, toff, vals)
     if not bitwise:
         raise AssertionError("kv_append_int8 %s: kernel and plain version "
@@ -629,9 +646,12 @@ def _measure_append(torch, pa, dev, label, shape, blk, off, seed):
 
 def append_phase(torch, pa, dev):
     """-> {"kv_append_int8": {"main": README prefill record,
-    "realistic": [the verify span's, the 2048-position prefill's]}}."""
+    "realistic": [the verify span's, the 2048-position prefill's, the
+    same prefill with a scale that grows on every write]}}."""
+    cases = append_cases()
+    cases.append(("growing",) + cases[-1][1:])
     recs = [_measure_append(torch, pa, dev, label, shape, blk, off, 20 + i)
-            for i, (label, shape, blk, off) in enumerate(append_cases())]
+            for i, (label, shape, blk, off) in enumerate(cases)]
     return {"kv_append_int8": {"main": recs[0], "realistic": recs[1:]}}
 
 
@@ -825,24 +845,30 @@ def k4_phase(torch, gemm, dev):
 #: (B, T, H, D) of the main path: the attention unit at d_model 512,
 #: 8 heads, T 2048, minibatch 8; and its masks (causal, window)
 FLASH_MAIN = (8, 2048, 8, 64)
+#: the same unit with one head (head dim 512: the kernels' wide path),
+#: timed at B=1 T=2048 H=2 causal
+FLASH_WIDE = ((1, 2048, 2, 512), True, None)
 FLASH_MASKS = ((False, None), (True, None), (True, 512))
 #: the JAX package's measured shapes (bench.py:543 bench_flash_attention,
 #: :577 bench_window_attention)
 FLASH_REALISTIC = (((2, 2048, 8, 64), True, None),
                    ((1, 16384, 8, 64), True, 512),
                    ((2, 2048, 4, 128), True, None),
-                   ((2, 2048, 2, 256), True, None))
+                   ((2, 2048, 2, 256), True, None),
+                   FLASH_WIDE)
 #: (B, T, H, D, causal, window) held untimed: head dims below a tile, T
 #: below and at a tile, the JAX tests' windows, and T=256 with window
 #: 40, where both backward passes are banded (test_flash_attention.py);
-#: head dims past 128 (the 256 instantiation, zero-padded below 256)
+#: head dims past 128 (the 256 instantiation, zero-padded below 256) and
+#: past 256 (the wide path)
 FLASH_SMALL = tuple(
     [(2, t, 2, d, c, w) for d in (4, 8, 16) for t in (7, 8, 256)
      for c, w in ((False, None), (True, None), (True, 5))] +
     [(1, 256, 2, 16, True, w) for w in (1, 5, 64, 100, 256)] +
     [(1, 256, 2, 8, True, 40)] +
-    [(2, t, 2, d, c, w) for d in (129, 192, 256) for t in (7, 256)
-     for c, w in ((False, None), (True, None), (True, 40))])
+    [(2, t, 2, d, c, w) for d in (129, 192, 256, 320, 512, 1024)
+     for t in (7, 256) for c, w in ((False, None), (True, None),
+                                    (True, 40))])
 #: the head-dim tiles the kernels are instantiated at (csrc dispatch)
 FLASH_D_TILES = (32, 64, 128, 256)
 FLASH_FWD_TOL = 2e-5
@@ -905,18 +931,21 @@ def _flash_check(torch, fa, q, k, v, do, causal, window, label):
 
 
 #: the backend the library yardstick is pinned to: on f32 inputs the
-#: memory-efficient kernel, whose products are 3xTF32 on mma.sync
+#: memory-efficient kernel, whose products are 3xTF32 on mma.sync; a
+#: head dim it refuses takes the next of ``SDPA_FALLBACKS``, named in
+#: the record
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
+SDPA_FALLBACKS = ("MATH",)
 
 
 def _sdpa_calls(torch, q, k, v, do, causal, window):
     """``scaled_dot_product_attention`` on the same f32 inputs, pinned to
-    ``SDPA_BACKEND``: (forward, backward, forward output) for timing; a
-    window is a boolean band.  Each call runs inside the pin, so the
+    ``SDPA_BACKEND`` (or the first of ``SDPA_FALLBACKS`` that takes
+    them): (forward, backward, forward output, backend name) for timing;
+    a window is a boolean band.  Each call runs inside the pin, so the
     yardstick cannot change backend from run to run."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     f = torch.nn.functional
-    backend = getattr(SDPBackend, SDPA_BACKEND)
     qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     kw = {"is_causal": causal}
@@ -925,9 +954,19 @@ def _sdpa_calls(torch, q, k, v, do, causal, window):
         rows = torch.arange(t, device=q.device)[:, None]
         cols = torch.arange(t, device=q.device)[None, :]
         kw = {"attn_mask": (cols <= rows) & (cols > rows - window)}
-    with sdpa_kernel(backend):
-        out = f.scaled_dot_product_attention(qh, kh, vh, **kw)
     g = do.transpose(1, 2).contiguous()
+    for name in (SDPA_BACKEND,) + SDPA_FALLBACKS:
+        backend = getattr(SDPBackend, name)
+        try:
+            with sdpa_kernel(backend):
+                out = f.scaled_dot_product_attention(qh, kh, vh, **kw)
+                torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+            break
+        except RuntimeError as e:
+            if name == SDPA_FALLBACKS[-1]:
+                raise
+            _log("scaled_dot_product_attention: %s refuses head dim %d (%s)"
+                 % (name, q.shape[-1], str(e).splitlines()[0][:100]))
 
     def fwd():
         with torch.no_grad(), sdpa_kernel(backend):
@@ -938,7 +977,7 @@ def _sdpa_calls(torch, q, k, v, do, causal, window):
             return torch.autograd.grad(out, (qh, kh, vh), g,
                                        retain_graph=True)
 
-    return fwd, bwd, out.detach().transpose(1, 2)
+    return fwd, bwd, out.detach().transpose(1, 2), name
 
 
 def _measure_flash(torch, fa, dev, shape, causal, window, seed):
@@ -951,14 +990,14 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
     err, ref_out, lse, delta = _flash_check(torch, fa, q, k, v, do, causal,
                                             window, label)
     kw = dict(causal=causal, window=window)
-    sdpa_fwd, sdpa_bwd, sdpa_out = _sdpa_calls(torch, q, k, v, do, causal,
-                                               window)
+    sdpa_fwd, sdpa_bwd, sdpa_out, backend = _sdpa_calls(
+        torch, q, k, v, do, causal, window)
     library = {"fwd": _cuda_ms(torch, sdpa_fwd, iters=10),
                "bwd": _cuda_ms(torch, sdpa_bwd, iters=10)}
     library_err = float((sdpa_out - ref_out).abs().max())
     del sdpa_fwd, sdpa_bwd, sdpa_out
     vis, bh, elem = _visible(t, causal, window), b * h, b * t * h * d
-    d_tile = min(x for x in FLASH_D_TILES if x >= d)
+    d_tile = next((x for x in FLASH_D_TILES if x >= d), "wide")
     calls = {
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(q, k, v, **kw),
@@ -986,17 +1025,18 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
                "device_ms": _device_ms(torch, kernel, launches=1),
                "plain_ms": _cuda_ms(torch, plain, iters=3, warmup=1),
                "tf32x3_bound_ms": tc_ms, "cuda_core_bound_ms": bound_ms,
-               "library_ms": lib_ms, "flops": flops}
+               "library_ms": lib_ms, "library_backend": backend,
+               "flops": flops}
         rec["bound_ms"], rec["bound_by"] = max((tc_ms, "operations"),
                                                _bound(nbytes, 0))
-        _log("kernel %s [%s] D tile %d max_err=%.3g kernel_ms=%.4f "
+        _log("kernel %s [%s] D tile %s max_err=%.3g kernel_ms=%.4f "
              "device_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s; CUDA cores "
              "%.4f) library_ms=%.4f (scaled_dot_product_attention %s on "
              "%s; its output within %.3g of the plain one)"
              % (name, label, d_tile, e, rec["ms"], rec["device_ms"],
                 rec["plain_ms"], rec["bound_ms"], rec["bound_by"],
                 bound_ms, lib_ms, "forward" if name.endswith("fwd")
-                else "backward, dq+dk+dv", SDPA_BACKEND, library_err))
+                else "backward, dq+dk+dv", backend, library_err))
         recs[name] = rec
     return recs
 
@@ -1010,7 +1050,7 @@ def flash_phase(torch, fa, dev):
                      causal, window, "B=%d T=%d H=%d D=%d causal=%s "
                      "window=%s" % (b, t, h, d, causal, window))
     _log("kernel flash attention: %d small cases (head dims 4/8/16, T "
-         "7/8/256, windows 1-256; head dims 129/192/256, T 7/256) within "
+         "7/8/256, windows 1-256; head dims 129-1024, T 7/256) within "
          "the limits" % len(FLASH_SMALL))
     cases = [_measure_flash(torch, fa, dev, FLASH_MAIN, causal, window,
                             seed=100 + i)
@@ -2430,6 +2470,54 @@ def attention_small_run(torch, fa, card):
     return out
 
 
+#: the unit with one head (head dim 512, K7-K9's wide path): train steps
+#: at the full width (T 2048, d_model 512) on ``ATTN_CPU_N`` sequences,
+#: held against the CPU
+ATTN_WIDE_HEADS, ATTN_WIDE_STEPS = 1, 2
+
+
+def attention_wide_hold(torch, fa, card):
+    """``ATTN_WIDE_STEPS`` train steps of the attention unit at head dim
+    512 through K7-K9 on the card, and through the plain versions on the
+    CPU (``use_pallas=True`` on both): losses and weights within
+    ``steps_agree``'s limits.  The kernels' counts are set to 0 just
+    before the card's steps and read just after: each launches once a
+    step."""
+    label = "attention D=%d (one head)" % ATTN_D
+    counters = _flash_counters(fa)
+    wfs = {dev: attention_workflow(
+        ATTN_CPU_N, ATTN_T, ATTN_D, ATTN_WIDE_HEADS, epochs=1, device=dev,
+        use_pallas=True, n_valid=ATTN_CPU_VALID) for dev in ("cuda", "cpu")}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    card_losses = train_steps(wfs["cuda"], ATTN_WIDE_STEPS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    t0 = time.perf_counter()
+    cpu_losses = train_steps(wfs["cpu"], ATTN_WIDE_STEPS)
+    cpu_s = time.perf_counter() - t0
+    loss_diff, w_diff = steps_agree(
+        label, card_losses, host_weights(wfs["cuda"]), cpu_losses,
+        host_weights(wfs["cpu"]))
+    _log("train %s: %d train steps (T=%d, minibatch %d) on the card in "
+         "%.3f s (cuBLAS's first calls included), "
+         "on the CPU in %.3f s; losses card %s cpu %s; loss rel diff %.3g, "
+         "weight rel diff %.3g (limits %g, %g); launches %s [%s]"
+         % (label, ATTN_WIDE_STEPS, ATTN_T, ATTN_MINIBATCH, card_s, cpu_s,
+            card_losses, cpu_losses, loss_diff, w_diff, STEP_LOSS_RTOL,
+            STEP_WEIGHT_RTOL, launches, card))
+    want = {name: ATTN_WIDE_STEPS for name in counters}
+    if launches != want:
+        raise AssertionError("%s: launches %r over %d train steps, want %r"
+                             % (label, launches, ATTN_WIDE_STEPS, want))
+    return {"label": label, "card": card, "card_losses": card_losses,
+            "cpu_losses": cpu_losses, "loss_rel_diff": loss_diff,
+            "weight_rel_diff": w_diff, "card_seconds": card_s,
+            "cpu_seconds": cpu_s, "launches": launches}
+
+
 def trace_attention(torch, card, label, causal, window):
     """One full-width epoch of the ``ATTN_CONFIGS`` entry under
     ``torch.profiler``."""
@@ -3160,12 +3248,14 @@ def main():
         attention_first_epoch_vs_cpu(fa, *config)
         for config in ATTN_CONFIGS]
     record["attention_small"] = attention_small_run(torch, fa, card)
+    record["attention_wide"] = attention_wide_hold(torch, fa, card)
     for run in attention:
         run.pop("first_epoch")
     for name, kid in (("flash_attention_fwd", "K7"),
                       ("flash_attention_dq", "K8"),
                       ("flash_attention_dkv", "K9")):
-        launches[name] = sum(run["launches"][kid] for run in attention)
+        launches[name] = sum(run["launches"][kid] for run in attention) + \
+            record["attention_wide"]["launches"][kid]
     record["attention"] = attention
     phase_done("4b attention training")
     alexnet = [alexnet_run(torch, lrn_mod, card, *config)

@@ -18,6 +18,11 @@
   measured 3.0e-8 after 18 train steps, with either ``use_pallas``).
   Then the JAX test's 25-epoch gate: best validation error under 40 %
   (chance is 75 %).
+- The unit at d_model 512 with one head (head dim 512: the card's
+  kernels take it through their wide path) on the needle task at
+  T = 8: one train step through the flash Function's plain versions,
+  port against JAX from the same weights, loss within ``LOSS_RTOL``
+  and the weights within ``WEIGHT_ATOL``.
 """
 
 import numpy
@@ -170,11 +175,11 @@ def test_mesh_and_bad_windows_raise():
 
 # -- the needle task through StandardWorkflow ---------------------------------
 
-def _needle(n=600):
+def _needle(n=600, d=D):
     """tests/test_attention_unit.py's data: find the marked position's
     payload class."""
     rng = numpy.random.RandomState(3)
-    x = rng.uniform(-0.2, 0.2, (n, T, D)).astype(numpy.float32)
+    x = rng.uniform(-0.2, 0.2, (n, T, d)).astype(numpy.float32)
     labels = rng.randint(0, C, n)
     pos = rng.randint(0, T, n)
     for i in range(n):
@@ -183,14 +188,14 @@ def _needle(n=600):
     return x, list(labels.astype(numpy.int32))
 
 
-def _layers(**fwd):
-    return [{"type": "multihead_attention", "->": dict(fwd, heads=2),
+def _layers(heads=2, **fwd):
+    return [{"type": "multihead_attention", "->": dict(fwd, heads=heads),
              "<-": dict(GD)},
             {"type": "softmax", "->": {"output_sample_shape": C},
              "<-": dict(GD)}]
 
 
-def _jax_workflow(epochs=EPOCHS):
+def _jax_workflow(epochs=EPOCHS, n=600, d=D, minibatch=50, heads=2):
     from veles_tpu import prng
     from veles_tpu.backends import Device
     from veles_tpu.loader.base import TEST, TRAIN, VALID
@@ -200,23 +205,24 @@ def _jax_workflow(epochs=EPOCHS):
 
     class NeedleLoader(FullBatchLoader):
         def load_data(self):
-            self.original_data.mem, self.original_labels = _needle()
+            self.original_data.mem, self.original_labels = _needle(n, d)
             self.class_lengths[TEST] = 0
-            self.class_lengths[VALID] = 150
-            self.class_lengths[TRAIN] = 450
+            self.class_lengths[VALID] = n // 4
+            self.class_lengths[TRAIN] = n - n // 4
 
     prng.get().seed(42)
     wf = StandardWorkflow(
         None, name="attn-wf", loader_factory=NeedleLoader,
-        loader={"minibatch_size": 50, "prng": RandomGenerator().seed(5),
-                "prefetch_depth": 0},
-        layers=_layers(), loss_function="softmax",
+        loader={"minibatch_size": minibatch,
+                "prng": RandomGenerator().seed(5), "prefetch_depth": 0},
+        layers=_layers(heads), loss_function="softmax",
         decision={"max_epochs": epochs, "silent": True}, fused=True)
     wf.initialize(device=Device(backend="cpu"))
     return wf
 
 
-def _port_workflow(epochs=EPOCHS, **fwd):
+def _port_workflow(epochs=EPOCHS, n=600, d=D, minibatch=50, heads=2,
+                   **fwd):
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.loader.base import TEST, TRAIN, VALID
@@ -226,16 +232,17 @@ def _port_workflow(epochs=EPOCHS, **fwd):
 
     class NeedleLoader(FullBatchLoader):
         def load_data(self):
-            self.original_data.mem, self.original_labels = _needle()
+            self.original_data.mem, self.original_labels = _needle(n, d)
             self.class_lengths[TEST] = 0
-            self.class_lengths[VALID] = 150
-            self.class_lengths[TRAIN] = 450
+            self.class_lengths[VALID] = n // 4
+            self.class_lengths[TRAIN] = n - n // 4
 
     prng.get().seed(42)
     wf = StandardWorkflow(
         None, name="attn-wf", loader_factory=NeedleLoader,
-        loader={"minibatch_size": 50, "prng": RandomGenerator().seed(5)},
-        layers=_layers(**fwd), loss_function="softmax",
+        loader={"minibatch_size": minibatch,
+                "prng": RandomGenerator().seed(5)},
+        layers=_layers(heads, **fwd), loss_function="softmax",
         decision={"max_epochs": epochs, "silent": True}, fused=True)
     wf.initialize(device=Device(backend="cpu"))
     return wf
@@ -336,3 +343,42 @@ def test_workflow_params_from_jax_carries_proj():
            layers[1]]
     with pytest.raises(ValueError, match="proj"):
         workflow_params_from_jax(wf, bad)
+
+
+def _train_step(wf, train):
+    """Serve ``wf``'s minibatches until a train one, run it through the
+    fused step and carry the weights back to the units; -> its loss."""
+    while True:
+        wf.loader.run()
+        if wf.loader.minibatch_class == train:
+            break
+    wf.fused_step.run()
+    wf.fused_step.sync_weights()
+    return float(wf.fused_step.loss)
+
+
+def test_head_dim_512_train_step_matches_jax():
+    """d_model 512, one head: the head dim the card's kernels take
+    through their wide path.  One train step through the flash
+    Function's plain versions (``use_pallas=True``), port against JAX
+    from the same initial weights."""
+    from veles_tpu.loader.base import TRAIN as JAX_TRAIN
+    from veles_tpu_torch.convert import workflow_params_from_jax
+    from veles_tpu_torch.loader.base import TRAIN
+    kw = dict(epochs=1, n=16, d=512, minibatch=4, heads=1)
+    jwf = _jax_workflow(**kw)
+    twf = _port_workflow(use_pallas=True, **kw)
+    assert twf.forwards[0].host_params["weights"].shape == (512, 3 * 512)
+    jparams = [{k: numpy.array(v) for k, v in f.host_params.items()}
+               for f in jwf.forwards]
+    workflow_params_from_jax(twf, jparams)
+    j_loss = _train_step(jwf, JAX_TRAIN)
+    t_loss = _train_step(twf, TRAIN)
+    assert t_loss == pytest.approx(j_loss, rel=LOSS_RTOL)
+    for name, value in twf.forwards[0].host_params.items():
+        assert not numpy.array_equal(value, jparams[0][name]), name
+    for fwd, jfwd in zip(twf.forwards, jwf.forwards):
+        for name, value in fwd.host_params.items():
+            diff = numpy.abs(value - numpy.asarray(
+                jfwd.host_params[name])).max()
+            assert diff <= WEIGHT_ATOL, (name, diff)

@@ -17,7 +17,8 @@ geometry where both JAX backward passes are banded (T=256, window 40,
 the port its plain versions, the same function.  Tolerances are the
 JAX tests' own: 2e-5 forward, 5e-4 grads.  The port's
 ``attention_reference`` with ``window`` is held against the JAX one.
-Head dims 192 and 256 (the kernels' 256 instantiation on the card) run
+Head dims 192 and 256 (the kernels' 256 instantiation on the card) and
+320 and 512 (their wide path, which streams every operand over D) run
 on the CPU as in the JAX package (forward and grads).
 
 The card's K7, K8 and K9 form every product in 3xTF32 on the tensor
@@ -142,13 +143,12 @@ def test_forward_at_untileable_t_matches_jax():
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
 def test_head_dims_past_the_card_limit_match_jax(d, causal):
-    """Head dims past the kernels' former limit of 128, up to
-    ``MAX_HEAD_DIM`` (the 256 instantiation on the card), on the CPU:
-    the forward and the grads through the autograd Function against the
-    JAX kernels in interpret mode and ``jax.grad``."""
-    assert 128 < d <= fa.MAX_HEAD_DIM
+    """Head dims past the kernels' former limits of 128 and 256 (on the
+    card: the 256 instantiation, then the wide path), on the CPU: the
+    forward and the grads through the autograd Function against the JAX
+    kernels in interpret mode and ``jax.grad``."""
     q, k, v = _mk(1, 128, 2, d, seed=d)
 
     def jax_out(q, k, v):

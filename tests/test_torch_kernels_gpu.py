@@ -696,9 +696,6 @@ def test_flash_attention_refuses_what_the_kernels_cannot_take(cuda):
     q, k, v, do = _flash_inputs(cuda, 1, 16, 2, 8, seed=0)
     with pytest.raises(ValueError):        # f64 operands
         fa.flash_attention_fwd(q.double(), k.double(), v.double())
-    with pytest.raises(ValueError):        # head dim past 256
-        z = torch.zeros((1, 4, 1, 257), device=cuda)
-        fa.flash_attention_fwd(z, z, z)
     with pytest.raises(ValueError):        # operands on two devices
         fa.flash_attention_fwd(q, k.cpu(), v)
     with pytest.raises(ValueError):        # head dim not unit stride
@@ -708,41 +705,41 @@ def test_flash_attention_refuses_what_the_kernels_cannot_take(cuda):
         fa.flash_attention_fwd(q, k, v, causal=False, window=4)
 
 
-def test_flash_attention_head_dims_past_128_on_the_card(cuda):
-    """Head dims 192 and 256 (the kernels' 256 instantiation): every entry
-    against its plain version; 257 is refused by name by every entry."""
-    for d in (192, 256):
-        q, k, v, do = _flash_inputs(cuda, 1, 100, 2, d, seed=d)
-        kw = dict(causal=True, window=70)
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
-        assert float((out - ref_out).abs().max()) <= 2e-5
-        assert float((lse - ref_lse).abs().max()) <= 2e-5
-        delta = fa.flash_delta(do, ref_out)
-        assert _rel(fa.flash_attention_dq(q, k, v, do, ref_lse, delta, **kw),
-                    fa.flash_dq_reference(q, k, v, do, ref_lse, delta,
-                                          **kw)) <= 5e-4
-        for got, want in zip(
-                fa.flash_attention_dkv(q, k, v, do, ref_lse, delta, **kw),
-                fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, **kw)):
-            assert _rel(got, want) <= 5e-4
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        out = fa.flash_attention(*leaves, **kw)
-        grads = torch.autograd.grad((torch.sin(out) * out).sum(), leaves)
-        ref_leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        ref = attention_reference(*ref_leaves, **kw)
-        assert float((out - ref).abs().max()) <= 2e-5
-        want = torch.autograd.grad((torch.sin(ref) * ref).sum(), ref_leaves)
-        for g, w in zip(grads, want):
-            assert _rel(g, w) <= 5e-4
-    q, k, v, do = _flash_inputs(cuda, 1, 16, 2, 257, seed=1)
-    lse = torch.zeros((2, 16), device=cuda)
-    for call in (lambda: fa.flash_attention(q, k, v, causal=True),
-                 lambda: fa.flash_attention_fwd(q, k, v),
-                 lambda: fa.flash_attention_dq(q, k, v, do, lse, lse),
-                 lambda: fa.flash_attention_dkv(q, k, v, do, lse, lse)):
-        with pytest.raises(ValueError, match="head dim 257"):
-            call()
+@pytest.mark.parametrize("d", [192, 256, 257, 320, 512, 1024])
+def test_flash_attention_head_dims_past_128_on_the_card(cuda, d):
+    """Head dims 192 and 256 (the kernels' 256 instantiation) and 257 to
+    1024 (the wide path: operands streamed over D in chunks, output
+    columns over grid.y): every entry against its plain version, each
+    launching its kernel once, and the autograd Function against
+    ``attention_reference``."""
+    q, k, v, do = _flash_inputs(cuda, 1, 100, 2, d, seed=d)
+    kw = dict(causal=True, window=70)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    assert float((out - ref_out).abs().max()) <= 2e-5
+    assert float((lse - ref_lse).abs().max()) <= 2e-5
+    delta = fa.flash_delta(do, ref_out)
+    assert _rel(fa.flash_attention_dq(q, k, v, do, ref_lse, delta, **kw),
+                fa.flash_dq_reference(q, k, v, do, ref_lse, delta,
+                                      **kw)) <= 5e-4
+    for got, want in zip(
+            fa.flash_attention_dkv(q, k, v, do, ref_lse, delta, **kw),
+            fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, **kw)):
+        assert _rel(got, want) <= 5e-4
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(n + 1 for n in before)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad((torch.sin(out) * out).sum(), leaves)
+    ref_leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref = attention_reference(*ref_leaves, **kw)
+    assert float((out - ref).abs().max()) <= 2e-5
+    want = torch.autograd.grad((torch.sin(ref) * ref).sum(), ref_leaves)
+    for g, w in zip(grads, want):
+        assert _rel(g, w) <= 5e-4
 
 
 def test_flash_kernels_are_bitwise_repeatable(cuda):
@@ -841,6 +838,26 @@ def test_attention_unit_at_head_dim_256_on_the_card_matches_the_cpu(cuda):
             fa.flash_attention_dkv.launches - before[2]) == (2, 2, 2)
     host = chip_smoke.train_steps(wfs["cpu"], 2)
     chip_smoke.steps_agree("attention D=256", card, chip_smoke.host_weights(
+        wfs["cuda"]), host, chip_smoke.host_weights(wfs["cpu"]))
+
+
+def test_attention_unit_at_head_dim_512_on_the_card_matches_the_cpu(cuda):
+    """The attention unit at d_model 512 with one head (head dim 512, the
+    kernels' wide path) takes two train steps through K7-K9 on the card
+    and through the plain versions on the CPU: losses and weights within
+    chip_smoke's step limits."""
+    wfs = {dev: chip_smoke.attention_workflow(
+        16, 256, 512, 1, minibatch=4, epochs=1, device=dev,
+        use_pallas=True, n_valid=4) for dev in ("cuda", "cpu")}
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    card = chip_smoke.train_steps(wfs["cuda"], 2)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches - before[0],
+            fa.flash_attention_dq.launches - before[1],
+            fa.flash_attention_dkv.launches - before[2]) == (2, 2, 2)
+    host = chip_smoke.train_steps(wfs["cpu"], 2)
+    chip_smoke.steps_agree("attention D=512", card, chip_smoke.host_weights(
         wfs["cuda"]), host, chip_smoke.host_weights(wfs["cpu"]))
 
 
@@ -1126,6 +1143,69 @@ def test_kv_append_int8_all_zero_rows(cuda):
     kq, ks = _append_bitwise(q, s, blk, off, vals)
     assert int(kq[1, :2].abs().max()) == 0 and int(kq[1, 2].abs().max()) > 0
     assert int(kq[1, 4:].abs().max()) == 0      # reopened: wiped
+
+
+def _append_pool(dev, shape, seed):
+    """A pool holding earlier content, as chip_smoke's."""
+    rng = numpy.random.RandomState(seed)
+    return (torch.tensor(rng.randint(-127, 128, shape), dtype=torch.int8,
+                         device=dev),
+            torch.tensor(rng.uniform(0, 0.05, (shape[0], shape[2])),
+                         dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("d", [16, 128, 256])
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_kv_append_int8_growing_runs_from_mid_block(cuda, bs, d,
+                                                    index_dtype):
+    """One sequence from offset 5 of a block holding an earlier call's
+    content over three blocks, its values growing with the position, so
+    the scale grows on most writes (runs of up to 64 writes: two warp
+    segments at block size 64); then a second call continues the same
+    blocks."""
+    n = 2 * bs + 7
+    pos = 5 + numpy.arange(n)
+    table = numpy.array([6, 2, 8])
+    q, s = _append_pool(cuda, (9, bs, 2, d), seed=bs + d)
+    blk = torch.tensor(table[pos // bs], device=cuda).to(index_dtype)
+    off = torch.tensor(pos % bs, device=cuda).to(index_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(bs + d)
+    growth = torch.arange(1, n + 1, device=cuda, dtype=torch.float32)
+    vals = (torch.randn((n, 2, d), generator=gen, device=cuda)
+            * growth[:, None, None] ** 2)
+    q, s = _append_bitwise(q, s, blk, off, vals)
+    _append_bitwise(q, s, blk, off, vals * 3.0)
+
+
+def test_kv_append_int8_reopen_mid_call_and_trash_padding(cuda):
+    """A [2, 24] call: row 0 fills a block from offset 8 and reopens the
+    next at offset 0 in mid-call; row 1 writes 19 positions and pads the
+    rest into the trash block."""
+    bs = 16
+    pos = numpy.arange(24)
+    blk = numpy.stack([numpy.array([3, 5])[(pos + 8) // bs],
+                       numpy.where(pos < 19, numpy.array([7, 2])[
+                           numpy.minimum(pos // bs, 1)], 0)])
+    off = numpy.stack([(pos + 8) % bs, pos % bs])
+    q, s = _append_pool(cuda, (9, bs, 4, 16), seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    vals = torch.randn((2, 24, 4, 16), generator=gen, device=cuda)
+    for dtype in (torch.int64, torch.int32):
+        _append_bitwise(q, s, torch.tensor(blk, device=cuda).to(dtype),
+                        torch.tensor(off, device=cuda).to(dtype), vals)
+
+
+@pytest.mark.parametrize("d", [12, 5])
+def test_kv_append_int8_ragged_head_dims_and_misaligned_values(cuda, d):
+    """Head dims that take 4-byte and 1-byte lanes, and values that start
+    4 bytes past an aligned address."""
+    blk = torch.tensor([1] * 8 + [2] * 3, device=cuda)
+    off = torch.tensor(list(range(8)) + list(range(3)), device=cuda)
+    q, s = _append_pool(cuda, (5, 8, 3, d), seed=d)
+    buf = torch.randn(11 * 3 * d + 1, device=cuda)
+    _append_bitwise(q, s, blk, off, buf[:-1].view(11, 3, d))
+    _append_bitwise(q, s, blk, off, buf[1:].view(11, 3, d))
 
 
 def test_kv_append_int8_chunked_equals_one_call_and_adds_no_sync(cuda):

@@ -28,7 +28,8 @@
 // Every output is owned by one CTA, which walks its tiles in a fixed
 // order with no atomics: two runs give the same bits.  expf / logf are
 // the full-precision ones.  Head dims 1-256: instantiations at 32, 64,
-// 128 and 256, zero-padded below.
+// 128 and 256, zero-padded below; past 256 the wide path (its section
+// below) streams every operand over D in chunks.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -860,6 +861,439 @@ flash_fwd_kernel(View q, View k, View v, float* __restrict__ out,
   }
 }
 
+// -- The wide path: head dims past 256 ----------------------------------------
+//
+// Past 256 no operand tile stays resident (K8's Q and dO alone would be
+// 256 KB at D = 512).  Each CTA still owns 64 rows, and kWideOut of
+// their output columns (grid.y takes the rest).  The products that sum
+// over D (S = Q.K^T in all three, dP = dO.V^T in K8 and K9) stream both
+// operands through shared memory kWideChunk columns at a time: each
+// chunk's 3xTF32 sum starts at zero in the tensor cores (tile_qk) and
+// joins the score tile in registers with an IEEE add.  The products that
+// run over D (K7: O += P.V; K8: dQ += dS.K; K9: dV += P^T.dO, dK +=
+// dS^T.Q) then take the CTA's columns of the streamed tile, through the
+// same tile_acc_tc as the resident path.  So every column CTA recomputes
+// its score tiles (as K7 does at 256), and only column CTA 0 writes lse.
+// The steps of a streamed tile (its chunks, then its output columns) go
+// through two slots filled by cp.async, the next step's copy in flight
+// while the current one is multiplied; two barriers a step.  K7 scales
+// S, not the Q tile (Q is not resident); the rounding differs from the
+// resident path's by an ulp of a score.  Any D with ceil(D / kWideOut)
+// <= 65535 (grid.y) runs; D is zero-padded to whole chunks.
+constexpr int kWideChunk = 64;  // columns of a streamed chunk of a product
+constexpr int kWideOut = 128;   // output columns a CTA
+constexpr int kWideLC = kWideChunk + 4, kWideLO = kWideOut + 4;
+// keys (K7, K8) or queries (K9) a streamed tile: each step re-reads the
+// CTA's own rows from L2, so the larger the streamed tile the fewer
+// reads a product; on an H100 K7 at 64 and K9 at 32 ran 20 % faster
+// than at 32 and 16, K8 at 64 10 % slower (PERF.md)
+constexpr int kFwdWideBK = 64, kDqWideBK = 32, kDkvWideBQ = 32;
+// the floats of one slot: a chunk step's tiles; the output step's fit
+constexpr int kFwdWideSlot = (kRows + kFwdWideBK) * kWideLC;
+constexpr int kDqWideSlot = 2 * (kRows + kDqWideBK) * kWideLC;
+constexpr int kDkvWideSlot = 2 * (kRows + kDkvWideBQ) * kWideLC;
+static_assert(kFwdWideBK * kWideLO <= kFwdWideSlot &&
+                  kDqWideBK * kWideLO <= kDqWideSlot &&
+                  2 * kDkvWideBQ * (kWideLO + 1) <= kDkvWideSlot,
+              "an output step fits a slot");
+
+// rows r0 .. r0 + R - 1, columns c * kWideChunk .. of their chunk c
+template <int R>
+__device__ __forceinline__ void copy_chunk(float* s, const float* base,
+                                           long long st, int r0, int T,
+                                           int D, int c, bool vec) {
+  copy_rows<R, kWideChunk>(s, base + c * kWideChunk, st, r0, T,
+                           D - c * kWideChunk, vec);
+}
+
+// s (+)= a . b^T over one chunk (tile_qk's operands, rows kWideLC
+// floats apart); the chunk's sum joins s with an IEEE add, the first
+// chunk's is s
+template <int NT>
+__device__ __forceinline__ void chunk_qk(float (&s)[NT][4], const float* a,
+                                         const float* b, bool first, int gid,
+                                         int tig) {
+  float t[NT][4];
+  tile_qk<NT, kWideChunk, false>(t, a, b, b, gid, tig);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = first ? t[j][e] : __fadd_rn(s[j][e], t[j][e]);
+}
+
+// K7, wide: out and lse of one Q tile of one (b, h), output columns
+// blockIdx.y * kWideOut ..; the online softmax as flash_fwd_kernel's
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(View q, View k, View v, float* __restrict__ out,
+                      float* __restrict__ lse, int T, int H, int D,
+                      float scale, int causal, int window, unsigned vec) {
+  constexpr int BK = kFwdWideBK, LC = kWideLC, NT = BK / 8;
+  constexpr int KD = kWideOut / 8, kSlot = kFwdWideSlot;
+  extern __shared__ float4 smem4[];
+  float* slots = reinterpret_cast<float*>(smem4);  // 2 x kSlot
+
+  const int ntiles = (T + kRows - 1) / kRows;
+  int bh, iq;
+  tile_of_block(ntiles, bh, iq);
+  const int b = bh / H, h = bh % H;
+  const int q0 = iq * kRows, n0 = blockIdx.y * kWideOut;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, r0 = q0 + warp * 16;
+
+  // the K tiles this Q tile sees: lo .. hi; each takes nc chunk steps
+  // (Q and K) and one step of its V columns
+  int lo = 0, hi = (T - 1) / BK;
+  if (causal) {
+    hi = min(hi, (q0 + kRows - 1) / BK);
+    if (window > 0) lo = max(0, q0 - window + 1) / BK;
+  }
+  const int nc = (D + kWideChunk - 1) / kWideChunk, per = nc + 1;
+  const int steps = (hi - lo + 1) * per;
+
+  const float* qb = row_base(q, b, h);
+  const float* kb = row_base(k, b, h);
+  const float* vb = row_base(v, b, h) + n0;
+  auto load = [&](int j) {
+    float* st = slots + (j & 1) * kSlot;
+    const int c = j % per, c0 = (lo + j / per) * BK;
+    if (c < nc) {
+      copy_chunk<kRows>(st, qb, q.st, q0, T, D, c, vec & 1);
+      copy_chunk<BK>(st + kRows * LC, kb, k.st, c0, T, D, c, vec & 2);
+    } else {
+      copy_rows<BK, kWideOut>(st, vb, v.st, c0, T, D - n0, vec & 4);
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  // the thread's rows: r0 + gid and 8 below
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, acc[KD][4];
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {
+    if (j + 1 < steps) load(j + 1);  // into the slot step j - 1 freed
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* st = slots + (j & 1) * kSlot;
+    const int c = j % per, c0 = (lo + j / per) * BK;
+    // does the warp's rows see a key of this tile?
+    const bool sees =
+        r0 < T && !(causal && (c0 > r0 + 15 ||
+                               (window > 0 && c0 + BK - 1 <= r0 - window)));
+    if (sees && c < nc) {
+      chunk_qk<NT>(s, st + warp * 16 * LC, st + kRows * LC, c == 0, gid,
+                   tig);
+    } else if (sees) {
+      const bool edge =
+          tile_masked(r0, r0 + 15, c0, c0 + BK - 1, T, causal, window);
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[i][e] = edge && masked(r0 + gid + 8 * (e >> 1),
+                                   c0 + i * 8 + 2 * tig + (e & 1), T,
+                                   causal, window)
+                        ? kNegInf
+                        : __fmul_rn(s[i][e], scale);
+      float mx[2] = {m_r[0], m_r[1]}, alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float safe_m = mx[r] == kNegInf ? 0.f : mx[r];
+        alpha[r] = m_r[r] == kNegInf ? 0.f : expf(m_r[r] - safe_m);
+        m_r[r] = mx[r];
+        mx[r] = safe_m;
+      }
+      SplitA a[NT];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              s[i][e] == kNegInf ? 0.f : expf(s[i][e] - mx[e >> 1]);
+          s[i][e] = p;
+          sum[e >> 1] += p;
+        }
+        acc_as_a(s[i], a[i]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_r[r] = __fadd_rn(__fmul_rn(l_r[r], alpha[r]), sum[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < KD; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][e] = __fmul_rn(acc[i][e], alpha[e >> 1]);
+      tile_acc_tc<NT, KD, 2, kWideOut, false>(acc, a, st, st, gid, tig);
+    }
+    __syncthreads();  // every warp is done with the slot step j + 2 fills
+  }
+  cp_async_wait<0>();
+
+  float* o = out + ((long long)b * T * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + gid + 8 * r;
+    if (t >= T) continue;
+    const float safe_l = l_r[r] == 0.f ? 1.f : l_r[r];
+#pragma unroll
+    for (int j = 0; j < KD; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n0 + j * 8 + 2 * tig + e;
+        if (d < D) o[(long long)t * H * D + d] = acc[j][2 * r + e] / safe_l;
+      }
+    if (blockIdx.y == 0 && tig == 0)
+      lse[(long long)bh * T + t] =
+          (m_r[r] == kNegInf ? 0.f : m_r[r]) + logf(safe_l);
+  }
+}
+
+// K8, wide: dq of one Q tile of one (b, h), output columns blockIdx.y *
+// kWideOut ..
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wide_kernel(View q, View k, View v, View dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq, int T, int H, int D,
+                     float scale, int causal, int window, unsigned vec) {
+  constexpr int BK = kDqWideBK, LC = kWideLC, NT = BK / 8;
+  constexpr int KD = kWideOut / 8, kSlot = kDqWideSlot;
+  extern __shared__ float4 smem4[];
+  // a chunk step: Q, dO [kRows][LC], K, V [BK][LC]; the output step: K's
+  // columns [BK][kWideLO]
+  float* slots = reinterpret_cast<float*>(smem4);  // 2 x kSlot
+
+  const int ntiles = (T + kRows - 1) / kRows;
+  int bh, iq;
+  tile_of_block(ntiles, bh, iq);
+  const int b = bh / H, h = bh % H;
+  const int q0 = iq * kRows, n0 = blockIdx.y * kWideOut;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, m0 = warp * 16;
+
+  int lo = 0, hi = (T - 1) / BK;
+  if (causal) {
+    hi = min(hi, (q0 + kRows - 1) / BK);
+    if (window > 0) lo = max(0, q0 - window + 1) / BK;
+  }
+  const int nc = (D + kWideChunk - 1) / kWideChunk, per = nc + 1;
+  const int steps = (hi - lo + 1) * per;
+
+  const float* qb = row_base(q, b, h);
+  const float* ob = row_base(dout, b, h);
+  const float* kb = row_base(k, b, h);
+  const float* vb = row_base(v, b, h);
+  auto load = [&](int j) {
+    float* st = slots + (j & 1) * kSlot;
+    const int c = j % per, c0 = (lo + j / per) * BK;
+    if (c < nc) {
+      copy_chunk<kRows>(st, qb, q.st, q0, T, D, c, vec & 1);
+      copy_chunk<kRows>(st + kRows * LC, ob, dout.st, q0, T, D, c, vec & 8);
+      copy_chunk<BK>(st + 2 * kRows * LC, kb, k.st, c0, T, D, c, vec & 2);
+      copy_chunk<BK>(st + (2 * kRows + BK) * LC, vb, v.st, c0, T, D, c,
+                     vec & 4);
+    } else {
+      copy_rows<BK, kWideOut>(st, kb + n0, k.st, c0, T, D - n0, vec & 2);
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  // the thread's rows: q0 + m0 + gid and 8 below
+  float lse_r[2], delta_r[2], acc[KD][4], s[NT][4], dp[NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + m0 + gid + 8 * i;
+    lse_r[i] = r < T ? lse[(long long)bh * T + r] : 0.f;
+    delta_r[i] = r < T ? delta[(long long)bh * T + r] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {
+    if (j + 1 < steps) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* st = slots + (j & 1) * kSlot;
+    const int c = j % per, c0 = (lo + j / per) * BK;
+    if (c < nc) {
+      chunk_qk<NT>(s, st + m0 * LC, st + 2 * kRows * LC, c == 0, gid,
+                   tig);                                         // q k^T
+      chunk_qk<NT>(dp, st + (kRows + m0) * LC, st + (2 * kRows + BK) * LC,
+                   c == 0, gid, tig);                            // dO v^T
+    } else {
+      const bool edge = tile_masked(q0 + m0, q0 + m0 + 15, c0, c0 + BK - 1,
+                                    T, causal, window);
+      SplitA a[NT];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = q0 + m0 + gid + 8 * (e >> 1);
+          const int col = c0 + i * 8 + 2 * tig + (e & 1);
+          const float p = edge && masked(r, col, T, causal, window)
+                              ? 0.f
+                              : expf(s[i][e] * scale - lse_r[e >> 1]);
+          s[i][e] = p * (dp[i][e] - delta_r[e >> 1]);  // ds
+        }
+        acc_as_a(s[i], a[i]);
+      }
+      tile_acc_tc<NT, KD, 2, kWideOut, false>(acc, a, st, st, gid, tig);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  float* o = dq + ((long long)b * T * H + h) * D;
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + m0 + gid + 8 * (e >> 1);
+      const int d = n0 + j * 8 + 2 * tig + (e & 1);
+      if (r < T && d < D) o[(long long)r * H * D + d] = acc[j][e] * scale;
+    }
+}
+
+// K9, wide: dk and dv of one K tile of one (b, h), output columns
+// blockIdx.y * kWideOut ..
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_wide_kernel(View q, View k, View v, View dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int T,
+                      int H, int D, float scale, int causal, int window,
+                      unsigned vec) {
+  constexpr int BQ = kDkvWideBQ, LC = kWideLC, LO = kWideLO, NT = BQ / 8;
+  constexpr int KD = kWideOut / 8, kSlot = kDkvWideSlot;
+  extern __shared__ float4 smem4[];
+  // a chunk step: K, V [kRows][LC], Q, dO [BQ][LC]; the output step: Q's
+  // and dO's columns [BQ][LO], lse, delta [BQ]
+  float* slots = reinterpret_cast<float*>(smem4);  // 2 x kSlot
+
+  const int ntiles = (T + kRows - 1) / kRows;
+  const int bh = blockIdx.x / ntiles, jk = blockIdx.x % ntiles;
+  const int b = bh / H, h = bh % H;
+  const int c0 = jk * kRows, n0 = blockIdx.y * kWideOut;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, m0 = warp * 16;
+
+  int lo = 0, hi = (T - 1) / BQ;
+  if (causal) {
+    lo = c0 / BQ;
+    if (window > 0)
+      hi = (int)min((long long)hi,
+                    ((long long)c0 + kRows - 1 + window - 1) / BQ);
+  }
+  const int nc = (D + kWideChunk - 1) / kWideChunk, per = nc + 1;
+  const int steps = (hi - lo + 1) * per;
+
+  const float* qb = row_base(q, b, h);
+  const float* ob = row_base(dout, b, h);
+  const float* kb = row_base(k, b, h);
+  const float* vb = row_base(v, b, h);
+  const float* lse_b = lse + (long long)bh * T;
+  const float* delta_b = delta + (long long)bh * T;
+  auto load = [&](int j) {
+    float* st = slots + (j & 1) * kSlot;
+    const int c = j % per, r0 = (lo + j / per) * BQ;
+    if (c < nc) {
+      copy_chunk<kRows>(st, kb, k.st, c0, T, D, c, vec & 2);
+      copy_chunk<kRows>(st + kRows * LC, vb, v.st, c0, T, D, c, vec & 4);
+      copy_chunk<BQ>(st + 2 * kRows * LC, qb, q.st, r0, T, D, c, vec & 1);
+      copy_chunk<BQ>(st + (2 * kRows + BQ) * LC, ob, dout.st, r0, T, D, c,
+                     vec & 8);
+    } else {
+      copy_rows<BQ, kWideOut>(st, qb + n0, q.st, r0, T, D - n0, vec & 1);
+      copy_rows<BQ, kWideOut>(st + BQ * LO, ob + n0, dout.st, r0, T, D - n0,
+                              vec & 8);
+      copy_stats<BQ>(st + 2 * BQ * LO, lse_b, delta_b, r0, T);
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  // the thread's keys: c0 + m0 + gid and 8 below; columns n0 + 8 j ..
+  float dk_acc[KD][4], dv_acc[KD][4], s[NT][4], dp[NT][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {
+    if (j + 1 < steps) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* st = slots + (j & 1) * kSlot;
+    const int c = j % per, q0 = (lo + j / per) * BQ;
+    if (c < nc) {
+      chunk_qk<NT>(s, st + m0 * LC, st + 2 * kRows * LC, c == 0, gid,
+                   tig);                                     // (q k^T)^T
+      chunk_qk<NT>(dp, st + (kRows + m0) * LC, st + (2 * kRows + BQ) * LC,
+                   c == 0, gid, tig);                        // (dO v^T)^T
+    } else {
+      const float* lse_s = st + 2 * BQ * LO;
+      const float* delta_s = lse_s + BQ;
+      const bool edge = tile_masked(q0, q0 + BQ - 1, c0 + m0, c0 + m0 + 15,
+                                    T, causal, window);
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = c0 + m0 + gid + 8 * (e >> 1);
+          const int col = i * 8 + 2 * tig + (e & 1);
+          const float p = edge && masked(q0 + col, key, T, causal, window)
+                              ? 0.f
+                              : expf(s[i][e] * scale - lse_s[col]);
+          s[i][e] = p;
+          dp[i][e] = p * (dp[i][e] - delta_s[col]);  // ds
+        }
+      SplitA a[NT];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) acc_as_a(s[i], a[i]);
+      tile_acc_tc<NT, KD, 2, kWideOut, false>(dv_acc, a, st + BQ * LO,
+                                              st + BQ * LO, gid, tig);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) acc_as_a(dp[i], a[i]);
+      tile_acc_tc<NT, KD, 2, kWideOut, false>(dk_acc, a, st, st, gid, tig);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  const long long off = ((long long)b * T * H + h) * D;
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = c0 + m0 + gid + 8 * (e >> 1);
+      const int d = n0 + j * 8 + 2 * tig + (e & 1);
+      if (key < T && d < D) {
+        dk[off + (long long)key * H * D + d] = dk_acc[j][e] * scale;
+        dv[off + (long long)key * H * D + d] = dv_acc[j][e];
+      }
+    }
+}
+
 // opt a kernel into its dynamic shared memory (past the default 48 KB)
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -931,15 +1365,62 @@ cudaError_t bwd_dkv(View q, View k, View v, View dout, const float* lse,
   return cudaGetLastError();
 }
 
+// the wide path's grid: (B * H * Q or K tiles, output column CTAs)
+dim3 wide_grid(int B, int T, int H, int D) {
+  const long long blocks = (long long)B * H * ((T + kRows - 1) / kRows);
+  return dim3((unsigned)blocks, (unsigned)((D + kWideOut - 1) / kWideOut));
+}
+
+cudaError_t fwd_wide(View q, View k, View v, float* out, float* lse, int B,
+                     int T, int H, int D, float scale, int causal,
+                     int window, cudaStream_t s) {
+  constexpr size_t smem = sizeof(float) * 2 * kFwdWideSlot;
+  const cudaError_t e = allow_smem(flash_fwd_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
+  flash_fwd_wide_kernel<<<wide_grid(B, T, H, D), kThreads, smem, s>>>(
+      q, k, v, out, lse, T, H, D, scale, causal, window,
+      vec_bits(q, k, v, q));
+  return cudaGetLastError();
+}
+
+cudaError_t dq_wide(View q, View k, View v, View dout, const float* lse,
+                    const float* delta, float* dq, int B, int T, int H,
+                    int D, float scale, int causal, int window,
+                    cudaStream_t s) {
+  constexpr size_t smem = sizeof(float) * 2 * kDqWideSlot;
+  const cudaError_t e = allow_smem(flash_dq_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
+  flash_dq_wide_kernel<<<wide_grid(B, T, H, D), kThreads, smem, s>>>(
+      q, k, v, dout, lse, delta, dq, T, H, D, scale, causal, window,
+      vec_bits(q, k, v, dout));
+  return cudaGetLastError();
+}
+
+cudaError_t dkv_wide(View q, View k, View v, View dout, const float* lse,
+                     const float* delta, float* dk, float* dv, int B, int T,
+                     int H, int D, float scale, int causal, int window,
+                     cudaStream_t s) {
+  constexpr size_t smem = sizeof(float) * 2 * kDkvWideSlot;
+  const cudaError_t e = allow_smem(flash_dkv_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
+  flash_dkv_wide_kernel<<<wide_grid(B, T, H, D), kThreads, smem, s>>>(
+      q, k, v, dout, lse, delta, dk, dv, T, H, D, scale, causal, window,
+      vec_bits(q, k, v, dout));
+  return cudaGetLastError();
+}
+
 // the instantiation for a head dim D: the smallest of 32, 64, 128, 256
-// >= D (the zero-padded columns cost work, not results)
-template <typename F>
-int dispatch(int B, int T, int D, F&& launch) {
-  if (D < 1 || D > 256 || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
+// >= D (the zero-padded columns cost work, not results); past 256 the
+// wide path, up to 65535 column CTAs
+template <typename F, typename W>
+int dispatch(int B, int T, int D, F&& launch, W&& wide) {
+  if (D < 1 || B < 1 || T < 1 || (D + kWideOut - 1) / kWideOut > 65535)
+    return (int)cudaErrorInvalidValue;
   if (D <= 32) return (int)launch(std::integral_constant<int, 32>());
   if (D <= 64) return (int)launch(std::integral_constant<int, 64>());
   if (D <= 128) return (int)launch(std::integral_constant<int, 128>());
-  return (int)launch(std::integral_constant<int, 256>());
+  if (D <= 256) return (int)launch(std::integral_constant<int, 256>());
+  return (int)wide();
 }
 
 }  // namespace
@@ -958,10 +1439,16 @@ int vt_flash_fwd(const float* q, long long q_sb, long long q_st,
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(B, T, D, [&](auto dm) {
-    return fwd<decltype(dm)::value>(qv, kv, vv, out, lse, B, T, H, D, scale,
-                                    causal, window, s);
-  });
+  return dispatch(
+      B, T, D,
+      [&](auto dm) {
+        return fwd<decltype(dm)::value>(qv, kv, vv, out, lse, B, T, H, D,
+                                        scale, causal, window, s);
+      },
+      [&] {
+        return fwd_wide(qv, kv, vv, out, lse, B, T, H, D, scale, causal,
+                        window, s);
+      });
 }
 
 // dout: [B, T, H, D] by strides as q; lse and delta: [B * H, T];
@@ -977,10 +1464,16 @@ int vt_flash_dq(const float* q, long long q_sb, long long q_st,
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh}, ov{dout, o_sb, o_st, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(B, T, D, [&](auto dm) {
-    return bwd_dq<decltype(dm)::value>(qv, kv, vv, ov, lse, delta, dq, B, T,
-                                       H, D, scale, causal, window, s);
-  });
+  return dispatch(
+      B, T, D,
+      [&](auto dm) {
+        return bwd_dq<decltype(dm)::value>(qv, kv, vv, ov, lse, delta, dq, B,
+                                           T, H, D, scale, causal, window, s);
+      },
+      [&] {
+        return dq_wide(qv, kv, vv, ov, lse, delta, dq, B, T, H, D, scale,
+                       causal, window, s);
+      });
 }
 
 // as vt_flash_dq; dk, dv: contiguous [B, T, H, D]
@@ -995,10 +1488,17 @@ int vt_flash_dkv(const float* q, long long q_sb, long long q_st,
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh}, ov{dout, o_sb, o_st, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(B, T, D, [&](auto dm) {
-    return bwd_dkv<decltype(dm)::value>(qv, kv, vv, ov, lse, delta, dk, dv, B,
-                                        T, H, D, scale, causal, window, s);
-  });
+  return dispatch(
+      B, T, D,
+      [&](auto dm) {
+        return bwd_dkv<decltype(dm)::value>(qv, kv, vv, ov, lse, delta, dk,
+                                            dv, B, T, H, D, scale, causal,
+                                            window, s);
+      },
+      [&] {
+        return dkv_wide(qv, kv, vv, ov, lse, delta, dk, dv, B, T, H, D,
+                        scale, causal, window, s);
+      });
 }
 
 const char* vt_error_string(int code) {

@@ -19,12 +19,14 @@ matrix: K/V (or Q) tiles stream through shared memory, and a window
 visits only the tiles inside its band.  They read q, k, v and dO through
 their strides (the head dim must be unit stride), so the views a packed
 QKV projection yields cost no copy; they take any T (a ragged last tile
-is masked in the kernel) and head dims 1-256; a CUDA call past that
-raises, while the plain versions, like the JAX kernels, take any head
-dim.  All three form their products on the tensor cores in 3xTF32,
-which keeps f32's accuracy (TF32 alone stays off); K7 keeps its online
-softmax in the accumulators of the score tile and joins each key tile's
-``P.V`` to its f32 sum as ``acc * alpha + tile``.  The JAX package's
+is masked in the kernel) and any head dim, as the JAX kernels and the
+plain versions do: up to 256 an operand tile stays resident in shared
+memory, past it every product streams its operands over D in chunks
+and the output columns split over more CTAs.  All three form their
+products on the tensor cores in 3xTF32, which keeps f32's accuracy
+(TF32 alone stays off); K7 keeps its online softmax in the accumulators
+of the score tile and joins each key tile's ``P.V`` to its f32 sum as
+``acc * alpha + tile``.  The JAX package's
 ``block_q``/``block_k`` and their autotune lookup chose TPU VMEM tiles;
 the CUDA kernels choose their own, so neither is carried over.
 
@@ -44,13 +46,8 @@ from .. import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_delta", "flash_fwd_reference",
-           "flash_dq_reference", "flash_dkv_reference", "MAX_HEAD_DIM"]
+           "flash_dq_reference", "flash_dkv_reference"]
 
-#: the largest head dim the CUDA kernels take (the plain versions take any):
-#: at 256, K8's dq accumulator and K9's dk/dv ones take 128 registers a
-#: thread; K7 is held to the same limit, since the autograd Function
-#: pairs it with them (a wider forward would meet a backward that raises)
-MAX_HEAD_DIM = 256
 #: bytes of one ``[heads, T, T]`` f32 tensor of a plain version's chunk
 _CHUNK_BYTES = 1 << 30
 
@@ -87,13 +84,6 @@ def _check(q, k, v, causal, window, *more):
         raise ValueError("operands on several devices: %s"
                          % sorted(map(str, devices)))
     return q.device.type == "cpu"
-
-
-def _card_head_dim(q):
-    """The kernels' own limit on the head dim (``MAX_HEAD_DIM``)."""
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError("head dim %d outside 1..%d: the CUDA kernels take "
-                         "no more" % (q.shape[-1], MAX_HEAD_DIM))
 
 
 def _view(x, name):
@@ -243,7 +233,6 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, window=None):
     the kernel; CPU operands run :func:`flash_fwd_reference`."""
     if _check(q, k, v, causal, window):
         return flash_fwd_reference(q, k, v, causal, scale, window)
-    _card_head_dim(q)
     b, t, h, _ = q.shape
     args = _view(q, "q") + _view(k, "k") + _view(v, "v")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -274,7 +263,6 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None,
     if _check(q, k, v, causal, window, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal, scale,
                                   window)
-    _card_head_dim(q)
     args = _backward_args(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = _build.function(_SRC, "vt_flash_dq",
@@ -294,7 +282,6 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
     if _check(q, k, v, causal, window, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale,
                                    window)
-    _card_head_dim(q)
     args = _backward_args(q, k, v, do, lse, delta)
     dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
