@@ -41,7 +41,8 @@ Phases (any failure raises and the script exits non-zero):
    one packed projection: out and lse ``max|kernel - plain| <= 2e-5``,
    each gradient ``<= 5e-4 * max(1, max|plain|)``; at head dims 4, 8, 16,
    T = 7, 8, 256, windows 1-256 and at head dims 129, 192, 256, 320,
-   512, 1024, T = 7, 256 (untimed), at the main path's shape (B=8,
+   512, 1024, T = 7, 256 and at the one-head unit's B=8, T=2048, H=1,
+   D=512, no mask and causal (untimed), at the main path's shape (B=8,
    T=2048, H=8, D=64: no mask, causal, causal with window 512), at the
    JAX package's bench shapes (B=2, T=2048 causal; B=1, T=16384, window
    512), at head dims 128 and 256 (B=2, T=2048, causal) and at head dim
@@ -50,8 +51,7 @@ Phases (any failure raises and the script exits non-zero):
    (head-dim tile, or "wide") that ran; each kernel's bound is 3x its
    useful operations at the TF32 rate (3xTF32), beside the CUDA-core
    bound; ``library_ms`` is ``scaled_dot_product_attention`` pinned to
-   its memory-efficient backend (3xTF32 ``mma.sync`` on f32 inputs; the
-   math backend where it refuses the head dim, named in the record) on
+   its memory-efficient backend (3xTF32 ``mma.sync`` on f32 inputs) on
    the same f32 inputs, its forward on K7's row and its backward on
    K8's and K9's.  LRN (K5
    forward, K6 backward) on ``randn * 2`` inputs:
@@ -869,6 +869,11 @@ FLASH_SMALL = tuple(
     [(2, t, 2, d, c, w) for d in (129, 192, 256, 320, 512, 1024)
      for t in (7, 256) for c, w in ((False, None), (True, None),
                                     (True, 40))])
+#: the one-head unit's own calls (minibatch 8, T 2048, head dim 512:
+#: the wide path's grid on the main path), held untimed under the unit's
+#: mask and causal
+FLASH_WIDE_MAIN = ((8, 2048, 1, 512, False, None),
+                   (8, 2048, 1, 512, True, None))
 #: the head-dim tiles the kernels are instantiated at (csrc dispatch)
 FLASH_D_TILES = (32, 64, 128, 256)
 FLASH_FWD_TOL = 2e-5
@@ -931,21 +936,18 @@ def _flash_check(torch, fa, q, k, v, do, causal, window, label):
 
 
 #: the backend the library yardstick is pinned to: on f32 inputs the
-#: memory-efficient kernel, whose products are 3xTF32 on mma.sync; a
-#: head dim it refuses takes the next of ``SDPA_FALLBACKS``, named in
-#: the record
+#: memory-efficient kernel, whose products are 3xTF32 on mma.sync
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
-SDPA_FALLBACKS = ("MATH",)
 
 
 def _sdpa_calls(torch, q, k, v, do, causal, window):
     """``scaled_dot_product_attention`` on the same f32 inputs, pinned to
-    ``SDPA_BACKEND`` (or the first of ``SDPA_FALLBACKS`` that takes
-    them): (forward, backward, forward output, backend name) for timing;
-    a window is a boolean band.  Each call runs inside the pin, so the
+    ``SDPA_BACKEND``: (forward, backward, forward output) for timing; a
+    window is a boolean band.  Each call runs inside the pin, so the
     yardstick cannot change backend from run to run."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     f = torch.nn.functional
+    backend = getattr(SDPBackend, SDPA_BACKEND)
     qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     kw = {"is_causal": causal}
@@ -954,19 +956,9 @@ def _sdpa_calls(torch, q, k, v, do, causal, window):
         rows = torch.arange(t, device=q.device)[:, None]
         cols = torch.arange(t, device=q.device)[None, :]
         kw = {"attn_mask": (cols <= rows) & (cols > rows - window)}
+    with sdpa_kernel(backend):
+        out = f.scaled_dot_product_attention(qh, kh, vh, **kw)
     g = do.transpose(1, 2).contiguous()
-    for name in (SDPA_BACKEND,) + SDPA_FALLBACKS:
-        backend = getattr(SDPBackend, name)
-        try:
-            with sdpa_kernel(backend):
-                out = f.scaled_dot_product_attention(qh, kh, vh, **kw)
-                torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
-            break
-        except RuntimeError as e:
-            if name == SDPA_FALLBACKS[-1]:
-                raise
-            _log("scaled_dot_product_attention: %s refuses head dim %d (%s)"
-                 % (name, q.shape[-1], str(e).splitlines()[0][:100]))
 
     def fwd():
         with torch.no_grad(), sdpa_kernel(backend):
@@ -977,7 +969,7 @@ def _sdpa_calls(torch, q, k, v, do, causal, window):
             return torch.autograd.grad(out, (qh, kh, vh), g,
                                        retain_graph=True)
 
-    return fwd, bwd, out.detach().transpose(1, 2), name
+    return fwd, bwd, out.detach().transpose(1, 2)
 
 
 def _measure_flash(torch, fa, dev, shape, causal, window, seed):
@@ -990,8 +982,8 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
     err, ref_out, lse, delta = _flash_check(torch, fa, q, k, v, do, causal,
                                             window, label)
     kw = dict(causal=causal, window=window)
-    sdpa_fwd, sdpa_bwd, sdpa_out, backend = _sdpa_calls(
-        torch, q, k, v, do, causal, window)
+    sdpa_fwd, sdpa_bwd, sdpa_out = _sdpa_calls(torch, q, k, v, do, causal,
+                                               window)
     library = {"fwd": _cuda_ms(torch, sdpa_fwd, iters=10),
                "bwd": _cuda_ms(torch, sdpa_bwd, iters=10)}
     library_err = float((sdpa_out - ref_out).abs().max())
@@ -1025,8 +1017,7 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
                "device_ms": _device_ms(torch, kernel, launches=1),
                "plain_ms": _cuda_ms(torch, plain, iters=3, warmup=1),
                "tf32x3_bound_ms": tc_ms, "cuda_core_bound_ms": bound_ms,
-               "library_ms": lib_ms, "library_backend": backend,
-               "flops": flops}
+               "library_ms": lib_ms, "flops": flops}
         rec["bound_ms"], rec["bound_by"] = max((tc_ms, "operations"),
                                                _bound(nbytes, 0))
         _log("kernel %s [%s] D tile %s max_err=%.3g kernel_ms=%.4f "
@@ -1036,7 +1027,7 @@ def _measure_flash(torch, fa, dev, shape, causal, window, seed):
              % (name, label, d_tile, e, rec["ms"], rec["device_ms"],
                 rec["plain_ms"], rec["bound_ms"], rec["bound_by"],
                 bound_ms, lib_ms, "forward" if name.endswith("fwd")
-                else "backward, dq+dk+dv", backend, library_err))
+                else "backward, dq+dk+dv", SDPA_BACKEND, library_err))
         recs[name] = rec
     return recs
 
@@ -1045,13 +1036,15 @@ def flash_phase(torch, fa, dev):
     """-> {kernel name: {"main": record, "realistic": [records]}}: the
     small cases untimed, then the main path's three masks and the bench
     shapes timed."""
-    for i, (b, t, h, d, causal, window) in enumerate(FLASH_SMALL):
+    held = FLASH_SMALL + FLASH_WIDE_MAIN
+    for i, (b, t, h, d, causal, window) in enumerate(held):
         _flash_check(torch, fa, *_flash_inputs(torch, dev, b, t, h, d, i),
                      causal, window, "B=%d T=%d H=%d D=%d causal=%s "
                      "window=%s" % (b, t, h, d, causal, window))
     _log("kernel flash attention: %d small cases (head dims 4/8/16, T "
-         "7/8/256, windows 1-256; head dims 129-1024, T 7/256) within "
-         "the limits" % len(FLASH_SMALL))
+         "7/8/256, windows 1-256; head dims 129-1024, T 7/256) and the "
+         "one-head unit's B=8 T=2048 H=1 D=512, no mask and causal, "
+         "within the limits" % len(held))
     cases = [_measure_flash(torch, fa, dev, FLASH_MAIN, causal, window,
                             seed=100 + i)
              for i, (causal, window) in enumerate(FLASH_MASKS)]

@@ -424,35 +424,33 @@ def test_ptxas_report_names_each_instantiation(monkeypatch):
                          "lrn_bwd_kernel<0, false>"]
 
 
-def test_lrn_ab_refuses_to_run_without_a_card(monkeypatch):
-    """tools/lrn_ab.py times kernels on the card only: without one it
-    stops before building anything."""
-    import importlib.util
-    import pathlib
-    path = pathlib.Path(chip_smoke.__file__).parent / "tools" / "lrn_ab.py"
-    spec = importlib.util.spec_from_file_location("lrn_ab", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(tool, "build", lambda _: pytest.fail("built"))
-    with pytest.raises(SystemExit, match="no CUDA device"):
-        tool.main()
-
-
-def test_paged_ab_refuses_to_run_without_a_card(monkeypatch):
-    """tools/paged_ab.py times kernels on the card only: without one it
-    stops before building anything."""
+def _source_ab_without_a_card(monkeypatch, kernel):
+    """tools/source_ab.py's main for ``kernel`` with no card: it must stop
+    before building anything."""
     import importlib.util
     import pathlib
     path = pathlib.Path(chip_smoke.__file__).parent / "tools" / \
-        "paged_ab.py"
-    spec = importlib.util.spec_from_file_location("paged_ab", path)
+        "source_ab.py"
+    spec = importlib.util.spec_from_file_location("source_ab", path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(tool, "build", lambda _: pytest.fail("built"))
+    monkeypatch.setattr(sys, "argv", ["source_ab.py", kernel])
     with pytest.raises(SystemExit, match="no CUDA device"):
         tool.main()
+
+
+def test_lrn_ab_refuses_to_run_without_a_card(monkeypatch):
+    """tools/source_ab.py times K5/K6 on the card only: without one it
+    stops before building anything."""
+    _source_ab_without_a_card(monkeypatch, "lrn")
+
+
+def test_paged_ab_refuses_to_run_without_a_card(monkeypatch):
+    """tools/source_ab.py times K1/K2 on the card only: without one it
+    stops before building anything."""
+    _source_ab_without_a_card(monkeypatch, "paged_attention")
 
 
 def test_paged_cases_cover_the_main_path_and_the_long_context():

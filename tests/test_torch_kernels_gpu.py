@@ -1196,6 +1196,29 @@ def test_kv_append_int8_reopen_mid_call_and_trash_padding(cuda):
                         torch.tensor(off, device=cuda).to(dtype), vals)
 
 
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("rows", [32, 64])
+def test_kv_append_int8_decode_step_with_more_runs_than_warps(cuda, rows,
+                                                              index_dtype):
+    """A decode step of 32 or 64 rows at block size 16, one position a row
+    into a block of its own (row 3 pads into the trash block): a chunk
+    holds more runs than its CTA has warps, so each warp takes runs in
+    turn, rewriting its shared arrays between them; two steps in a
+    row."""
+    rng = numpy.random.RandomState(rows)
+    blk = (1 + rng.permutation(2 * rows)[:rows])[:, None]
+    blk[3] = 0
+    q, s = _append_pool(cuda, (2 * rows + 1, 16, 4, 16), seed=rows)
+    tblk = torch.tensor(blk, device=cuda).to(index_dtype)
+    toff = torch.tensor(rng.randint(1, 16, (rows, 1)),
+                        device=cuda).to(index_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    vals = torch.randn((rows, 1, 4, 16), generator=gen, device=cuda)
+    q, s = _append_bitwise(q, s, tblk, toff, vals)
+    _append_bitwise(q, s, tblk, toff + 1 - (toff == 15).to(index_dtype) * 15,
+                    vals * 3.0)
+
+
 @pytest.mark.parametrize("d", [12, 5])
 def test_kv_append_int8_ragged_head_dims_and_misaligned_values(cuda, d):
     """Head dims that take 4-byte and 1-byte lanes, and values that start

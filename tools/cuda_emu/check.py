@@ -3,7 +3,7 @@
 the CPU, through ``cuda_runtime.h`` here, against their plain versions.
 
     python3 tools/cuda_emu/check.py flash [CASE ...]   # "(B, T, H, D, causal, window)"
-    python3 tools/cuda_emu/check.py append
+    python3 tools/cuda_emu/check.py append [--quick]
 
 Each ``csrc/<kernel>.cu`` is turned into C++ for the stand-in (its
 ``asm`` helpers for ``mma.sync`` and ``cp.async`` swapped for the
@@ -17,8 +17,10 @@ bitwise equal to ``kv_append_int8_reference`` (the trash block aside)
 at chip_smoke's README prefill and verify span, runs of growing scale
 from mid-block at block sizes 16-64 and head dims 16-256, a reopen
 mid-call, padding into the trash block, ragged head dims, misaligned
-values, a decode step and a 2048-write prefill.  Tiny shapes only: one
-host thread a CUDA thread.  Exit code 1 on any disagreement.
+values, a decode step of more runs than a CTA has warps and a
+2048-write prefill (``--quick``: ``QUICK_APPEND``'s three).  Tiny
+shapes only: one host thread a CUDA thread.  Exit code 1 on any
+disagreement.
 """
 
 import ctypes
@@ -189,10 +191,10 @@ def _append_cases(rng):
                              numpy.where(pos < 19, numpy.array([7, 2])[
                                  numpy.minimum(pos // 16, 1)], 0)]),
                 numpy.stack([(pos + 8) % 16, pos % 16]), False))
-    blk = 1 + numpy.arange(16)[:, None]
+    blk = 1 + numpy.arange(32)[:, None]
     blk[3] = 0
-    out.append(("decode step [16, 1]", (20, 16, 4, 16), blk,
-                rng.randint(0, 16, (16, 1)), False))
+    out.append(("decode step [32, 1]", (36, 16, 4, 16), blk,
+                rng.randint(0, 16, (32, 1)), False))
     pos = numpy.arange(2048)
     blk = (1 + rng.permutation(140)[:128])[pos // 16]
     blk[2000:] = 0
@@ -201,13 +203,25 @@ def _append_cases(rng):
     return out
 
 
-def append():
+#: a few cases for a quick run: a run that grows its scale from
+#: mid-block, a reopen mid-call with trash padding, and a decode step
+#: whose warps take two runs each
+QUICK_APPEND = ("growing from offset 5, bs=16 d=16",
+                "[2, 24]: a reopen mid-call, trash padding",
+                "decode step [32, 1]")
+
+
+def append(labels=None):
+    """Every append case, or only those named in ``labels``; -> whether
+    all were bitwise equal to the plain version."""
     lib = build("kv_append")
     for sym in (lib.vt_kv_append_int8_i32, lib.vt_kv_append_int8_i64):
         sym.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     rng = numpy.random.RandomState(0)
     ok = True
     for label, shape, blk, off, growing in _append_cases(rng):
+        if labels is not None and label not in labels:
+            continue
         vals = torch.tensor(rng.standard_normal(blk.shape + shape[2:]),
                             dtype=torch.float32)
         if growing:
@@ -221,6 +235,8 @@ def append():
             again, _, _ = append_case(lib, "  a second call", kq, ks, tblk,
                                       toff, vals * 3)
             ok &= good and again
+    if labels is not None:
+        return ok
     blk = torch.tensor([1] * 8 + [2] * 3)
     off = torch.tensor(list(range(8)) + list(range(3)))
     for d in (12, 5):           # 4-byte and 1-byte lanes
@@ -240,7 +256,8 @@ def main():
     args = sys.argv[1:]
     if not args or args[0] not in ("flash", "append"):
         raise SystemExit(__doc__.split("\n\n")[1])
-    ok = flash(args[1:]) if args[0] == "flash" else append()
+    ok = flash(args[1:]) if args[0] == "flash" else \
+        append(QUICK_APPEND if "--quick" in args[1:] else None)
     sys.exit(0 if ok else 1)
 
 

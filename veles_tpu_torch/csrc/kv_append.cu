@@ -203,6 +203,8 @@ __device__ void append_run(int8_t* __restrict__ q, float* __restrict__ s,
     // the writes whose ratio is not 1
     const unsigned moved = __ballot_sync(0xffffffffu, lane < cnt &&
                                                           ratio != 1.0f);
+    // every lane is done with the arrays the last segment or run left
+    __syncwarp();
     for (int r = lane; r < block_size; r += 32) rows[r] = 0u;
     __syncwarp();
     if (lane < cnt) {
@@ -237,7 +239,6 @@ __device__ void append_run(int8_t* __restrict__ q, float* __restrict__ s,
       store_bytes<V>(p, x);
     }
     if (cnt < 32) break;
-    __syncwarp();  // every lane is done with the arrays the next rewrites
   }
   if (lane == 0) s[b * heads + h] = carry;
 }
