@@ -1228,6 +1228,7 @@ def _cpu_tokens(model_kw, prompts, kv_dtype):
 
 
 def e2e_run(pa, gemm, card, label, kv_dtype, weight_dtype):
+    from veles_tpu_torch.observability.flight import RECORDER
     from veles_tpu_torch.serving import InferenceServer
     from veles_tpu_torch.znicz.samples.flagship import (
         FlagshipDecodeModel, generate_reference)
@@ -1238,6 +1239,7 @@ def e2e_run(pa, gemm, card, label, kv_dtype, weight_dtype):
                              **README_SERVER)
     prompts = _prompts()
     try:
+        RECORDER.reset()     # the ring holds this burst's timelines only
         pa.paged_attention.launches = 0
         pa.kv_append_int8.launches = 0
         gemm.quantized_matmul.launches = 0
@@ -1248,6 +1250,7 @@ def e2e_run(pa, gemm, card, label, kv_dtype, weight_dtype):
         with urllib.request.urlopen(server.url + "/metrics",
                                     timeout=60) as resp:
             metrics = json.loads(resp.read())["flagship"]
+        flight = burst_timelines(server.url, answers, label)
     finally:
         server.stop()
     got = [a["tokens"] for a in answers]
@@ -1283,7 +1286,7 @@ def e2e_run(pa, gemm, card, label, kv_dtype, weight_dtype):
                launches["paged_attention"] / steps,
            "quantized_matmul_per_forward":
                launches["quantized_matmul"] / (steps + len(prompts)),
-           "oracle": oracle}
+           "oracle": oracle, "flight": flight, "answers": got}
     _log("e2e %s: %d requests, %d tokens in %.3f s = %.1f tok/s; TTFT "
          "p50 %.1f ms p99 %.1f ms; decode step p50 %s ms p99 %s ms over "
          "%d steps; launches %s; tokens equal %s [%s]"
@@ -1812,6 +1815,7 @@ def migration_run(pa, card, kv_dtype):
                 {"prompt": prompt, "max_new_tokens": NEW_TOKENS,
                  "session_id": sid}, {"X-Veles-Attach": "1"})
         launches = _read_launches(pa, label, kv_dtype)
+        traces = migration_timelines(label, first, sids)
         again = _post_json(a.url + "/admin/sessions/release",
                            {"session_ids": sids})[1]["released"]
         listed_a = _get_json(a.url + "/admin/sessions")["sessions"][
@@ -1844,7 +1848,8 @@ def migration_run(pa, card, kv_dtype):
                1e3 * export_s / len(sids),
            "import_ms_per_session": 1e3 * import_s / len(sids),
            "wire_bytes_per_session": statistics.mean(wire),
-           "wire_bytes": wire, "launches": launches, "oracle": oracle}
+           "wire_bytes": wire, "launches": launches, "oracle": oracle,
+           "flight": traces}
     _log("e2e %s: %d sessions moved mid-generation from server A to B "
          "over /admin/sessions; export %.3f ms and import %.3f ms a "
          "session (HTTP included), %.0f wire bytes a session; every "
@@ -2076,6 +2081,411 @@ def tiers_phase(torch, pa, card, dev, options):
     return out
 
 
+# -- phase 3d: the flight recorder, the classifier route, the fleet -----------
+
+#: the fleet's stand-in models: the toy decoder (tokens with a host
+#: oracle) and the per-row sleep classifier
+FLEET_TOY = ("toydecode:vocab=64,block=4,max_batch=4,max_prompt=16,"
+             "max_new=8,num_blocks=32")
+FLEET_SLEEP = "sleep:0.002"
+FLEET_BACKOFF = {"base": 0.1, "factor": 2.0, "cap": 2.0, "max_restarts": 10}
+#: answers before the SIGKILL, and after the respawn, in the fleet burst
+FLEET_ANSWERS = 32
+#: the classifier burst: clients, requests a client, rows a request
+CLASSIFIER_CLIENTS, CLASSIFIER_REQUESTS, CLASSIFIER_ROWS = 8, 16, (1, 60)
+#: a served row against the workflow's own forward of it, of its scale
+CLASSIFIER_TOL = 1e-6
+#: the profiled MNIST run (apart from the timed ones: the fence costs)
+PROFILE_EPOCHS = 2
+
+
+def burst_timelines(url, answers, label):
+    """``GET /api/flagship/requests`` after a burst whose ring was reset
+    just before it: one closed timeline a request, each ``ok`` with
+    ``first_token`` and a ``retire`` of as many tokens as its answer;
+    -> record with the attribution report by phase."""
+    from veles_tpu_torch.observability import attribution
+    tls = _get_json(url + "/api/flagship/requests")["requests"]
+    retired = []
+    for tl in tls:
+        kinds = [e["kind"] for e in tl["events"]]
+        retire = [e for e in tl["events"] if e["kind"] == "retire"]
+        if tl["status"] != "ok" or "finished_unix" not in tl or \
+                "first_token" not in kinds or len(retire) != 1:
+            raise AssertionError("%s: a timeline is not closed ok: %s"
+                                 % (label, kinds))
+        retired.append(retire[0]["tokens"])
+    if sorted(retired) != sorted(len(a["tokens"]) for a in answers):
+        raise AssertionError("%s: %d timelines retired %s tokens for %d "
+                             "answers" % (label, len(tls), retired,
+                                          len(answers)))
+    group = ("model", "kv_dtype")
+    agg = attribution.aggregate(tls, group_by=group)
+    _log("3d %s: %d closed timelines at GET /api/flagship/requests, "
+         "attribution by phase:\n%s"
+         % (label, len(tls), attribution.render_report(agg, group)))
+    return {"timelines": len(tls), "attribution": agg}
+
+
+def migration_timelines(label, first, sids):
+    """Each migrated session keeps its client's trace id: one timeline
+    under it holds ``migrate.export`` (server A) before
+    ``migrate.import`` (server B) and a ``retire`` on B; -> record."""
+    from veles_tpu_torch.observability.flight import RECORDER
+    out = {}
+    for sid in sids:
+        tid = first[sid][2]["X-Trace-Id"]
+        tls = RECORDER.snapshot(trace_id=tid)
+        kinds = [e["kind"] for e in tls[0]["events"]] if tls else []
+        if len(tls) != 1 or "retire" not in kinds or \
+                "migrate.export" not in kinds or \
+                "migrate.import" not in kinds or \
+                kinds.index("migrate.export") > \
+                kinds.index("migrate.import") or tls[0]["status"] != "ok":
+            raise AssertionError("%s: %s's trace %s is not one migrated "
+                                 "timeline: %s" % (label, sid, tid, kinds))
+        out[sid] = {"trace_id": tid, "events": len(kinds),
+                    "anomalies": tls[0]["anomalies"]}
+    _log("3d %s: every session kept its trace id across the move; each "
+         "timeline holds migrate.export then migrate.import (%s events)"
+         % (label, sorted(v["events"] for v in out.values())))
+    return out
+
+
+def recorder_cost(pa, card, want, device=None):
+    """Phase 3's f32 burst on fresh servers with the recorder on, off,
+    off, on (``RECORDER.configure(enabled=...)``): tok/s and decode step
+    p50 of each, the answers equal to phase 3's; -> record.  ``device``:
+    the card unless the CPU is asked for (a rehearsal)."""
+    from veles_tpu_torch.observability.flight import RECORDER
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    model = FlagshipDecodeModel(**README_MODEL, device=device)
+    prompts = _prompts()
+    runs = []
+    try:
+        for enabled in (True, False, False, True):
+            RECORDER.reset()
+            RECORDER.configure(enabled=enabled)
+            server = InferenceServer({"flagship": model}, device=device,
+                                     **README_SERVER)
+            try:
+                pa.paged_attention.launches = 0
+                answers, seconds = _post_all(server.url, prompts)
+                launches = pa.paged_attention.launches
+                metrics = _get_json(server.url + "/metrics")["flagship"]
+            finally:
+                server.stop()
+            if [a["tokens"] for a in answers] != want:
+                raise AssertionError("recorder %s: answers differ from "
+                                     "phase 3's" % enabled)
+            if launches <= 0:
+                raise AssertionError("the recorder burst ran no K1")
+            tokens = sum(len(a["tokens"]) for a in answers)
+            runs.append({"recorder": enabled, "seconds": seconds,
+                         "tok_s": tokens / seconds,
+                         "step_ms_p50": metrics["step_latency"]["p50_ms"],
+                         "timelines": RECORDER.stats()["timelines"],
+                         "k1_launches": launches})
+    finally:
+        RECORDER.configure(enabled=True)
+    if [r["timelines"] for r in runs] != [len(prompts), 0, 0, len(prompts)]:
+        raise AssertionError("the recorder switch did not hold: %s" % runs)
+    mean = {on: {key: statistics.mean(r[key] for r in runs
+                                      if r["recorder"] == on)
+                 for key in ("tok_s", "step_ms_p50")}
+            for on in (True, False)}
+    _log("3d recorder cost, f32 burst (on, off, off, on): tok/s %s; "
+         "decode step p50 ms %s; mean on %.1f tok/s %.3f ms, off %.1f "
+         "tok/s %.3f ms; K1 launches %s [%s]"
+         % (" ".join("%.1f" % r["tok_s"] for r in runs),
+            " ".join("%s" % r["step_ms_p50"] for r in runs),
+            mean[True]["tok_s"], mean[True]["step_ms_p50"],
+            mean[False]["tok_s"], mean[False]["step_ms_p50"],
+            [r["k1_launches"] for r in runs], card))
+    return {"runs": runs, "on": mean[True], "off": mean[False],
+            "card": card}
+
+
+def classifier_run(torch, gemm, card, wf):
+    """Phase 4's ``precise_gemm=1`` MNIST, trained, served on the card
+    through ``POST /api/mnist``: 8 concurrent clients send requests of
+    1-60 of its own images; every answer within ``CLASSIFIER_TOL`` of
+    its scale of the workflow's own forward of those rows, K4 launched
+    by the burst, every bucket warm; -> record."""
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.serving.scheduler import bucket_sizes, forward_fn
+    data = wf.loader.original_data.map_read()
+    data = data.reshape(data.shape[0], -1)
+    rng = numpy.random.RandomState(21)
+    requests = []
+    for _ in range(CLASSIFIER_CLIENTS * CLASSIFIER_REQUESTS):
+        rows = int(rng.randint(CLASSIFIER_ROWS[0], CLASSIFIER_ROWS[1] + 1))
+        lo = int(rng.randint(0, data.shape[0] - rows))
+        requests.append((lo, rows))
+    dev = wf.fused_step._dev_           # served where it trained
+    fwd = forward_fn(wf.forwards)
+    params = [f.params for f in wf.forwards]
+    with torch.no_grad():
+        want = [fwd(params, torch.from_numpy(numpy.ascontiguousarray(
+            data[lo:lo + rows])).to(dev)).cpu().numpy()
+            for lo, rows in requests]
+    server = InferenceServer({"mnist": wf}, device=dev)
+    sched = server.registry.get("mnist").scheduler
+    answers = [None] * len(requests)
+    errors = []
+
+    def client(c):
+        for i in range(c, len(requests), CLASSIFIER_CLIENTS):
+            lo, rows = requests[i]
+            try:
+                code, body, _ = _post_json(
+                    server.url + "/api/mnist",
+                    {"input": data[lo:lo + rows].tolist()})
+                if code != 200:
+                    raise RuntimeError("answered %d: %s" % (code, body))
+                answers[i] = numpy.asarray(body["output"], numpy.float32)
+            except Exception as exc:  # noqa: BLE001 — raised below
+                errors.append(exc)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLASSIFIER_CLIENTS)]
+    try:
+        stats = sched.stats()
+        gemm.precise_matmul.launches = 0
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        seconds = time.perf_counter() - t0
+        launches = gemm.precise_matmul.launches
+        metrics = sched.metrics.snapshot()
+    finally:
+        server.stop()
+    if errors or any(a is None for a in answers):
+        raise AssertionError("classifier requests failed: %r" % errors[:3])
+    errs = [float((numpy.abs(a - w) /
+                   numpy.abs(w).max(axis=1, keepdims=True)).max())
+            for a, w in zip(answers, want)]
+    bitwise = sum(bool(numpy.array_equal(a, w))
+                  for a, w in zip(answers, want))
+    if max(errs) > CLASSIFIER_TOL:
+        raise AssertionError("classifier: a served row is %.3g of its "
+                             "scale off its forward (limit %g)"
+                             % (max(errs), CLASSIFIER_TOL))
+    if launches <= 0:
+        raise AssertionError("the classifier burst launched no K4")
+    if stats["buckets"] != bucket_sizes(stats["max_batch"]) or \
+            stats["executables"] != len(stats["buckets"]) or \
+            stats["device"] != str(sched.device):
+        raise AssertionError("classifier: not every bucket warm: %s"
+                             % stats)
+    rows = sum(r for _, r in requests)
+    rec = {"card": card, "requests": len(requests), "rows": rows,
+           "seconds": seconds, "requests_s": len(requests) / seconds,
+           "rows_s": rows / seconds, "max_rel_err": max(errs),
+           "bitwise_answers": bitwise, "k4_launches": launches,
+           "buckets": stats["buckets"], "batches": metrics["batches"],
+           "batch_fill": metrics["batch_fill"],
+           "latency": metrics["latency"]}
+    _log("3d classifier POST /api/mnist (precise_gemm=1, trained): %d "
+         "requests of %d-%d rows from %d clients, %d rows in %.3f s = "
+         "%.1f requests/s, %.0f rows/s; max |served - forward| %.3g of "
+         "the row's scale (limit %g), %d of %d answers bitwise; %d "
+         "batches, fill %s; K4 launches %d; buckets %s warm; latency p50 "
+         "%s ms p99 %s ms [%s]"
+         % (len(requests), CLASSIFIER_ROWS[0], CLASSIFIER_ROWS[1],
+            CLASSIFIER_CLIENTS, rows, seconds, rec["requests_s"],
+            rec["rows_s"], max(errs), CLASSIFIER_TOL, bitwise,
+            len(requests), metrics["batches"], metrics["batch_fill"],
+            launches, stats["buckets"], metrics["latency"]["p50_ms"],
+            metrics["latency"]["p99_ms"], card))
+    return rec
+
+
+def _build_dir_state():
+    from veles_tpu_torch import _build
+    return sorted((p.name, p.stat().st_mtime_ns)
+                  for p in _build.BUILD_DIR.glob("*"))
+
+
+def fleet_run(card, device=None):
+    """Two replicas on the card behind the router, serving the toy
+    decoder and the sleep classifier; a burst, one replica SIGKILLed in
+    the middle of it: nothing fails, every token is bitwise the toy's
+    ``generate_reference``, the victim respawns ready with the build
+    directory unchanged (the stand-ins launch no hand kernel, so that
+    shows only that a replica's start builds nothing), and ``GET
+    /fleet/requests`` merges the router's and the replica's halves of a
+    request under one trace id; -> record.  ``device``: the replicas'
+    (the card unless the CPU is asked for, a rehearsal)."""
+    import signal
+    from veles_tpu_torch.fleet import Fleet
+    from veles_tpu_torch.serving import ToyDecodeModel
+    prompts = [[3, 1, 2], [9, 8, 7, 6], [5, 5, 5], [1, 2, 3, 4, 5]]
+    oracle = ToyDecodeModel(vocab=64, device="cpu")
+    want = [oracle.generate_reference(p, 6) for p in prompts]
+    t0 = time.perf_counter()
+    fleet = Fleet({"toy": FLEET_TOY, "m": FLEET_SLEEP}, replicas=2,
+                  poll_interval=0.1, backoff=FLEET_BACKOFF, device=device)
+    counts = {"ok": 0, "shed": 0, "failed": 0, "mismatch": 0}
+    lock = threading.Lock()
+    done = threading.Event()
+    failures = []
+
+    def client(i):
+        decode = i % 2 == 0
+        route = "/api/toy/generate" if decode else "/api/m"
+        payload = ({"prompt": prompts[i // 2 % 4], "max_new_tokens": 6}
+                   if decode else {"input": [[0.5] * 4] * (1 + i % 4)})
+        while not done.is_set():
+            for _ in range(50):           # a client retries 503
+                code, body, _ = _post_json(fleet.url + route, payload,
+                                           timeout=120)
+                if code != 503:
+                    break
+                time.sleep(0.05)
+            with lock:
+                if code == 200:
+                    counts["ok"] += 1
+                    if decode and body["tokens"] != want[i // 2 % 4]:
+                        counts["mismatch"] += 1
+                elif code == 429:
+                    counts["shed"] += 1
+                else:
+                    counts["failed"] += 1
+                    failures.append((code, body))
+
+    def wait(predicate, timeout, what):
+        end = time.monotonic() + timeout
+        while not predicate():
+            if time.monotonic() > end:
+                raise AssertionError("fleet: timed out waiting for " + what)
+            time.sleep(0.02)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    try:
+        fleet.start(ready_timeout=600)
+        wait(lambda: fleet.router.ready_count() == 2, 300, "both ready")
+        start_s = time.perf_counter() - t0
+        victim = fleet.router.replica_ids()[-1]
+        built = _build_dir_state()
+        t_burst = time.perf_counter()
+        for t in threads:
+            t.start()
+        wait(lambda: counts["ok"] >= FLEET_ANSWERS, 300, "the burst")
+        fleet.supervisor.kill(victim, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        wait(lambda: fleet.supervisor.describe()[victim]["restarts"] >= 1,
+             300, "the supervisor to see the death")
+        wait(lambda: fleet.router.ready_count() == 2, 600, "the respawn")
+        respawn_s = time.perf_counter() - t_kill
+        ok_at = counts["ok"]
+        wait(lambda: counts["ok"] >= ok_at + FLEET_ANSWERS, 300,
+             "answers after the respawn")
+        done.set()
+        for t in threads:
+            t.join(300)
+        burst_s = time.perf_counter() - t_burst
+        rebuilt = _build_dir_state() != built
+        code, body, headers = _post_json(
+            fleet.url + "/api/toy/generate",
+            {"prompt": prompts[0], "max_new_tokens": 6})
+        tid = headers["X-Trace-Id"]
+        frags = _get_json(fleet.url + "/fleet/requests?id=" + tid)[
+            "requests"][tid]
+        dispatched = {rid: v["dispatched"] for rid, v in
+                      fleet.router.merged_metrics()["router"][
+                          "replicas"].items()}
+        desc = fleet.supervisor.describe()
+    finally:
+        done.set()
+        fleet.stop()
+    halves = {tl.get("replica"): [e["kind"] for e in tl["events"]]
+              for tl in frags}
+    if counts["failed"] or counts["mismatch"] or code != 200 or \
+            body["tokens"] != want[0]:
+        raise AssertionError("fleet: %s, failures %s" % (counts,
+                                                         failures[:3]))
+    if rebuilt:
+        raise AssertionError("fleet: the respawn built a kernel")
+    replica = [r for r in halves if r != "router"]
+    if "router.dispatch" not in halves.get("router", ()) or \
+            len(replica) != 1 or \
+            not {"queue.enter", "first_token", "retire"} <= set(
+                halves[replica[0]]):
+        raise AssertionError("fleet: /fleet/requests did not merge one "
+                             "trace: %s" % halves)
+    rec = {"card": card, "answers": counts, "burst_s": burst_s,
+           "respawn_s": respawn_s, "start_s": start_s,
+           "restarts": desc[victim]["restarts"], "dispatched": dispatched,
+           "trace_halves": sorted(halves)}
+    _log("3d fleet (2 replicas on %s; %s and %s): started ready in "
+         "%.2f s; burst of %d answers (%d decode and classifier clients), "
+         "%d shed, 0 failed, every token equal to generate_reference, in "
+         "%.2f s; %s SIGKILLed mid-burst, respawned ready in %.2f s "
+         "with the build directory unchanged (the stand-ins launch no "
+         "hand kernel); dispatched %s; trace %s merged from "
+         "%s [%s]"
+         % (fleet.supervisor.device, FLEET_TOY, FLEET_SLEEP, start_s,
+            counts["ok"], len(threads),
+            counts["shed"], burst_s, victim, respawn_s, dispatched, tid,
+            sorted(halves), card))
+    return rec
+
+
+def profiler_run(torch, gemm, card, device="cuda"):
+    """A separate 2-epoch MNIST run with ``precise_gemm=1`` under
+    ``Workflow.attach_profiler`` (its fence costs time, so no timed run
+    carries it): the data-wait / host / device shares; -> record."""
+    wf = _mnist_workflow(1, device=device, epochs=PROFILE_EPOCHS)
+    prof = wf.attach_profiler()
+    gemm.precise_matmul.launches = 0
+    wf.run()
+    wf.fused_step.device.sync()
+    launches = gemm.precise_matmul.launches
+    summary = prof.summary()
+    prof.detach()
+    if launches <= 0 or summary["steps"] <= 0 or \
+            summary["recompiles"] != 0:
+        raise AssertionError("profiled run: %s, K4 launches %d"
+                             % (summary, launches))
+    _log("3d StepProfiler, MNIST precise_gemm=1, %d epochs: %d steps, %d "
+         "examples, %s examples/s; shares %s; data-wait %.4f s, host "
+         "%.4f s, device %.4f s; peak card memory %s; K4 launches %d [%s]"
+         % (PROFILE_EPOCHS, summary["steps"], summary["examples"],
+            summary.get("examples_per_sec"), summary.get("phase_pct"),
+            summary["data_wait_s"], summary["host_s"], summary["device_s"],
+            summary.get("device_peak_memory_bytes"), launches, card))
+    return dict(summary, k4_launches=launches, card=card)
+
+
+def flight_phase(torch, pa, gemm, card, runs, migrations, served_wf):
+    """Phase 3d (slice 15); -> record."""
+    rec = {"timelines": {r["label"]: r["flight"] for r in runs},
+           "migration_traces": {m["label"]: m["flight"]
+                                for m in migrations}}
+    rec["recorder_cost"] = recorder_cost(pa, card, runs[0]["answers"])
+    rec["classifier"] = classifier_run(torch, gemm, card, served_wf)
+    rec["fleet"] = fleet_run(card)
+    rec["profiler"] = profiler_run(torch, gemm, card)
+    by_label = {r["label"]: r["launches"] for r in runs}
+    rec["launches"] = {
+        "K1 (f32 burst, timelines)": by_label["f32"]["paged_attention"],
+        "K1 (recorder bursts)": sum(r["k1_launches"] for r in
+                                    rec["recorder_cost"]["runs"]),
+        "K2 (int8-kv burst, timelines)":
+            by_label["int8-kv"]["paged_attention"],
+        "K3 (int8-weights burst, timelines)":
+            by_label["int8-weights"]["quantized_matmul"],
+        "K4 (classifier)": rec["classifier"]["k4_launches"],
+        "K4 (profiled run)": rec["profiler"]["k4_launches"]}
+    if not all(rec["launches"].values()):
+        raise AssertionError("phase 3d: a kernel did not launch: %s"
+                             % rec["launches"])
+    _log("3d launches: %s" % rec["launches"])
+    return rec
+
+
 # -- phase 4: training, MNIST on the unit engine ------------------------------
 
 #: the MNIST gate's settings (the JAX package's tests/test_samples_gates.py)
@@ -2213,7 +2623,7 @@ def train_run(torch, gemm, card, precise):
                rec["launches"]["k4"][TRAIN] / max(steps[TRAIN], 1),
            "k4_per_eval_step":
                rec["launches"]["k4"][VALID] / max(steps[VALID], 1),
-           "first_epoch": rec["first_epoch"]}
+           "first_epoch": rec["first_epoch"], "workflow": wf}
     _log("train %s: best validation error %.2f%% (epoch %d) in %d epochs, "
          "%.3f s; epoch wall s first %.4f median %.4f; train images/s "
          "median %.0f (first epoch %.0f); %d train + %d eval steps; K4 "
@@ -3228,13 +3638,19 @@ def main():
     phase_done("3c tiers, checkpoints and session migration")
     train = [train_run(torch, gemm, card, precise) for precise in (0, 1, 2)]
     record["first_epoch_vs_cpu"] = first_epoch_on_the_cpu(train[1], gemm)
+    served_wf = train[1]["workflow"]
     for run in train:
         run.pop("first_epoch")
+        run.pop("workflow")
         if run["precise_gemm"]:
             launches["precise_matmul_l%d" % run["precise_gemm"]] = \
                 run["k4_launches"]
     record["training"] = train
     phase_done("4 MNIST training")
+    record["flight"] = flight_phase(torch, pa, gemm, card, runs,
+                                    tiers["migration"], served_wf)
+    del served_wf
+    phase_done("3d flight recorder, classifier route, fleet, profiler")
     attention = [attention_run(torch, fa, card, *config)
                  for config in ATTN_CONFIGS]
     record["attention_first_epoch_vs_cpu"] = [

@@ -693,3 +693,57 @@ def test_steps_agree_holds_its_limits():
         chip_smoke.steps_agree("weights", [2.0], far, [2.0], w)
     with pytest.raises(AssertionError):
         chip_smoke.steps_agree("loss", [2.0], w, [2.001], w)
+
+
+@pytest.fixture
+def pristine_recorder():
+    from veles_tpu_torch.observability.flight import RECORDER
+    RECORDER.reset()
+    yield RECORDER
+    RECORDER.reset()
+
+
+def test_phase3d_burst_timelines_hold_every_request(pristine_recorder):
+    """Phase 3d reads one closed timeline a request of a burst over
+    ``GET /api/flagship/requests`` and refuses a request whose timeline
+    never closed."""
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+    model = FlagshipDecodeModel(stages=1, experts=2, d=8, heads=2,
+                                hidden=8, vocab=16, device="cpu")
+    server = InferenceServer({"flagship": model}, device="cpu",
+                             max_batch=2, block_size=4, max_prompt_len=8,
+                             max_new_tokens=4)
+    try:
+        answers, _ = chip_smoke._post_all(server.url, [[1, 2], [3, 4, 5]],
+                                          new_tokens=3)
+        rec = chip_smoke.burst_timelines(server.url, answers, "cpu")
+        assert rec["timelines"] == 2
+        assert rec["attribution"]["flagship/f32"]["count"] == 2
+        pristine_recorder.record("torn", "queue.enter")
+        pristine_recorder.annotate("torn", model="flagship")
+        with pytest.raises(AssertionError, match="not closed"):
+            chip_smoke.burst_timelines(server.url, answers, "cpu")
+    finally:
+        server.stop()
+
+
+def test_phase3d_migration_keeps_one_trace_id(pristine_recorder):
+    """Each migrated session's trace must hold migrate.export before
+    migrate.import and close ok; a trace missing its import fails."""
+    rec = pristine_recorder
+    first = {}
+    for sid, tid in (("m0", "t0"), ("m1", "t1")):
+        first[sid] = (307, {}, {"X-Trace-Id": tid})
+        for kind in ("queue.enter", "migrate.export", "migrate.import",
+                     "retire"):
+            rec.record(tid, kind)
+        rec.finish(tid, status="ok")
+    out = chip_smoke.migration_timelines("f32", first, ["m0", "m1"])
+    assert out["m1"]["trace_id"] == "t1"
+    first["m2"] = (307, {}, {"X-Trace-Id": "t2"})
+    rec.record("t2", "migrate.export")
+    rec.record("t2", "retire")
+    rec.finish("t2", status="ok")
+    with pytest.raises(AssertionError, match="one migrated timeline"):
+        chip_smoke.migration_timelines("f32", first, ["m0", "m2"])

@@ -299,7 +299,8 @@ def test_http_generate_roundtrip_and_errors(model, oracle):
         assert err({"prompt": [1], "max_new_tokens": 999})[0] == 400
         code, body = err({"prompt": [1]}, "/api/nope/generate")
         assert code == 404 and "models" in body
-        assert err({"prompt": [1]}, "/api/flag")[0] == 404
+        # the classifier route: a generate body is not its contract
+        assert err({"prompt": [1]}, "/api/flag")[0] == 400
         for path in ("/healthz", "/readyz", "/metrics", "/models"):
             with urllib.request.urlopen(srv.url + path, timeout=30) as r:
                 assert r.status == 200

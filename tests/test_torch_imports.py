@@ -15,7 +15,12 @@
   unit and the threefry draws (slice 4); the LRN wrappers run on their
   operand's device; ``ToyDecodeModel`` and the int8-KV append wrapper
   (slice 12), which takes its plain version for CPU tensors without
-  counting a launch.
+  counting a launch; the bucket scheduler, the classifier route, the
+  fleet and the replica command line (slice 15).
+- A fleet replica run as a subprocess (``python -X importtime -m
+  veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
+  ``toydecode:``, answering both routes) imports neither, read from the
+  interpreter's own import log.
 """
 
 import ast
@@ -75,7 +80,14 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "znicz.paged_attention", "serving.sessions", "checkpoint",
                  "checkpoint.store", "checkpoint.manifest",
                  "checkpoint.tensors", "checkpoint.snapshot", "kvtier",
-                 "kvtier.store", "kvtier.directory"):
+                 "kvtier.store", "kvtier.directory",
+                 "observability.registry", "observability.trace",
+                 "observability.flight", "observability.attribution",
+                 "observability.profiler", "distributed",
+                 "serving.scheduler", "serving.registry",
+                 "serving.metrics", "fleet", "fleet.router",
+                 "fleet.supervisor", "fleet.replica", "fleet.chaos",
+                 "fleet.__main__"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -196,3 +208,94 @@ def test_slice12_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     assert torch.equal(q, want_q) and torch.equal(s, want_s)
     assert int(q[1, 0].max()) == 127 and pa.kv_append_int8.launches == \
         launches
+
+
+def test_slice15_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """The bucket scheduler, the classifier route, the fleet supervisor
+    and the replica command line run on the card by default and raise
+    without one; ``device="cpu"`` is the ask."""
+    from veles_tpu_torch.fleet import Fleet, ReplicaSupervisor, replica
+    from veles_tpu_torch.serving import BucketScheduler, InferenceServer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        BucketScheduler(lambda x: x, sample_shape=(2,))
+    server = InferenceServer()
+    try:
+        with pytest.raises(RuntimeError):
+            server.add_model("m", lambda x: x, sample_shape=(2,))
+        assert server.registry.names() == []
+    finally:
+        server.stop()
+    with pytest.raises(RuntimeError):
+        ReplicaSupervisor({"m": "sleep:0.001:2"}, replicas=1)
+    with pytest.raises(RuntimeError):
+        Fleet({"m": "sleep:0.001:2"}, replicas=1)
+    with pytest.raises(RuntimeError):
+        replica.main(["--model", "m=sleep:0.001:2"])
+    sched = BucketScheduler(lambda x: x * 2, sample_shape=(2,),
+                            device="cpu")
+    try:
+        out = sched.submit(numpy.ones((1, 2), numpy.float32)).result(30)
+        assert out.tolist() == [[2.0, 2.0]]
+    finally:
+        sched.close()
+    sup = ReplicaSupervisor({"m": "sleep:0.001:2"}, replicas=1,
+                            device="cpu")
+    assert sup._argv("r0")[-4:-2] == ["--device", "cpu"]
+
+
+def test_fleet_replica_subprocess_imports_no_jax(tmp_path):
+    """A replica process, asked for the CPU, serving a classifier and a
+    decode model: its import log names no jax and nothing of
+    veles_tpu."""
+    import signal
+    import time
+    import urllib.request
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    log_path = tmp_path / "imports.log"
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             "veles_tpu_torch.fleet.replica", "--device", "cpu",
+             "--model", "m=sleep:0.001:2",
+             "--model", "toy=toydecode:vocab=31,max_prompt=8,max_new=4"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=log_file,
+            text=True)
+    try:
+        announce = json.loads(proc.stdout.readline())["fleet_replica"]
+        url = "http://127.0.0.1:%d" % announce["port"]
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/readyz",
+                                            timeout=10) as resp:
+                    if resp.status == 200:
+                        break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "replica never ready"
+            time.sleep(0.1)
+        for route, payload in (("/api/m", {"input": [[1.0, 2.0]]}),
+                               ("/api/toy/generate", {"prompt": [1, 2]})):
+            req = urllib.request.Request(
+                url + route, json.dumps(payload).encode(),
+                {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert resp.status == 200
+        proc.send_signal(signal.SIGTERM)
+        proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    assert proc.returncode == 0
+    log = log_path.read_text()
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in log.splitlines()
+                if line.startswith("import time:") and "|" in line]
+    names = {name for name in imported if name and name != "package"}
+    assert "veles_tpu_torch.fleet.replica" in names or \
+        "veles_tpu_torch.serving.server" in names
+    assert "veles_tpu_torch.serving.scheduler" in names
+    assert "torch" in names
+    assert [m for m in names if _foreign(m)] == []

@@ -1,6 +1,6 @@
 """JSON-over-HTTP plumbing for the serving endpoints.
 
-The part of ``veles_tpu/httpjson.py`` the generate route uses.  Error
+The part of ``veles_tpu/httpjson.py`` the serving routes use.  Error
 taxonomy: everything wrong with the *request* raises
 :class:`ClientError` (a ValueError), which handlers answer with HTTP
 400; any other exception is a *server* fault and surfaces as a 500 with
@@ -9,6 +9,8 @@ a generic body, never the traceback.
 
 import json
 from http.server import BaseHTTPRequestHandler
+
+import numpy
 
 __all__ = ["ClientError", "JsonRequestHandler"]
 
@@ -40,3 +42,15 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
             return json.loads(self.rfile.read(length))
         except ValueError:
             raise ClientError("body is not valid JSON")
+
+    def read_input_payload(self):
+        """The request body ``{"input": ...}`` as a float32 array;
+        ClientError with a client-presentable message otherwise."""
+        payload = self.read_json_body()
+        if not isinstance(payload, dict) or "input" not in payload:
+            raise ClientError("body must be {'input': [...]}")
+        try:
+            return numpy.asarray(payload["input"], numpy.float32)
+        except (ValueError, TypeError):
+            raise ClientError("'input' is not a numeric array "
+                              "(ragged or non-numeric rows?)")

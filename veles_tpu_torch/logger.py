@@ -9,9 +9,14 @@ loadable in Perfetto.  Tracing is on when ``$VELES_TRACE_DIR`` is set
 ``root.common.trace.enabled`` is (records go to
 ``root.common.trace.file``, else the events directory of the config);
 otherwise records are dropped.  Each record carries the active trace
-context (:mod:`.observability.trace`).
+context (:mod:`.observability.trace`), and each file opens with a
+``trace_start`` record holding the wall clock, the anchor
+``tools/merge_traces.py`` aligns several processes' files on.  The
+``span_sink`` hook mirrors every event in memory whether or not tracing
+is on (the flight recorder's span bridge).
 """
 
+import atexit
 import json
 import os
 import threading
@@ -33,6 +38,10 @@ class EventLog:
         self._file = None
         self._lock = threading.Lock()
         self.path = None
+        #: optional in-process mirror (the flight recorder's span
+        #: bridge): called as ``sink(name, kind, duration, info)``
+        #: before the enabled gate; its exceptions are swallowed
+        self.span_sink = None
         self._t0 = time.perf_counter()
 
     @property
@@ -51,9 +60,24 @@ class EventLog:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self.path = path
         self._file = open(path, "a", buffering=1)   # line buffered
+        # wall-clock anchor: ts values are per-process perf_counter
+        # deltas; tools/merge_traces.py aligns files on this record
+        self._file.write(json.dumps({
+            "name": "trace_start", "ph": "i",
+            "ts": round((time.perf_counter() - self._t0) * 1e6, 1),
+            "pid": os.getpid(), "tid": threading.get_ident(),
+            "args": {"unix_time_s": time.time()}}) + "\n")
+        atexit.register(self.close)
 
     def event(self, name, kind="single", duration=None, **info):
-        """Record one event; a no-op unless ``VELES_TRACE_DIR`` is set."""
+        """Record one event; a no-op unless tracing is on (the
+        ``span_sink`` mirror fires regardless: it is memory-only)."""
+        sink = self.span_sink
+        if sink is not None:
+            try:
+                sink(name, kind, duration, info)
+            except Exception:  # noqa: BLE001 — diagnostics never raise
+                pass
         if not self.enabled:
             return
         ctx = _trace.current()
@@ -68,7 +92,12 @@ class EventLog:
             if duration is not None:
                 record["dur"] = round(duration * 1e6, 1)
             if ctx is not None:
-                info = dict(info, trace_id=ctx.trace_id, span=ctx.span_id)
+                # explicit trace_id / span kwargs win
+                info = dict(info)
+                info.setdefault("trace_id", ctx.trace_id)
+                info.setdefault("span", ctx.span_id)
+                if ctx.parent_id:
+                    info.setdefault("parent_span", ctx.parent_id)
             if info:
                 record["args"] = info
             self._file.write(json.dumps(record) + "\n")
@@ -82,6 +111,15 @@ class EventLog:
             if self._file is not None:
                 self._file.close()
                 self._file = None
+
+    def reset(self):
+        """Close the output and forget the path, so the next event
+        resolves its destination from the config and the environment
+        again (tests, forked workers)."""
+        self.close()
+        with self._lock:
+            self.path = None
+            self._t0 = time.perf_counter()
 
 
 #: process-global event log

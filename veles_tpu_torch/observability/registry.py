@@ -1,18 +1,24 @@
-"""Process-global metrics registry: counters, gauges, histograms.
+"""Metrics registry: labelled counters, gauges and histograms.
 
 A copy of ``veles_tpu/observability/registry.py`` (stdlib only): one
 process-global, thread-safe store of labelled counters, gauges and
-histograms that the serving metrics (:mod:`..serving.metrics`) record
-into, exportable as Prometheus text exposition (format 0.0.4) or as a
-JSON-able snapshot.  The serving server's ``GET /metrics`` reports the
-same numbers.
+histograms that the training profiler
+(:mod:`veles_tpu_torch.observability.profiler`), the serving metrics
+(:mod:`veles_tpu_torch.serving.metrics`), the flight recorder and the
+fleet router record into, exportable as Prometheus text exposition
+(format 0.0.4) or as a JSON-able snapshot.  The serving server's and
+the fleet router's ``GET /metrics`` report the same numbers.
+
+No other module of the package is imported here, so ``logger.py``,
+``units.py`` and the serving stack all use it without cycles.
 """
 
 import math
 import threading
 import weakref
 
-__all__ = ["MetricsRegistry", "REGISTRY"]
+__all__ = ["MetricsRegistry", "REGISTRY", "counter", "gauge", "histogram",
+           "render_prometheus"]
 
 #: default histogram ladder (seconds): micro-benchmark to human scale
 DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
@@ -79,6 +85,15 @@ class GaugeChild(_Child):
         with self._lock:
             self._value += amount
 
+    def dec(self, amount=1):
+        self.inc(-amount)
+
+    def set_max(self, value):
+        """Watermark semantics: keep the maximum ever seen."""
+        with self._lock:
+            if value > self._value:
+                self._value = float(value)
+
     @property
     def value(self):
         return self._value
@@ -104,6 +119,11 @@ class HistogramChild(_Child):
                     self.counts[i] += 1
                     break
 
+    def snapshot(self):
+        with self._lock:
+            return {"count": self.count, "sum": round(self.sum, 6),
+                    "avg": round(self.sum / self.count, 6)
+                    if self.count else None}
 
 
 class Metric:
@@ -228,6 +248,10 @@ class MetricsRegistry:
             except Exception:  # noqa: BLE001 — a broken collector must
                 pass           # never take down the scrape endpoint
 
+    def get(self, name):
+        with self._lock:
+            return self._metrics.get(name)
+
     def metrics(self):
         with self._lock:
             return [self._metrics[k] for k in sorted(self._metrics)]
@@ -273,6 +297,30 @@ class MetricsRegistry:
                         metric.name, suffix, _format_value(child.value)))
         return "\n".join(lines) + "\n" if lines else ""
 
+    def snapshot(self):
+        """JSON-able view for the /status merge and dashboards."""
+        self._run_collectors()
+        out = {}
+        for metric in self.metrics():
+            series = []
+            children = metric.children()
+            for key in sorted(children):
+                child = children[key]
+                entry = {"labels": dict(zip(metric.label_names, key))}
+                if metric.kind == "histogram":
+                    entry.update(child.snapshot())
+                else:
+                    entry["value"] = child.value
+                series.append(entry)
+            out[metric.name] = {"type": metric.kind, "help": metric.help,
+                                "series": series}
+        return out
+
+    def reset(self):
+        """Drop every metric (tests / forked workers)."""
+        with self._lock:
+            self._metrics.clear()
+
 
 def _label_str(pairs):
     return ",".join('%s="%s"' % (n, _escape_label(v)) for n, v in pairs)
@@ -280,3 +328,19 @@ def _label_str(pairs):
 
 #: the process-global registry every subsystem records into
 REGISTRY = MetricsRegistry()
+
+
+def counter(name, help="", labels=()):
+    return REGISTRY.counter(name, help, labels)
+
+
+def gauge(name, help="", labels=()):
+    return REGISTRY.gauge(name, help, labels)
+
+
+def histogram(name, help="", labels=(), buckets=None):
+    return REGISTRY.histogram(name, help, labels, buckets)
+
+
+def render_prometheus():
+    return REGISTRY.render_prometheus()

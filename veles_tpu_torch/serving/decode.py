@@ -41,7 +41,16 @@ scheduling decisions happen **every token step**, not every request —
   (:meth:`export_sessions`, :meth:`import_sessions`,
   :meth:`release_migrated`, :meth:`attach`): a session's state is its
   token bookkeeping plus its blocks' contents, in the wire format of
-  :mod:`.sessions`, which both packages read and write;
+  :mod:`.sessions`, which both packages read and write; it carries the
+  request's ``trace_id`` and its flight timeline, which the importer
+  absorbs, so a migrated generation keeps one trace id;
+- every request with a trace context (the HTTP handler's) gets a flight
+  timeline (:mod:`veles_tpu_torch.observability.flight`): the worker
+  records ``queue.enter`` / ``queue.admit`` / ``tier.hit`` /
+  ``prefill.chunk`` / ``first_token`` / ``decode.step`` (all rows of a
+  step under one lock, each its share of the step) / ``spec.step`` /
+  ``retire`` / ``migrate.export`` / ``migrate.import``, each kind from
+  one place only, the JAX scheduler's events and fields;
 - backpressure is a bounded queue: beyond ``queue_limit`` outstanding
   requests :meth:`submit` raises :class:`SchedulerOverflow` and the
   server answers 429 + Retry-After.
@@ -69,9 +78,7 @@ request.
 Not taken by this port yet, and refused with ``NotImplementedError``
 naming the ROADMAP item (:data:`REFUSED_OPTIONS`): ``"auto"`` for
 ``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype`` (autotuning).
-The flight recorder is not ported either: an export carries no
-``trace_id`` or ``flight`` timeline, and an import ignores both.  The
-geometry defaults to the JAX scheduler's tuner-off ``(max_batch,
+The geometry defaults to the JAX scheduler's tuner-off ``(max_batch,
 block_size) = (8, 8)``.
 
 The single worker thread owns every mutable: the block pool, the page
@@ -95,6 +102,8 @@ from ..device import resolve_device
 from ..checkpoint import delete_checkpoint, load_state, save_state
 from ..kvtier import DIR_ENV, TieredKVStore, advert_key
 from ..logger import events
+from ..observability import trace as _trace
+from ..observability.flight import RECORDER as _flight
 from ..znicz.paged_attention import DEFAULT_BLOCK_SIZE
 from .kvcache import KVBlockPool, key_chain, required_blocks
 from .metrics import DecodeMetrics
@@ -207,9 +216,15 @@ def _scatter(pools, blocks, host):
                 blocks, dtype=torch.long, device=leaf.device), src)
 
 
+def _tid(req):
+    """The request's flight-timeline key (its trace id), or None for a
+    trace-less direct submit: the recorder ignores None keys."""
+    return req.trace.trace_id if req.trace is not None else None
+
+
 class _Request:
     __slots__ = ("prompt", "max_new_tokens", "future", "enqueued",
-                 "deadline", "sid")
+                 "deadline", "sid", "trace")
 
     def __init__(self, prompt, max_new_tokens, session_id=None,
                  deadline=None):
@@ -218,6 +233,9 @@ class _Request:
         self.future = Future()
         self.enqueued = time.perf_counter()
         self.deadline = deadline    # absolute time.monotonic() or None
+        # the submitting thread's trace context (the HTTP handler's
+        # request span): the key of the request's flight timeline
+        self.trace = _trace.current()
         # every sequence is addressable: an explicit session id or a
         # fresh one (migration, re-attach and kv_dump key on it)
         self.sid = str(session_id) if session_id else uuid.uuid4().hex[:16]
@@ -498,6 +516,13 @@ class DecodeScheduler:
             self._depth += 1
         req = _Request(prompt, max_new_tokens, session_id=session_id,
                        deadline=deadline)
+        _flight.record(_tid(req), "queue.enter", model=self.name,
+                       session=req.sid,
+                       prompt_tokens=int(prompt.shape[0]),
+                       kv_dtype=self.kv_dtype)
+        # meta too (events do not feed aggregate()'s group keys): the
+        # attribution report can slice tail latency by pool precision
+        _flight.annotate(_tid(req), kv_dtype=self.kv_dtype)
         self._queue.put(req)
         return req.future
 
@@ -629,6 +654,8 @@ class DecodeScheduler:
             self._pending.popleft()
             row = rows.pop(0)
             session = _Session(req, row, blocks)
+            _flight.record(_tid(req), "queue.admit", row=row,
+                           chunked=False)
             try:
                 self._prefill(session)
             except Exception as exc:  # noqa: BLE001 — fail THIS request
@@ -654,7 +681,7 @@ class DecodeScheduler:
         the rest as private blocks, queue the session for chunk steps.
         Returns False when the pool cannot serve it yet."""
         length = len(req.prompt)
-        matched, tier_hit = [], None
+        matched, tier_hit, tier_s, readmit_bytes = [], None, 0.0, 0
         if self.prefix_caching:
             # never match the whole prompt: the first output token needs
             # the hidden state at position length-1, which only a
@@ -664,7 +691,10 @@ class DecodeScheduler:
                                  :(length - 1) // self.block_size]
             matched = self._pool.acquire_prefix(keys)
             if self._kvtier is not None and len(matched) < len(keys):
-                matched, tier_hit = self._extend_from_tiers(keys, matched)
+                t_tier = time.perf_counter()
+                matched, tier_hit, readmit_bytes = \
+                    self._extend_from_tiers(keys, matched)
+                tier_s = time.perf_counter() - t_tier
             if tier_hit is None and matched:
                 tier_hit = "hbm"
         private = self._pool.alloc(need - len(matched))
@@ -678,6 +708,14 @@ class DecodeScheduler:
         session.shared = len(matched)
         session.tier = tier_hit
         session.prefilled = len(matched) * self.block_size
+        tid = _tid(req)
+        _flight.record(tid, "queue.admit", row=row, chunked=True,
+                       prefix_blocks=len(matched))
+        if matched:
+            _flight.record(tid, "tier.hit", tier=tier_hit,
+                           blocks=len(matched),
+                           readmit_bytes=readmit_bytes,
+                           seconds=round(tier_s, 6))
         # the page-table row stays zeroed (trash) until the final chunk
         # lands: decode steps treat the row as padding, and a stray
         # write never touches a shared block
@@ -725,6 +763,12 @@ class DecodeScheduler:
         self._start_decoding(session, first)
         events.span("serving.prefill", dt, model=self.name,
                     bucket=int(bucket), prompt_tokens=int(length))
+        tid = _tid(req)
+        _flight.record(tid, "prefill.chunk", seconds=round(dt, 6),
+                       start=0, end=int(length),
+                       prompt_tokens=int(length))
+        _flight.record(tid, "first_token",
+                       ttft_s=round(session.first_token_s, 6))
 
     def _chunk_step(self):
         """Advance the oldest prefilling session by ONE chunk; on the
@@ -758,6 +802,9 @@ class DecodeScheduler:
         self.metrics.record_chunk()
         events.span("serving.prefill_chunk", dt, model=self.name,
                     start=int(start), prompt_tokens=int(length))
+        _flight.record(_tid(req), "prefill.chunk",
+                       seconds=round(dt, 6), start=int(start),
+                       end=int(end), prompt_tokens=int(length))
         if end < length:
             self._chunking.append(session)
             return
@@ -765,6 +812,10 @@ class DecodeScheduler:
             session, first,
             resident=session.shared * self.block_size / length,
             tier=session.tier)
+        _flight.record(_tid(req), "first_token",
+                       ttft_s=round(session.first_token_s, 6),
+                       resident_blocks=session.shared,
+                       tier=session.tier)
         self._sessions[session.row] = session
         self._publish_prompt(session)
         if session.done:            # max_new_tokens == 1
@@ -857,13 +908,14 @@ class DecodeScheduler:
         key and attached to the session — the readmit that makes a chain
         evicted from the device cost no re-prefill.  A payload that does
         not fit the pools ends the match (the rest is prefilled).
-        Returns (matched_blocks, deepest_tier_hit)."""
-        deepest = None
+        Returns (matched_blocks, deepest_tier_hit, wire_bytes_read)."""
+        deepest, nbytes = None, 0
         for key in keys[len(matched):]:
             found = self._kvtier.lookup(key)
             if found is None:
                 break
             tier, data = found
+            nbytes += len(data)
             alloc = self._pool.alloc(1)
             if alloc is None:
                 break                # pool full: prefill the rest
@@ -891,7 +943,7 @@ class DecodeScheduler:
             matched.append(block)
             if deepest != "disk":
                 deepest = tier
-        return matched, deepest
+        return matched, deepest, nbytes
 
     def _refresh_advert(self):
         """Rebuild the resident-chain advertisement (the ``kv_tiers``
@@ -924,6 +976,7 @@ class DecodeScheduler:
             time.sleep(delay)
         dt = time.perf_counter() - t0
         active = list(self._sessions.values())
+        step_rows = []
         for session in active:
             token = int(next_tokens[session.row])
             session.length += 1              # the fed token is now cached
@@ -931,8 +984,12 @@ class DecodeScheduler:
             session.next_input = token
             self._np_lengths[session.row] = session.length
             self._np_tokens[session.row] = token
+            step_rows.append((_tid(session.req), len(session.generated)))
             if session.done:
                 self._retire(session)
+        # one lock acquisition for the whole batch; the fair per-row
+        # share (dt / active rows) is computed inside
+        _flight.record_step_rows(step_rows, dt)
         self.metrics.record_step(len(active), self.max_batch, dt)
 
     def _spec_step(self):
@@ -974,6 +1031,8 @@ class DecodeScheduler:
         vdt = time.perf_counter() - t1
         active = list(self._sessions.values())
         accepted_total = emitted_total = 0
+        draft_share = ddt / max(len(active), 1)
+        verify_share = vdt / max(len(active), 1)
         for session in active:
             row = session.row
             accepted = 0
@@ -993,6 +1052,11 @@ class DecodeScheduler:
             self._np_tokens[row] = session.next_input
             accepted_total += accepted
             emitted_total += len(emit)
+            _flight.record(_tid(session.req), "spec.step",
+                           step=len(session.generated), drafted=k,
+                           accepted=accepted, emitted=len(emit),
+                           draft_share_s=round(draft_share, 6),
+                           verify_share_s=round(verify_share, 6))
             if session.done:
                 self._retire(session)
         rejected_total = len(active) * k - accepted_total
@@ -1017,12 +1081,28 @@ class DecodeScheduler:
         self._np_lengths[session.row] = 0
         self._np_tokens[session.row] = 0
         future = session.req.future
+        tid = _tid(session.req)
+        tokens = len(session.generated)
         if error is not None:
-            self.metrics.record_complete(len(session.generated), ok=False)
+            self.metrics.record_complete(tokens, ok=False)
+            _flight.record(tid, "retire", tokens=tokens,
+                           error=type(error).__name__)
+            _flight.anomaly(tid, "error", error=type(error).__name__)
+            _flight.finish(tid, status="error")
             if future.set_running_or_notify_cancel():
                 future.set_exception(error)
         else:
-            self.metrics.record_complete(len(session.generated))
+            self.metrics.record_complete(tokens)
+            per_token = None
+            if session.first_token_s is not None and tokens > 1:
+                total_s = time.perf_counter() - session.req.enqueued
+                per_token = max(0.0, total_s - session.first_token_s) \
+                    / (tokens - 1)
+            _flight.record(tid, "retire", tokens=tokens,
+                           session=session.req.sid)
+            _flight.finish(tid, status="ok",
+                           ttft_s=session.first_token_s,
+                           per_token_s=per_token)
             result = {
                 "tokens": [int(t) for t in session.generated],
                 "prompt_tokens": len(session.req.prompt),
@@ -1261,16 +1341,27 @@ class DecodeScheduler:
         return states
 
     def _fresh_state(self, req):
-        """A prompt-only state.  The JAX package adds the request's
-        ``trace_id`` and flight timeline here; the port has no flight
-        recorder yet and leaves both out."""
-        return {"session_id": req.sid,
-                "prompt": numpy.array(req.prompt),
-                "max_new_tokens": int(req.max_new_tokens),
-                "block_size": self.block_size,
-                "kv_dtype": self.kv_dtype,
-                "deadline_left_s": None if req.deadline is None
-                else max(req.deadline - time.monotonic(), 0.0)}
+        """A prompt-only state.  The request's flight timeline travels
+        with it (``trace_id`` and ``flight``): migration is an anomaly
+        trigger and a hop the destination attributes, stitched by the
+        trace id the destination re-adopts."""
+        tid = _tid(req)
+        state = {"session_id": req.sid,
+                 "prompt": numpy.array(req.prompt),
+                 "max_new_tokens": int(req.max_new_tokens),
+                 "block_size": self.block_size,
+                 "kv_dtype": self.kv_dtype,
+                 "deadline_left_s": None if req.deadline is None
+                 else max(req.deadline - time.monotonic(), 0.0)}
+        if tid:
+            _flight.record(tid, "migrate.export", session=req.sid,
+                           model=self.name)
+            _flight.anomaly(tid, "migration")
+            state["trace_id"] = tid
+            timeline = _flight.export(tid)
+            if timeline is not None:
+                state["flight"] = timeline
+        return state
 
     def _export_one(self, session):
         req = session.req
@@ -1308,8 +1399,9 @@ class DecodeScheduler:
         return state
 
     def _import_session(self, state):
-        """Adopt one exported state (``trace_id`` and ``flight``, which
-        the JAX package's exports carry, are ignored)."""
+        """Adopt one exported state, continuing its trace: the session's
+        steps land in the timeline it brought (``flight``, absorbed
+        here) under its ``trace_id``."""
         sid = str(state["session_id"])
         if sid in self._by_sid or any(r.sid == sid for r in self._pending):
             raise ValueError("session %r is already live here" % sid)
@@ -1324,6 +1416,13 @@ class DecodeScheduler:
             deadline = time.monotonic() + float(state["deadline_left_s"])
         req = _Request(prompt, state["max_new_tokens"], session_id=sid,
                        deadline=deadline)
+        tid = state.get("trace_id")
+        if tid:
+            req.trace = _trace.SpanContext(str(tid), _trace.new_id(),
+                                           None)
+            _flight.absorb(state.get("flight"))
+            _flight.record(str(tid), "migrate.import", session=sid,
+                           model=self.name)
         # the parked future, when this is the source taking its own
         # export back: the original waiter stays attached
         parked = self._migrating.pop(sid, None)
@@ -1366,7 +1465,7 @@ class DecodeScheduler:
             keys = [bytes.fromhex(h) for h in hash_hexes]
             lead = self._pool.acquire_prefix(keys)
             if self._kvtier is not None and len(lead) < len(keys):
-                lead, _ = self._extend_from_tiers(keys, lead)
+                lead = self._extend_from_tiers(keys, lead)[0]
             if len(lead) < len(keys):
                 refuse(ValueError(
                     "cannot resolve hashed prefix of session %r (%d/%d "

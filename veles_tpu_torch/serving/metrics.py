@@ -1,17 +1,20 @@
-"""Decode-serving metrics: registry-backed counters and latency quantiles.
+"""Serving metrics: registry-backed counters and latency quantiles.
 
-The part of ``veles_tpu/serving/metrics.py`` the decode scheduler
-touches: the core counters, the prefix-cache and chunked-prefill
-counters, the speculation series (draft, accept and reject counts,
-verify passes and the windowed acceptance rate), the tiered KV cache's
-``veles_kvtier_*`` series (the tier store's duck-typed observer surface)
-and the session-migration counters.  Counter state lives
-in the process-global
+The port of ``veles_tpu/serving/metrics.py``.  :class:`ServingMetrics`
+serves the request-granularity :class:`~.scheduler.BucketScheduler`
+(requests, rows, batches, padding, the ``serving.batch`` span that
+links a batch back to its requests).  :class:`DecodeMetrics` serves
+the decode scheduler: the core counters, the prefix-cache and
+chunked-prefill counters, the speculation series (draft, accept and
+reject counts, verify passes and the windowed acceptance rate), the
+tiered KV cache's ``veles_kvtier_*`` series (the tier store's
+duck-typed observer surface) and the session-migration counters.
+Counter state lives in the process-global
 :class:`~veles_tpu_torch.observability.registry.MetricsRegistry`
 (labelled by model), so the numbers ``GET /metrics`` reports are the
-ones a Prometheus scrape of the registry would see; :class:`DecodeMetrics`
-keeps what the registry cannot express — the exact-quantile latency
-windows and the recent tok/s ring — plus per-instance baselines so
+ones a Prometheus scrape of the registry would see; both classes keep
+what the registry cannot express (the exact-quantile latency windows
+and the recent rps and tok/s rings) plus per-instance baselines, so
 ``snapshot()`` stays scoped to one scheduler's lifetime.
 """
 
@@ -22,7 +25,7 @@ import time
 from ..logger import events
 from ..observability.registry import REGISTRY
 
-__all__ = ["LatencyWindow", "DecodeMetrics"]
+__all__ = ["LatencyWindow", "ServingMetrics", "DecodeMetrics"]
 
 
 class LatencyWindow:
@@ -57,6 +60,191 @@ class LatencyWindow:
                 "p99_ms": to_ms(self._quantile(ordered, 0.99)),
                 "mean_ms": to_ms(sum(ordered) / len(ordered)),
                 "max_ms": to_ms(ordered[-1])}
+
+
+def _bind_counters(registry, model, spec):
+    """Declare (idempotently) and label-bind one counter child per
+    ``spec`` entry.  Both serving metrics classes bind through here, so
+    both scheduler kinds in one process re-declare the same families
+    instead of colliding, and a second same-named scheduler (hot swap)
+    reuses the existing series.  Returns ({key: child}, {key:
+    construction-baseline value}): the registry series are
+    process-global and monotonic, ``snapshot()`` reports deltas."""
+    children = {key: registry.counter(name, help, ("model",))
+                .labels(model=model)
+                for key, (name, help) in spec.items()}
+    return children, {key: child.value for key, child in children.items()}
+
+
+#: registry counter families shared by every ServingMetrics instance
+_COUNTERS = {
+    "requests": ("veles_serving_requests_total",
+                 "Completed inference requests"),
+    "rows": ("veles_serving_rows_total",
+             "Sample rows served"),
+    "failures": ("veles_serving_failures_total",
+                 "Requests answered with an internal error"),
+    "rejected": ("veles_serving_rejected_total",
+                 "Requests shed by backpressure (HTTP 429)"),
+    "batches": ("veles_serving_batches_total",
+                "Executed dispatch batches"),
+    "batch_rows": ("veles_serving_batch_rows_total",
+                   "Real rows across executed batches"),
+    "padded_rows": ("veles_serving_padded_rows_total",
+                    "Padding rows added by power-of-two bucketing"),
+    "expired": ("veles_serving_deadline_expired_total",
+                "Requests shed because their end-to-end deadline "
+                "passed before device time was spent (HTTP 504)"),
+}
+
+
+class ServingMetrics:
+    """Aggregate serving counters for one model.
+
+    Thread-safe; recorded from request threads and the dispatch worker,
+    read by ``GET /metrics``.  Counter semantics:
+
+    - ``requests`` / ``rows``: completed inferences (a request may carry
+      several sample rows);
+    - ``failures``: requests answered with an internal error;
+    - ``rejected``: requests shed by backpressure (HTTP 429);
+    - ``batches`` / ``batch_rows`` / ``padded_rows``: dispatch-side view —
+      fill ratio = batch_rows / (batch_rows + padded_rows).
+    """
+
+    RATE_WINDOW = 2048  # completion timestamps kept for the recent-rps view
+
+    def __init__(self, model="default", registry=None):
+        self.model = model
+        self.registry = registry or REGISTRY
+        self.latency = LatencyWindow()
+        # dispatch-side batch wall time: what a queued request actually
+        # waits per batch ahead of it — the Retry-After estimator's input
+        self.batch_latency = LatencyWindow(512)
+        self._lock = threading.Lock()
+        self._t0 = time.time()
+        # baseline at construction: the registry series are process-
+        # global and monotonic (Prometheus semantics); snapshot() is
+        # per-instance, so it reads deltas from here
+        self._c, self._base = _bind_counters(self.registry, model,
+                                             _COUNTERS)
+        self._h_latency = self.registry.histogram(
+            "veles_serving_request_seconds",
+            "End-to-end request latency", ("model",)).labels(model=model)
+        # seconds counter (floats, kept out of the int _COUNTERS
+        # surface): the warmup cost per model (the port's warmup runs
+        # each bucket once; nothing compiles)
+        self._c_compile_s = self.registry.counter(
+            "veles_serving_compile_seconds_total",
+            "Wall seconds spent producing bucket executables "
+            "(fresh compiles and cache loads)",
+            ("model",)).labels(model=model)
+        self._base_compile_s = self._c_compile_s.value
+        # scrape-time gauges derived from the exact-quantile window and
+        # the fill counters (refreshed via collect_metrics just before
+        # every /metrics render — Prometheus quantile gauges would be
+        # stale or request-path-expensive otherwise)
+        self._g_quantile = self.registry.gauge(
+            "veles_serving_latency_quantile_ms",
+            "Exact latency quantiles over the recent sample window",
+            ("model", "quantile"))
+        self._g_fill = self.registry.gauge(
+            "veles_serving_batch_fill_ratio",
+            "Real rows / (real + padding) across executed batches",
+            ("model",)).labels(model=model)
+        self.registry.register_collector(self)
+        self._completions = collections.deque(maxlen=self.RATE_WINDOW)
+
+    def _count(self, key):
+        return int(round(self._c[key].value - self._base[key]))
+
+    def __getattr__(self, name):
+        # the seed exposed counters as plain attributes; keep that
+        # surface (metrics.requests et al.) over the registry state
+        if name in _COUNTERS:
+            return self._count(name)
+        raise AttributeError(name)
+
+    # -- request-side --------------------------------------------------------
+    def record_request(self, rows, seconds, ok=True):
+        self.latency.record(seconds)
+        self._h_latency.observe(seconds)
+        self._c["requests"].inc()
+        self._c["rows"].inc(int(rows))
+        if not ok:
+            self._c["failures"].inc()
+        with self._lock:
+            self._completions.append(time.time())
+
+    def record_reject(self):
+        self._c["rejected"].inc()
+        events.event("serving.reject", model=self.model)
+
+    def record_expired(self):
+        self._c["expired"].inc()
+        events.event("serving.deadline_expired", model=self.model)
+
+    def record_compile(self, seconds):
+        """One bucket executable produced (compile or cache load)."""
+        self._c_compile_s.inc(float(seconds))
+
+    # -- dispatch-side -------------------------------------------------------
+    def record_batch(self, bucket, rows, seconds, n_requests, links=None):
+        """``links``: request span ids batched into this dispatch — the
+        causal glue between per-request and per-batch spans in the
+        merged trace."""
+        self._c["batches"].inc()
+        self._c["batch_rows"].inc(int(rows))
+        self._c["padded_rows"].inc(int(bucket) - int(rows))
+        self.batch_latency.record(seconds)
+        extra = {"links": links} if links else {}
+        events.span("serving.batch", seconds, model=self.model,
+                    bucket=int(bucket), rows=int(rows),
+                    requests=int(n_requests), **extra)
+
+    def collect_metrics(self):
+        """Refresh the derived gauges (called by the registry at scrape
+        time, holding only a weak reference to this object)."""
+        s = self.latency.summary()
+        for q in ("p50", "p95", "p99"):
+            value = s.get("%s_ms" % q)
+            if value is not None:
+                self._g_quantile.labels(model=self.model,
+                                        quantile=q).set(value)
+        filled = self._c["batch_rows"].value
+        padded = self._c["padded_rows"].value
+        if filled + padded:
+            self._g_fill.set(filled / (filled + padded))
+
+    # -- reader --------------------------------------------------------------
+    def snapshot(self):
+        now = time.time()
+        with self._lock:
+            completions = list(self._completions)
+        counters = {key: self._count(key) for key in _COUNTERS}
+        uptime = max(now - self._t0, 1e-9)
+        recent_rps = None
+        if len(completions) >= 2:
+            span = completions[-1] - completions[0]
+            if span > 0:
+                recent_rps = round((len(completions) - 1) / span, 1)
+        filled = counters["batch_rows"]
+        padded = counters["padded_rows"]
+        out = dict(counters)
+        out.update({
+            "compile_seconds": round(
+                self._c_compile_s.value - self._base_compile_s, 4),
+            "uptime_s": round(uptime, 1),
+            "lifetime_rps": round(counters["requests"] / uptime, 2),
+            "recent_rps": recent_rps,
+            "batch_fill": round(filled / (filled + padded), 4)
+            if filled + padded else None,
+            "rows_per_batch": round(filled / counters["batches"], 2)
+            if counters["batches"] else None,
+            "latency": self.latency.summary(),
+            "batch_latency": self.batch_latency.summary(),
+        })
+        return out
 
 
 #: registry counter families shared by every DecodeMetrics instance
@@ -140,12 +328,8 @@ class DecodeMetrics:
         self.ttft = LatencyWindow()
         self._lock = threading.Lock()
         self._t0 = time.time()
-        self._c = {key: self.registry.counter(name, help, ("model",))
-                   .labels(model=model)
-                   for key, (name, help) in _DECODE_COUNTERS.items()}
-        # baselines: the registry series are process-global and
-        # monotonic, snapshot() reports deltas from construction
-        self._base = {key: c.value for key, c in self._c.items()}
+        self._c, self._base = _bind_counters(self.registry, model,
+                                             _DECODE_COUNTERS)
         self._h_step = self.registry.histogram(
             "veles_serving_decode_step_seconds",
             "Decode step wall time (≈ per-token latency under load)",

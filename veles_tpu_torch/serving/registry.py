@@ -1,25 +1,75 @@
-"""Multi-model registry: one server, several named decode models.
+"""Multi-model registry: one server, several named models.
 
-The decode half of ``veles_tpu/serving/registry.py``: ``name ->
-DecodeServedModel`` (a :class:`DecodeScheduler` behind ``POST
-/api/<name>/generate``), with the first — or an explicitly flagged —
-entry as the default.  Re-adding a name hot-swaps it: the new entry is
-warm before the swap and the replaced scheduler drains.  The
-request-granularity ``ServedModel`` / ``BucketScheduler`` path is not
-ported yet.
+The port of ``veles_tpu/serving/registry.py``: ``name ->``
+:class:`ServedModel` (a :class:`~.scheduler.BucketScheduler` plus the
+result-shaping transform, behind ``POST /api/<name>``) or
+:class:`DecodeServedModel` (a :class:`~.decode.DecodeScheduler` behind
+``POST /api/<name>/generate``), with the first (or an explicitly
+flagged) entry as the default for bare ``POST /api``.  Re-adding a name
+hot-swaps it: the new entry is warm before the swap, and the replaced
+scheduler drains.  :meth:`ModelRegistry.load_package` raises until
+exported packages are ported (ROADMAP queue A item 8).
 """
 
 import threading
+import time
 
 from .decode import DecodeScheduler
+from .metrics import ServingMetrics
+from .scheduler import BucketScheduler, _unported
 
-__all__ = ["DecodeServedModel", "ModelRegistry"]
+__all__ = ["ServedModel", "DecodeServedModel", "ModelRegistry"]
 
 #: the scheduler defaults a registry forwards to DecodeScheduler
 _DECODE_KWARGS = ("max_batch", "block_size", "max_prompt_len",
                   "max_new_tokens", "num_blocks", "queue_limit",
                   "prefix_caching", "prefill_chunk_tokens", "spec_depth",
                   "kvtier", "kv_dtype", "device")
+#: ... and to BucketScheduler (one server can host both kinds)
+_BUCKET_KWARGS = ("max_batch", "queue_limit", "workers", "max_wait",
+                  "warmup", "background_warmup", "sample_shape", "device")
+
+
+class ServedModel:
+    """One classifier registry entry: scheduler + answer shaping.
+
+    ``transform`` plays the reference's ``evaluation_transform`` role;
+    without it a 2-D multi-column output is argmaxed (the classifier
+    convention), anything else is returned verbatim.
+    """
+
+    def __init__(self, name, scheduler, transform=None, source=None,
+                 version=None):
+        self.name = name
+        self.scheduler = scheduler
+        self.transform = transform
+        self.source = source
+        self.version = version
+        self.created = time.time()
+
+    def infer(self, batch, timeout=None, deadline=None):
+        """-> (result, output), the protocol tuple the handlers serve."""
+        out = self.scheduler.infer(batch, timeout=timeout,
+                                   deadline=deadline)
+        if self.transform is not None:
+            result = self.transform(out)
+        elif out.ndim == 2 and out.shape[1] > 1:
+            result = out.argmax(axis=1).tolist()
+        else:
+            result = out.tolist()
+        return result, out
+
+    def describe(self):
+        stats = self.scheduler.stats()
+        return {"source": self.source,
+                "version": self.version,
+                "ready": stats["ready"],
+                "device": stats["device"],
+                "sample_shape": list(self.scheduler.sample_shape)
+                if self.scheduler.sample_shape is not None else None,
+                "buckets": stats["buckets"],
+                "queue_depth": stats["queue_depth"],
+                "queue_limit": stats["queue_limit"]}
 
 
 class DecodeServedModel:
@@ -27,10 +77,12 @@ class DecodeServedModel:
 
     kind = "decode"
 
-    def __init__(self, name, scheduler, source=None):
+    def __init__(self, name, scheduler, source=None, version=None):
         self.name = name
         self.scheduler = scheduler
         self.source = source
+        self.version = version
+        self.created = time.time()
 
     def generate(self, prompt, max_new_tokens=None, timeout=None,
                  session_id=None, deadline=None):
@@ -44,6 +96,7 @@ class DecodeServedModel:
     def describe(self):
         stats = self.scheduler.stats()
         return {"source": self.source,
+                "version": self.version,
                 "ready": stats["ready"],
                 "kind": "decode",
                 "device": stats["device"],
@@ -68,10 +121,12 @@ def _is_decode_model(model):
 
 
 class ModelRegistry:
-    """Thread-safe name -> :class:`DecodeServedModel` map."""
+    """Thread-safe name -> :class:`ServedModel` /
+    :class:`DecodeServedModel` map."""
 
     def __init__(self, **scheduler_defaults):
-        unknown = set(scheduler_defaults) - set(_DECODE_KWARGS)
+        unknown = set(scheduler_defaults) - set(_DECODE_KWARGS) \
+            - set(_BUCKET_KWARGS)
         if unknown:
             raise TypeError("unknown scheduler options: %s"
                             % ", ".join(sorted(unknown)))
@@ -81,30 +136,50 @@ class ModelRegistry:
         self._lock = threading.Lock()
         self._scheduler_defaults = scheduler_defaults
 
-    def add(self, name, model, default=False, **scheduler_kwargs):
-        """Register a model under ``name``.  Only decode adapters (the
-        ``prefill_fn``/``decode_fn``/``make_pools`` trio) are served by
-        the port so far; they route to :meth:`add_decode`."""
-        if not _is_decode_model(model):
-            raise TypeError(
-                "%r is not a decode model; the port serves decode "
-                "adapters only (prefill_fn, decode_fn, make_pools)"
-                % type(model).__name__)
-        return self.add_decode(name, model, default=default,
-                               **scheduler_kwargs)
+    def _defaults(self, allowed):
+        return {k: v for k, v in self._scheduler_defaults.items()
+                if k in allowed}
 
-    def add_decode(self, name, model, default=False, **decode_kwargs):
+    def add(self, name, model, transform=None, default=False,
+            metrics=None, version=None, **scheduler_kwargs):
+        """Register a model (a workflow with ``forwards``, a
+        :class:`~.scheduler.TorchModel` / ``OpaqueModel`` or a callable)
+        under ``name``; warms its bucket ladder now so the first request
+        is already warm.  A decode adapter (the ``prefill_fn`` /
+        ``decode_fn`` / ``make_pools`` trio) routes to
+        :meth:`add_decode` instead.
+
+        Re-adding an existing ``name`` is the hot-load path: the new
+        entry (optionally tagged ``version``) warms fully before the
+        swap, the swap itself is one dict write under the lock, and the
+        replaced scheduler drains, so in-flight requests against the
+        old version complete normally."""
+        if _is_decode_model(model):
+            return self.add_decode(name, model, default=default,
+                                   version=version, **scheduler_kwargs)
+        kwargs = self._defaults(_BUCKET_KWARGS)
+        kwargs.update(scheduler_kwargs)
+        scheduler = BucketScheduler(
+            model, name=name,
+            metrics=metrics or ServingMetrics(name), **kwargs)
+        entry = ServedModel(name, scheduler, transform=transform,
+                            source=type(model).__name__, version=version)
+        return self._install(name, entry, default)
+
+    def add_decode(self, name, model, default=False, version=None,
+                   **decode_kwargs):
         """Register a decode adapter under ``name`` — warms its decode
         step now, serves ``POST /api/<name>/generate``.  The model's own
         ``decode_defaults`` (e.g. a ToyDecodeModel's spec geometry)
         override the registry-wide defaults; explicit kwargs override
         both."""
-        kwargs = dict(self._scheduler_defaults)
+        kwargs = self._defaults(_DECODE_KWARGS)
         kwargs.update(getattr(model, "decode_defaults", None) or {})
         kwargs.update(decode_kwargs)
         scheduler = DecodeScheduler(model, name=name, **kwargs)
         entry = DecodeServedModel(name, scheduler,
-                                  source=type(model).__name__)
+                                  source=type(model).__name__,
+                                  version=version)
         return self._install(name, entry, default)
 
     def _install(self, name, entry, default):
@@ -118,6 +193,23 @@ class ModelRegistry:
         if prior is not None:     # hot swap: drain the replaced scheduler
             prior.scheduler.close(drain=True)
         return entry
+
+    def load_package(self, name, path, **kwargs):
+        """Hot-load an exported package zip under ``name``: not ported
+        yet (ROADMAP queue A item 8)."""
+        raise _unported("serving an exported package (%r)" % (path,),
+                        "item 8, export")
+
+    def remove(self, name, drain=True):
+        with self._lock:
+            entry = self._models.pop(name, None)
+            if name in self._order:
+                self._order.remove(name)
+            if self._default == name:
+                self._default = self._order[0] if self._order else None
+        if entry is not None:
+            entry.scheduler.close(drain=drain)
+        return entry is not None
 
     def get(self, name):
         with self._lock:
@@ -146,7 +238,8 @@ class ModelRegistry:
         return bool(entries) and all(e.scheduler.ready for e in entries)
 
     def load_snapshot(self):
-        """Per-model backpressure signals (cheap, poll-safe)."""
+        """Per-model backpressure signals (cheap, poll-safe): the fleet
+        router's least-loaded dispatch input."""
         with self._lock:
             entries = list(self._models.items())
         return {name: entry.scheduler.load() for name, entry in entries}

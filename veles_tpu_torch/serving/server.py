@@ -1,16 +1,23 @@
-"""The inference server: generate endpoint, backpressure, drain.
+"""The inference server: bounded queue, backpressure, drain, endpoints.
 
-The decode half of ``veles_tpu/serving/server.py``: a stdlib
-``ThreadingHTTPServer`` over a :class:`~.registry.ModelRegistry` of
-decode models.  Per request: parse (400 on a malformed payload),
-resolve the model (404), submit to its decode scheduler — which either
-admits it or sheds it (:class:`SchedulerOverflow` -> 429 +
-``Retry-After``) — and answer JSON.  A failure *inside* inference is a
-500 with a generic body and a server-side log record; the traceback
-never leaves the process.  Every answer carries ``X-Trace-Id`` (the
-client's, or a fresh one).
+The port of ``veles_tpu/serving/server.py``: a stdlib
+``ThreadingHTTPServer`` over a :class:`~.registry.ModelRegistry`.  Per
+request: parse (400 on a malformed payload), resolve the model (404),
+submit to its scheduler — which either batches or admits it, or sheds
+it (:class:`SchedulerOverflow` -> 429 + ``Retry-After``) — and answer
+JSON.  A failure *inside* inference is a 500 with a generic body and a
+server-side log record; the traceback never leaves the process.  Every
+answer carries ``X-Trace-Id`` (the client's, or a fresh one), which
+keys the request's flight timeline
+(:mod:`veles_tpu_torch.observability.flight`): the handler opens it
+(``request.recv``, the model and the ``X-Veles-Tenant`` tag) and closes
+it with the anomaly the status implies (429, 504, 5xx).
 
 Endpoints:
+    POST /api                      infer on the default model
+    POST /api/<model>              infer on a named model (``{"input":
+                                   [[...], ...]}`` -> ``{"result",
+                                   "output"}``; classifier models)
     POST /api/<model>/generate     autoregressive decode (``session_id``
                                    in the body or ``X-Session-Id``:
                                    re-attach to that session if it is
@@ -19,11 +26,15 @@ Endpoints:
     POST /api/generate             the same on the default model
     GET  /healthz                  liveness + model listing
     GET  /readyz                   503 until every model is warm
-    GET  /metrics                  per-model decode metrics + stats
+    GET  /metrics                  per-model metrics + stats
     GET  /models                   registry description
     GET  /api/<model>/kv           the KV pool's dump and integrity list
+    GET  /api/<model>/requests     the flight recorder's timelines
+                                   (``?id=<trace id>`` for one)
+    POST /admin/models             hot-load a model version, behind
+                                   ``enable_admin`` (404 without it)
     POST /admin/sessions/export    live-session migration, behind
-    POST /admin/sessions/import    ``enable_admin`` (404 without it)
+    POST /admin/sessions/import    ``enable_admin``
     POST /admin/sessions/release
     GET  /admin/sessions           session ids: active, migrating,
                                    finished
@@ -34,14 +45,13 @@ when the exporter named one); a follow with ``X-Veles-Attach: 1`` for
 a session unknown here is answered 410.
 
 Shutdown is a graceful drain: stop accepting, finish every admitted and
-queued sequence, then stop the HTTP front end.  The classifier route
-(``POST /api/<model>``) and the admin hot-load (``POST /admin/models``)
-are not ported yet.
+queued request, then stop the HTTP front end.
 """
 
 import logging
 import threading
 import time
+import urllib.parse
 import uuid
 from concurrent.futures import TimeoutError as _FutureTimeout
 from http.server import ThreadingHTTPServer
@@ -49,6 +59,7 @@ from http.server import ThreadingHTTPServer
 from ..httpjson import ClientError, JsonRequestHandler
 from ..logger import events
 from ..observability import trace as _trace
+from ..observability.flight import RECORDER as _flight
 from .registry import ModelRegistry
 from .scheduler import (DeadlineExpired, SchedulerClosed,
                         SchedulerOverflow, deadline_expired)
@@ -71,12 +82,18 @@ class _ServingHandler(JsonRequestHandler):
 
     def do_POST(self):
         path = self.path.split("?", 1)[0].rstrip("/")
-        if path.startswith("/admin/sessions/"):
+        if path == "/admin/models":
+            self._admin_load()
+        elif path.startswith("/admin/sessions/"):
             self._admin_sessions(path[len("/admin/sessions/"):])
         elif path == "/api/generate":
             self._generate(None)
         elif path.startswith("/api/") and path.endswith("/generate"):
-            self._generate(path[len("/api/"):-len("/generate")])
+            self._generate(path[len("/api/"):-len("/generate")] or None)
+        elif path == "/api":
+            self._infer(None)
+        elif path.startswith("/api/"):
+            self._infer(path[len("/api/"):])
         else:
             self.send_json(404, {"error": "not found"})
 
@@ -94,6 +111,8 @@ class _ServingHandler(JsonRequestHandler):
             self.send_json(200 if ready else 503, {
                 "ready": ready,
                 "draining": srv.draining,
+                "models": {name: entry.scheduler.ready
+                           for name, entry in self._entries()},
                 "load": srv.registry.load_snapshot()})
         elif path == "/metrics":
             self.send_json(200, srv.registry.metrics_snapshot())
@@ -104,7 +123,7 @@ class _ServingHandler(JsonRequestHandler):
             # dedupe ratio, speculation tallies, integrity verdict
             name = path[len("/api/"):-len("/kv")] or None
             entry = srv.registry.get(name)
-            if entry is None:
+            if entry is None or not hasattr(entry.scheduler, "kv_dump"):
                 self.send_json(404, {"error": "no decode model %r"
                                      % name})
                 return
@@ -112,6 +131,17 @@ class _ServingHandler(JsonRequestHandler):
                 self.send_json(200, entry.scheduler.kv_dump())
             except Exception as exc:  # noqa: BLE001 — draining et al.
                 self.send_json(503, {"error": str(exc)})
+        elif path.startswith("/api/") and path.endswith("/requests"):
+            # the flight recorder's ring: per-request timelines
+            # (tools/request_inspect.py; the fleet router merges these
+            # into GET /fleet/requests)
+            name = path[len("/api/"):-len("/requests")] or None
+            query = urllib.parse.parse_qs(
+                urllib.parse.urlparse(self.path).query)
+            rid = (query.get("id") or [None])[0]
+            self.send_json(200, {
+                "requests": _flight.snapshot(trace_id=rid, model=name),
+                "flight": _flight.stats()})
         elif path == "/admin/sessions" and srv.enable_admin:
             self.send_json(200, {"sessions": {
                 name: entry.scheduler.session_ids()
@@ -132,6 +162,11 @@ class _ServingHandler(JsonRequestHandler):
             return None
         return time.monotonic() + max(ms, 0.0) / 1e3
 
+    def _shed_expired(self, trace_hdr):
+        self.send_json(504, {"error": "deadline expired"},
+                       headers=trace_hdr)
+        return 504
+
     def _result_timeout(self, deadline):
         """The configured request timeout, tightened to the request's
         remaining deadline."""
@@ -142,8 +177,11 @@ class _ServingHandler(JsonRequestHandler):
 
     def _shed(self, entry, message, headers, close=False):
         """429 + a ``Retry-After`` computed from the scheduler's queue
-        depth and its recent step latency."""
-        retry = entry.scheduler.retry_after_s()
+        depth and its recent batch or step latency."""
+        try:
+            retry = entry.scheduler.retry_after_s()
+        except Exception:  # noqa: BLE001 — a hint must never 500 a shed
+            retry = 1
         headers = dict(headers, **{"Retry-After": str(int(retry))})
         if close:
             headers["Connection"] = "close"
@@ -152,8 +190,44 @@ class _ServingHandler(JsonRequestHandler):
                        headers=headers)
         return 429
 
+    # -- admin: versioned hot-load -------------------------------------------
+    def _admin_load(self):
+        """``POST /admin/models {"name", "model", "version"?,
+        "default"?}`` -> registry hot-load (the fleet's rolling-update
+        hook).  404 unless the server was built with ``enable_admin``."""
+        srv = self.server_ref
+        if not srv.enable_admin:
+            self.send_json(404, {"error": "not found"})
+            return
+        try:
+            payload = self.read_json_body()
+            if not isinstance(payload, dict) or \
+                    not payload.get("name") or "model" not in payload:
+                raise ClientError("bad admin payload")
+        except ClientError:
+            self.send_json(400, {
+                "error": "body must be {'name': ..., 'model': <spec>, "
+                         "'version'?: ...}"})
+            return
+        name = str(payload["name"])
+        try:
+            spec = payload["model"]
+            model = (srv.model_resolver(spec)
+                     if srv.model_resolver is not None else spec)
+            entry = srv.registry.add(
+                name, model, version=payload.get("version"),
+                default=bool(payload.get("default", False)))
+        except Exception as exc:  # noqa: BLE001 — report, keep serving
+            log.exception("admin hot-load of %r failed", name)
+            self.send_json(500, {"error": "hot-load failed: %s"
+                                 % str(exc)[:300], "model": name})
+            return
+        self.send_json(200, {"model": entry.name,
+                             "version": entry.version,
+                             "ready": entry.scheduler.ready})
+
     # -- admin: session migration --------------------------------------------
-    def _decode_entries(self, model=None):
+    def _entries(self, model=None):
         """(name, entry) pairs, optionally of one model name."""
         srv = self.server_ref
         out = []
@@ -162,6 +236,12 @@ class _ServingHandler(JsonRequestHandler):
             if entry is not None:
                 out.append((name, entry))
         return out
+
+    def _decode_entries(self, model=None):
+        """The (name, entry) pairs whose schedulers speak the session
+        protocol."""
+        return [(name, entry) for name, entry in self._entries(model)
+                if hasattr(entry.scheduler, "export_sessions")]
 
     def _admin_sessions(self, action):
         """``POST /admin/sessions/{export,import,release}``: the
@@ -239,15 +319,140 @@ class _ServingHandler(JsonRequestHandler):
             self.send_json(500, {"error": "%s failed: %s"
                                  % (action, str(exc)[:300])})
 
+    def _swapped(self, name, entry):
+        """The entry that replaced ``entry`` under ``name`` since this
+        request resolved it.  A hot swap closes the replaced scheduler,
+        so a request that resolved it just before the swap finds it
+        closed: it goes to the replacement, which was warm before the
+        swap.  Re-raises SchedulerClosed when nothing replaced it (the
+        server is draining)."""
+        fresh = self.server_ref.registry.resolve(name)
+        if fresh is None or fresh is entry or self.server_ref.draining:
+            raise SchedulerClosed("model %r is shut down" % entry.name)
+        return fresh
+
+    # -- the flight-recorder lifecycle ---------------------------------------
+    def _flight_open(self, ctx, name, path):
+        """Open (or continue) the request's flight timeline: the trace
+        id is the stitching key, the tenant tag rides as metadata."""
+        tid = ctx.trace_id
+        _flight.annotate(tid, model=name or "<default>",
+                         tenant=self.headers.get("X-Veles-Tenant"))
+        _flight.record(tid, "request.recv", path=path,
+                       model=name or "<default>")
+
+    def _flight_close(self, ctx, status):
+        """Close the timeline with the anomaly the response status
+        implies (shed, deadline, server fault).  A 200 decode answer
+        was already finished by the scheduler's retire; a 307 stays
+        open: the destination replica finishes it."""
+        tid = ctx.trace_id
+        _flight.record(tid, "request.done", status=int(status))
+        if status == 429:
+            _flight.anomaly(tid, "shed_429")
+            _flight.finish(tid, status="shed_429")
+        elif status == 504:
+            _flight.anomaly(tid, "deadline_504")
+            _flight.finish(tid, status="deadline_504")
+        elif status >= 500:
+            _flight.anomaly(tid, "error", status=int(status))
+            _flight.finish(tid, status="error_%d" % status)
+        elif status == 200:
+            _flight.finish(tid, status="ok")
+
+    # -- the classifier path -------------------------------------------------
+    def _infer(self, name):
+        # request -> batch causality: the request runs in a span context
+        # (the client's X-Trace-Id, or a fresh id), the scheduler
+        # captures it at submit, and the batch span links back to it
+        with _trace.span_context(
+                trace_id=self.headers.get("X-Trace-Id") or None) as ctx:
+            t0 = time.perf_counter()
+            self._flight_open(ctx, name, "infer")
+            status = self._infer_traced(name, ctx)
+            events.span("serving.request", time.perf_counter() - t0,
+                        model=name or "<default>", status=status)
+            self._flight_close(ctx, status)
+
+    def _infer_traced(self, name, ctx):
+        """The request body; returns the HTTP status it answered."""
+        srv = self.server_ref
+        entry = srv.registry.resolve(name)
+        trace_hdr = {"X-Trace-Id": ctx.trace_id}
+        try:
+            batch = self.read_input_payload()
+            if batch.ndim == 1:
+                batch = batch[None]         # single-sample convenience
+            if entry is None:
+                self.send_json(404, {
+                    "error": "unknown model %r" % (name or "<default>"),
+                    "models": srv.registry.names()}, headers=trace_hdr)
+                return 404
+            if not hasattr(entry, "infer"):
+                self.send_json(400, {
+                    "error": "model %r is a decode model; use POST "
+                             "/api/%s/generate" % (entry.name, entry.name)},
+                    headers=trace_hdr)
+                return 400
+            entry.scheduler.validate(batch)
+        except ValueError as e:             # ClientError included
+            self.send_json(400, {"error": str(e)}, headers=trace_hdr)
+            return 400
+        deadline = self._deadline()
+        if deadline_expired(deadline):
+            # expired before submission: shed without touching the queue
+            entry.scheduler.metrics.record_expired()
+            return self._shed_expired(trace_hdr)
+        try:
+            try:
+                result, out = entry.infer(
+                    batch, timeout=self._result_timeout(deadline),
+                    deadline=deadline)
+            except SchedulerClosed:
+                entry = self._swapped(name, entry)
+                result, out = entry.infer(
+                    batch, timeout=self._result_timeout(deadline),
+                    deadline=deadline)
+        except SchedulerOverflow as e:
+            return self._shed(entry, "server overloaded: %s" % e,
+                              trace_hdr)
+        except DeadlineExpired:
+            return self._shed_expired(trace_hdr)
+        except _FutureTimeout:
+            if deadline_expired(deadline):
+                return self._shed_expired(trace_hdr)
+            log.warning("inference on %r exceeded request_timeout",
+                        entry.name)
+            self.send_json(500, {"error": "request timed out",
+                                 "model": entry.name}, headers=trace_hdr)
+            return 500
+        except SchedulerClosed:
+            self.send_json(503, {"error": "server is draining"},
+                           headers={"Connection": "close", **trace_hdr})
+            return 503
+        except Exception:  # noqa: BLE001 — server fault, logged here
+            error_id = uuid.uuid4().hex[:12]
+            log.exception("inference failed on model %r (error id %s)",
+                          entry.name, error_id)
+            self.send_json(500, {"error": "internal inference error",
+                                 "model": entry.name, "id": error_id},
+                           headers=trace_hdr)
+            return 500
+        self.send_json(200, {"result": result, "output": out.tolist()},
+                       headers=trace_hdr)
+        return 200
+
     # -- the decode path -----------------------------------------------------
     def _generate(self, name):
         with _trace.span_context(
                 trace_id=self.headers.get("X-Trace-Id") or None) as ctx:
             t0 = time.perf_counter()
+            self._flight_open(ctx, name, "generate")
             status = self._generate_traced(name, ctx)
             events.span("serving.generate_request",
                         time.perf_counter() - t0,
                         model=name or "<default>", status=status)
+            self._flight_close(ctx, status)
 
     def _read_generate_payload(self):
         """{"prompt": [...], "max_new_tokens": n?, "session_id": s?} ->
@@ -277,6 +482,12 @@ class _ServingHandler(JsonRequestHandler):
                     "error": "unknown model %r" % (name or "<default>"),
                     "models": srv.registry.names()}, headers=trace_hdr)
                 return 404
+            if not hasattr(entry, "generate"):
+                self.send_json(400, {
+                    "error": "model %r is not a decode model; use "
+                             "POST /api/%s" % (entry.name, entry.name)},
+                    headers=trace_hdr)
+                return 400
             entry.scheduler.validate(
                 prompt, max_new if max_new is not None
                 else entry.scheduler.max_new_tokens)
@@ -286,9 +497,7 @@ class _ServingHandler(JsonRequestHandler):
         deadline = self._deadline()
         if deadline_expired(deadline):
             entry.scheduler.metrics.record_expired()
-            self.send_json(504, {"error": "deadline expired"},
-                           headers=trace_hdr)
-            return 504
+            return self._shed_expired(trace_hdr)
         # a migration follow: the session is (or shortly will be) live
         # here, so attach instead of generating again
         attach = self.headers.get("X-Veles-Attach") == "1"
@@ -302,9 +511,17 @@ class _ServingHandler(JsonRequestHandler):
                                          "session_id": sid},
                                    headers=trace_hdr)
                     return 410
-                result = entry.generate(
-                    prompt, max_new, timeout=self._result_timeout(deadline),
-                    session_id=sid, deadline=deadline)
+                try:
+                    result = entry.generate(
+                        prompt, max_new,
+                        timeout=self._result_timeout(deadline),
+                        session_id=sid, deadline=deadline)
+                except SchedulerClosed:
+                    entry = self._swapped(name, entry)
+                    result = entry.generate(
+                        prompt, max_new,
+                        timeout=self._result_timeout(deadline),
+                        session_id=sid, deadline=deadline)
         except SchedulerOverflow as e:
             return self._shed(entry, "server overloaded: %s" % e, trace_hdr)
         except SchedulerClosed:
@@ -313,10 +530,10 @@ class _ServingHandler(JsonRequestHandler):
             return self._shed(entry, "server is draining", trace_hdr,
                               close=True)
         except DeadlineExpired:
-            self.send_json(504, {"error": "deadline expired"},
-                           headers=trace_hdr)
-            return 504
+            return self._shed_expired(trace_hdr)
         except _FutureTimeout:
+            if deadline_expired(deadline):
+                return self._shed_expired(trace_hdr)
             log.warning("generate on %r exceeded request_timeout",
                         entry.name)
             self.send_json(500, {"error": "request timed out",
@@ -370,25 +587,33 @@ class _ServingHandler(JsonRequestHandler):
 
 
 class InferenceServer:
-    """Serve one or more decode models over HTTP.
+    """Serve one or more models over HTTP.
 
     ``models``: optional mapping/iterable of (name, model) registered at
-    construction; more can be added later through ``registry``.
-    ``scheduler_defaults`` (``max_batch``, ``block_size``,
-    ``max_prompt_len``, ``max_new_tokens``, ``num_blocks``,
-    ``queue_limit``, ``prefix_caching``, ``prefill_chunk_tokens``,
-    ``spec_depth``, ``kvtier``, ``kv_dtype``, ``device``) apply to every
-    model registered through this server, under a model's own
-    ``decode_defaults``; ``device`` defaults to the card.
-    ``enable_admin`` opens the ``/admin/sessions`` surface.
+    construction; more can be added later through ``registry`` or
+    :meth:`add_model`.  ``scheduler_defaults`` apply to every model
+    registered through this server: the decode scheduler's
+    (``max_batch``, ``block_size``, ``max_prompt_len``,
+    ``max_new_tokens``, ``num_blocks``, ``queue_limit``,
+    ``prefix_caching``, ``prefill_chunk_tokens``, ``spec_depth``,
+    ``kvtier``, ``kv_dtype``; under a model's own ``decode_defaults``)
+    and the bucket scheduler's (``max_batch``, ``queue_limit``,
+    ``workers``, ``max_wait``, ``warmup``, ``background_warmup``,
+    ``sample_shape``); ``device`` defaults to the card for
+    both.  ``enable_admin`` opens ``POST /admin/models`` and the
+    ``/admin/sessions`` surface; ``model_resolver`` maps an admin
+    ``"model"`` spec to something the registry accepts (the fleet
+    replica's :func:`~veles_tpu_torch.fleet.replica.resolve_model_spec`).
     """
 
-    def __init__(self, models=None, port=0, host="127.0.0.1",
-                 request_timeout=60.0, enable_admin=False,
+    def __init__(self, models=None, registry=None, port=0,
+                 host="127.0.0.1", request_timeout=60.0,
+                 enable_admin=False, model_resolver=None,
                  **scheduler_defaults):
-        self.registry = ModelRegistry(**scheduler_defaults)
+        self.registry = registry or ModelRegistry(**scheduler_defaults)
         self.request_timeout = request_timeout
         self.enable_admin = bool(enable_admin)
+        self.model_resolver = model_resolver
         self.started = time.time()
         self.draining = False
         if models:
@@ -413,11 +638,15 @@ class InferenceServer:
     def url(self):
         return "http://%s:%d" % (self.host, self.port)
 
+    def add_model(self, name, model, **kwargs):
+        return self.registry.add(name, model, **kwargs)
+
     def stop(self, drain=True):
         """Graceful shutdown: mark draining, finish every admitted
         request/sequence, then stop the HTTP front end.  The schedulers
         close FIRST, while the listener still answers, so a request
-        arriving mid-drain gets 429 + Retry-After instead of a
+        arriving mid-drain gets a structured shed (429 + Retry-After on
+        the generate route, 503 on the classifier route) instead of a
         connection reset."""
         self.draining = True
         self.registry.close(drain=drain)

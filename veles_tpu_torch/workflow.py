@@ -262,6 +262,23 @@ class Workflow(Container):
         self.run()
         callback(self.generate_data_for_master())
 
+    # -- observability -------------------------------------------------------
+    def attach_profiler(self, **kwargs):
+        """Instrument this workflow's training step with a
+        :class:`~veles_tpu_torch.observability.profiler.StepProfiler`
+        (data-wait / host / device / snapshot split, examples/sec, the
+        card's peak memory -> registry series and ``train.step`` spans).
+        Call after ``initialize``.  Reachable as ``self.profiler``;
+        ``profiler.detach()`` removes its wrappers.  Stored transiently
+        (``profiler_``): a pickle never carries the profiler."""
+        from .observability.profiler import StepProfiler
+        self.profiler_ = StepProfiler(self, **kwargs)
+        return self.profiler_
+
+    @property
+    def profiler(self):
+        return getattr(self, "profiler_", None)
+
     # -- results / stats -----------------------------------------------------
     def gather_results(self):
         """Collect metrics from every IResultProvider unit
