@@ -131,6 +131,28 @@ Phases (any failure raises and the script exits non-zero):
    pool); a ``checkpoint_kv`` / ``restore_kv`` of 8 sessions of 2000
    tokens over that pool (each restored session emits the
    uninterrupted run's tokens).  Temporary directories are removed.
+3d. The serving stack (slice 15, after phase 4, whose trained
+   ``precise_gemm=1`` MNIST it serves): the flight recorder's timelines
+   and cost, the classifier route, a fleet of two replicas on the card
+   sharing a fresh build cache (``cache_dir=``), one SIGKILLed
+   mid-burst (nothing fails; the build cache's counters of each
+   replica's schedulers over ``GET /metrics`` before and after: the
+   respawn builds nothing), and the step profiler.
+3e. The autotuner and the build cache (slice 16, after 3d): the sites
+   of ``TUNE_CASES`` (K4 at MNIST's 784->100 and at 4096^3, K1/K2 at
+   the realistic batch in f32 and int8, K5 at AlexNet's LRN1, K7-K9 at
+   B=8 T=2048 H=8 D=64, the prefill chunk on phase 3b's model and
+   server) tuned into a fresh tuning directory, each site's candidates
+   in one isolated subprocess under a hard cap, each gated against the
+   kernel's plain version (or the oracle's tokens); printed: each
+   site's default and winner times, speedup and gate.  Each tuned
+   kernel plan is held against its plain version through the ordinary
+   entry points.  Then a fresh process with both directories set
+   resolves every tuned site ``"tuned"``, runs no ``nvcc`` (counted;
+   the cache's misses and its listing unchanged), serves phase 3's f32
+   burst with ``prefill_chunk_tokens="auto"`` (every token equal to
+   the cache-free oracle) and trains two MNIST steps with the tuned K4
+   split (weights within 1e-4 of the port's on the CPU).
 4. Training (slice 2): the MNIST sample through ``create_workflow()``
    → ``initialize()`` → ``run()`` on the card at the gate's settings
    (784-100-10, minibatch 60, 25 epochs, fail_iterations 12, loader
@@ -205,6 +227,7 @@ every number to PATH as well.
 import argparse
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -2309,16 +2332,32 @@ def _build_dir_state():
                   for p in _build.BUILD_DIR.glob("*"))
 
 
-def fleet_run(card, device=None):
+def _cache_counters(fleet):
+    """{replica: {model: [compiles, cache_hits]}} over the router's
+    merged ``GET /metrics``: the ``nvcc`` runs of each scheduler's
+    warmup and the kernel libraries it found in the build cache."""
+    out = {}
+    for rid, body in fleet.router.merged_metrics()["replicas"].items():
+        out[rid] = {model: [stats.get("compiles"), stats.get("cache_hits")]
+                    for model, stats in body.items()
+                    if isinstance(stats, dict)}
+    return out
+
+
+def fleet_run(card, device=None, cache_dir=None):
     """Two replicas on the card behind the router, serving the toy
-    decoder and the sleep classifier; a burst, one replica SIGKILLed in
-    the middle of it: nothing fails, every token is bitwise the toy's
+    decoder and the sleep classifier, sharing the build cache at
+    ``cache_dir`` (when given); a burst, one replica SIGKILLed in the
+    middle of it: nothing fails, every token is bitwise the toy's
     ``generate_reference``, the victim respawns ready with the build
-    directory unchanged (the stand-ins launch no hand kernel, so that
-    shows only that a replica's start builds nothing), and ``GET
-    /fleet/requests`` merges the router's and the replica's halves of a
-    request under one trace id; -> record.  ``device``: the replicas'
-    (the card unless the CPU is asked for, a rehearsal)."""
+    directory unchanged and, with the cache, its schedulers' warmups
+    built nothing and found every kernel library in the cache (the
+    counters over ``GET /metrics`` before and after the respawn; the
+    stand-ins launch no hand kernel, but each replica loads every
+    library at its warmup), and ``GET /fleet/requests`` merges the
+    router's and the replica's halves of a request under one trace id;
+    -> record.  ``device``: the replicas' (the card unless the CPU is
+    asked for, a rehearsal)."""
     import signal
     from veles_tpu_torch.fleet import Fleet
     from veles_tpu_torch.serving import ToyDecodeModel
@@ -2327,7 +2366,8 @@ def fleet_run(card, device=None):
     want = [oracle.generate_reference(p, 6) for p in prompts]
     t0 = time.perf_counter()
     fleet = Fleet({"toy": FLEET_TOY, "m": FLEET_SLEEP}, replicas=2,
-                  poll_interval=0.1, backoff=FLEET_BACKOFF, device=device)
+                  poll_interval=0.1, backoff=FLEET_BACKOFF, device=device,
+                  cache_dir=cache_dir)
     counts = {"ok": 0, "shed": 0, "failed": 0, "mismatch": 0}
     lock = threading.Lock()
     done = threading.Event()
@@ -2369,6 +2409,7 @@ def fleet_run(card, device=None):
         start_s = time.perf_counter() - t0
         victim = fleet.router.replica_ids()[-1]
         built = _build_dir_state()
+        counters_before = _cache_counters(fleet)
         t_burst = time.perf_counter()
         for t in threads:
             t.start()
@@ -2379,6 +2420,7 @@ def fleet_run(card, device=None):
              300, "the supervisor to see the death")
         wait(lambda: fleet.router.ready_count() == 2, 600, "the respawn")
         respawn_s = time.perf_counter() - t_kill
+        counters_after = _cache_counters(fleet)
         ok_at = counts["ok"]
         wait(lambda: counts["ok"] >= ok_at + FLEET_ANSWERS, 300,
              "answers after the respawn")
@@ -2408,6 +2450,14 @@ def fleet_run(card, device=None):
                                                          failures[:3]))
     if rebuilt:
         raise AssertionError("fleet: the respawn built a kernel")
+    on_card = fleet.supervisor.device.type == "cuda"
+    if cache_dir and on_card and (
+            not counters_after.get(victim) or
+            any(c != 0 or not h
+                for c, h in counters_after[victim].values())):
+        raise AssertionError("fleet: the respawned replica's warmup built "
+                             "a kernel or found none in the cache: %s"
+                             % counters_after)
     replica = [r for r in halves if r != "router"]
     if "router.dispatch" not in halves.get("router", ()) or \
             len(replica) != 1 or \
@@ -2418,18 +2468,23 @@ def fleet_run(card, device=None):
     rec = {"card": card, "answers": counts, "burst_s": burst_s,
            "respawn_s": respawn_s, "start_s": start_s,
            "restarts": desc[victim]["restarts"], "dispatched": dispatched,
-           "trace_halves": sorted(halves)}
+           "trace_halves": sorted(halves), "victim": victim,
+           "cache_dir": bool(cache_dir),
+           "cache_counters_before": counters_before,
+           "cache_counters_after": counters_after}
     _log("3d fleet (2 replicas on %s; %s and %s): started ready in "
          "%.2f s; burst of %d answers (%d decode and classifier clients), "
          "%d shed, 0 failed, every token equal to generate_reference, in "
          "%.2f s; %s SIGKILLed mid-burst, respawned ready in %.2f s "
          "with the build directory unchanged (the stand-ins launch no "
-         "hand kernel); dispatched %s; trace %s merged from "
-         "%s [%s]"
+         "hand kernel); build cache %s, [compiles, cache hits] of each "
+         "replica's schedulers over /metrics before %s, after the "
+         "respawn %s; dispatched %s; trace %s merged from %s [%s]"
          % (fleet.supervisor.device, FLEET_TOY, FLEET_SLEEP, start_s,
             counts["ok"], len(threads),
-            counts["shed"], burst_s, victim, respawn_s, dispatched, tid,
-            sorted(halves), card))
+            counts["shed"], burst_s, victim, respawn_s,
+            "shared" if cache_dir else "off", counters_before,
+            counters_after, dispatched, tid, sorted(halves), card))
     return rec
 
 
@@ -2459,14 +2514,16 @@ def profiler_run(torch, gemm, card, device="cuda"):
     return dict(summary, k4_launches=launches, card=card)
 
 
-def flight_phase(torch, pa, gemm, card, runs, migrations, served_wf):
-    """Phase 3d (slice 15); -> record."""
+def flight_phase(torch, pa, gemm, card, runs, migrations, served_wf,
+                 cache_dir=None):
+    """Phase 3d (slice 15); the fleet shares the build cache at
+    ``cache_dir``; -> record."""
     rec = {"timelines": {r["label"]: r["flight"] for r in runs},
            "migration_traces": {m["label"]: m["flight"]
                                 for m in migrations}}
     rec["recorder_cost"] = recorder_cost(pa, card, runs[0]["answers"])
     rec["classifier"] = classifier_run(torch, gemm, card, served_wf)
-    rec["fleet"] = fleet_run(card)
+    rec["fleet"] = fleet_run(card, cache_dir=cache_dir)
     rec["profiler"] = profiler_run(torch, gemm, card)
     by_label = {r["label"]: r["launches"] for r in runs}
     rec["launches"] = {
@@ -2483,6 +2540,332 @@ def flight_phase(torch, pa, gemm, card, runs, migrations, served_wf):
         raise AssertionError("phase 3d: a kernel did not launch: %s"
                              % rec["launches"])
     _log("3d launches: %s" % rec["launches"])
+    return rec
+
+
+# -- phase 3e: the autotuner and the build cache (slice 16) -------------------
+
+#: K1/K2's realistic batch (``paged_cases``): B=32 H=8 D=128, 128 blocks
+#: of 16 a row
+PAGED_REALISTIC = {"batch": 32, "heads": 8, "d": 128, "block_size": 16,
+                   "max_blocks": 128}
+#: (label, site, ctx) of the sites phase 3e tunes on the card
+TUNE_CASES = (
+    ("MNIST 784->100", "precise_gemm",
+     {"m": 60, "k": 784, "n": 100, "level": 1}),
+    ("4096^3", "precise_gemm", {"m": 4096, "k": 4096, "n": 4096,
+                                "level": 1}),
+    ("realistic f32", "paged_attention",
+     dict(PAGED_REALISTIC, quantized=False)),
+    ("realistic int8", "paged_attention",
+     dict(PAGED_REALISTIC, quantized=True)),
+    ("AlexNet LRN1", "lrn", {"rows": 387200, "c": 96, "n": 5}),
+    ("B=8 T=2048 H=8 D=64", "flash_attention",
+     {"b": 8, "t": 2048, "h": 8, "d": 64, "causal": False}),
+    ("phase 3b model and server", "serving.prefill_chunk",
+     {"flagship": README_MODEL, "server": README_SERVER,
+      "max_prompt_len": README_SERVER["max_prompt_len"],
+      "long_prompts": 2, "new_tokens": 4}))
+#: the hard cap of one site's tuning subprocess, seconds
+TUNE_TIMEOUT = 240
+#: MNIST train steps the fresh process takes with the tuned K4 split
+RESTART_STEPS = 2
+
+
+def tune_phase(card, tune_dir, cache_dir, cases=TUNE_CASES,
+               device="cuda"):
+    """Tune each case's site into ``tune_dir``: its candidates in one
+    isolated subprocess (the build cache at ``cache_dir``) under
+    ``TUNE_TIMEOUT``; -> [record] with the default's and the winner's
+    times.  A site with no gated winner fails the phase."""
+    from veles_tpu_torch.autotune import runner, space
+    from veles_tpu_torch.autotune.store import TuningStore
+    store = TuningStore(tune_dir)
+    # the probes measure the plans they are given against the defaults:
+    # no tuning directory of their own, the build cache shared
+    env = _restart_env(cache_dir, None)
+    out = []
+    for label, site, ctx in cases:
+        ctx = dict(ctx, device=device)
+        t0 = time.perf_counter()
+        lines = []
+        record = runner.tune_site(site, ctx, store=store,
+                                  timeout=TUNE_TIMEOUT, env=env,
+                                  batch=True, log_fn=lines.append)
+        seconds = time.perf_counter() - t0
+        if record is None:
+            raise AssertionError("3e tune %s %s: no gated winner:\n%s"
+                                 % (site, label, "\n".join(lines)))
+        rec = {"label": label, "site": site, "card": card,
+               "shape_class": record["shape_class"],
+               "default": record["default"], "winner": record["config"],
+               "default_ms": 1e3 * record["baseline_s"],
+               "winner_ms": 1e3 * record["best_s"],
+               "speedup": record["speedup"], "gate": record["gate"],
+               "candidates": record["candidates_tried"],
+               "viable": record["extra"]["viable"],
+               "seconds": seconds,
+               "ctx": {k: v for k, v in ctx.items() if k != "device"},
+               "candidate_lines": lines}
+        out.append(rec)
+        _log("3e tune %s (%s, %s): %d candidates, %d passed the gate; "
+             "default %s %.4f ms, winner %s %.4f ms (same process, in "
+             "turns), speedup %.3fx, gate %s; %.1f s [%s]"
+             % (site, label, rec["shape_class"], rec["candidates"],
+                rec["viable"], json.dumps(rec["default"], sort_keys=True),
+                rec["default_ms"], json.dumps(rec["winner"], sort_keys=True),
+                rec["winner_ms"], rec["speedup"], rec["gate"], seconds,
+                card))
+        if record["gate"] != "passed" or \
+                not space.site(site).valid(record["config"], ctx):
+            raise AssertionError("3e tune %s: a winner off the gate or the "
+                                 "space: %s" % (site, record))
+    return out
+
+
+def hold_tuned_plans(torch, tune_dir, dev):
+    """Each tuned kernel plan through the ordinary entry points (the
+    tuning directory set) against its plain version, at the limits of
+    phase 2: K4 within 1e-6 of max(|a| @ |b|) and bit-equal to the
+    rule's split; K1/K2 1e-5; LRN 1e-5 of max(1, max|plain|) (the band
+    form, if it won, its site's 2e-4); K7-K9 2e-5 and 5e-4 of max(1,
+    max|plain|); -> {label: error}."""
+    from veles_tpu_torch.autotune import dispatch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.znicz import flash_attention as fa
+    from veles_tpu_torch.znicz import gemm
+    from veles_tpu_torch.znicz import lrn as lrn_mod
+    from veles_tpu_torch.znicz import paged_attention as pa
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def calls():
+        for label, (m, k, n) in (("K4 MNIST", (60, 784, 100)),
+                                 ("K4 4096^3", (4096, 4096, 4096))):
+            a, b = randn(m, k), randn(k, n)
+            rule = gemm._precise_launch(a, b, 1, gemm.split_runs(
+                "rule", m, n, k, dev))
+
+            def tuned(a=a, b=b, rule=rule, label=label):
+                out = gemm.precise_matmul(a, b, 1)
+                if not torch.equal(out, rule):
+                    raise AssertionError("3e tuned plan %s: not the bits "
+                                         "of the rule's split" % label)
+                return out
+            yield label, tuned, \
+                lambda a=a, b=b: gemm.precise_matmul_reference(a, b, 1), \
+                float((a.abs() @ b.abs()).max())
+        label, (bb, h, d, bs, nb), lengths = paged_cases()[1]
+        for quant in (False, True):
+            args, kw, _, _ = _paged_case(torch, pa, dev, bb, h, d, bs, nb,
+                                         lengths, quant, 21)
+            yield ("K2" if quant else "K1") + " realistic", \
+                lambda args=args, kw=kw: pa.paged_attention(*args, **kw), \
+                lambda args=args, kw=kw: pa.paged_attention_reference(
+                    *args, **kw), 1.0
+        x = randn(387200, 96)
+        impl = dispatch.resolve("lrn", "c96_n5",
+                                default={"impl": "kernel"})[0]["impl"]
+        form = lrn_mod.lrn_pair if impl == "kernel" else lrn_mod.lrn_mxu
+        yield "LRN AlexNet LRN1 (%s)" % impl, lambda: form(x), \
+            lambda: lrn_mod.lrn_reference(x), max(1.0, float(x.abs().max()))
+
+    held = {}
+    prior = root.common.autotune.get("dir", None)
+    try:
+        root.common.autotune.dir = tune_dir
+        dispatch.reset_default_stores()
+        for label, run, plain, scale in calls():
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max()) / scale
+            tol = 1e-6 if label.startswith("K4") else \
+                2e-4 if "(band)" in label else 1e-5
+            if not err <= tol:
+                raise AssertionError("3e tuned plan %s: error %g > %g"
+                                     % (label, err, tol))
+            held[label] = err
+        q, k, v, do = (0.5 * randn(8, 2048, 8, 64) for _ in range(4))
+        err, _, _, _ = _flash_check(torch, fa, q, k, v, do, False, None,
+                                    "3e tuned B=8 T=2048 H=8 D=64")
+        held["K7-K9 B=8 T=2048 H=8 D=64"] = err
+        held["flash tiles"] = fa.flash_tiles(q)
+    finally:
+        root.common.autotune.dir = prior
+        dispatch.reset_default_stores()
+    _log("3e tuned kernel plans against their plain versions: %s" % held)
+    return held
+
+
+def _cache_state(cache_dir):
+    return sorted(os.listdir(cache_dir))
+
+
+def _restart_env(cache_dir, tune_dir):
+    """The environment of a process started against the build cache and
+    the tuning directory (``inject_env``'s variables; ``tune_dir`` None:
+    none)."""
+    env = dict(os.environ)
+    env["VELES_COMPILE_CACHE_DIR"] = cache_dir
+    env.pop("VELES_AUTOTUNE_DIR", None)
+    if tune_dir:
+        env["VELES_AUTOTUNE_DIR"] = tune_dir
+    return env
+
+
+def restart_verdict(rec, before, after):
+    """The fresh process's record against the warm-restart contract:
+    every tuned site resolved ``"tuned"``, no ``nvcc`` ran, the build
+    cache missed nothing and its listing is unchanged, the burst's
+    tokens equal the oracle's and the MNIST steps hold to the CPU."""
+    faults = []
+    untuned = {k: v for k, v in rec["sources"].items() if v != "tuned"}
+    if untuned:
+        faults.append("sites not resolved tuned: %s" % untuned)
+    if rec["nvcc_runs"] or rec["cache"]["misses"]:
+        faults.append("%d nvcc runs, %d build-cache misses" % (
+            rec["nvcc_runs"], rec["cache"]["misses"]))
+    if before != after:
+        faults.append("the build cache's listing changed: %s -> %s"
+                      % (before, after))
+    if rec["chunk_source"] != "tuned":
+        faults.append("prefill_chunk_tokens='auto' resolved %s"
+                      % rec["chunk_source"])
+    if rec["mismatched"]:
+        faults.append("answers %s differ from the oracle"
+                      % rec["mismatched"])
+    if not rec["mnist"]["weights_diff"] <= FIRST_EPOCH_WEIGHT_ATOL:
+        faults.append("MNIST weights %g from the CPU's"
+                      % rec["mnist"]["weights_diff"])
+    if not rec["mnist"]["k4_launches"]:
+        faults.append("the MNIST steps launched no K4")
+    if faults:
+        raise AssertionError("3e fresh process: " + "; ".join(faults))
+
+
+def fresh_restart(cases_json):
+    """The fresh process of phase 3e (started with both directories in
+    its environment): resolve every tuned case, serve phase 3's f32
+    burst with ``prefill_chunk_tokens="auto"`` and take
+    ``RESTART_STEPS`` MNIST steps with ``precise_gemm=1``; prints one
+    JSON record (``restart_verdict`` holds it)."""
+    import torch
+    from veles_tpu_torch import _build
+    from veles_tpu_torch.autotune import dispatch, space
+    from veles_tpu_torch.compilecache import default_cache
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.znicz import gemm
+    from veles_tpu_torch.znicz.samples.flagship import (
+        FlagshipDecodeModel, generate_reference)
+    cases = json.loads(cases_json)
+    t0 = time.perf_counter()
+    _build.load_all()                  # every kernel, off the cache
+    sources, configs = {}, {}
+    for label, site, ctx in cases:
+        sp = space.site(site)
+        key = "%s %s" % (site, label)
+        configs[key] = dispatch.describe(site, sp.shape_class(ctx),
+                                         default=sp.default_for(ctx))
+        sources[key] = configs[key].pop("config_source")
+    model = FlagshipDecodeModel(**README_MODEL)
+    server = InferenceServer({"flagship": model},
+                             prefill_chunk_tokens="auto", **README_SERVER)
+    prompts = _prompts()
+    try:
+        answers, seconds = _post_all(server.url, prompts)
+        stats = server.registry.get("flagship").scheduler.stats()
+    finally:
+        server.stop()
+    got = [a["tokens"] for a in answers]
+    want = [generate_reference(model.params, p, NEW_TOKENS,
+                               heads=model.heads) for p in prompts]
+    card_wf = _mnist_workflow(1)
+    gemm.precise_matmul.launches = gemm.precise_matmul.fold_launches = 0
+    card_losses = train_steps(card_wf, RESTART_STEPS)
+    torch.cuda.synchronize()
+    launches = gemm.precise_matmul.launches
+    folds = gemm.precise_matmul.fold_launches
+    split = gemm.precise_split(60, 100, 784, 1, torch.device("cuda"))
+    cpu_wf = _mnist_workflow(1, device="cpu")
+    cpu_losses = train_steps(cpu_wf, RESTART_STEPS)
+    w_diff = max(float(numpy.abs(c[k] - g[k]).max())
+                 for c, g in zip(host_weights(cpu_wf),
+                                 host_weights(card_wf)) for k in c)
+    rec = {"sources": sources, "configs": configs,
+           "nvcc_runs": _build.build.nvcc_runs,
+           "cache": default_cache().stats(),
+           "chunk_source": stats.get("chunk_source"),
+           "chunk_tokens": stats["prefill_chunk_tokens"],
+           "tokens": sum(map(len, got)), "burst_s": seconds,
+           "mismatched": [i for i, (g, w) in enumerate(zip(got, want))
+                          if g != w],
+           "mnist": {"steps": RESTART_STEPS, "k4_launches": launches,
+                     "k4_fold_launches": folds, "k4_split_runs": split,
+                     "card_losses": card_losses, "cpu_losses": cpu_losses,
+                     "weights_diff": w_diff},
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(rec), flush=True)
+
+
+def restart_check(card, cache_dir, tune_dir, cases=TUNE_CASES):
+    """Start the fresh process against both directories under a hard
+    cap and hold its record (``restart_verdict``); -> record."""
+    before = _cache_state(cache_dir)
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.fresh_restart(sys.argv[1])")
+    argv = [sys.executable, "-c", code, json.dumps(cases)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=900,
+                          env=_restart_env(cache_dir, tune_dir),
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError("3e fresh process exit %d:\n%s"
+                             % (proc.returncode, proc.stderr[-3000:]))
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    after = _cache_state(cache_dir)
+    restart_verdict(rec, before, after)
+    rec.update(card=card, process_s=seconds, cache_listing=after)
+    _log("3e fresh process (both directories set): every tuned site "
+         "resolved tuned (%d), %d nvcc runs, build cache %s (listing "
+         "unchanged, %d files); phase 3's f32 burst with "
+         "prefill_chunk_tokens='auto' (chunks of %s, %s): %d tokens in "
+         "%.3f s, every token equal to generate_reference; MNIST %d "
+         "steps with precise_gemm=1 and K4's tuned split (%s runs a "
+         "split call; %d launches, %d folded): losses %s, CPU %s, "
+         "max|w_card - w_cpu| %.3g (limit %g); %.1f s in the process, "
+         "%.1f s with its start [%s]"
+         % (len(rec["sources"]), rec["nvcc_runs"], rec["cache"],
+            len(after), rec["chunk_tokens"], rec["chunk_source"],
+            rec["tokens"], rec["burst_s"], rec["mnist"]["steps"],
+            rec["mnist"]["k4_split_runs"], rec["mnist"]["k4_launches"],
+            rec["mnist"]["k4_fold_launches"], rec["mnist"]["card_losses"],
+            rec["mnist"]["cpu_losses"], rec["mnist"]["weights_diff"],
+            FIRST_EPOCH_WEIGHT_ATOL, rec["seconds"], seconds, card))
+    return rec
+
+
+def autotune_phase(torch, card, cache_dir, dev):
+    """Phase 3e (slice 16): tune into a fresh tuning directory over the
+    build cache the fleet of phase 3d filled, hold the tuned plans,
+    restart fresh; -> record."""
+    tune_dir = tempfile.mkdtemp(prefix="veles-tune-")
+    rec, t0 = {}, time.perf_counter()
+    try:
+        for name, step in (
+                ("tuned", lambda: tune_phase(card, tune_dir, cache_dir)),
+                ("held", lambda: hold_tuned_plans(torch, tune_dir, dev)),
+                ("restart", lambda: restart_check(card, cache_dir,
+                                                  tune_dir))):
+            rec[name] = step()
+            rec[name + "_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+    _log("3e steps: tune %.1f s, hold %.1f s, restart %.1f s"
+         % (rec["tuned_s"], rec["held_s"], rec["restart_s"]))
     return rec
 
 
@@ -3647,10 +4030,17 @@ def main():
                 run["k4_launches"]
     record["training"] = train
     phase_done("4 MNIST training")
-    record["flight"] = flight_phase(torch, pa, gemm, card, runs,
-                                    tiers["migration"], served_wf)
-    del served_wf
-    phase_done("3d flight recorder, classifier route, fleet, profiler")
+    cache_dir = tempfile.mkdtemp(prefix="veles-build-cache-")
+    try:
+        record["flight"] = flight_phase(torch, pa, gemm, card, runs,
+                                        tiers["migration"], served_wf,
+                                        cache_dir=cache_dir)
+        del served_wf
+        phase_done("3d flight recorder, classifier route, fleet, profiler")
+        record["autotune"] = autotune_phase(torch, card, cache_dir, dev)
+        phase_done("3e autotuner and build cache")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
     attention = [attention_run(torch, fa, card, *config)
                  for config in ATTN_CONFIGS]
     record["attention_first_epoch_vs_cpu"] = [

@@ -35,6 +35,13 @@
   differs past its limits.
 - The work a masked attention call needs is counted from the mask, and
   the needle loader makes the JAX test's data.
+- Phase 3e (the autotuner and the build cache) runs in ``main()`` after
+  phase 3d and before phase 4b, inside the build cache the fleet of 3d
+  shares; its cases are the sites it must tune, each with a choice; its
+  tuning step runs through real isolated subprocesses (on the CPU
+  here); and its fresh-process verdict refuses a restart that ran
+  ``nvcc``, missed the build cache, changed the cache's listing,
+  resolved a site untuned or served a token off the oracle.
 """
 
 import os
@@ -747,3 +754,99 @@ def test_phase3d_migration_keeps_one_trace_id(pristine_recorder):
     rec.finish("t2", status="ok")
     with pytest.raises(AssertionError, match="one migrated timeline"):
         chip_smoke.migration_timelines("f32", first, ["m0", "m2"])
+
+
+def _phase_names():
+    """The phase_done names in ``main()``'s source, in order."""
+    import ast
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    calls = [node for node in ast.walk(main)
+             if isinstance(node, ast.Call) and
+             getattr(node.func, "id", None) == "phase_done"]
+    return [c.args[0].value for c in sorted(calls, key=lambda c: c.lineno)]
+
+
+def test_phase3e_is_in_mains_order():
+    names = [n.split()[0] for n in _phase_names()]
+    assert names == ["2", "3", "3b", "3c", "4", "3d", "3e", "4b", "4c",
+                     "4d", "5"]
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    # 3d's fleet and 3e share one fresh build cache, removed after
+    assert "cache_dir=cache_dir)" in src
+    assert "autotune_phase(torch, card, cache_dir, dev)" in src
+
+
+def test_tune_cases_are_the_sites_3e_must_tune():
+    from veles_tpu_torch.autotune import space
+    sites = [site for _, site, _ in chip_smoke.TUNE_CASES]
+    assert sites.count("precise_gemm") == 2
+    assert sites.count("paged_attention") == 2
+    assert {"lrn", "flash_attention", "serving.prefill_chunk"} <= set(sites)
+    for label, site, ctx in chip_smoke.TUNE_CASES:
+        assert len(space.site(site).candidates(ctx)) >= 2, label
+    realistic = chip_smoke.paged_cases()[1][1]
+    assert (chip_smoke.PAGED_REALISTIC["batch"],
+            chip_smoke.PAGED_REALISTIC["heads"],
+            chip_smoke.PAGED_REALISTIC["d"],
+            chip_smoke.PAGED_REALISTIC["block_size"],
+            chip_smoke.PAGED_REALISTIC["max_blocks"]) == realistic
+    label, site, chunk = chip_smoke.TUNE_CASES[-1]
+    assert site == "serving.prefill_chunk"
+    # the fresh process's server resolves the class the tune wrote
+    assert space.site("serving.prefill_chunk").shape_class(chunk) == \
+        "mp%d" % space.pow2_bucket(
+            chip_smoke.README_SERVER["max_prompt_len"])
+
+
+def test_tune_phase_tunes_through_isolated_subprocesses(tmp_path):
+    """The tuning step on the CPU (the plain versions): a record with
+    the default's and the winner's times, read back by a resolve."""
+    from veles_tpu_torch.autotune import dispatch
+    from veles_tpu_torch.autotune.store import TuningStore
+    tune, cache = str(tmp_path / "tune"), str(tmp_path / "cc")
+    os.makedirs(cache)
+    cases = (("small LRN", "lrn", {"rows": 64, "c": 8, "n": 5}),)
+    recs = chip_smoke.tune_phase("cpu", tune, cache, cases=cases,
+                                 device="cpu")
+    rec, = recs
+    assert rec["gate"] == "passed" and rec["candidates"] == 2
+    assert rec["default"] == {"impl": "kernel"}
+    assert rec["default_ms"] > 0 and rec["winner_ms"] > 0
+    got = TuningStore(tune).get("lrn", rec["shape_class"])
+    assert got["config"] == rec["winner"]
+    assert dispatch.AUTOTUNE_DIR_ENV not in chip_smoke._restart_env(
+        cache, None)
+
+
+def _restart_record():
+    return {"sources": {"precise_gemm MNIST": "tuned",
+                        "lrn AlexNet": "tuned"},
+            "nvcc_runs": 0, "cache": {"misses": 0, "hits": 6},
+            "chunk_source": "tuned", "mismatched": [],
+            "mnist": {"weights_diff": 1e-7, "k4_launches": 12}}
+
+
+def test_phase3e_restart_verdict_counts_nvcc_runs():
+    listing = ["a.so", "b.so", "warmup_manifest.json"]
+    chip_smoke.restart_verdict(_restart_record(), listing, list(listing))
+    for change, match in (({"nvcc_runs": 1}, "1 nvcc runs"),
+                          ({"cache": {"misses": 2, "hits": 4}},
+                           "2 build-cache misses"),
+                          ({"sources": {"lrn AlexNet": "default"}},
+                           "not resolved tuned"),
+                          ({"chunk_source": "default"}, "auto"),
+                          ({"mismatched": [3]}, "differ from the oracle"),
+                          ({"mnist": {"weights_diff": 1e-3,
+                                      "k4_launches": 12}}, "MNIST weights"),
+                          ({"mnist": {"weights_diff": 0.0,
+                                      "k4_launches": 0}}, "no K4")):
+        rec = dict(_restart_record(), **change)
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.restart_verdict(rec, listing, list(listing))
+    with pytest.raises(AssertionError, match="listing changed"):
+        chip_smoke.restart_verdict(_restart_record(), listing,
+                                   listing + ["c.so"])

@@ -28,7 +28,7 @@ counters and ids, never by a wall-clock ratio:
 
 Each fleet runs under its own time limit: past it a watchdog kills the
 replicas, so the waits fail instead of hanging; every fleet stops in a
-``finally``.  ``cache_dir=`` is refused (ROADMAP queue A item 3).
+``finally``.  ``cache_dir=`` reaches every replica's environment.
 """
 
 import contextlib
@@ -438,10 +438,22 @@ def test_fleet_sigkill_zero_failures_and_ready_respawn(fleet):
     assert {"queue.enter", "first_token", "retire"} <= set(kinds[replica])
 
 
-def test_cache_dir_refused():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Fleet({"m": "sleep:0.01:4"}, replicas=1, device="cpu",
-              cache_dir="/tmp/cache")
+def test_cache_dir_refused(tmp_path):
+    """Refused until the build cache was ported (ROADMAP queue A item
+    3): now a fleet's ``cache_dir=`` reaches every replica's
+    environment, with the tuning directory ``inject_env`` forwards."""
+    from veles_tpu_torch.config import root
+    fleet = Fleet({"m": "sleep:0.01:4"}, replicas=1, device="cpu",
+                  cache_dir=str(tmp_path / "cc"))
+    prior = root.common.autotune.get("dir", None)
+    try:
+        root.common.autotune.dir = str(tmp_path / "tune")
+        env = fleet.supervisor._child_env("r0")
+    finally:
+        root.common.autotune.dir = prior
+        fleet.router.stop()
+    assert env["VELES_COMPILE_CACHE_DIR"] == str(tmp_path / "cc")
+    assert env["VELES_AUTOTUNE_DIR"] == str(tmp_path / "tune")
 
 
 # -- on the card ----------------------------------------------------------------

@@ -16,7 +16,8 @@
   operand's device; ``ToyDecodeModel`` and the int8-KV append wrapper
   (slice 12), which takes its plain version for CPU tensors without
   counting a launch; the bucket scheduler, the classifier route, the
-  fleet and the replica command line (slice 15).
+  fleet and the replica command line (slice 15); the autotuner's probes
+  and a decode scheduler resolving ``"auto"`` (slice 16).
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -87,7 +88,11 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "serving.scheduler", "serving.registry",
                  "serving.metrics", "fleet", "fleet.router",
                  "fleet.supervisor", "fleet.replica", "fleet.chaos",
-                 "fleet.__main__"):
+                 "fleet.__main__", "compilecache", "compilecache.keys",
+                 "compilecache.store", "compilecache.manifest",
+                 "compilecache.cache", "autotune", "autotune.space",
+                 "autotune.store", "autotune.dispatch", "autotune.runner",
+                 "autotune.probe", "autotune.__main__"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -242,6 +247,29 @@ def test_slice15_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     sup = ReplicaSupervisor({"m": "sleep:0.001:2"}, replicas=1,
                             device="cpu")
     assert sup._argv("r0")[-4:-2] == ["--device", "cpu"]
+
+
+def test_slice16_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """A probe with no device in its context asks for the card (its
+    candidates fail: no winner, the default stays); a decode scheduler
+    resolving ``"auto"`` still needs the card unless told the CPU."""
+    from veles_tpu_torch.autotune import probe
+    from veles_tpu_torch.serving import DecodeScheduler, ToyDecodeModel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = probe.measure("precise_gemm", {"split": "rule"},
+                        {"m": 8, "k": 8, "n": 8}, reps=1, windows=1)
+    assert not out["ok"] and "no CUDA device" in out["error"]
+    out = probe.measure("precise_gemm", {"split": "rule"},
+                        {"m": 8, "k": 8, "n": 8, "device": "cpu"},
+                        reps=1, windows=1)
+    assert out["ok"] and out["gate"] == "passed"
+    with pytest.raises(RuntimeError):
+        ToyDecodeModel(vocab=31)
+    toy = ToyDecodeModel(vocab=31, device="cpu")
+    with pytest.raises(RuntimeError):      # the scheduler's default card
+        DecodeScheduler(toy, spec_depth="auto")
+    s = DecodeScheduler(toy, spec_depth="auto", device="cpu")
+    s.close()
 
 
 def test_fleet_replica_subprocess_imports_no_jax(tmp_path):

@@ -30,7 +30,11 @@ magnitude (chip_smoke's limits); threefry bits on the card equal the
 CPU's.  A KV block demoted from f32 and int8 pools on the card and
 readmitted gives the CPU's wire bytes and pools bit for bit;
 ``restore_kv`` of a CPU checkpoint on the card resumes with the CPU
-run's tokens.
+run's tokens.  Every non-default candidate of the ``precise_gemm``,
+``paged_attention``, ``flash_attention`` and ``window_attention``
+autotune sites holds to the plain versions at the same limits (K4's
+every split bit-equal to the default as well); a tile no instantiation
+has raises; tuned records reach the kernels through their call sites.
 """
 
 import os
@@ -1316,3 +1320,144 @@ def test_restore_kv_on_the_card_resumes_with_the_cpu_tokens(cuda, tmp_path,
     finally:
         dst.close()
     assert pa.paged_attention.launches > launches
+
+
+# -- the autotune sites' candidates (the plans a tuning record may pick) ------
+
+def _site_candidates(name, ctx):
+    from veles_tpu_torch.autotune import space
+    return space.site(name).candidates(ctx)
+
+
+@pytest.mark.parametrize("shape", [(60, 784, 100), (37, 1000, 10),
+                                   (300, 2049, 70), (512, 4096, 512)])
+@pytest.mark.parametrize("level", [1, 2])
+def test_precise_gemm_site_candidates_bitwise_and_plain(cuda, shape,
+                                                        level):
+    """Each ``precise_gemm`` split (the rule, none, runs of 1-8 K tiles)
+    gives the default's bits, within 1e-6 of ``max(|a| @ |b|)`` of the
+    plain version; a split launches the fold, none does not."""
+    m, k, n = shape
+    a, b = _precise_inputs(cuda, m, k, n, seed=m + k)
+    cands = _site_candidates("precise_gemm", {"m": m, "k": k, "n": n,
+                                              "level": level})
+    assert len(cands) >= 2
+    want = gemm._precise_launch(a, b, level, gemm.split_runs(
+        "rule", m, n, k, cuda))
+    plain = gemm.precise_matmul_reference(a, b, level)
+    scale = float((a.abs() @ b.abs()).max())
+    for cfg in cands:
+        runs = gemm.split_runs(cfg["split"], m, n, k, cuda)
+        folds = gemm.precise_matmul.fold_launches
+        out = gemm._precise_launch(a, b, level, runs)
+        torch.cuda.synchronize()
+        assert gemm.precise_matmul.fold_launches == folds + bool(runs)
+        assert torch.equal(out, want), cfg
+        assert float((out - plain).abs().max()) <= 1e-6 * scale, cfg
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_site_candidates_match_plain(cuda, quant):
+    """Each ``paged_attention`` split at chip_smoke's realistic shape
+    (B=32 H=8 D=128, 128 blocks of 16) within 1e-5 of the plain
+    version."""
+    label, (b, h, d, bs, nb), lengths = chip_smoke.paged_cases()[1]
+    q, kp, vp, table, lens = _paged_inputs(cuda, b, h, d, bs, nb, lengths,
+                                           seed=11)
+    kp, vp, scales = _quantized(kp, vp, quant)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = _site_candidates("paged_attention", {
+        "batch": b, "heads": h, "d": d, "block_size": bs,
+        "max_blocks": nb, "quantized": quant})
+    assert len(cands) == 6
+    for cfg in cands:
+        plan = pa.plan_for_split(cfg["split"], b, h, d, bs, nb, sms,
+                                 quantized=quant)
+        merges = pa.paged_attention.merge_launches
+        out = pa._paged_launch(q, kp, vp, table, lens, None,
+                               scales.get("k_scales"),
+                               scales.get("v_scales"), plan)
+        torch.cuda.synchronize()
+        assert pa.paged_attention.merge_launches == \
+            merges + (plan.split > 1)
+        assert _paged_err(out, q, kp, vp, table, lens, **scales) <= 1e-5, \
+            cfg
+
+
+@pytest.mark.parametrize("case", [(2, 300, 2, 64, True, None),
+                                  (1, 130, 3, 48, False, None),
+                                  (8, 2048, 8, 64, False, None),
+                                  (8, 2048, 8, 64, True, 512),
+                                  (2, 200, 2, 40, True, 70)])
+def test_flash_site_candidates_match_plain(cuda, case):
+    """Each ``flash_attention`` / ``window_attention`` candidate at head
+    dims 33-64 (K7's key tile 32 or 64, K8's 32 or 16, K9's query tile
+    32 or 16): out and lse within 2e-5, each gradient within 5e-4 of
+    max(1, max|plain|)."""
+    b, t, h, d, causal, window = case
+    q, k, v, do = _flash_inputs(cuda, b, t, h, d, seed=t + d)
+    kw = dict(causal=causal, window=window)
+    name = "window_attention" if window else "flash_attention"
+    ctx = {"t": t, "d": d, "causal": causal, "window": window}
+    cands = _site_candidates(name, ctx)
+    assert len(cands) == 8
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = fa.flash_delta(do, ref_out)
+    ref_dq = fa.flash_dq_reference(q, k, v, do, ref_lse, delta, **kw)
+    ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta,
+                                            **kw)
+    for tiles in cands:
+        out, lse = fa.flash_attention_fwd(q, k, v, tiles=tiles, **kw)
+        dq = fa.flash_attention_dq(q, k, v, do, ref_lse, delta,
+                                   tiles=tiles, **kw)
+        dk, dv = fa.flash_attention_dkv(q, k, v, do, ref_lse, delta,
+                                        tiles=tiles, **kw)
+        torch.cuda.synchronize()
+        assert float((out - ref_out).abs().max()) <= 2e-5, tiles
+        assert float((lse - ref_lse).abs().max()) <= 2e-5, tiles
+        assert _rel(dq, ref_dq) <= 5e-4, tiles
+        assert _rel(dk, ref_dk) <= 5e-4 and _rel(dv, ref_dv) <= 5e-4, tiles
+
+
+def test_a_tile_no_instantiation_has_raises(cuda):
+    """A tuned choice that cannot launch raises; nothing falls back."""
+    from veles_tpu_torch.autotune import space
+    q, k, v, do = _flash_inputs(cuda, 1, 64, 1, 128, seed=3)
+    bad = dict(space.flash_plan_tiles(128), fwd_block_k=64)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_attention_fwd(q, k, v, tiles=bad)
+    a, b = _precise_inputs(cuda, 8, 300, 8, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gemm._precise_launch(a, b, 1, 3)       # 2 K tiles, 3 runs
+
+
+def test_tuned_plans_reach_the_kernels(cuda, tmp_path):
+    """Records in a tuning directory reach K4's split and the flash
+    tiles through the ordinary entry points; the tuner off gives the
+    plans back, and every output is bit-equal to an explicit call."""
+    from veles_tpu_torch.autotune import dispatch, space, store
+    from veles_tpu_torch.config import root
+    st = store.TuningStore(str(tmp_path))
+    st.put("precise_gemm", "m64_k1024_n128_l1", {"split": 2},
+           default={"split": "rule"}, speedup=1.0)
+    tiles = {"fwd_block_k": 64, "dq_block_k": 16, "dkv_block_q": 16}
+    st.put("flash_attention", "t512_d64_causal", tiles,
+           default=space.flash_plan_tiles(64), speedup=1.0)
+    a, b = _precise_inputs(cuda, 60, 784, 100, seed=2)
+    q, k, v, do = _flash_inputs(cuda, 2, 300, 2, 64, seed=4)
+    prior = root.common.autotune.get("dir", None)
+    try:
+        root.common.autotune.dir = str(tmp_path)
+        dispatch.reset_default_stores()
+        assert gemm.precise_split(60, 100, 784, 1, cuda) == 2
+        tuned = gemm.precise_matmul(a, b, 1)
+        assert fa.flash_tiles(q, True) == tiles
+        out = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_fwd(q, k, v, True, tiles=tiles)[0]
+        assert torch.equal(out, want)
+    finally:
+        root.common.autotune.dir = prior
+        dispatch.reset_default_stores()
+    assert gemm.precise_split(60, 100, 784, 1, cuda) == 4   # the rule
+    assert torch.equal(tuned, gemm.precise_matmul(a, b, 1))
+    assert fa.flash_tiles(q, True) == space.flash_plan_tiles(64)

@@ -11,10 +11,11 @@ IEEE f32 already) and ``compute_confusion_matrix=False`` (the port
 always computes the matrix).  The MNIST sample at a cut size is the
 workflow under test (construction only).
 
-The decode scheduler's options follow the same rule: ``"auto"`` for
-``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype`` raises naming
-ROADMAP queue A item 3; ``kvtier`` is taken (a host tier, a disk tier,
-both, or a ready ``TieredKVStore``).
+The decode scheduler's options, once refused the same way, are taken:
+``"auto"`` for ``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype``
+resolves through its autotune site (ROADMAP queue A item 3; the tuner
+off gives the site's default), and ``kvtier`` builds a tier stack (a
+host tier, a disk tier, both, or a ready ``TieredKVStore``).
 """
 
 import pytest
@@ -89,9 +90,20 @@ SCHED = dict(max_batch=2, block_size=4, max_prompt_len=8,
 @pytest.mark.parametrize("option", ["prefill_chunk_tokens", "spec_depth",
                                     "kv_dtype"])
 def test_scheduler_auto_options_are_refused(option):
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        DecodeScheduler(ToyDecodeModel(vocab=31, device="cpu"),
+    """Refused until queue A item 3 ported the tuner; now ``"auto"``
+    with the tuner off takes the site's default (chunks of 32, depth
+    2, f32 pools), marked ``default`` in ``stats()``."""
+    s = DecodeScheduler(ToyDecodeModel(vocab=31, device="cpu"),
                         name="auto", **dict(SCHED, **{option: "auto"}))
+    try:
+        stats = s.stats()
+        want = {"prefill_chunk_tokens": ("chunk_source", 32),
+                "spec_depth": ("spec_source", 2),
+                "kv_dtype": ("kv_dtype_source", "f32")}[option]
+        assert stats[want[0]] == "default"
+        assert stats[option] == want[1]
+    finally:
+        s.close()
 
 
 @pytest.mark.parametrize("tier", ["host", "disk", "both", "store"])

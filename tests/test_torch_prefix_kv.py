@@ -17,8 +17,9 @@ numpy-seeded inputs through the JAX package:
   flagship int8: the JAX ``DecodeScheduler`` under the same options) and
   interleaves a short request's first token with a long prefill;
 - with every option off the scheduler is the core scheduler: the JAX
-  core scheduler's tokens and pool bytes; options the port does not
-  take yet raise ``NotImplementedError`` naming their ROADMAP item;
+  core scheduler's tokens and pool bytes; ``"auto"`` for an option
+  (refused until ROADMAP queue A item 3 ported the tuner) resolves as
+  the JAX scheduler resolves it, tokens the oracle's;
 - prefix reuse, multi-turn resubmission and churn over a tight pool
   keep every sequence's tokens bitwise;
 - ``GET /api/<model>/kv`` serves a dump that ``tools/kv_inspect.py``
@@ -502,9 +503,32 @@ def test_knobs_off_equal_the_core_scheduler(kv_dtype):
 ])
 def test_unported_options_raise_naming_their_item(toy, option, value,
                                                   item):
-    with pytest.raises(NotImplementedError, match=item):
-        DecodeScheduler(toy, name="refused", **GEOM, device="cpu",
-                        **{option: value})
+    """``value`` for ``option`` raised naming ``item`` until that item
+    ported the autotuner: now, with the tuner off, it resolves to the
+    site's default exactly as the JAX scheduler resolves it, and the
+    scheduler serves the oracle's tokens."""
+    from veles_tpu_torch.autotune import dispatch
+    assert dispatch.resolve_config() is None        # the tuner is off
+    kw = dict(GEOM, **{option: value})
+    s = DecodeScheduler(toy, name="auto", device="cpu", **kw)
+    jax_s = JaxScheduler(JaxToy(vocab=31), name="jaxauto", cache=False,
+                         warmup=False, **kw)
+    try:
+        got, want = s.stats(), jax_s.stats()
+        for key in ("prefill_chunk_tokens", "kv_dtype", "spec_depth",
+                    "chunk_source", "spec_source", "kv_dtype_source",
+                    "max_batch", "block_size"):
+            assert got.get(key) == want.get(key), key
+        source = {"prefill_chunk_tokens": "chunk_source",
+                  "spec_depth": "spec_source",
+                  "kv_dtype": "kv_dtype_source"}[option]
+        assert got[source] == "default"
+        requests = [([3, 1, 4, 1, 5], 4), ([2, 7, 1, 8, 2, 8, 1], 3)]
+        assert _run(s, requests, serial=True) == \
+            [_oracle(p, n) for p, n in requests]
+    finally:
+        s.close()
+        jax_s.close(drain=False)
 
 
 def test_option_misuse_raises(toy):

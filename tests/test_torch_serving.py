@@ -21,7 +21,11 @@ MNIST workflow (its parameters carried over from the JAX workflow by
   versions under concurrent traffic with zero failed requests and every
   answer from the old or the new version, held by counts (no time
   bound: the JAX package's test of it fails under load);
-- packages and caches are refused by name.
+- packages are refused by name; a build cache (``cache=``) and a
+  warmup manifest are taken;
+- a 500's flight timeline is closed before the client has the answer,
+  also under many concurrent failing requests (fault C8: the server
+  used to write the answer first and close the timeline after).
 """
 
 import collections
@@ -100,10 +104,12 @@ def _post(port, payload, route="/api", headers=None):
     return json.loads(urllib.request.urlopen(req, timeout=60).read())
 
 
-def _post_err(port, payload, route="/api"):
+def _post_err(port, payload, route="/api", with_headers=False):
     try:
         _post(port, payload, route)
     except urllib.error.HTTPError as e:
+        if with_headers:
+            return e.code, json.loads(e.read()), e.headers
         return e.code, json.loads(e.read())
     raise AssertionError("expected an HTTP error")
 
@@ -311,8 +317,8 @@ def test_error_taxonomy_400_vs_404_vs_500(mnist_wf):
         code, body = _post_err(server.port, {"input": [[1.0, 2.0]]},
                                "/api/nosuch")
         assert code == 404 and body["models"]
-        code, body = _post_err(server.port, {"input": [[1.0, 2.0]]},
-                               "/api/broken")
+        code, body, headers = _post_err(server.port, {"input": [[1.0, 2.0]]},
+                                        "/api/broken", with_headers=True)
         assert code == 500
         assert body["error"] == "internal inference error"
         assert body["id"]
@@ -320,13 +326,65 @@ def test_error_taxonomy_400_vs_404_vs_500(mnist_wf):
         assert "secret internal state" not in text
         assert "Traceback" not in text
         assert "0xdeadbeef" not in text
-        # a 500 is a flight anomaly of the request's timeline
+        # a 500 is a flight anomaly of the request's timeline, closed
+        # before the answer left (picked by the trace id the 500 carries:
+        # a model-less timeline cannot stand in for it)
         from veles_tpu_torch.observability.flight import RECORDER
-        tl = RECORDER.snapshot(model="broken", limit=1)[0]
+        tl = RECORDER.snapshot(trace_id=headers["X-Trace-Id"])[0]
+        assert tl["meta"]["model"] == "broken"
         assert tl["status"] == "error_500"
         assert "error" in tl["anomalies"]
     finally:
         server.stop()
+
+
+def test_500_timelines_close_before_the_answer_under_concurrency():
+    """Many failing requests from several threads: each one's flight
+    timeline is closed with ``error_500`` the moment its client has the
+    answer (the server closes it before writing the response)."""
+    from veles_tpu_torch.observability.flight import RECORDER
+
+    def broken(x):
+        time.sleep(0.002)
+        raise RuntimeError("boom")
+
+    server = InferenceServer(device="cpu", max_batch=4, workers=2)
+    server.registry.add("broken", broken, sample_shape=(2,))
+    seen, errors = [], []
+
+    def client(i):
+        try:
+            for j in range(6):
+                tid = "c8%02d%02d" % (i, j)
+                try:
+                    _post(server.port, {"input": [[1.0, 2.0]]},
+                          "/api/broken", headers={"X-Trace-Id": tid})
+                    errors.append("%s answered 200" % tid)
+                except urllib.error.HTTPError as e:
+                    # read the ring at once, before anything else runs
+                    tl = RECORDER.snapshot(trace_id=tid)
+                    seen.append((tid, e.code, tl[0] if tl else None))
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        server.stop()
+    assert not errors
+    assert len(seen) == 48
+    for tid, code, tl in seen:
+        assert code == 500, tid
+        assert tl is not None, tid
+        assert tl["status"] == "error_500", (tid, tl["status"])
+        assert "error" in tl["anomalies"], tid
+        kinds = [e["kind"] for e in tl["events"]]
+        assert "request.done" in kinds, tid
 
 
 def test_graceful_drain_completes_inflight():
@@ -659,5 +717,26 @@ def test_unported_paths_refused_by_name(mnist_wf):
         BucketScheduler("/no/pkg.zip", device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         ModelRegistry(device="cpu").load_package("p", "/no/pkg.zip")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        BucketScheduler(mnist_wf, cache="/tmp/cache", device="cpu")
+
+
+def test_cache_and_manifest_are_taken(mnist_wf, tmp_path):
+    """``cache=`` / ``manifest=`` (a refusal until the build cache was
+    ported): the scheduler records its warmed buckets in the manifest
+    and a restart warms them first; on the CPU nothing is built."""
+    from veles_tpu_torch.compilecache import CompileCache
+    cache = CompileCache(str(tmp_path / "cc"))
+    s = BucketScheduler(mnist_wf, max_batch=8, name="cached",
+                        cache=cache, device="cpu")
+    try:
+        assert s.stats()["compiles"] == 0
+        assert cache.manifest.buckets("cached") == [1, 2, 4, 8]
+    finally:
+        s.close()
+    cache.manifest.forget("cached")
+    cache.manifest.record("cached", 4)
+    again = BucketScheduler(mnist_wf, max_batch=8, name="cached",
+                            cache=cache, warmup=False, device="cpu")
+    try:
+        assert again._warmup_order() == [4, 1, 2, 8]
+    finally:
+        again.close()

@@ -381,18 +381,24 @@ def test_plain_metrics_have_no_acceptance(toy):
 ])
 def test_from_spec_parses_as_the_jax_package(spec):
     """The port's spec form gives the JAX package's knobs and scheduler
-    geometry; ``spec=auto`` reaches the scheduler, which refuses it by
-    name, and the tier keys reach it as ``kvtier``, which (as in the JAX
-    package) needs prefix caching."""
+    geometry; ``spec=auto`` reaches the scheduler, which resolves it
+    through the ``serving.spec_depth`` site (the tuner off: depth 2, as
+    the JAX scheduler), and the tier keys reach it as ``kvtier``, which
+    (as in the JAX package) needs prefix caching."""
     port, ref = from_spec(spec, device="cpu"), jax_from_spec(spec)
     assert port.decode_defaults == ref.decode_defaults
     for knob in ("vocab", "step_host_delay", "prefill_host_delay",
                  "draft_host_delay", "draft_agreement"):
         assert getattr(port, knob) == getattr(ref, knob)
     if "auto" in spec:
-        with pytest.raises(NotImplementedError, match="queue A item"):
-            DecodeScheduler(port, name="refused", device="cpu",
-                            **port.decode_defaults)
+        sched = DecodeScheduler(port, name="auto", device="cpu",
+                                **port.decode_defaults)
+        try:
+            stats = sched.stats()
+            assert (stats["spec_depth"], stats["spec_source"]) == \
+                (2, "default")
+        finally:
+            sched.close()
     if "tier" in spec:
         with pytest.raises(ValueError, match="kvtier requires "
                            "prefix_caching"):

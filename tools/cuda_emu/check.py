@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Run the port's flash attention (K7-K9) and int8-KV append kernels on
-the CPU, through ``cuda_runtime.h`` here, against their plain versions.
+"""Run the port's flash attention (K7-K9), compensated GEMM (K4) and
+int8-KV append kernels on the CPU, through ``cuda_runtime.h`` here,
+against their plain versions.
 
-    python3 tools/cuda_emu/check.py flash [CASE ...]   # "(B, T, H, D, causal, window)"
+    python3 tools/cuda_emu/check.py flash [CASE ...]   # "(B, T, H, D, causal, window[, tiles])"
+    python3 tools/cuda_emu/check.py precise [--quick]
     python3 tools/cuda_emu/check.py append [--quick]
 
 Each ``csrc/<kernel>.cu`` is turned into C++ for the stand-in (its
@@ -12,7 +14,13 @@ shared memory, ``<<<...>>>`` launches made calls of ``emu::launch``),
 built with g++ (``-std=c++20 -pthread``) into ``build/cuda_emu/`` and
 called through its C entries.  ``flash``: out and lse within 2e-5 and
 each gradient within 5e-4 of max(1, max|plain|), at head dims that take
-the resident tiles and the wide path; ``append``: the pool and scales
+the resident tiles (with the plans' own streamed tiles, and at head dim
+64 the other instantiation the autotune sites may pick: ``tiles`` as
+K7's, K8's and K9's tile) and the wide path; ``precise``: every split
+of K into runs (none, the kernel's rule, and each run count) bitwise
+equal to the unsplit call and within 1e-6 of the plain version's scale,
+at each level and both operand layouts (``--quick``: the first case at
+level 1); ``append``: the pool and scales
 bitwise equal to ``kv_append_int8_reference`` (the trash block aside)
 at chip_smoke's README prefill and verify span, runs of growing scale
 from mid-block at block sizes 16-64 and head dims 16-256, a reopen
@@ -68,7 +76,8 @@ def translate(src):
     """A .cu source as C++ for the stand-in."""
     for name, body in BODIES.items():
         src = _replace_body(src, name, body)
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?"
+                 r"(\w+) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(emu::dyn_smem());", src)
     return re.sub(r"([\w:]+(?:<[^<>;]*?>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                   lambda m: "emu::launch([&] { %s(%s); }, %s);"
@@ -92,14 +101,16 @@ def build(kernel):
 FLASH_CASES = [(1, 7, 1, 16, False, None), (1, 70, 1, 64, True, 20),
                (1, 70, 2, 300, True, None), (1, 100, 1, 257, True, 30),
                (2, 40, 1, 320, False, None), (1, 65, 1, 512, True, None),
-               (2, 33, 2, 384, True, 1)]
+               (2, 33, 2, 384, True, 1),
+               (1, 70, 1, 64, True, 20, (64, 16, 16)),
+               (2, 100, 1, 48, False, None, (64, 16, 16))]
 
 
 def _view(x):
     return [x.data_ptr(), x.stride(0), x.stride(1), x.stride(2)]
 
 
-def flash_case(lib, b, t, h, d, causal, window, seed):
+def flash_case(lib, b, t, h, d, causal, window, tiles=(0, 0, 0), *, seed):
     rng = numpy.random.RandomState(seed)
     qkv = torch.tensor(rng.standard_normal((b, t, 3 * h * d)) * 0.5,
                        dtype=torch.float32)
@@ -107,20 +118,23 @@ def flash_case(lib, b, t, h, d, causal, window, seed):
     do = torch.tensor(rng.standard_normal((b, t, h, d)) * 0.5,
                       dtype=torch.float32)
     kw = dict(causal=causal, window=window)
-    tail = [b, t, h, d, 1.0 / d ** 0.5, int(causal), int(window or 0), None]
+    head = [b, t, h, d, 1.0 / d ** 0.5, int(causal), int(window or 0)]
     out, dq, dk, dv = (torch.full(q.shape, float("nan")) for _ in range(4))
     lse = torch.full((b * h, t), float("nan"))
     codes = [lib.vt_flash_fwd(*_view(q), *_view(k), *_view(v),
-                              out.data_ptr(), lse.data_ptr(), *tail)]
+                              out.data_ptr(), lse.data_ptr(), *head,
+                              tiles[0], None)]
     ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
     delta = fa.flash_delta(do, ref_out)
     bwd = _view(q) + _view(k) + _view(v) + _view(do) + [
         ref_lse.data_ptr(), delta.data_ptr()]
-    codes.append(lib.vt_flash_dq(*bwd, dq.data_ptr(), *tail))
+    codes.append(lib.vt_flash_dq(*bwd, dq.data_ptr(), *head, tiles[1],
+                                 None))
     codes.append(lib.vt_flash_dkv(*bwd, dk.data_ptr(), dv.data_ptr(),
-                                  *tail))
+                                  *head, tiles[2], None))
+    label = (b, t, h, d, causal, window) + ((tiles,) if any(tiles) else ())
     if any(codes):
-        print((b, t, h, d, causal, window), "launch failed", codes)
+        print(label, "launch failed", codes)
         return False
     ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta,
                                             **kw)
@@ -134,19 +148,62 @@ def flash_case(lib, b, t, h, d, causal, window, seed):
                 dk=rel(dk, ref_dk), dv=rel(dv, ref_dv))
     ok = max(errs["out"], errs["lse"]) <= 2e-5 and \
         max(errs["dq"], errs["dk"], errs["dv"]) <= 5e-4
-    print((b, t, h, d, causal, window), "ok" if ok else "FAILED",
+    print(label, "ok" if ok else "FAILED",
           {name: "%.2g" % e for name, e in errs.items()}, flush=True)
     return ok
 
 
 def flash(cases):
     lib = build("flash_attention")
-    view, tail = [_P, _L, _L, _L], [_I] * 4 + [_F, _I, _I, _P]
+    view, tail = [_P, _L, _L, _L], [_I] * 4 + [_F, _I, _I, _I, _P]
     lib.vt_flash_fwd.argtypes = view * 3 + [_P, _P] + tail
     lib.vt_flash_dq.argtypes = view * 4 + [_P, _P, _P] + tail
     lib.vt_flash_dkv.argtypes = view * 4 + [_P] * 4 + tail
     cases = [eval(c) for c in cases] or FLASH_CASES
     return all([flash_case(lib, *c, seed=i) for i, c in enumerate(cases)])
+
+
+# -- the compensated GEMM -----------------------------------------------------
+
+#: (M, K, N, transposed a): K spans 3 and 4 tiles of 256, ragged M and N
+PRECISE_CASES = [(20, 700, 30, False), (9, 1000, 12, True)]
+
+
+def precise(quick=False):
+    from veles_tpu_torch.znicz import gemm
+    lib = build("precise_matmul")
+    lib.vt_precise_matmul.argtypes = [_P] * 4 + [_I] * 3 + [_L] * 4 + \
+        [_I, _I, _P]
+    ok = True
+    for i, (m, k, n, at) in enumerate(PRECISE_CASES[:1] if quick
+                                      else PRECISE_CASES):
+        rng = numpy.random.RandomState(i)
+        a = torch.tensor(rng.standard_normal((k, m) if at else (m, k)),
+                         dtype=torch.float32)
+        a = a.t() if at else a
+        b = torch.tensor(rng.standard_normal((k, n)), dtype=torch.float32)
+        tiles = -(-k // 256)
+        rule = lib.vt_precise_matmul_split(m, n, k, 132)
+        for level in (1,) if quick else (0, 1, 2):
+            outs = {}
+            for split in sorted({0, rule, *range(1, tiles + 1)}):
+                out = torch.full((m, n), float("nan"))
+                ws = torch.empty(max(split and tiles, 1) * m * n)
+                code = lib.vt_precise_matmul(
+                    a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    ws.data_ptr() if split else None, m, n, k,
+                    a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+                    level, split, None)
+                outs[split] = out if code == 0 else None
+            want = gemm.precise_matmul_reference(a, b, level)
+            scale = max(1.0, float(want.abs().max()))
+            good = all(o is not None and torch.equal(o, outs[0])
+                       for o in outs.values()) and \
+                float((outs[0] - want).abs().max()) <= 1e-6 * scale
+            ok &= good
+            print((m, k, n, at), "level", level, "splits", sorted(outs),
+                  "bitwise" if good else "FAILED", flush=True)
+    return ok
 
 
 # -- the int8-KV append -------------------------------------------------------
@@ -254,10 +311,14 @@ def append(labels=None):
 
 def main():
     args = sys.argv[1:]
-    if not args or args[0] not in ("flash", "append"):
+    if not args or args[0] not in ("flash", "precise", "append"):
         raise SystemExit(__doc__.split("\n\n")[1])
-    ok = flash(args[1:]) if args[0] == "flash" else \
-        append(QUICK_APPEND if "--quick" in args[1:] else None)
+    if args[0] == "flash":
+        ok = flash(args[1:])
+    elif args[0] == "precise":
+        ok = precise("--quick" in args[1:])
+    else:
+        ok = append(QUICK_APPEND if "--quick" in args[1:] else None)
     sys.exit(0 if ok else 1)
 
 

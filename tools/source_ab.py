@@ -8,6 +8,7 @@ against each copy named on the command line.
     python3 tools/source_ab.py flash_attention build/flash_parent.cu
     python3 tools/source_ab.py lrn build/lrn_parent.cu
     python3 tools/source_ab.py paged_attention --plan _CTAS_PER_SM=8
+    python3 tools/source_ab.py precise_matmul build/precise_parent.cu
 
 Each source is built with the port's nvcc flags (``-Xptxas -v``: ptxas's
 registers and spills are printed) into ``build/source_ab/``, one nvcc
@@ -30,6 +31,10 @@ the card's name and power limit.  The cases, each kernel's:
   D=64, its three masks) and its realistic shapes (D = 512 included),
   out and lse within 2e-5, each gradient within 5e-4 of max(1,
   max|plain|); a build that returns an error is "refused".
+- ``precise_matmul`` (K4, level 1): the MNIST forward (60x784x100, split
+  by the kernel's rule), its first layer's weight gradient (784x60x100,
+  unsplit) and 4096^3; each build bitwise equal to the tree's and within
+  1e-6 of max(|a| @ |b|) of ``precise_matmul_reference``.
 - ``kv_append``: chip_smoke's append cases (the README prefill, the
   verify span, the 2048-write prefill, the same with a scale that grows
   on every write, its first 512 and 1024 writes) and decode steps of
@@ -104,6 +109,53 @@ def time_turns(label, calls, bound=None, iters=20, **device):
             line += ", bound %.5f ms (%.1f %% of it)" % (
                 bound, 100 * bound / dev_ms)
         print(line, flush=True)
+
+
+# -- K4: the compensated GEMM -------------------------------------------------
+
+#: (label, M, K, N) of the K4 cases
+PRECISE_CASES = (("MNIST forward", 60, 784, 100),
+                 ("MNIST dW1", 784, 60, 100), ("4096^3", 4096, 4096, 4096))
+
+
+def precise_call(lib, a, b, out, ws, split):
+    """One K4 call of ``lib`` (level 1; ``split`` as the C entry takes
+    it; both launches of a split one)."""
+    fn = lib.vt_precise_matmul
+    fn.argtypes = [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _I, _P]
+    (m, k), n = a.shape, b.shape[1]
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if split else None, m, n, k, a.stride(0),
+            a.stride(1), b.stride(0), b.stride(1), 1, split,
+            _build.stream_ptr(a.device))
+    return lambda: _check(fn(*args), "K4")
+
+
+def precise_ab(libs, dev, _):
+    from veles_tpu_torch.znicz import gemm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, m, k, n in PRECISE_CASES:
+        a = torch.randn((m, k), generator=gen, device=dev)
+        b = torch.randn((k, n), generator=gen, device=dev)
+        split = gemm.split_runs("rule", m, n, k, dev)
+        ws = torch.empty((-(-k // 256), m, n), device=dev)
+        plain = gemm.precise_matmul_reference(a, b, 1)
+        scale = float((a.abs() @ b.abs()).max())
+        calls, outs = {}, {}
+        for name, lib in libs.items():
+            outs[name] = torch.empty((m, n), device=dev)
+            calls[name] = precise_call(lib, a, b, outs[name], ws, split)
+            calls[name]()
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            err = float((out - plain).abs().max()) / scale
+            bitwise = torch.equal(out, outs["tree"])
+            print("%s %s: split %d, bitwise with the tree %s, error %.3g "
+                  "of max(|a| @ |b|)" % (label, name, split, bitwise, err))
+            if not bitwise or not err <= 1e-6:
+                raise SystemExit("%s %s differs" % (label, name))
+        time_turns("%s (M=%d K=%d N=%d, split %d)" % (label, m, k, n, split),
+                   calls, launches=2 if split else 1)
 
 
 # -- K1/K2: paged decode attention --------------------------------------------
@@ -241,11 +293,12 @@ def flash_calls(lib, q, k, v, do, lse, delta, causal, window):
     b, t, h, d = q.shape
     fwd, dq, dkv = lib.vt_flash_fwd, lib.vt_flash_dq, lib.vt_flash_dkv
     view = [_P, _L, _L, _L]
-    tail_t = [_I] * 4 + [_F, _I, _I, _P]
+    tail_t = [_I] * 4 + [_F, _I, _I, _I, _P]
     fwd.argtypes = view * 3 + [_P, _P] + tail_t
     dq.argtypes = view * 4 + [_P, _P, _P] + tail_t
     dkv.argtypes = view * 4 + [_P] * 4 + tail_t
-    tail = [b, t, h, d, 1.0 / d ** 0.5, int(causal), int(window or 0),
+    # tile 0: each kernel's own streamed tile at the head dim
+    tail = [b, t, h, d, 1.0 / d ** 0.5, int(causal), int(window or 0), 0,
             _build.stream_ptr(q.device)]
     out = torch.empty_like(q.contiguous())
     lse_out = torch.empty_like(lse)
@@ -380,7 +433,8 @@ def append_ab(libs, dev, _):
 
 
 KERNELS = {"paged_attention": paged_ab, "lrn": lrn_ab,
-           "flash_attention": flash_ab, "kv_append": append_ab}
+           "flash_attention": flash_ab, "kv_append": append_ab,
+           "precise_matmul": precise_ab}
 
 
 def main():

@@ -256,6 +256,33 @@ root.update({
             # precise_gemm=N)) or for every unit through
             # ``engine.precise_gemm``, read with a default of 0
         },
+        "compile_cache": {
+            # persistent build cache of the CUDA kernels + warmup
+            # manifests (veles_tpu_torch/compilecache/): kernel
+            # libraries are built into and loaded from ``dir``, so a
+            # restart runs no nvcc.  None = off (kernels build into
+            # build/veles_tpu_torch/ of the checkout);
+            # $VELES_COMPILE_CACHE_DIR overrides for child processes.
+            "dir": None,
+            "enabled": True,
+            # size-budget LRU sweep over the store directory
+            "max_bytes": 4 << 30,
+            # serving warmup: warm the first manifest bucket
+            # synchronously, the rest of the ladder on a background
+            # thread (the server answers before the tail finishes)
+            "background_warmup": False,
+        },
+        "autotune": {
+            # persistent kernel/serving plan tuning (veles_tpu_torch/
+            # autotune/): measured winners keyed by (site, shape class,
+            # torch/CUDA versions, the card, the toolchain, the kernel
+            # sources) live under ``dir`` and the call sites resolve
+            # through them.  None = every site uses its default, byte
+            # for byte the behavior without a tuner;
+            # $VELES_AUTOTUNE_DIR overrides for child processes.
+            "dir": None,
+            "enabled": True,
+        },
         "snapshot": {
             # checkpoint/save_state: target chunk size for tensor bands
             "chunk_bytes": 16 << 20,

@@ -155,6 +155,18 @@ struct DkvPlan<256> {
   static constexpr bool kPresplit = false;
 };
 
+// an instantiation with another streamed tile than the plan's (the
+// flash_attention / window_attention autotune sites, which the C entries
+// take as their tile argument): the plan of DMAX with kBK (kBQ) replaced
+template <int DMAX, int BK>
+struct DqTile : DqPlan<DMAX> {
+  static constexpr int kBK = BK;
+};
+template <int DMAX, int BQ>
+struct DkvTile : DkvPlan<DMAX> {
+  static constexpr int kBQ = BQ;
+};
+
 // cvt.rna.tf32.f32 on the bit pattern: round the magnitude to 10
 // mantissa bits, to nearest with ties away from zero (two integer ops;
 // the PTX instruction also tests for NaN and infinity)
@@ -403,22 +415,22 @@ __device__ __forceinline__ bool tile_masked(int r_lo, int r_hi, int c_lo,
   return c_hi > r_lo || (window > 0 && c_lo <= r_hi - window);
 }
 
-template <int DMAX>
+template <int DMAX, int BKT>
 constexpr size_t dq_smem() {
-  using P = DqPlan<DMAX>;
+  using P = DqTile<DMAX, BKT>;
   return sizeof(float) * (DMAX + 4) *
          (2 * kRows + 2 * (P::kStages + P::kPresplit) * P::kBK);
 }
 
 // K8: dq of one Q tile of one (b, h)
-template <int DMAX>
+template <int DMAX, int BKT>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(View q, View k, View v, View dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
                 int T, int H, int D, float scale, int causal, int window,
                 unsigned vec) {
-  using P = DqPlan<DMAX>;
+  using P = DqTile<DMAX, BKT>;
   constexpr int LD = DMAX + 4, BK = P::kBK, NS = P::kStages;
   constexpr int NT = BK / 8, KD = DMAX / 8, kStage = 2 * BK * LD;
   constexpr bool PRE = P::kPresplit;
@@ -528,9 +540,9 @@ flash_dq_kernel(View q, View k, View v, View dout,
     }
 }
 
-template <int DMAX>
+template <int DMAX, int BQT>
 constexpr size_t dkv_smem() {
-  using P = DkvPlan<DMAX>;
+  using P = DkvTile<DMAX, BQT>;
   return sizeof(float) *
          (2 * (kRows + P::kPresplit * P::kBQ) * (DMAX + 4) +
           P::kStages * (2 * P::kBQ * (DMAX + 4) + 2 * P::kBQ));
@@ -538,14 +550,14 @@ constexpr size_t dkv_smem() {
 
 // K9: dk and dv of one K tile of one (b, h), output columns blockIdx.y *
 // kDS ..
-template <int DMAX>
+template <int DMAX, int BQT>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(View q, View k, View v, View dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
                  float* __restrict__ dv, int T, int H, int D, float scale,
                  int causal, int window, unsigned vec) {
-  using P = DkvPlan<DMAX>;
+  using P = DkvTile<DMAX, BQT>;
   constexpr int LD = DMAX + 4, BQ = P::kBQ, NS = P::kStages;
   constexpr int NT = BQ / 8, KD = P::kDS / 8;
   constexpr int kStage = 2 * BQ * LD + 2 * BQ;
@@ -692,17 +704,17 @@ flash_dkv_kernel(View q, View k, View v, View dout,
 // writes lse); kG output column tiles summed side by side.  45, 51, 99
 // and 163 KB of shared memory at DMAX 32, 64, 128 and 256: four CTAs an
 // SM at 32 and 64, two at 128 (by registers), one at 256
-template <int DMAX>
+template <int DMAX, int BK = DMAX == 32 ? 64 : 32>
 struct FwdPlan {
   static constexpr int kDV = DMAX < 128 ? DMAX : 128;
-  static constexpr int kBK = DMAX == 32 ? 64 : 32;
+  static constexpr int kBK = BK;
   static constexpr int kG = DMAX == 128 ? 8 : DMAX == 256 ? 2 : 4;
 };
 constexpr int kFwdStages = 2;
 
-template <int DMAX>
+template <int DMAX, int BKT>
 constexpr size_t fwd_smem() {
-  using P = FwdPlan<DMAX>;
+  using P = FwdPlan<DMAX, BKT>;
   return sizeof(float) * (kRows * (DMAX + 4) +
                           kFwdStages * P::kBK * (DMAX + P::kDV + 8));
 }
@@ -721,12 +733,12 @@ __device__ __forceinline__ void scale_tile(float* p, float mul) {
 
 // K7: out and lse of one Q tile of one (b, h), output columns blockIdx.y *
 // kDV ..
-template <int DMAX>
+template <int DMAX, int BKT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(View q, View k, View v, float* __restrict__ out,
                  float* __restrict__ lse, int T, int H, int D, float scale,
                  int causal, int window, unsigned vec) {
-  using P = FwdPlan<DMAX>;
+  using P = FwdPlan<DMAX, BKT>;
   constexpr int LD = DMAX + 4, DV = P::kDV, BK = P::kBK, NS = kFwdStages;
   constexpr int NT = BK / 8, KD = DV / 8, kStage = BK * (LD + DV + 4);
   extern __shared__ float4 smem4[];
@@ -1315,51 +1327,51 @@ unsigned vec_bits(const View& q, const View& k, const View& v,
          (unsigned)rows16(v) << 2 | (unsigned)rows16(dout) << 3;
 }
 
-template <int DMAX>
+template <int DMAX, int BK>
 cudaError_t fwd(View q, View k, View v, float* out, float* lse, int B,
                 int T, int H, int D, float scale, int causal, int window,
                 cudaStream_t s) {
-  constexpr size_t smem = fwd_smem<DMAX>();
-  constexpr int kDV = FwdPlan<DMAX>::kDV;
-  const cudaError_t e = allow_smem(flash_fwd_kernel<DMAX>, smem);
+  constexpr size_t smem = fwd_smem<DMAX, BK>();
+  constexpr int kDV = FwdPlan<DMAX, BK>::kDV;
+  const cudaError_t e = allow_smem(flash_fwd_kernel<DMAX, BK>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)B * H * ((T + kRows - 1) / kRows);
   const dim3 grid((unsigned)blocks, (unsigned)((D + kDV - 1) / kDV));
-  flash_fwd_kernel<DMAX><<<grid, kThreads, smem, s>>>(
+  flash_fwd_kernel<DMAX, BK><<<grid, kThreads, smem, s>>>(
       q, k, v, out, lse, T, H, D, scale, causal, window,
       vec_bits(q, k, v, q));
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, int BK>
 cudaError_t bwd_dq(View q, View k, View v, View dout, const float* lse,
                    const float* delta, float* dq, int B, int T, int H,
                    int D, float scale, int causal, int window,
                    cudaStream_t s) {
-  constexpr size_t smem = dq_smem<DMAX>();
-  const cudaError_t e = allow_smem(flash_dq_kernel<DMAX>, smem);
+  constexpr size_t smem = dq_smem<DMAX, BK>();
+  const cudaError_t e = allow_smem(flash_dq_kernel<DMAX, BK>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks =
       (long long)B * H * ((T + kRows - 1) / kRows);
-  flash_dq_kernel<DMAX><<<(unsigned)blocks, kThreads, smem, s>>>(
+  flash_dq_kernel<DMAX, BK><<<(unsigned)blocks, kThreads, smem, s>>>(
       q, k, v, dout, lse, delta, dq, T, H, D, scale, causal, window,
       vec_bits(q, k, v, dout));
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, int BQ>
 cudaError_t bwd_dkv(View q, View k, View v, View dout, const float* lse,
                     const float* delta, float* dk, float* dv, int B, int T,
                     int H, int D, float scale, int causal, int window,
                     cudaStream_t s) {
-  constexpr size_t smem = dkv_smem<DMAX>();
+  constexpr size_t smem = dkv_smem<DMAX, BQ>();
   constexpr int kDS = DkvPlan<DMAX>::kDS;
-  const cudaError_t e = allow_smem(flash_dkv_kernel<DMAX>, smem);
+  const cudaError_t e = allow_smem(flash_dkv_kernel<DMAX, BQ>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks =
       (long long)B * H * ((T + kRows - 1) / kRows);
   const dim3 grid((unsigned)blocks, (unsigned)((D + kDS - 1) / kDS));
-  flash_dkv_kernel<DMAX><<<grid, kThreads, smem, s>>>(
+  flash_dkv_kernel<DMAX, BQ><<<grid, kThreads, smem, s>>>(
       q, k, v, dout, lse, delta, dk, dv, T, H, D, scale, causal, window,
       vec_bits(q, k, v, dout));
   return cudaGetLastError();
@@ -1409,17 +1421,47 @@ cudaError_t dkv_wide(View q, View k, View v, View dout, const float* lse,
   return cudaGetLastError();
 }
 
+// the streamed tile of kernel KN (0: K7's keys, 1: K8's keys, 2: K9's
+// queries) in the plan of DMAX; the other tile instantiated at DMAX 64
+// (the class attention training runs); the wide path's
+template <int KN, int DMAX>
+constexpr int own_tile() {
+  if constexpr (KN == 0) return FwdPlan<DMAX>::kBK;
+  else if constexpr (KN == 1) return DqPlan<DMAX>::kBK;
+  else return DkvPlan<DMAX>::kBQ;
+}
+constexpr int kAltTile64[3] = {64, 16, 16};
+constexpr int kWideTile[3] = {kFwdWideBK, kDqWideBK, kDkvWideBQ};
+
+template <int N>
+using IntC = std::integral_constant<int, N>;
+
+// launch kernel KN at DMAX with the streamed tile asked for: 0 or the
+// plan's own, or at DMAX 64 the other instantiation; any other tile is
+// refused (a tuned plan that cannot launch raises in the wrapper)
+template <int KN, int DMAX, typename F>
+int pick_tile(int tile, F&& launch) {
+  constexpr int own = own_tile<KN, DMAX>();
+  if (tile == 0 || tile == own) return (int)launch(IntC<DMAX>(), IntC<own>());
+  if constexpr (DMAX == 64) {
+    constexpr int alt = kAltTile64[KN];
+    if (tile == alt) return (int)launch(IntC<DMAX>(), IntC<alt>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // the instantiation for a head dim D: the smallest of 32, 64, 128, 256
 // >= D (the zero-padded columns cost work, not results); past 256 the
 // wide path, up to 65535 column CTAs
-template <typename F, typename W>
-int dispatch(int B, int T, int D, F&& launch, W&& wide) {
+template <int KN, typename F, typename W>
+int dispatch(int B, int T, int D, int tile, F&& launch, W&& wide) {
   if (D < 1 || B < 1 || T < 1 || (D + kWideOut - 1) / kWideOut > 65535)
     return (int)cudaErrorInvalidValue;
-  if (D <= 32) return (int)launch(std::integral_constant<int, 32>());
-  if (D <= 64) return (int)launch(std::integral_constant<int, 64>());
-  if (D <= 128) return (int)launch(std::integral_constant<int, 128>());
-  if (D <= 256) return (int)launch(std::integral_constant<int, 256>());
+  if (D <= 32) return pick_tile<KN, 32>(tile, launch);
+  if (D <= 64) return pick_tile<KN, 64>(tile, launch);
+  if (D <= 128) return pick_tile<KN, 128>(tile, launch);
+  if (D <= 256) return pick_tile<KN, 256>(tile, launch);
+  if (tile != 0 && tile != kWideTile[KN]) return (int)cudaErrorInvalidValue;
   return (int)wide();
 }
 
@@ -1430,20 +1472,21 @@ extern "C" {
 // q, k, v: [B, T, H, D] f32, element (b, t, h, d) at
 // x[b * x_sb + t * x_st + h * x_sh + d]; out: contiguous [B, T, H, D];
 // lse: [B * H, T].  causal 0/1; window 0 = none (else >= 1, causal).
+// tile: the streamed key tile (0: the plan's own; pick_tile)
 int vt_flash_fwd(const float* q, long long q_sb, long long q_st,
                  long long q_sh, const float* k, long long k_sb,
                  long long k_st, long long k_sh, const float* v,
                  long long v_sb, long long v_st, long long v_sh, float* out,
                  float* lse, int B, int T, int H, int D, float scale,
-                 int causal, int window, void* stream) {
+                 int causal, int window, int tile, void* stream) {
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(
-      B, T, D,
-      [&](auto dm) {
-        return fwd<decltype(dm)::value>(qv, kv, vv, out, lse, B, T, H, D,
-                                        scale, causal, window, s);
+  return dispatch<0>(
+      B, T, D, tile,
+      [&](auto dm, auto bk) {
+        return fwd<decltype(dm)::value, decltype(bk)::value>(
+            qv, kv, vv, out, lse, B, T, H, D, scale, causal, window, s);
       },
       [&] {
         return fwd_wide(qv, kv, vv, out, lse, B, T, H, D, scale, causal,
@@ -1452,7 +1495,7 @@ int vt_flash_fwd(const float* q, long long q_sb, long long q_st,
 }
 
 // dout: [B, T, H, D] by strides as q; lse and delta: [B * H, T];
-// dq: contiguous [B, T, H, D]
+// dq: contiguous [B, T, H, D]; tile: the streamed key tile (0: own)
 int vt_flash_dq(const float* q, long long q_sb, long long q_st,
                 long long q_sh, const float* k, long long k_sb,
                 long long k_st, long long k_sh, const float* v,
@@ -1460,15 +1503,16 @@ int vt_flash_dq(const float* q, long long q_sb, long long q_st,
                 const float* dout, long long o_sb, long long o_st,
                 long long o_sh, const float* lse, const float* delta,
                 float* dq, int B, int T, int H, int D, float scale,
-                int causal, int window, void* stream) {
+                int causal, int window, int tile, void* stream) {
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh}, ov{dout, o_sb, o_st, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(
-      B, T, D,
-      [&](auto dm) {
-        return bwd_dq<decltype(dm)::value>(qv, kv, vv, ov, lse, delta, dq, B,
-                                           T, H, D, scale, causal, window, s);
+  return dispatch<1>(
+      B, T, D, tile,
+      [&](auto dm, auto bk) {
+        return bwd_dq<decltype(dm)::value, decltype(bk)::value>(
+            qv, kv, vv, ov, lse, delta, dq, B, T, H, D, scale, causal,
+            window, s);
       },
       [&] {
         return dq_wide(qv, kv, vv, ov, lse, delta, dq, B, T, H, D, scale,
@@ -1476,7 +1520,8 @@ int vt_flash_dq(const float* q, long long q_sb, long long q_st,
       });
 }
 
-// as vt_flash_dq; dk, dv: contiguous [B, T, H, D]
+// as vt_flash_dq; dk, dv: contiguous [B, T, H, D]; tile: the streamed
+// query tile (0: own)
 int vt_flash_dkv(const float* q, long long q_sb, long long q_st,
                  long long q_sh, const float* k, long long k_sb,
                  long long k_st, long long k_sh, const float* v,
@@ -1484,16 +1529,17 @@ int vt_flash_dkv(const float* q, long long q_sb, long long q_st,
                  const float* dout, long long o_sb, long long o_st,
                  long long o_sh, const float* lse, const float* delta,
                  float* dk, float* dv, int B, int T, int H, int D,
-                 float scale, int causal, int window, void* stream) {
+                 float scale, int causal, int window, int tile,
+                 void* stream) {
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh}, ov{dout, o_sb, o_st, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(
-      B, T, D,
-      [&](auto dm) {
-        return bwd_dkv<decltype(dm)::value>(qv, kv, vv, ov, lse, delta, dk,
-                                            dv, B, T, H, D, scale, causal,
-                                            window, s);
+  return dispatch<2>(
+      B, T, D, tile,
+      [&](auto dm, auto bq) {
+        return bwd_dkv<decltype(dm)::value, decltype(bq)::value>(
+            qv, kv, vv, ov, lse, delta, dk, dv, B, T, H, D, scale, causal,
+            window, s);
       },
       [&] {
         return dkv_wide(qv, kv, vv, ov, lse, delta, dk, dv, B, T, H, D,

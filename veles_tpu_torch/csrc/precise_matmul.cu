@@ -41,11 +41,14 @@
 //   the unit-stride axis when the base and the row stride are multiples
 //   of 4 floats, 4-byte copies otherwise (N = 10 on the MNIST path);
 // - split-K over the compensation tiles when the output grid has fewer
-//   CTAs than the card has SMs: each CTA computes one (output tile, K
-//   tile) partial into a workspace [tiles_k, M, N], and a second launch
-//   folds the partials in ascending K order with the level's recurrence.
-//   Every output sees the same partials in the same order as without the
-//   split, so the split result is bit-equal to the unsplit one;
+//   CTAs than the card has SMs: each CTA computes the partials of one
+//   output tile over a run of K tiles (one K tile by the kernel's own
+//   rule; more when the caller asks for fewer, longer runs: the
+//   precise_gemm autotune site) into a workspace [tiles_k, M, N], one
+//   partial a K tile, and a second launch folds the partials in
+//   ascending K order with the level's recurrence.  Every output sees
+//   the same partials in the same order as without the split, so the
+//   split result is bit-equal to the unsplit one, whatever the runs;
 // - CTAs walk the output tiles in groups of 8 tile rows, so the tiles in
 //   flight share their A and B panels in L2.
 // No wgmma and no TMA.
@@ -294,9 +297,30 @@ __device__ __forceinline__ void load_frags(Frags& f, const float* As,
     }
 }
 
+// the tile partials p of a warp's fragments into dst [M, N]
+__device__ __forceinline__ void store_tile(float* dst,
+                                           const float (&p)[kMI][kNI][4],
+                                           int M, int N, int m0, int n0,
+                                           int wm, int wn, int gid,
+                                           int tig) {
+#pragma unroll
+  for (int i = 0; i < kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < kNI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gm = m0 + wm + i * 16 + gid + (e >> 1) * 8;
+        const int gn = n0 + wn + j * 8 + 2 * tig + (e & 1);
+        if (gm < M && gn < N) dst[(size_t)gm * N + gn] = p[i][j][e];
+      }
+}
+
 // out = a @ b (split == 0), or the partial of K tile blockIdx.y into
-// ws[blockIdx.y] (split > 0)
-template <int LEVEL, bool AK, bool BN>
+// ws[blockIdx.y] (split > 0).  RUNS (the precise_gemm autotune site's
+// longer runs; an instantiation of its own, so the others carry none of
+// its code): a CTA takes the run of split K tiles from blockIdx.y * split
+// on, each tile's partial into ws[its K tile]
+template <int LEVEL, bool AK, bool BN, bool RUNS>
 __global__ void __launch_bounds__(kThreads)
 precise_matmul_kernel(const float* __restrict__ a,
                       const float* __restrict__ b, float* __restrict__ out,
@@ -317,8 +341,9 @@ precise_matmul_kernel(const float* __restrict__ a,
   const int rows = min(tiles_m - first_m, kGroupM);
   const int m0 = (first_m + (pid % width) % rows) * kBM;
   const int n0 = ((pid % width) / rows) * kBN;
-  const int kbeg = split ? blockIdx.y * kBK : 0;
-  const int kend = split ? min(kbeg + kBK, K) : K;
+  const int per = RUNS ? split : 1;  // K tiles a CTA, split
+  const int kbeg = split ? blockIdx.y * per * kBK : 0;
+  const int kend = split ? min(kbeg + per * kBK, K) : K;
   const int nst = (kend - kbeg + kBKs - 1) / kBKs;
 
   // p[mi][ni][e]: the tile partial of fragment element e, e = 0..3 at
@@ -383,7 +408,18 @@ precise_matmul_kernel(const float* __restrict__ a,
 #pragma unroll
         for (int j = 0; j < kNI; ++j) mma_tf32(p[i][j], cur.ahi[i], cur.bhi[j]);
     }
-    if (!split && (((s + 1) % (kBK / kBKs)) == 0 || s == nst - 1)) {
+    if (RUNS && ((s + 1) % (kBK / kBKs)) == 0 && s != nst - 1) {
+      // a K tile of the run is done: its partial into its own workspace
+      // slice, the next one from zero (the run's last tile: below)
+      store_tile(ws + (size_t)(kbeg / kBK + s / (kBK / kBKs)) * M * N, p, M,
+                 N, m0, n0, wm, wn, gid, tig);
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int j = 0; j < kNI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[i][j][e] = 0.f;
+    } else if (!split && (((s + 1) % (kBK / kBKs)) == 0 || s == nst - 1)) {
       // a K tile is done: compensate its partial into the running sum
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
@@ -399,7 +435,8 @@ precise_matmul_kernel(const float* __restrict__ a,
   }
   cp_async_wait<0>();
 
-  float* dst = split ? ws + (size_t)blockIdx.y * M * N : out;
+  const int tile = RUNS ? kbeg / kBK + (nst - 1) / (kBK / kBKs) : blockIdx.y;
+  float* dst = split ? ws + (size_t)tile * M * N : out;
 #pragma unroll
   for (int i = 0; i < kMI; ++i)
 #pragma unroll
@@ -436,18 +473,23 @@ int launch(const float* a, const float* b, float* out, float* ws, int M,
            long long sbn, bool vec_a, bool vec_b, int split,
            cudaStream_t s) {
   constexpr int kSmem = kStages * stage_floats<AK, BN>() * sizeof(float);
-  auto kernel = precise_matmul_kernel<LEVEL, AK, BN>;
+  // split runs of per K tiles each, the last one possibly shorter
+  const int tiles_k = (K + kBK - 1) / kBK;
+  const int per = split ? (tiles_k + split - 1) / split : 0;
+  const int runs = split ? (tiles_k + per - 1) / per : 1;
+  auto kernel = per > 1 ? precise_matmul_kernel<LEVEL, AK, BN, true>
+                        : precise_matmul_kernel<LEVEL, AK, BN, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  kernel<<<dim3(tiles, split ? split : 1), kThreads, kSmem, s>>>(
-      a, b, out, ws, M, N, K, sam, sak, sbk, sbn, vec_a, vec_b, split);
+  kernel<<<dim3(tiles, runs), kThreads, kSmem, s>>>(
+      a, b, out, ws, M, N, K, sam, sak, sbk, sbn, vec_a, vec_b, per);
   if (split) {
     const long long mn = (long long)M * N;
     const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256
                                                        : 4096);
-    precise_fold_kernel<LEVEL><<<blocks, 256, 0, s>>>(ws, out, mn, split);
+    precise_fold_kernel<LEVEL><<<blocks, 256, 0, s>>>(ws, out, mn, tiles_k);
   }
   return (int)cudaGetLastError();
 }
@@ -493,14 +535,16 @@ int vt_precise_matmul_split(int M, int N, int K, int sm_count) {
 }
 
 // out [M, N] row-major; a[m, k] at a[m * sam + k * sak], b[k, n] at
-// b[k * sbk + n * sbn] (element strides); split > 0 needs ws with
-// split * M * N floats (vt_precise_matmul_split gives split)
+// b[k * sbk + n * sbn] (element strides).  split: 0, or the K tiles
+// split into that many runs, 1 .. tiles_k (vt_precise_matmul_split gives
+// tiles_k, a run a K tile); split > 0 needs ws with tiles_k * M * N
+// floats
 int vt_precise_matmul(const float* a, const float* b, float* out, float* ws,
                       int M, int N, int K, long long sam, long long sak,
                       long long sbk, long long sbn, int level, int split,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (split && (ws == nullptr || split != (K + kBK - 1) / kBK))
+  if (split < 0 || (split && (ws == nullptr || split > (K + kBK - 1) / kBK)))
     return (int)cudaErrorInvalidValue;
   switch (level) {
     case 0:

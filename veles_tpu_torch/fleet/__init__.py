@@ -39,8 +39,8 @@ Quickstart::
 
 or from the CLI: ``python -m veles_tpu_torch.fleet --model
 m=sleep:0.002:4 --replicas 2`` (``--device cpu`` on a host without a
-card).  Exported packages (``NAME=pkg.zip``) wait for ROADMAP queue A
-item 8, a shared executable cache (``cache_dir=``) for item 3.
+card; ``--cache-dir DIR`` shares a build cache across the replicas).
+Exported packages (``NAME=pkg.zip``) wait for ROADMAP queue A item 8.
 """
 
 from .chaos import FaultPlan

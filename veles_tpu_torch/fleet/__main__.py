@@ -34,8 +34,8 @@ def main(argv=None):
                    help="the replicas' device: the card by default, "
                         "'cpu' for the host")
     p.add_argument("--cache-dir", default=None,
-                   help="a shared executable cache: not ported yet "
-                        "(ROADMAP queue A item 3); refused")
+                   help="persistent build cache shared by every replica "
+                        "(a respawn builds no kernel)")
     p.add_argument("--seconds", type=float, default=None,
                    help="serve N seconds then drain and exit "
                         "(default: until SIGINT)")

@@ -89,17 +89,16 @@ def main(argv=None):
     p.add_argument("--replica-id", default=None,
                    help="stable id assigned by the supervisor")
     p.add_argument("--cache-dir", default=None,
-                   help="a persistent executable cache: not ported yet "
-                        "(ROADMAP queue A item 3); refused")
+                   help="persistent build cache dir (usually inherited "
+                        "via VELES_COMPILE_CACHE_DIR)")
     p.add_argument("--kvtier-dir", default=None,
                    help="disk tier directory for the tiered KV cache "
                         "(usually inherited via VELES_KVTIER_DIR)")
     args = p.parse_args(argv)
 
     if args.cache_dir:
-        raise NotImplementedError(
-            "a persistent executable cache (--cache-dir) is not ported "
-            "yet (ROADMAP queue A item 3, compilecache)")
+        from ..config import root
+        root.common.compile_cache.dir = args.cache_dir
     if args.kvtier_dir:
         # resolved by DecodeScheduler's kvtier disk_dir=True path
         from ..kvtier import DIR_ENV

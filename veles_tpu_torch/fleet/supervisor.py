@@ -5,13 +5,13 @@ replica subprocesses, each a :mod:`veles_tpu_torch.fleet.replica` on
 the supervisor's ``device`` (the card by default; ``"cpu"`` for the
 tests) —
 
-- **spawn**: every replica inherits the supervisor's trace context and
-  its own flight-record and KV-tier directories through its
-  environment, so its spans join the fleet trace.  A respawn builds no
-  kernel: the CUDA kernels' libraries are named by a digest of their
-  source and flags and found built (``_build``).  The JAX package's
-  shared executable cache has no counterpart yet: ``cache_dir=``
-  raises ``NotImplementedError`` (ROADMAP queue A item 3);
+- **warm spawn**: every replica inherits the persistent build cache
+  (``cache_dir=``, or the supervisor's configured one) and the tuning
+  store through its environment (:func:`~veles_tpu_torch.compilecache
+  .inject_env`), so a respawn against a warm cache builds no kernel and
+  resolves the same tuned plans; and the supervisor's trace context
+  and its own flight-record and KV-tier directories, so its spans join
+  the fleet trace;
 - **crash recovery**: a monitor thread polls the child processes; a
   dead replica is marked down in the router immediately and respawned
   on the shared :class:`~veles_tpu_torch.distributed.RestartBackoff`
@@ -37,6 +37,8 @@ import sys
 import threading
 import time
 
+from ..compilecache import inject_env as _cache_inject_env
+from ..compilecache.cache import CACHE_DIR_ENV
 from ..device import resolve_device
 from ..distributed import RestartBackoff
 from ..logger import events
@@ -89,10 +91,6 @@ class ReplicaSupervisor:
                  flight_dir=None, python=None, env=None,
                  backoff=None, spawn_timeout=180.0, poll_interval=0.1,
                  fault_plans=None, clock=time.monotonic, device=None):
-        if cache_dir:
-            raise NotImplementedError(
-                "a shared executable cache (cache_dir=) is not ported "
-                "yet (ROADMAP queue A item 3, compilecache)")
         items = models.items() if hasattr(models, "items") else models
         self.models = [(str(n), s) for n, s in items]
         self.router = router
@@ -101,6 +99,7 @@ class ReplicaSupervisor:
         self.queue_limit = int(queue_limit)
         self.workers = int(workers)
         self.device = resolve_device(device)
+        self.cache_dir = cache_dir
         self.kvtier_dir = kvtier_dir
         self.flight_dir = flight_dir
         self.python = python or sys.executable
@@ -125,6 +124,12 @@ class ReplicaSupervisor:
     # -- spawning ------------------------------------------------------------
     def _child_env(self, rid=None):
         env = dict(os.environ if self._env is None else self._env)
+        if self.cache_dir:
+            # the shared build cache rides the environment
+            # (compilecache.resolve_config reads it), so every replica
+            # and every respawn loads the same kernel libraries
+            env[CACHE_DIR_ENV] = os.path.abspath(str(self.cache_dir))
+        env = _cache_inject_env(env) or env
         if self.kvtier_dir and rid is not None:
             # per-replica disk tier, path keyed by the STABLE replica id
             # so a respawn re-opens the same index and re-advertises its

@@ -3,9 +3,9 @@
 
 Per replica, :class:`TieredKVStore` catches chain blocks the device pool
 would otherwise evict and parks them down a memory hierarchy; fleet
-wide, :class:`PrefixDirectory` lets the router steer each request to
-the replica already holding the longest resident prefix of its prompt
-chain (the router itself is not ported yet: ROADMAP queue A item 2).
+wide, :class:`PrefixDirectory` lets the router
+(:mod:`veles_tpu_torch.fleet.router`) steer each request to the replica
+already holding the longest resident prefix of its prompt chain.
 """
 
 from .store import (TieredKVStore, HostTier, DiskTier,

@@ -65,21 +65,30 @@ lists in the JAX package's order (``jax.tree_util.tree_leaves`` of the
 per-stage tuple: a dict's keys sorted), with the same shapes per block,
 so the bytes read the same in either package.
 
-PyTorch runs eagerly, so the JAX scheduler's ``jax.jit``, persistent
-compile cache and AOT warmup have no counterpart here: the model's
-functions run on the pools' device as they are called, and update the
-pools in place.  ``stats()`` keeps the ``compiles`` and ``cache_hits``
-keys for the JAX package's readers; both are always 0.  In place of the
-AOT warmup, construction runs every step function once on padding
-(writes land only in the trash block): that builds the CUDA kernels
-(``nvcc`` at first use) and the library handles before the first
-request.
+PyTorch runs eagerly, so the JAX scheduler's ``jax.jit`` and AOT
+executables have no counterpart here: the model's functions run on the
+pools' device as they are called, and update the pools in place.  In
+place of the AOT warmup, construction runs every step function once on
+padding (writes land only in the trash block): that builds the CUDA
+kernels and the library handles before the first request.  With a
+build cache (``cache``, default the configured one;
+:mod:`~veles_tpu_torch.compilecache`) the kernels come from it, so a
+warm restart runs no ``nvcc``: ``stats()["compiles"]`` counts the
+``nvcc`` runs of this scheduler's warmup, ``cache_hits`` the kernel
+libraries it found built (both 0 without a cache, or on the CPU).  The
+warmup manifest (``manifest``, default the cache's) records the prefill
+buckets warmed and the tuned configs resolved; a restart warms the
+recorded buckets first.
 
-Not taken by this port yet, and refused with ``NotImplementedError``
-naming the ROADMAP item (:data:`REFUSED_OPTIONS`): ``"auto"`` for
-``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype`` (autotuning).
-The geometry defaults to the JAX scheduler's tuner-off ``(max_batch,
-block_size) = (8, 8)``.
+The geometry and three options are autotune sites
+(:mod:`~veles_tpu_torch.autotune`), resolved as the JAX scheduler
+resolves them: ``max_batch`` / ``block_size`` left None take the
+``serving.decode`` site (tuner off: ``(8, 8)``), and ``"auto"`` for
+``prefill_chunk_tokens``, ``spec_depth`` or ``kv_dtype`` takes the
+``serving.prefill_chunk``, ``serving.spec_depth`` or
+``serving.kv_dtype`` site (tuner off: 32, 2 and f32).  ``stats()``
+says where each came from (``config_source``, ``chunk_source``,
+``spec_source``, ``kv_dtype_source``: tuned, default or explicit).
 
 The single worker thread owns every mutable: the block pool, the page
 table, the session map and the device pools.  ``submit`` only validates
@@ -98,6 +107,9 @@ from concurrent.futures import Future
 import numpy
 import torch
 
+from ..autotune import dispatch as _autotune
+from ..autotune.space import pow2_bucket
+from ..compilecache import WarmupManifest, default_cache
 from ..device import resolve_device
 from ..checkpoint import delete_checkpoint, load_state, save_state
 from ..kvtier import DIR_ENV, TieredKVStore, advert_key
@@ -108,11 +120,12 @@ from ..znicz.paged_attention import DEFAULT_BLOCK_SIZE
 from .kvcache import KVBlockPool, key_chain, required_blocks
 from .metrics import DecodeMetrics
 from .scheduler import (DeadlineExpired, SchedulerClosed,
-                        SchedulerOverflow, bucket_sizes, deadline_expired)
+                        SchedulerOverflow, bucket_sizes, deadline_expired,
+                        warm_kernels)
 from .sessions import pack_block, unpack_block
 
-__all__ = ["DecodeScheduler", "DEFAULT_PREFILL_CHUNK",
-           "DEFAULT_SPEC_DEPTH", "REFUSED_OPTIONS"]
+__all__ = ["DecodeScheduler", "DEFAULT_MAX_BATCH", "DEFAULT_PREFILL_CHUNK",
+           "DEFAULT_SPEC_DEPTH"]
 
 _STOP = object()
 
@@ -125,27 +138,10 @@ _FINISHED_KEEP = 256
 DEFAULT_MAX_BATCH = 8
 
 #: the JAX package's hand-picked prefill chunk and speculation depth
-#: (its autotune sites' baseline candidates)
+#: (the baseline candidates of the serving.prefill_chunk and
+#: serving.spec_depth autotune sites)
 DEFAULT_PREFILL_CHUNK = 32
 DEFAULT_SPEC_DEPTH = 2
-
-#: scheduler options of the JAX package the port does not honour yet:
-#: option -> (the refused values, the ROADMAP queue A item that ports
-#: them)
-REFUSED_OPTIONS = {
-    "prefill_chunk_tokens": (("auto",), "item 3, autotune"),
-    "spec_depth": (("auto",), "item 3, autotune"),
-    "kv_dtype": (("auto",), "item 3, autotune"),
-}
-
-
-def _refuse_unported(options):
-    for name, value in options.items():
-        refused, item = REFUSED_OPTIONS[name]
-        if value in refused:
-            raise NotImplementedError(
-                "DecodeScheduler(%s=%r) is not ported yet (ROADMAP queue "
-                "A %s)" % (name, value, item))
 
 
 def _leaves(pools):
@@ -294,25 +290,28 @@ class DecodeScheduler:
     admission also waits for free blocks.
 
     Options, each off by default: ``prefill_chunk_tokens`` (an int, the
-    chunk size), ``prefix_caching`` (needs ``prefill_chunk_tokens``),
-    ``spec_depth`` (an int, the draft tokens an iteration) and
+    chunk size, or ``"auto"``), ``prefix_caching`` (needs
+    ``prefill_chunk_tokens``), ``spec_depth`` (an int, the draft tokens
+    an iteration, or ``"auto"``) and
     ``kvtier`` (needs ``prefix_caching``): ``{"host_bytes",
     "disk_dir", "disk_bytes"}`` or a ready
     :class:`~veles_tpu_torch.kvtier.TieredKVStore`; ``"disk_dir": True``
     reads the directory from :data:`~veles_tpu_torch.kvtier.DIR_ENV`.
 
     ``device`` (default: the card) must be the model's device.
-    ``kv_dtype`` ("f32" or "int8") is passed through to the model's
-    factories when it is not the default.
+    ``kv_dtype`` ("f32", "int8" or "auto") is passed through to the
+    model's factories when it is not the default.  ``cache``: a
+    :class:`~veles_tpu_torch.compilecache.CompileCache`, ``False`` for
+    none (default: the configured one); ``manifest``: a
+    :class:`~veles_tpu_torch.compilecache.WarmupManifest` or its path
+    (default: the cache's).
     """
 
     def __init__(self, model, *, max_batch=None, block_size=None,
                  max_prompt_len=32, max_new_tokens=32, num_blocks=None,
                  queue_limit=64, name="decode", prefix_caching=False,
                  prefill_chunk_tokens=None, spec_depth=None, kvtier=None,
-                 kv_dtype=None, device=None):
-        _refuse_unported({"prefill_chunk_tokens": prefill_chunk_tokens,
-                          "spec_depth": spec_depth, "kv_dtype": kv_dtype})
+                 kv_dtype=None, device=None, cache=None, manifest=None):
         self.name = name
         self.model = model
         self.device = resolve_device(device)
@@ -325,9 +324,20 @@ class DecodeScheduler:
         self.queue_limit = int(queue_limit)
         self.max_context = self.max_prompt_len + self.max_new_tokens
         self.prefix_caching = bool(prefix_caching)
-        # 0 or None: the ladder prefill, as in the JAX scheduler
-        self.chunk_tokens = (int(prefill_chunk_tokens)
-                             if prefill_chunk_tokens else None)
+        # prefill chunking is a tunable site (serving.prefill_chunk): an
+        # int pins the chunk size, "auto" consults the tuning store,
+        # 0 or None keeps the ladder prefill, as in the JAX scheduler
+        self._chunk_source = None
+        chunk = prefill_chunk_tokens
+        if chunk == "auto":
+            cfg_c, self._chunk_source = _autotune.resolve(
+                "serving.prefill_chunk",
+                "mp%d" % pow2_bucket(self.max_prompt_len),
+                default={"chunk_tokens": DEFAULT_PREFILL_CHUNK})
+            chunk = cfg_c["chunk_tokens"]
+        elif chunk is not None:
+            self._chunk_source = "explicit"
+        self.chunk_tokens = int(chunk) if chunk else None
         if self.chunk_tokens is not None and self.chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1")
         if self.prefix_caching and not self.chunk_tokens:
@@ -339,7 +349,20 @@ class DecodeScheduler:
             raise ValueError(
                 "model %r has no prefill_chunk_fn; chunked prefill is "
                 "unavailable for it" % name)
-        self.spec_depth = None if spec_depth is None else int(spec_depth)
+        # speculation depth is a tunable site (serving.spec_depth): an
+        # int pins it, "auto" consults the tuning store, None keeps the
+        # plain per-token step
+        self._spec_source = None
+        spec = spec_depth
+        if spec == "auto":
+            cfg_s, self._spec_source = _autotune.resolve(
+                "serving.spec_depth",
+                "mn%d" % pow2_bucket(self.max_new_tokens),
+                default={"spec_depth": DEFAULT_SPEC_DEPTH})
+            spec = cfg_s["spec_depth"]
+        elif spec is not None:
+            self._spec_source = "explicit"
+        self.spec_depth = None if spec is None else int(spec)
         if self.spec_depth is not None and self.spec_depth < 1:
             raise ValueError("spec_depth must be >= 1 (or None to "
                              "disable speculative decoding)")
@@ -348,7 +371,19 @@ class DecodeScheduler:
             raise ValueError(
                 "model %r has no draft_fn/verify_fn; speculative decoding "
                 "is unavailable for it" % name)
-        self.kv_dtype = str(kv_dtype) if kv_dtype else "f32"
+        # the pools' precision is a tunable site (serving.kv_dtype): a
+        # string pins it, "auto" consults the tuning store (its probe is
+        # error-bounded), None keeps the f32 pools
+        self._kv_dtype_source = None
+        kvd = kv_dtype
+        if kvd == "auto":
+            cfg_q, self._kv_dtype_source = _autotune.resolve(
+                "serving.kv_dtype", "ctx%d" % self.max_context,
+                default={"kv_dtype": "f32"})
+            kvd = cfg_q["kv_dtype"]
+        elif kvd is not None:
+            self._kv_dtype_source = "explicit"
+        self.kv_dtype = str(kvd) if kvd else "f32"
         if self.kv_dtype != "f32":
             supported = tuple(getattr(model, "kv_dtypes", ("f32",)))
             if self.kv_dtype not in supported:
@@ -358,8 +393,24 @@ class DecodeScheduler:
         # quantized pools widen the model-hook signatures ONLY when on
         self._model_kw = ({} if self.kv_dtype == "f32"
                           else {"kv_dtype": self.kv_dtype})
-        self.max_batch = int(max_batch or DEFAULT_MAX_BATCH)
-        self.block_size = int(block_size or DEFAULT_BLOCK_SIZE)
+        # the decode geometry is a tunable site (serving.decode): explicit
+        # arguments pin it; otherwise a tuning record for this context
+        # class picks (max_batch, block_size), tuner off (8, 8)
+        if max_batch is not None and block_size is not None:
+            self.config_source = "explicit"
+            cfg = {"max_batch": int(max_batch),
+                   "block_size": int(block_size)}
+        else:
+            cfg, self.config_source = _autotune.resolve(
+                "serving.decode", "ctx%d" % self.max_context,
+                default={"max_batch": DEFAULT_MAX_BATCH,
+                         "block_size": DEFAULT_BLOCK_SIZE})
+            if max_batch is not None:
+                cfg["max_batch"] = int(max_batch)
+            if block_size is not None:
+                cfg["block_size"] = int(block_size)
+        self.max_batch = int(cfg["max_batch"])
+        self.block_size = int(cfg["block_size"])
         self.max_blocks = required_blocks(self.max_context,
                                           self.block_size)
         if num_blocks is None:
@@ -429,6 +480,32 @@ class DecodeScheduler:
         self._closed = False
         self._abort = False
         self._warmed = False
+        self._compiles = self._cache_hits = 0
+        if cache is None:
+            cache = default_cache()
+        self._cache = cache or None
+        if manifest is None:
+            self._manifest = (self._cache.manifest
+                              if self._cache is not None else None)
+        elif isinstance(manifest, str):
+            self._manifest = WarmupManifest(manifest)
+        else:
+            self._manifest = manifest or None
+        if self._manifest is not None:
+            # tuned winners ride the warmup manifest, as in the JAX
+            # scheduler: a restart reads back the geometry it served
+            for source, site, value in (
+                    (self.config_source, "serving.decode",
+                     {"max_batch": self.max_batch,
+                      "block_size": self.block_size}),
+                    (self._chunk_source, "serving.prefill_chunk",
+                     {"chunk_tokens": self.chunk_tokens}),
+                    (self._spec_source, "serving.spec_depth",
+                     {"spec_depth": self.spec_depth}),
+                    (self._kv_dtype_source, "serving.kv_dtype",
+                     {"kv_dtype": self.kv_dtype})):
+                if source == "tuned":
+                    self._manifest.record_config(self.name, site, value)
         self.warmup()
         self._worker = threading.Thread(
             target=self._worker_loop, daemon=True,
@@ -438,13 +515,26 @@ class DecodeScheduler:
     def _pool_tensors(self):
         return _leaves(self._k_pools) + _leaves(self._v_pools)
 
+    def _warmup_order(self):
+        """The prefill ladder, the manifest's recorded buckets first."""
+        order = list(self.prefill_buckets)
+        if self._manifest is None:
+            return order
+        first = [b for b in self._manifest.buckets(self.name + "@prefill")
+                 if b in order]
+        return first + [b for b in order if b not in first]
+
     def warmup(self):
         """Run each step function once on padding over all-trash block
         rows (every write lands in the trash block): the decode step,
-        then every ladder bucket's prefill, or the chunk function in
-        chunked mode, and the drafter and verify pass with speculation.
-        That builds and loads the kernels and the library handles, so
+        then every ladder bucket's prefill (the manifest's first), or
+        the chunk function in chunked mode, and the drafter and verify
+        pass with speculation.  That builds and loads the kernels (from
+        the build cache when there is one) and the library handles, so
         the first request pays for neither."""
+        built, hits = warm_kernels(self._cache, self.device)
+        self._compiles += built
+        self._cache_hits += hits
         out = self._decode(self._k_pools, self._v_pools, self._np_table,
                            self._np_lengths, self._np_tokens)
         out[0].cpu()
@@ -462,10 +552,12 @@ class DecodeScheduler:
                 self.chunk_tokens, self._k_pools, self._v_pools,
                 trash_row)[0])
         else:
-            for bucket in self.prefill_buckets:
+            for bucket in self._warmup_order():
                 int(self._prefill_run(
                     numpy.zeros(bucket, numpy.int32), bucket,
                     self._k_pools, self._v_pools, trash_row)[0])
+                if self._manifest is not None:
+                    self._manifest.record(self.name + "@prefill", bucket)
         self._warmed = True
 
     # -- request side --------------------------------------------------------
@@ -1707,17 +1799,19 @@ class DecodeScheduler:
 
     def stats(self):
         """Occupancy and configuration, shaped like the JAX scheduler's
-        (``compiles``/``cache_hits`` are always 0: nothing compiles
-        ahead of time in eager PyTorch).  The prefix and speculation
-        keys appear only with their option on."""
+        (``compiles``: the ``nvcc`` runs of the warmup against a build
+        cache; ``cache_hits``: the kernel libraries it found built; both
+        0 without a cache).  The prefix and speculation keys appear only
+        with their option on."""
         pool = self._pool.stats()
         out = {
             "buckets": list(self.prefill_buckets),
-            "compiles": 0,
-            "cache_hits": 0,
+            "compiles": self._compiles,
+            "cache_hits": self._cache_hits,
             "queue_depth": self._depth,
             "queue_limit": self.queue_limit,
             "max_batch": self.max_batch,
+            "config_source": self.config_source,
             "active_sequences": len(self._sessions),
             "migrating_sessions": len(self._migrating),
             "block_size": self.block_size,
@@ -1738,10 +1832,15 @@ class DecodeScheduler:
             "ready": self.ready,
             "closed": self._closed,
         }
+        if self._chunk_source is not None:
+            out["chunk_source"] = self._chunk_source
+        if self._kv_dtype_source is not None:
+            out["kv_dtype_source"] = self._kv_dtype_source
         if self.spec_depth:
             drafted = self._spec_drafted
             out.update(
                 spec_depth=self.spec_depth,
+                spec_source=self._spec_source,
                 draft_tokens=drafted,
                 accepted_tokens=self._spec_accepted,
                 rejected_tokens=self._spec_rejected,

@@ -24,10 +24,11 @@ __all__ = ["ServedModel", "DecodeServedModel", "ModelRegistry"]
 _DECODE_KWARGS = ("max_batch", "block_size", "max_prompt_len",
                   "max_new_tokens", "num_blocks", "queue_limit",
                   "prefix_caching", "prefill_chunk_tokens", "spec_depth",
-                  "kvtier", "kv_dtype", "device")
+                  "kvtier", "kv_dtype", "device", "cache", "manifest")
 #: ... and to BucketScheduler (one server can host both kinds)
 _BUCKET_KWARGS = ("max_batch", "queue_limit", "workers", "max_wait",
-                  "warmup", "background_warmup", "sample_shape", "device")
+                  "warmup", "background_warmup", "sample_shape", "device",
+                  "cache", "manifest", "buckets")
 
 
 class ServedModel:

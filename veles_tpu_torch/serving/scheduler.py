@@ -12,11 +12,16 @@ the backpressure and drain exceptions, the deadline check).
   runs its forward once on zeros of the bucket's shape, which builds
   the CUDA kernels (``nvcc`` at first use) and loads the library
   handles before the first request.  PyTorch runs eagerly, so the JAX
-  scheduler's AOT compile and persistent executable cache have no
-  counterpart: ``stats()`` keeps the ``compiles`` and ``cache_hits``
-  keys for the JAX package's readers, both always 0, and a ``cache=``
-  or ``manifest=`` raises ``NotImplementedError`` (ROADMAP queue A item
-  3);
+  scheduler's AOT executables have no counterpart; its persistent cache
+  is the port's build cache (``cache``, default the configured one;
+  :mod:`~veles_tpu_torch.compilecache`), whose kernel libraries a
+  restart loads instead of building, and its warmup manifest
+  (``manifest``) orders a restart's warmup and carries the tuned
+  ladder;
+- the ladder is an autotune site (``serving.bucket_ladder``): an
+  explicit ``buckets`` list pins it, else a tuning record for this
+  ``max_batch`` picks the measured shape, and with the tuner off it is
+  :func:`bucket_sizes`;
 - batching is **continuous**: a dispatch worker drains whatever is
   queued and executes immediately; while a batch runs, the next one
   accumulates;
@@ -40,6 +45,8 @@ from concurrent.futures import Future
 import numpy
 import torch
 
+from .. import _build
+from ..compilecache import WarmupManifest, default_cache
 from ..device import resolve_device
 from ..logger import events
 from ..observability import trace as _trace
@@ -48,7 +55,8 @@ from .metrics import ServingMetrics
 
 __all__ = ["SchedulerOverflow", "SchedulerClosed", "DeadlineExpired",
            "deadline_expired", "bucket_sizes", "TorchModel",
-           "OpaqueModel", "adapt_model", "forward_fn", "BucketScheduler"]
+           "OpaqueModel", "adapt_model", "forward_fn", "warm_kernels",
+           "BucketScheduler"]
 
 
 class SchedulerOverflow(RuntimeError):
@@ -83,6 +91,19 @@ def bucket_sizes(max_size):
         b <<= 1
     sizes.append(int(max_size))   # top bucket even when not a power of two
     return sizes
+
+
+def warm_kernels(cache, device):
+    """With a build cache on the card, load every kernel library from it
+    now (a warm cache: no ``nvcc``), so a scheduler's warmup and first
+    requests build nothing -> ``(libraries built, libraries found
+    built)``; ``(0, 0)`` without a cache or off the card."""
+    if cache is None or device.type != "cuda":
+        return 0, 0
+    compiles = _build.build.compiles
+    names = _build.load_all(cache)
+    built = _build.build.compiles - compiles
+    return built, len(names) - built
 
 
 def _unported(what, item):
@@ -219,19 +240,21 @@ class BucketScheduler:
     it :meth:`submit` raises :class:`SchedulerOverflow`.  ``device``
     (default: the card, raising without one) is where a workflow's
     forward runs; ``device="cpu"`` runs the kernels' plain versions.
-    The ladder is the power-of-two one (the JAX scheduler's tuner-off
-    ``pow2``; its explicit and autotuned ladders wait for ROADMAP queue
-    A item 3).
+    ``buckets`` pins the ladder (it must end at ``max_batch``); without
+    it the ``serving.bucket_ladder`` site resolves it (tuner off: the
+    power-of-two ladder).  ``cache``: a build cache, ``False`` for none
+    (default: the configured one); ``manifest``: a warmup manifest or
+    its path (default: the cache's).
     """
 
     def __init__(self, model, max_batch=64, queue_limit=256, workers=1,
                  max_wait=0.0, warmup=True, name="default",
                  metrics=None, sample_shape=None, cache=None,
-                 manifest=None, background_warmup=False, device=None):
-        if cache or manifest:
-            raise _unported("a persistent executable cache or warmup "
-                            "manifest (cache=, manifest=)",
-                            "item 3, compilecache")
+                 manifest=None, background_warmup=None, buckets=None,
+                 device=None):
+        from ..autotune import dispatch as _autotune
+        from ..autotune import space as _space
+        from ..config import root
         self.name = name
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
@@ -240,10 +263,44 @@ class BucketScheduler:
         self.metrics = metrics or ServingMetrics(name)
         self._adapter = adapt_model(model, sample_shape, self.device)
         self.sample_shape = self._adapter.sample_shape
-        self.buckets = bucket_sizes(self.max_batch)
+        if buckets is not None:
+            self.buckets = sorted({int(b) for b in buckets})
+            if self.buckets[-1] != self.max_batch or self.buckets[0] < 1:
+                raise ValueError(
+                    "buckets %r must be >= 1 and end at max_batch %d"
+                    % (buckets, self.max_batch))
+            self.bucket_config = {"shape": "explicit"}
+            self.config_source = "explicit"
+        else:
+            cfg, self.config_source = _autotune.resolve(
+                "serving.bucket_ladder", "mb%d" % self.max_batch,
+                default={"shape": "pow2"})
+            self.buckets = _space.ladder(cfg["shape"], self.max_batch)
+            self.bucket_config = dict(cfg)
         self._executables = {}
         self._compile_seconds = 0.0     # warm-run wall seconds
+        self._compiles = 0              # nvcc runs of the warmup
+        self._cache_hits = 0            # kernel libraries found built
         self._compile_lock = threading.Lock()
+        if cache is None:
+            cache = default_cache()
+        self._cache = cache or None     # cache=False forces it off
+        if manifest is None:
+            self._manifest = (self._cache.manifest
+                              if self._cache is not None else None)
+        elif isinstance(manifest, str):
+            self._manifest = WarmupManifest(manifest)
+        else:
+            self._manifest = manifest or None
+        if self._manifest is not None and self.config_source == "tuned":
+            # the winner rides the warmup manifest: a restart reads back
+            # the ladder it served
+            self._manifest.record_config(
+                self.name, "serving.bucket_ladder",
+                dict(self.bucket_config, buckets=list(self.buckets)))
+        if background_warmup is None:
+            background_warmup = bool(root.common.compile_cache.get(
+                "background_warmup", False))
         self._background_warmup = bool(background_warmup)
         self._warmup_thread = None
         self._queue = queue.Queue()     # unbounded; bound enforced below
@@ -260,6 +317,16 @@ class BucketScheduler:
             t.start()
 
     # -- warmup ---------------------------------------------------------------
+    def _warmup_order(self):
+        """The ladder, the manifest's recorded buckets first: a restart
+        warms the shapes real traffic used before the speculative tail."""
+        order = list(self.buckets)
+        if self._manifest is None:
+            return order
+        first = [b for b in self._manifest.buckets(self.name)
+                 if b in order]
+        return first + [b for b in order if b not in first]
+
     def warmup(self, background=None):
         """Warm every bucket up front (a :class:`TorchModel` runs each
         once on zeros), so no request pays for a kernel build.
@@ -277,8 +344,12 @@ class BucketScheduler:
         """
         if background is None:
             background = self._background_warmup
-        self._get_executable(self.buckets[0])
-        pending = self.buckets[1:]
+        built, hits = warm_kernels(self._cache, self.device)
+        self._compiles += built
+        self._cache_hits += hits
+        order = self._warmup_order()
+        self._get_executable(order[0])
+        pending = order[1:]
         if background and pending:
             self._warmup_thread = threading.Thread(
                 target=self._warmup_tail, args=(pending,), daemon=True,
@@ -315,6 +386,9 @@ class BucketScheduler:
                 self._executables[bucket] = run
                 events.span("serving.compile", dt, model=self.name,
                             bucket=int(bucket), cache_hit=None)
+                if self._manifest is not None:
+                    self._manifest.record(self.name, bucket,
+                                          self.sample_shape)
         return run
 
     def _bucket_for(self, rows):
@@ -578,19 +652,21 @@ class BucketScheduler:
 
     def stats(self):
         """Warm-bucket accounting.  ``executables`` counts the warmed
-        buckets; ``compiles``, ``cache_hits``, ``warmup_compiles`` and
-        ``post_warmup_compiles`` keep the JAX scheduler's keys and are
-        always 0 (nothing compiles in eager PyTorch);
-        ``compile_seconds`` is the warm runs' wall time."""
+        buckets; ``compiles`` the ``nvcc`` runs of the warmup against a
+        build cache (a warm restart: 0) and ``cache_hits`` the kernel
+        libraries it found built (both 0 without a cache or off the
+        card); every build happens in the warmup, so
+        ``warmup_compiles`` is ``compiles`` and ``post_warmup_compiles``
+        0.  ``compile_seconds`` is the warm runs' wall time."""
         return {
             "buckets": list(self.buckets),
-            "bucket_config": {"shape": "pow2",
-                              "config_source": "default"},
+            "bucket_config": dict(self.bucket_config,
+                                  config_source=self.config_source),
             "executables": len(self._executables),
-            "compiles": 0,
-            "cache_hits": 0,
+            "compiles": self._compiles,
+            "cache_hits": self._cache_hits,
             "compile_seconds": round(self._compile_seconds, 4),
-            "warmup_compiles": 0,
+            "warmup_compiles": self._compiles,
             "post_warmup_compiles": 0,
             "warming": (self._warmup_thread.is_alive()
                         if self._warmup_thread is not None else False),

@@ -341,6 +341,35 @@ class _ServingHandler(JsonRequestHandler):
         _flight.record(tid, "request.recv", path=path,
                        model=name or "<default>")
 
+    def send_json(self, code, payload, headers=None):
+        """Send now, or, inside :meth:`_answer`, hold the response until
+        the request's flight timeline is closed."""
+        held = getattr(self, "_held", None)
+        if held is not None:
+            held.append((code, payload, headers))
+            return
+        super().send_json(code, payload, headers)
+
+    def _answer(self, ctx, name, path, traced, span):
+        """Run ``traced(name, ctx)`` (the request body; it returns the
+        HTTP status it answered) with its responses held, close the
+        flight timeline, and only then write them: a client that reads
+        ``GET /api/<name>/requests`` once it has its answer finds the
+        timeline closed."""
+        t0 = time.perf_counter()
+        self._flight_open(ctx, name, path)
+        self._held = []
+        status = 500
+        try:
+            status = traced(name, ctx)
+        finally:
+            held, self._held = self._held, None
+            events.span(span, time.perf_counter() - t0,
+                        model=name or "<default>", status=status)
+            self._flight_close(ctx, status)
+            for response in held:
+                self.send_json(*response)
+
     def _flight_close(self, ctx, status):
         """Close the timeline with the anomaly the response status
         implies (shed, deadline, server fault).  A 200 decode answer
@@ -367,12 +396,8 @@ class _ServingHandler(JsonRequestHandler):
         # captures it at submit, and the batch span links back to it
         with _trace.span_context(
                 trace_id=self.headers.get("X-Trace-Id") or None) as ctx:
-            t0 = time.perf_counter()
-            self._flight_open(ctx, name, "infer")
-            status = self._infer_traced(name, ctx)
-            events.span("serving.request", time.perf_counter() - t0,
-                        model=name or "<default>", status=status)
-            self._flight_close(ctx, status)
+            self._answer(ctx, name, "infer", self._infer_traced,
+                         "serving.request")
 
     def _infer_traced(self, name, ctx):
         """The request body; returns the HTTP status it answered."""
@@ -446,13 +471,8 @@ class _ServingHandler(JsonRequestHandler):
     def _generate(self, name):
         with _trace.span_context(
                 trace_id=self.headers.get("X-Trace-Id") or None) as ctx:
-            t0 = time.perf_counter()
-            self._flight_open(ctx, name, "generate")
-            status = self._generate_traced(name, ctx)
-            events.span("serving.generate_request",
-                        time.perf_counter() - t0,
-                        model=name or "<default>", status=status)
-            self._flight_close(ctx, status)
+            self._answer(ctx, name, "generate", self._generate_traced,
+                         "serving.generate_request")
 
     def _read_generate_payload(self):
         """{"prompt": [...], "max_new_tokens": n?, "session_id": s?} ->
@@ -599,8 +619,8 @@ class InferenceServer:
     ``kvtier``, ``kv_dtype``; under a model's own ``decode_defaults``)
     and the bucket scheduler's (``max_batch``, ``queue_limit``,
     ``workers``, ``max_wait``, ``warmup``, ``background_warmup``,
-    ``sample_shape``); ``device`` defaults to the card for
-    both.  ``enable_admin`` opens ``POST /admin/models`` and the
+    ``sample_shape``, ``buckets``); ``cache`` and ``manifest`` go to
+    both, and ``device`` defaults to the card for both.  ``enable_admin`` opens ``POST /admin/models`` and the
     ``/admin/sessions`` surface; ``model_resolver`` maps an admin
     ``"model"`` spec to something the registry accepts (the fleet
     replica's :func:`~veles_tpu_torch.fleet.replica.resolve_model_spec`).

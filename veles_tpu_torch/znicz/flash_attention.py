@@ -26,9 +26,13 @@ and the output columns split over more CTAs.  All three form their
 products on the tensor cores in 3xTF32, which keeps f32's accuracy
 (TF32 alone stays off); K7 keeps its online softmax in the accumulators
 of the score tile and joins each key tile's ``P.V`` to its f32 sum as
-``acc * alpha + tile``.  The JAX package's
-``block_q``/``block_k`` and their autotune lookup chose TPU VMEM tiles;
-the CUDA kernels choose their own, so neither is carried over.
+``acc * alpha + tile``.  The JAX package's ``block_q``/``block_k``
+chose TPU VMEM tiles; the CUDA kernels stream their own tiles (K7's and
+K8's keys, K9's queries), and those are what the ``flash_attention``
+and ``window_attention`` autotune sites choose (:func:`flash_tiles`):
+each kernel's plan at its head dim, or at head dims 33-64 (attention
+training's class) one other instantiation each.  With the tuner off
+every call takes its plan's tiles, as without a tuner.
 
 CUDA tensors launch the kernels, or raise; CPU tensors take
 :func:`flash_fwd_reference`, :func:`flash_dq_reference` and
@@ -45,8 +49,9 @@ import torch
 from .. import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
-           "flash_attention_dkv", "flash_delta", "flash_fwd_reference",
-           "flash_dq_reference", "flash_dkv_reference"]
+           "flash_attention_dkv", "flash_delta", "flash_tiles",
+           "flash_fwd_reference", "flash_dq_reference",
+           "flash_dkv_reference"]
 
 #: bytes of one ``[heads, T, T]`` f32 tensor of a plain version's chunk
 _CHUNK_BYTES = 1 << 30
@@ -55,7 +60,8 @@ _SRC = "flash_attention"
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _VIEW = [_P, _L, _L, _L]
-_TAIL = [_I] * 4 + [_F, _I, _I, _P]     # B, T, H, D, scale, causal, window
+# B, T, H, D, scale, causal, window, the streamed tile, the stream
+_TAIL = [_I] * 4 + [_F, _I, _I, _I, _P]
 
 
 def _check_window(causal, window):
@@ -106,10 +112,26 @@ def _rows(x, name, b, h, t):
     return x.data_ptr()
 
 
-def _tail(q, causal, scale, window):
+def _tail(q, causal, scale, window, tile):
     b, t, h, d = q.shape
     return [b, t, h, d, float(_scale(q, scale)), int(bool(causal)),
-            int(window or 0), _build.stream_ptr(q.device)]
+            int(window or 0), int(tile), _build.stream_ptr(q.device)]
+
+
+def flash_tiles(q, causal=False, window=None):
+    """The streamed tiles of K7-K9 for a call on ``q`` ([B, T, H, D]):
+    ``{"fwd_block_k", "dq_block_k", "dkv_block_q"}``, resolved through
+    the ``window_attention`` site (a window) or the ``flash_attention``
+    one (tuner off: the kernels' plans at the head dim)."""
+    from ..autotune import dispatch, space
+    name = "window_attention" if window is not None else "flash_attention"
+    ctx = {"t": q.shape[1], "d": q.shape[3], "causal": bool(causal)}
+    if window is not None:
+        ctx["window"] = window
+    sp = space.site(name)
+    cfg, _ = dispatch.resolve(name, sp.shape_class(ctx),
+                              default=sp.default_for(ctx))
+    return cfg
 
 
 def flash_delta(do, out):
@@ -228,11 +250,14 @@ def flash_dkv_reference(q, k, v, do, lse, delta, causal=False, scale=None,
 
 # -- the kernels --------------------------------------------------------------
 
-def flash_attention_fwd(q, k, v, causal=False, scale=None, window=None):
+def flash_attention_fwd(q, k, v, causal=False, scale=None, window=None,
+                        tiles=None):
     """K7: ``(out [B, T, H, D], lse [B * H, T])``.  CUDA operands launch
-    the kernel; CPU operands run :func:`flash_fwd_reference`."""
+    the kernel (``tiles``: default :func:`flash_tiles`); CPU operands
+    run :func:`flash_fwd_reference`."""
     if _check(q, k, v, causal, window):
         return flash_fwd_reference(q, k, v, causal, scale, window)
+    tiles = tiles or flash_tiles(q, causal, window)
     b, t, h, _ = q.shape
     args = _view(q, "q") + _view(k, "k") + _view(v, "v")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -240,7 +265,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, window=None):
     fn = _build.function(_SRC, "vt_flash_fwd", _VIEW * 3 + [_P, _P] + _TAIL)
     with torch.cuda.device(q.device):
         code = fn(*args, out.data_ptr(), lse.data_ptr(),
-                  *_tail(q, causal, scale, window))
+                  *_tail(q, causal, scale, window, tiles["fwd_block_k"]))
     _build.check(_SRC, code, "flash attention forward kernel")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -256,32 +281,36 @@ def _backward_args(q, k, v, do, lse, delta):
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None,
-                       window=None):
+                       window=None, tiles=None):
     """K8: dq [B, T, H, D] from the forward's ``lse`` and ``delta`` (both
-    [B * H, T]; :func:`flash_delta`).  CUDA operands launch the kernel;
-    CPU operands run :func:`flash_dq_reference`."""
+    [B * H, T]; :func:`flash_delta`).  CUDA operands launch the kernel
+    (``tiles``: default :func:`flash_tiles`); CPU operands run
+    :func:`flash_dq_reference`."""
     if _check(q, k, v, causal, window, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal, scale,
                                   window)
+    tiles = tiles or flash_tiles(q, causal, window)
     args = _backward_args(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = _build.function(_SRC, "vt_flash_dq",
                          _VIEW * 4 + [_P, _P, _P] + _TAIL)
     with torch.cuda.device(q.device):
-        code = fn(*args, dq.data_ptr(), *_tail(q, causal, scale, window))
+        code = fn(*args, dq.data_ptr(),
+                  *_tail(q, causal, scale, window, tiles["dq_block_k"]))
     _build.check(_SRC, code, "flash attention dq kernel")
     flash_attention_dq.launches += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
-                        window=None):
+                        window=None, tiles=None):
     """K9: ``(dk, dv)``, each [B, T, H, D], from ``lse`` and ``delta``.
-    CUDA operands launch the kernel; CPU operands run
-    :func:`flash_dkv_reference`."""
+    CUDA operands launch the kernel (``tiles``: default
+    :func:`flash_tiles`); CPU operands run :func:`flash_dkv_reference`."""
     if _check(q, k, v, causal, window, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale,
                                    window)
+    tiles = tiles or flash_tiles(q, causal, window)
     args = _backward_args(q, k, v, do, lse, delta)
     dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
@@ -289,7 +318,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
                          _VIEW * 4 + [_P] * 4 + _TAIL)
     with torch.cuda.device(q.device):
         code = fn(*args, dk.data_ptr(), dv.data_ptr(),
-                  *_tail(q, causal, scale, window))
+                  *_tail(q, causal, scale, window, tiles["dkv_block_q"]))
     _build.check(_SRC, code, "flash attention dk/dv kernel")
     flash_attention_dkv.launches += 1
     return dk, dv
@@ -307,9 +336,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale, window)
+        tiles = None if q.device.type == "cpu" else \
+            flash_tiles(q, causal, window)
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, window,
+                                       tiles)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, scale, window)
+        ctx.mask = (causal, scale, window, tiles)
         return out
 
     @staticmethod

@@ -28,6 +28,12 @@ kernel launches; ``precise_matmul.fold_launches`` counts the K4 calls
 that split K over their 256-deep tiles (small output grids) and so
 launched the fold kernel after the products, and
 ``quantized_matmul.fold_launches`` the K3 calls that split K.
+
+K4's split is the ``precise_gemm`` autotune site (:func:`precise_split`):
+the kernel's own rule, none, or runs of a fixed count of K tiles a CTA.
+Every split gives the same bits (the fold adds the same partials in the
+same order), so a tuned split changes the time, never the result.  With
+the tuner off it is the kernel's rule, exactly as without a tuner.
 """
 
 import ctypes
@@ -38,8 +44,8 @@ from .. import _build
 
 __all__ = ["precise_matmul", "precise_matmul_reference", "quantize_weight",
            "quantized_matmul", "quantized_matmul_plan",
-           "quantized_matmul_reference", "fp8_dtype",
-           "DEFAULT_BLOCK_K"]
+           "quantized_matmul_reference", "fp8_dtype", "precise_split",
+           "split_runs", "DEFAULT_BLOCK_K"]
 
 #: K tile of the JAX kernels: the unit of compensated accumulation of
 #: the precise GEMM; the plain versions accumulate K in tiles of this
@@ -245,9 +251,10 @@ def _check_level(level):
                          % (level,))
 
 
-def _precise_launch(a, b, level):
+def _precise_launch(a, b, level, split=None):
     """One K4 launch (CUDA operands, any strides) or the plain version
-    (CPU operands)."""
+    (CPU operands).  ``split``: the K runs to split over (0: none);
+    default :func:`precise_split` of the call."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError("want a [M, K] and b [K, N], got %r and %r"
                          % (tuple(a.shape), tuple(b.shape)))
@@ -269,11 +276,12 @@ def _precise_launch(a, b, level):
                          % (tuple(a.shape), tuple(b.shape)))
     fn = _build.function(_PRECISE_SRC, "vt_precise_matmul",
                          [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _I, _P])
-    split = _precise_split(m, n, k, a.device)
+    if split is None:
+        split = precise_split(m, n, k, level, a.device)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     # split-K: one partial per K tile, folded by the kernel's second launch
-    ws = (torch.empty((split, m, n), dtype=torch.float32, device=a.device)
-          if split else None)
+    ws = (torch.empty((-(-k // DEFAULT_BLOCK_K), m, n), dtype=torch.float32,
+                      device=a.device) if split else None)
     with torch.cuda.device(a.device):
         code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                   ws.data_ptr() if split else None, m, n, k,
@@ -303,12 +311,44 @@ def _sm_count(index):
     return sms
 
 
-def _precise_split(m, n, k, device):
-    """The number of 256-deep K tiles K4 splits a call over (0: none):
-    the kernel's rule, given the card's SM count."""
+def _precise_rule(m, n, k, device):
+    """The number of 256-deep K tiles K4 splits a call over by its own
+    rule (0: none), given the card's SM count."""
     return _build.function(_PRECISE_SRC, "vt_precise_matmul_split",
                            [_I] * 4)(m, n, k,
                                      _sm_count(_device_index(device)))
+
+
+def split_runs(choice, m, n, k, device):
+    """The K runs (the C entry's ``split``; 0: none) of a
+    ``precise_gemm`` site choice: ``"rule"`` (the kernel's), ``"none"``,
+    or an int, the 256-deep K tiles a CTA sums."""
+    if choice == "rule":
+        return _precise_rule(m, n, k, device)
+    if choice == "none":
+        return 0
+    tiles = -(-k // DEFAULT_BLOCK_K)
+    return -(-tiles // int(choice))
+
+
+_SPLITS = {}
+
+
+def precise_split(m, n, k, level, device):
+    """K4's split of an ``[m, k] @ [k, n]`` call at ``level`` on the card
+    ``device``, resolved through the ``precise_gemm`` autotune site
+    (memoized per shape and tuning directory; the tuner off is the
+    kernel's rule)."""
+    from ..autotune import dispatch, space
+    key = (m, n, k, level, _device_index(device), dispatch.resolve_config())
+    runs = _SPLITS.get(key)
+    if runs is None:
+        ctx = {"m": m, "k": k, "n": n, "level": level}
+        cfg, _ = dispatch.resolve(
+            "precise_gemm", space.site("precise_gemm").shape_class(ctx),
+            default={"split": "rule"})
+        runs = _SPLITS[key] = split_runs(cfg["split"], m, n, k, device)
+    return runs
 
 
 class _PreciseMatmul(torch.autograd.Function):

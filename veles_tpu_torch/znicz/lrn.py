@@ -30,9 +30,12 @@ resolves to the band form on the TPU too: there the ``pallas_call``
 boundary kept XLA from fusing LRN into its neighbours and the pair lost
 end to end.  Eager PyTorch on the card has no such fusion to lose, so
 the choice here rests on the card's own numbers (``chip_smoke.py``
-trains AlexNet with both forms; ``PERF.md``).  The JAX package's
-``block_rows`` and its ``lrn`` autotune site chose TPU VMEM tiles; the
-CUDA kernels choose their own, so neither is carried over.
+trains AlexNet with both forms; ``PERF.md``).  On the card the unset
+choice is the ``lrn`` autotune site (``impl``: ``kernel`` or ``band``,
+by channel count and window), whose default is the kernel pair, so with
+the tuner off nothing changes.  The JAX site's ``block_rows`` chose a
+TPU VMEM tile; the CUDA kernels choose their own, so it is not carried
+over.
 """
 
 import ctypes
@@ -241,13 +244,28 @@ class LRNormalizerForward(ParamlessForward):
         up = kwargs.get("use_pallas",
                         root.common.engine.get("use_pallas", None))
         self.use_pallas = up if up is None else bool(up)
+        #: where the last apply's form came from: "tuned" or "default"
+        #: (the ``lrn`` site), or "explicit" (``use_pallas`` set)
+        self.config_source = "default"
 
-    def _resolved_use_pallas(self):
-        """Whether ``apply`` runs the kernel pair (else the band form)."""
-        return resolve_use_pallas(self.use_pallas, self.device)
+    def _resolved_use_pallas(self, channels=None):
+        """Whether ``apply`` runs the kernel pair (else the band form).
+        Unset on the card with ``channels`` known, the ``lrn`` autotune
+        site decides (tuner off: the kernel pair)."""
+        use = resolve_use_pallas(self.use_pallas, self.device)
+        if self.use_pallas is not None:
+            self.config_source = "explicit"
+        elif use and channels is not None:
+            from ..autotune import dispatch
+            cfg, self.config_source = dispatch.resolve(
+                "lrn", "c%d_n%d" % (channels, self.n),
+                default={"impl": "kernel"})
+            use = cfg["impl"] == "kernel"
+        return use
 
     def apply(self, params, x):
-        form = lrn_pair if self._resolved_use_pallas() else lrn_mxu
+        form = lrn_pair if self._resolved_use_pallas(x.shape[-1]) \
+            else lrn_mxu
         return form(x, self.n, self.alpha, self.beta, self.k)
 
 

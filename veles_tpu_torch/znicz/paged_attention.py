@@ -13,6 +13,9 @@ tensors.  A CUDA tensor never falls back: the kernel launches or the
 call raises.  ``paged_attention.launches`` counts the kernel launches,
 ``paged_attention.merge_launches`` those of them that split the context
 over CTAs and launched the merge too (:func:`paged_attention_plan`).
+The split is the ``paged_attention`` autotune site (:func:`plan_for_split`):
+the plan's rule, or a measured count of CTAs a row; with the tuner off
+it is the rule, as without a tuner.
 
 Padding rows (``length == 0``) return zeros; padding page-table entries
 point at physical block 0, which the serving pool reserves as the trash
@@ -35,7 +38,8 @@ import torch
 from .. import _build
 
 __all__ = ["DEFAULT_BLOCK_SIZE", "PagedPlan", "paged_attention",
-           "paged_attention_plan", "paged_attention_reference",
+           "paged_attention_plan", "plan_for_split",
+           "paged_attention_reference",
            "paged_prefill_attention", "paged_prefill_attention_reference",
            "paged_verify_attention", "paged_verify_attention_reference",
            "required_blocks", "quantize_pool", "dequantize_pool",
@@ -382,18 +386,48 @@ def paged_attention_plan(b, h, d, block_size, max_blocks, sms,
     return PagedPlan(-(-max_blocks // per_split), per_split, tile)
 
 
+def plan_for_split(split, b, h, d, block_size, max_blocks, sms,
+                   quantized=False):
+    """The :class:`PagedPlan` of a ``paged_attention`` autotune choice:
+    ``"rule"`` is :func:`paged_attention_plan`; an int splits the
+    context over that many CTAs (at most one a block), with the rule's
+    tile.  A split whose blocks overflow a CTA's share raises."""
+    rule = paged_attention_plan(b, h, d, block_size, max_blocks, sms,
+                                quantized=quantized)
+    if split == "rule":
+        return rule
+    per_split = -(-max_blocks // min(int(split), max_blocks))
+    if per_split > _MAX_SPLIT_BLOCKS:
+        raise ValueError(
+            "a split of %r over %d blocks gives %d blocks a CTA, past the "
+            "kernel's %d" % (split, max_blocks, per_split,
+                             _MAX_SPLIT_BLOCKS))
+    return PagedPlan(-(-max_blocks // per_split), per_split, rule.tile)
+
+
 _PLANS = {}
 
 
 def _cached_plan(b, h, d, block_size, max_blocks, quantized, device):
+    """The plan of a K1/K2 call, resolved through the ``paged_attention``
+    autotune site (tuner off: :func:`paged_attention_plan`), memoized
+    per shape and tuning directory."""
+    from ..autotune import dispatch, space
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    key = (b, h, d, block_size, max_blocks, quantized, index)
+    key = (b, h, d, block_size, max_blocks, quantized, index,
+           dispatch.resolve_config())
     plan = _PLANS.get(key)
     if plan is None:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        plan = _PLANS[key] = paged_attention_plan(
-            b, h, d, block_size, max_blocks, sms, quantized=quantized)
+        ctx = {"batch": b, "heads": h, "d": d, "block_size": block_size,
+               "max_blocks": max_blocks, "quantized": quantized}
+        sp = space.site("paged_attention")
+        cfg, _ = dispatch.resolve("paged_attention", sp.shape_class(ctx),
+                                  default=sp.default_for(ctx))
+        plan = _PLANS[key] = plan_for_split(
+            cfg["split"], b, h, d, block_size, max_blocks, sms,
+            quantized=quantized)
     return plan
 
 
