@@ -200,6 +200,30 @@ Phases (any failure raises and the script exits non-zero):
    on the CIFAR sample's synthetic data (5000 train + 1000 valid,
    range_linear), minibatch 100, 5 epochs: best validation error < 25 %,
    K5/K6 launched on every step.
+4e. Graph mode (slice 17): ``StandardWorkflow(fused=False)``, each
+   forward, the evaluator and each GD unit a unit of its own, on the
+   card.  (a) MNIST at the gate's settings with ``precise_gemm=1``, as
+   many epochs as phase 4's run: K4 counted from 0, once per All2All
+   forward of every train and eval step (2 and 2) and never inside a GD
+   unit; the first epoch held against graph mode on the CPU (n_err of
+   each class within 1, weights within 1e-4); the best validation error
+   within 0.2 points of phase 4's fused ``precise_gemm=1`` run; graph
+   MNIST's train images/s printed beside the fused run's.  (b) Phase
+   4d's LRN convnet, 5 epochs: K5 2 per train and eval step, K6 2 per
+   train step; best validation error < 25 %; the first 2 train steps on
+   300 + 100 images on the card and on the CPU: each dropout mask equal
+   bit for bit, losses and weights within ``steps_agree``'s limits.  (c)
+   Phase 4b's full-width attention runs (no mask; causal, window 512):
+   K7, K8 and K9 once a train step, K7 once an eval step; the first
+   epoch cut to 24 sequences (``use_pallas=True``) in graph mode on the
+   card against the CPU (n_err within 1, weights within 1e-4) and
+   against fused mode on the card (weights within 2e-4).  (d) The JAX
+   tests' MSE regression workflow (``MSE_LAYERS``, every All2All on K4),
+   graph and fused on the card: weights within 2e-4, best rmse within
+   1e-3.  (e) The loader's two paths: 8 graph-mode train steps of the
+   full-width attention unit with the host path (``force_numpy``) and
+   with the device gather, in turns; each path's sequences/s printed.
+   Each part's wall time is printed.
 5. Where the time goes: each serving configuration's burst, one
    training epoch of each matmul mode, one full-width attention epoch
    of each mask (none; causal, window 512) and one AlexNet epoch with
@@ -214,7 +238,8 @@ Phases (any failure raises and the script exits non-zero):
    configuration's tok/s and decode step p50 (phase 3) are printed
    beside its traced burst's launches and device-to-device copies, and
    int8-kv's beside the burst's numbers before the append kernel
-   (``PASSES_INT8_KV``).
+   (``PASSES_INT8_KV``).  Last, one graph-mode MNIST epoch
+   (``precise_gemm=1``).
    A trace that holds no device time is taken again on a fresh run, up
    to ``TRACE_TRIES`` times in all; a run with none in every try fails.
 6. The ``kernels`` JSON line, the card's line, and the result line.
@@ -2878,10 +2903,11 @@ GATE_DECISION = {"max_epochs": 25, "fail_iterations": 12, "silent": True}
 FIRST_EPOCH_WEIGHT_ATOL = 1e-4
 
 
-def _mnist_workflow(precise, device="cuda", epochs=None):
+def _mnist_workflow(precise, device="cuda", epochs=None, fused=True):
     """The gate's workflow with ``root.common.engine.precise_gemm`` set
     to ``precise``, initialized on ``device`` (the card unless the CPU
-    is asked for, whatever ``$VELES_BACKEND`` says)."""
+    is asked for, whatever ``$VELES_BACKEND`` says); ``fused=False``:
+    graph mode."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
@@ -2895,14 +2921,13 @@ def _mnist_workflow(precise, device="cuda", epochs=None):
     root.common.engine.precise_gemm = precise
     try:
         wf = mnist.create_workflow(
+            fused=fused,
             loader=dict(GATE_LOADER, prng=RandomGenerator().seed(3)),
             decision=decision)
     finally:
         root.common.engine.precise_gemm = saved
     wf.initialize(device=Device(backend=device))
-    if wf.fused_step._dev_.type != device:
-        raise AssertionError("the workflow runs on %s, not %s"
-                             % (wf.fused_step._dev_, device))
+    _on(wf, device)
     if [f.precise_gemm for f in wf.forwards] != [precise] * 2:
         raise AssertionError("precise_gemm did not reach the layers")
     return wf
@@ -3072,6 +3097,12 @@ SMALL_ATTN = dict(n=600, t=8, d=8, heads=2, minibatch=50, epochs=25)
 SMALL_ATTN_GATE_PT = 40.0
 
 
+#: the needle task's data by (n, t, d, classes): made once a process
+#: (2 GB and ~5 s at the full width) and shared by the loaders, which
+#: only read it (no normalization)
+_NEEDLE_DATA = {}
+
+
 def needle_loader(n, t, d, classes, n_valid=None):
     """The needle task of the JAX package's tests/test_attention_unit.py
     as a port FullBatchLoader: n sequences of [T, D] uniform noise in
@@ -3082,17 +3113,23 @@ def needle_loader(n, t, d, classes, n_valid=None):
     from veles_tpu_torch.loader.base import TEST, TRAIN, VALID
     from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 
+    def make():
+        rng = numpy.random.RandomState(3)
+        x = rng.uniform(-0.2, 0.2, (n, t, d)).astype(numpy.float32)
+        labels = rng.randint(0, classes, n)
+        pos = rng.randint(0, t, n)
+        rows = numpy.arange(n)
+        x[rows, pos, 0] = 2.0                 # the marker
+        x[rows, pos, 1 + labels] = 2.0        # the payload class
+        return x, list(labels.astype(numpy.int32))
+
     class NeedleLoader(FullBatchLoader):
         def load_data(self):
-            rng = numpy.random.RandomState(3)
-            x = rng.uniform(-0.2, 0.2, (n, t, d)).astype(numpy.float32)
-            labels = rng.randint(0, classes, n)
-            pos = rng.randint(0, t, n)
-            rows = numpy.arange(n)
-            x[rows, pos, 0] = 2.0                 # the marker
-            x[rows, pos, 1 + labels] = 2.0        # the payload class
-            self.original_data.mem = x
-            self.original_labels = list(labels.astype(numpy.int32))
+            key = (n, t, d, classes)
+            if key not in _NEEDLE_DATA:
+                _NEEDLE_DATA[key] = make()
+            self.original_data.mem, labels = _NEEDLE_DATA[key]
+            self.original_labels = list(labels)
             self.class_lengths[TEST] = 0
             self.class_lengths[VALID] = n_valid
             self.class_lengths[TRAIN] = n - n_valid
@@ -3102,10 +3139,11 @@ def needle_loader(n, t, d, classes, n_valid=None):
 
 def attention_workflow(n, t, d, heads, causal=False, window=None,
                        minibatch=ATTN_MINIBATCH, epochs=ATTN_EPOCHS,
-                       device="cuda", use_pallas=None, n_valid=None):
+                       device="cuda", use_pallas=None, n_valid=None,
+                       fused=True):
     """``StandardWorkflow([multihead_attention, softmax])`` on the needle
     task, weights from seed 42, initialized on ``device`` (the card
-    unless the CPU is asked for)."""
+    unless the CPU is asked for); ``fused=False``: graph mode."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.prng import RandomGenerator
@@ -3127,14 +3165,12 @@ def attention_workflow(n, t, d, heads, causal=False, window=None,
                  "->": {"output_sample_shape": ATTN_CLASSES},
                  "<-": dict(ATTN_GD)}],
         loss_function="softmax",
-        decision={"max_epochs": epochs, "silent": True}, fused=True)
+        decision={"max_epochs": epochs, "silent": True}, fused=fused)
     wf.initialize(device=Device(backend=device))
-    unit = wf.forwards[0]
-    if wf.fused_step._dev_.type != device or \
-            unit.device.BACKEND != device:
-        raise AssertionError("the workflow runs on %s, not %s"
-                             % (wf.fused_step._dev_, device))
-    return wf
+    if wf.forwards[0].device.BACKEND != device:
+        raise AssertionError("the attention unit runs on %s, not %s"
+                             % (wf.forwards[0].device.BACKEND, device))
+    return _on(wf, device)
 
 
 def _flash_counters(fa):
@@ -3350,10 +3386,13 @@ def _with_lrn_form(layers, use_pallas):
 
 
 def _on(wf, device):
-    """Refuse a workflow that does not run where it was asked to."""
-    if wf.fused_step._dev_.type != device:
+    """Refuse a workflow that does not run where it was asked to (the
+    fused step's device, or in graph mode the first forward's)."""
+    where = (wf.fused_step._dev_ if wf.fused_step is not None
+             else wf.forwards[0].device.torch_device)
+    if where.type != device:
         raise AssertionError("the workflow runs on %s, not %s"
-                             % (wf.fused_step._dev_, device))
+                             % (where, device))
     return wf
 
 
@@ -3422,15 +3461,23 @@ def _lrn_counters(lrn_mod):
 
 
 def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
-    """Run ``wf`` with its kernels' counts reset; -> record of epoch
-    times, train samples/s (median epoch, the first apart), losses,
-    launches (total and per train / eval step) and the best error."""
+    """Run ``wf`` (fused or graph mode) with its kernels' counts reset;
+    -> record of epoch times, train samples/s (median epoch, the first
+    apart), losses, launches (total and per train / eval step) and the
+    best error; in graph mode also the launches made inside GD units
+    (``gd_launches``) and the first epoch's state (``first_epoch``)."""
     from veles_tpu_torch.loader import TRAIN, VALID
-    rec = _instrument(wf, counters)
+    graph = wf.fused_step is None
+    if graph:
+        rec, close = _graph_instrument(wf, counters)
+        inside = _gd_launches(wf, counters)
+    else:
+        rec, close = _instrument(wf, counters), (lambda: None)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
     wf.run()
+    close()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -3453,18 +3500,22 @@ def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
            "mean_train_loss": [statistics.fmean(e) for e in losses],
            "best_validation_error_pt": res["best_validation_error_pt"],
            "best_epoch": res["best_epoch"]}
-    _log("train %s: %d train + %d valid %s, minibatch %d; %d epochs in "
+    if graph:
+        out.update(gd_launches=inside, first_epoch=rec["first_epoch"])
+    _log("train %s%s: %d train + %d valid %s, minibatch %d; %d epochs in "
          "%.3f s; epoch wall s %s; median after the first %.4f s = %.1f "
          "train %s/s; mean train loss by epoch %s; best validation error "
-         "%.2f%% (epoch %d); launches %s (per train / eval step %s); init "
-         "%.3f s [%s]"
-         % (label, n_train, wf.loader.class_lengths[VALID], n_seq_label,
+         "%.2f%% (epoch %d); launches %s (per train / eval step %s%s); "
+         "init %.3f s [%s]"
+         % (label, " (graph mode)" if graph else "", n_train,
+            wf.loader.class_lengths[VALID], n_seq_label,
             wf.loader.max_minibatch_size, len(epoch_s), seconds,
             " ".join("%.4f" % x for x in epoch_s), median_s,
             out["train_samples_s_median"], n_seq_label,
             " ".join("%.5f" % x for x in out["mean_train_loss"]),
             out["best_validation_error_pt"], out["best_epoch"], launches,
-            per, t_init, card))
+            per, "; inside GD units %s" % inside if graph else "", t_init,
+            card))
     if any(not math.isfinite(x) for e in losses for x in e):
         raise AssertionError("%s: a train loss is not finite" % label)
     return out
@@ -3570,10 +3621,10 @@ LRN_NET_GATE_PT = 25.0
 
 
 def lrn_net_workflow(device="cuda", use_pallas=None, epochs=LRN_NET_EPOCHS,
-                     **loader):
+                     fused=True, **loader):
     """The LRN convnet through the CIFAR sample's ``create_workflow``,
     weights from seed 42, loader seed 7, on ``device`` (the card unless
-    the CPU is asked for)."""
+    the CPU is asked for); ``fused=False``: graph mode."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.prng import RandomGenerator
@@ -3583,7 +3634,7 @@ def lrn_net_workflow(device="cuda", use_pallas=None, epochs=LRN_NET_EPOCHS,
         loader=dict(LRN_NET_LOADER, prng=RandomGenerator().seed(7),
                     **loader),
         layers=_with_lrn_form(LRN_NET_LAYERS, use_pallas),
-        decision={"max_epochs": epochs, "silent": True})
+        decision={"max_epochs": epochs, "silent": True}, fused=fused)
     wf.initialize(device=Device(backend=device))
     return _on(wf, device)
 
@@ -3616,6 +3667,418 @@ def trace_alexnet(torch, card, label, use_pallas):
     with the top kernels and every device copy named."""
     return _traced(torch, "train " + label, card, lambda: _epoch(
         alexnet_workflow(use_pallas=use_pallas, epochs=1)), top=25)
+
+# -- phase 4e: graph mode (slice 17) ------------------------------------------
+
+#: graph MNIST's best validation error against phase 4's fused
+#: ``precise_gemm=1`` run, in percentage points
+GRAPH_MNIST_ERROR_PP = 0.2
+#: fused against graph mode on the card: the JAX tests' own limits
+#: (tests/test_standard_workflow.py: weights 2e-4, best rmse 1e-3)
+GRAPH_FUSED_WEIGHT_ATOL = 2e-4
+GRAPH_FUSED_RMSE_ATOL = 1e-3
+#: the LRN convnet's first train steps whose dropout masks are held card
+#: against CPU, on a cut dataset (widths untouched)
+GRAPH_MASK_STEPS = 2
+GRAPH_MASK_LOADER = {"n_train": 300, "n_valid": 100}
+#: the MSE regression workflow of tests/test_standard_workflow.py:133-178
+#: (x in [-1, 1)^6 -> tanh(x W) + noise, 150 train + 50 valid, minibatch
+#: 40, tanh 16 -> linear 3, lr 0.1, momentum 0.9, weights seed 13), with
+#: every All2All forward on K4
+MSE_GD = {"learning_rate": 0.1, "gradient_moment": 0.9}
+MSE_LAYERS = (
+    {"type": "all2all_tanh",
+     "->": {"output_sample_shape": 16, "precise_gemm": 1}, "<-": MSE_GD},
+    {"type": "all2all", "->": {"output_sample_shape": 3, "precise_gemm": 1},
+     "<-": MSE_GD})
+MSE_EPOCHS = 3
+
+
+def _graph_instrument(wf, counters):
+    """``_instrument`` for graph mode; -> (record, close).  A graph step
+    is everything from one loader run to the next (the forwards, the
+    evaluator, the decision, the GD units), so each loader run closes the
+    step before it and ``close()`` (after ``wf.run``) the last.  An
+    epoch ends once its last step's GD units ran: its time, n_err and
+    (the first's) weights are taken there."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    rec = {"epoch_end": [], "first_epoch": None,
+           "steps": {TRAIN: 0, VALID: 0}, "train_loss": [[]],
+           "launches": {name: {TRAIN: 0, VALID: 0} for name in counters}}
+    loader, decision = wf.loader, wf.decision
+    loader_run = loader.run
+    open_step = {}
+
+    def close():
+        if not open_step:
+            return
+        cls = open_step["cls"]
+        rec["steps"][cls] += 1
+        for name, fn in counters.items():
+            rec["launches"][name][cls] += \
+                fn.launches - open_step["launches"][name]
+        if cls == TRAIN:     # a device scalar: read at the end, no sync
+            rec["train_loss"][-1].append(wf.evaluator.loss)
+        if open_step["epoch_ended"]:
+            rec["epoch_end"].append(time.perf_counter())
+            rec["train_loss"].append([])
+            if rec["first_epoch"] is None:
+                rec["first_epoch"] = {
+                    "n_err": list(decision.epoch_n_err),
+                    "weights": host_weights(wf)}
+        open_step.clear()
+
+    def run():
+        close()
+        loader_run()
+        open_step.update(
+            cls=loader.minibatch_class, epoch_ended=bool(loader.epoch_ended),
+            launches={name: fn.launches for name, fn in counters.items()})
+
+    loader.run = run
+    return rec, close
+
+
+def _gd_launches(wf, counters):
+    """Count the launches of ``counters`` made inside the GD units' runs
+    (-> a live {name: count})."""
+    inside = {name: 0 for name in counters}
+    for gd in wf.gds:
+        def run(gd_run=gd.run):
+            before = {name: fn.launches for name, fn in counters.items()}
+            gd_run()
+            for name, fn in counters.items():
+                inside[name] += fn.launches - before[name]
+        gd.run = run
+    return inside
+
+
+def _want_launches(label, out, want):
+    """Refuse per train / eval step launches other than ``want``."""
+    if out["launches_per_train_eval_step"] != want:
+        raise AssertionError("%s (graph mode): launches per train / eval "
+                             "step %r, want %r" % (
+                                 label, out["launches_per_train_eval_step"],
+                                 want))
+
+
+def _max_diff(a, b):
+    return max(float(numpy.abs(x[k] - y[k]).max())
+               for x, y in zip(a, b) for k in y)
+
+
+def graph_mnist_run(torch, gemm, card, fused_run):
+    """(a) MNIST at the gate's settings in graph mode with
+    ``precise_gemm=1`` on the card: K4 once per All2All forward of every
+    train and eval step and never inside a GD unit; the first epoch held
+    against graph mode on the CPU; the best validation error within
+    ``GRAPH_MNIST_ERROR_PP`` of phase 4's fused run (``fused_run``)."""
+    t0 = time.perf_counter()
+    wf = _mnist_workflow(1, fused=False)
+    init_s = time.perf_counter() - t0
+    out = _train_record(torch, wf, {"k4": gemm.precise_matmul},
+                        "MNIST precise_gemm=1", card, init_s, "images")
+    n_fc = len(wf.forwards)
+    _want_launches("MNIST", out, {"k4": (n_fc, n_fc)})
+    if out["gd_launches"]["k4"]:
+        raise AssertionError("graph MNIST: %d K4 launches inside GD units"
+                             % out["gd_launches"]["k4"])
+    gap = abs(out["best_validation_error_pt"] -
+              fused_run["best_validation_error_pt"])
+    out["fused_best_validation_error_pt"] = \
+        fused_run["best_validation_error_pt"]
+    out["fused_train_images_s_median"] = fused_run["train_images_s_median"]
+    _log("train MNIST precise_gemm=1: graph mode %.1f train images/s "
+         "(median epoch after the first) beside fused %.1f (phase 4's "
+         "median epoch); best validation error graph %.2f%% fused %.2f%% "
+         "(limit %.1f points apart) [%s]"
+         % (out["train_samples_s_median"],
+            fused_run["train_images_s_median"],
+            out["best_validation_error_pt"],
+            fused_run["best_validation_error_pt"], GRAPH_MNIST_ERROR_PP,
+            card))
+    if not gap <= GRAPH_MNIST_ERROR_PP:
+        raise AssertionError("graph MNIST's best validation error is %.2f "
+                             "points from the fused run's" % gap)
+    cpu = _mnist_workflow(1, device="cpu", epochs=1, fused=False)
+    rec, close = _graph_instrument(cpu, {"k4": gemm.precise_matmul})
+    t0 = time.perf_counter()
+    cpu.run()
+    close()
+    out["first_epoch_vs_cpu"] = _first_epochs_agree(
+        "MNIST precise_gemm=1 graph mode", out.pop("first_epoch"),
+        rec["first_epoch"], time.perf_counter() - t0)
+    return out
+
+
+def graph_train_steps(wf, n):
+    """Run graph mode's units by hand through the first ``n`` train
+    minibatches (validation minibatches are served and skipped); ->
+    (losses, the dropout layers' keys after each step)."""
+    from veles_tpu_torch.loader import TRAIN
+    losses, keys = [], []
+    for _ in range(n):
+        while True:
+            wf.loader.run()
+            if wf.loader.minibatch_class == TRAIN:
+                break
+        for fwd in wf.forwards:
+            fwd.run()
+        wf.evaluator.run()
+        for gd in reversed(wf.gds):
+            gd.run()
+        losses.append(float(wf.evaluator.loss))
+        keys.append([f.last_key for f in wf.forwards if f.stochastic])
+    return losses, keys
+
+
+def graph_lrn_net_run(torch, lrn_mod, card):
+    """(b) The LRN convnet of phase 4d in graph mode: K5 once per LRN
+    forward, K6 once per LRN backward on train steps, the gate; then the
+    first ``GRAPH_MASK_STEPS`` train steps on the card and on the CPU:
+    each dropout mask drawn on the card equal to the CPU's bit for bit,
+    losses and weights within ``steps_agree``'s limits."""
+    t0 = time.perf_counter()
+    wf = lrn_net_workflow(fused=False)
+    init_s = time.perf_counter() - t0
+    out = _train_record(torch, wf, _lrn_counters(lrn_mod), "LRN convnet",
+                        card, init_s, "images")
+    out.pop("first_epoch")
+    _want_launches("the LRN convnet", out, {"K5": (2, 2), "K6": (2, 0)})
+    if not out["best_validation_error_pt"] < LRN_NET_GATE_PT:
+        raise AssertionError("the LRN convnet missed its gate in graph "
+                             "mode: %.2f%%" % out["best_validation_error_pt"])
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        net = lrn_net_workflow(dev, fused=False, **GRAPH_MASK_LOADER)
+        t0 = time.perf_counter()
+        losses, keys = graph_train_steps(net, GRAPH_MASK_STEPS)
+        steps[dev] = (net, losses, keys, time.perf_counter() - t0)
+    (card_wf, card_losses, card_keys, _), (cpu_wf, cpu_losses, cpu_keys,
+                                           cpu_s) = steps["cuda"], \
+        steps["cpu"]
+    loss_diff, w_diff = steps_agree("LRN convnet graph mode", card_losses,
+                                    host_weights(card_wf), cpu_losses,
+                                    host_weights(cpu_wf))
+    drop = [f for f in card_wf.forwards if f.stochastic]
+    if card_keys != cpu_keys or len(drop) != 1:
+        raise AssertionError("graph mode's dropout keys differ: card %r "
+                             "cpu %r" % (card_keys, cpu_keys))
+    masks = 0
+    shape = tuple(drop[0].output.shape)
+    for (key,) in card_keys:
+        on_card = drop[0].mask(key, shape, "cuda").cpu()
+        if not torch.equal(on_card, drop[0].mask(key, shape, "cpu")):
+            raise AssertionError("a graph-mode dropout mask on the card "
+                                 "differs from the CPU's")
+        masks += 1
+    out["first_steps_vs_cpu"] = {
+        "steps": GRAPH_MASK_STEPS, "card_losses": card_losses,
+        "cpu_losses": cpu_losses, "loss_rel_diff": loss_diff,
+        "weight_rel_diff": w_diff, "dropout_masks_equal": masks,
+        "cpu_seconds": cpu_s}
+    _log("train LRN convnet graph mode: first %d train steps card vs CPU: "
+         "losses card %s cpu %s (rel diff %.3g), weights rel diff %.3g; "
+         "%d dropout masks equal bit for bit; CPU %.3f s"
+         % (GRAPH_MASK_STEPS, card_losses, cpu_losses, loss_diff, w_diff,
+            masks, cpu_s))
+    return out
+
+
+def graph_attention_run(torch, fa, card, label, causal, window):
+    """(c) The attention unit at phase 4b's full width in graph mode:
+    K7, K8 and K9 once each a train step (the forward's run launches K7,
+    the GD unit's K8 and K9 on the kept graph), K7 once an eval step;
+    then the first epoch cut to ``ATTN_CPU_N`` sequences (``use_pallas=
+    True``) in graph mode on the card, on the CPU and in fused mode on
+    the card: n_err within 1 and weights within 1e-4 against the CPU,
+    weights within ``GRAPH_FUSED_WEIGHT_ATOL`` against fused mode."""
+    t0 = time.perf_counter()
+    wf = attention_workflow(ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS, causal,
+                            window, fused=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counters = _flash_counters(fa)
+    out = _train_record(torch, wf, counters, label, card, init_s,
+                        "sequences")
+    out.pop("first_epoch")
+    _want_launches(label, out, {"K7": (1, 1), "K8": (1, 0), "K9": (1, 0)})
+    first = {}
+    for device, fused in (("cuda", False), ("cpu", False), ("cuda", True)):
+        cut = attention_workflow(ATTN_CPU_N, ATTN_T, ATTN_D, ATTN_HEADS,
+                                 causal, window, epochs=1, device=device,
+                                 use_pallas=True, n_valid=ATTN_CPU_VALID,
+                                 fused=fused)
+        t0 = time.perf_counter()
+        if fused:
+            rec = _instrument(cut, counters)
+            cut.run()
+        else:
+            rec, close = _graph_instrument(cut, counters)
+            cut.run()
+            close()
+        first[device, fused] = (rec["first_epoch"],
+                                time.perf_counter() - t0)
+    out["first_epoch_vs_cpu"] = _first_epochs_agree(
+        label + " graph mode (%d sequences)" % ATTN_CPU_N,
+        first["cuda", False][0], first["cpu", False][0],
+        first["cpu", False][1])
+    fused_diff = _max_diff(first["cuda", False][0]["weights"],
+                           first["cuda", True][0]["weights"])
+    out["first_epoch_vs_fused_max_weight_diff"] = fused_diff
+    _log("train %s: first epoch (%d sequences) graph against fused mode on "
+         "the card: max|w_graph - w_fused| = %.3g (limit %g); n_err graph "
+         "%s fused %s" % (label, ATTN_CPU_N, fused_diff,
+                          GRAPH_FUSED_WEIGHT_ATOL,
+                          first["cuda", False][0]["n_err"],
+                          first["cuda", True][0]["n_err"]))
+    if not fused_diff <= GRAPH_FUSED_WEIGHT_ATOL:
+        raise AssertionError("%s: graph and fused mode's first epochs "
+                             "differ on the card" % label)
+    return out
+
+
+def regression_loader():
+    """The MSE regression data of the JAX package's
+    tests/test_standard_workflow.py as a port FullBatchLoaderMSE."""
+    from veles_tpu_torch.loader import TEST, TRAIN, VALID
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoaderMSE
+
+    class RegressionLoader(FullBatchLoaderMSE):
+        def load_data(self):
+            rng = numpy.random.RandomState(11)
+            x = rng.uniform(-1, 1, (200, 6)).astype(numpy.float32)
+            w = rng.standard_normal((6, 3)).astype(numpy.float32)
+            t = numpy.tanh(x @ w) + 0.05 * rng.standard_normal(
+                (200, 3)).astype(numpy.float32)
+            self.original_data.mem = x
+            self.original_targets.mem = t.astype(numpy.float32)
+            self.class_lengths[TEST] = 0
+            self.class_lengths[VALID] = 50
+            self.class_lengths[TRAIN] = 150
+
+    return RegressionLoader
+
+
+def mse_workflow(fused, device="cuda", epochs=MSE_EPOCHS):
+    """The MSE regression ``StandardWorkflow`` (``MSE_LAYERS``, weights
+    seed 13, loader seed 5) on ``device``."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    prng.get().seed(13)
+    wf = StandardWorkflow(
+        None, name="std_mse", loader_factory=regression_loader(),
+        loader={"minibatch_size": 40, "prng": RandomGenerator().seed(5)},
+        layers=[dict(layer) for layer in MSE_LAYERS], loss_function="mse",
+        decision={"max_epochs": epochs, "silent": True}, fused=fused)
+    wf.initialize(device=Device(backend=device))
+    return _on(wf, device)
+
+
+def graph_mse_run(torch, gemm, card):
+    """(d) The MSE regression workflow in graph and in fused mode on the
+    card, ``precise_gemm=1``: weights within ``GRAPH_FUSED_WEIGHT_ATOL``,
+    best rmse within ``GRAPH_FUSED_RMSE_ATOL``."""
+    runs = {}
+    for fused in (False, True):
+        wf = mse_workflow(fused)
+        gemm.precise_matmul.launches = 0
+        t0 = time.perf_counter()
+        wf.run()
+        torch.cuda.synchronize()
+        runs[fused] = {"seconds": time.perf_counter() - t0,
+                       "best_rmse": wf.decision.best_rmse,
+                       "k4_launches": gemm.precise_matmul.launches,
+                       "weights": host_weights(wf)}
+    w_diff = _max_diff(runs[False]["weights"], runs[True]["weights"])
+    rmse_diff = abs(runs[False]["best_rmse"] - runs[True]["best_rmse"])
+    out = {"label": "MSE regression", "card": card,
+           "graph_best_rmse": runs[False]["best_rmse"],
+           "fused_best_rmse": runs[True]["best_rmse"],
+           "max_weight_diff": w_diff,
+           "graph_seconds": runs[False]["seconds"],
+           "fused_seconds": runs[True]["seconds"],
+           "graph_k4_launches": runs[False]["k4_launches"],
+           "fused_k4_launches": runs[True]["k4_launches"]}
+    _log("train MSE regression (precise_gemm=1, %d epochs): best rmse graph "
+         "%.6f fused %.6f (limit %g apart); max|w_graph - w_fused| = %.3g "
+         "(limit %g); K4 launches graph %d fused %d; %.3f / %.3f s [%s]"
+         % (MSE_EPOCHS, out["graph_best_rmse"], out["fused_best_rmse"],
+            GRAPH_FUSED_RMSE_ATOL, w_diff, GRAPH_FUSED_WEIGHT_ATOL,
+            out["graph_k4_launches"], out["fused_k4_launches"],
+            out["graph_seconds"], out["fused_seconds"], card))
+    if not (w_diff <= GRAPH_FUSED_WEIGHT_ATOL and
+            rmse_diff <= GRAPH_FUSED_RMSE_ATOL):
+        raise AssertionError("MSE: graph and fused mode differ on the card")
+    if not (out["graph_k4_launches"] and out["fused_k4_launches"]):
+        raise AssertionError("MSE: a run launched no K4")
+    return out
+
+
+#: the loader's two paths in graph mode on the card: train steps of the
+#: full-width attention unit (no mask) on ``LOADER_PATH_N`` sequences,
+#: the host path (``force_numpy``) and the device gather in turns
+LOADER_PATH_N, LOADER_PATH_STEPS = 96, 8
+
+
+def loader_paths_run(torch, card):
+    """(e) ``LOADER_PATH_STEPS`` graph-mode train steps of the attention
+    unit at full width with the loader's host path (``fill_minibatch``:
+    a 33.5 MB minibatch gathered on the host and uploaded) and with its
+    device gather, in turns (host, device, device, host); -> record of
+    each path's train sequences/s."""
+    wf = attention_workflow(LOADER_PATH_N, ATTN_T, ATTN_D, ATTN_HEADS,
+                            fused=False)
+    graph_train_steps(wf, 2)          # cuBLAS's and the kernels' first calls
+    seconds = {"host": [], "device": []}
+    for host in (True, False, False, True):
+        wf.loader.force_numpy = host
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph_train_steps(wf, LOADER_PATH_STEPS)
+        torch.cuda.synchronize()
+        seconds["host" if host else "device"].append(
+            time.perf_counter() - t0)
+    rate = {path: LOADER_PATH_STEPS * ATTN_MINIBATCH / statistics.fmean(t)
+            for path, t in seconds.items()}
+    _log("train attention graph mode, the loader's paths: %d train steps "
+         "(minibatch %d of [%d, %d]) in turns host %s s, device %s s: "
+         "%.1f train sequences/s on the host path, %.1f with the device "
+         "gather [%s]" % (LOADER_PATH_STEPS, ATTN_MINIBATCH, ATTN_T, ATTN_D,
+                          " ".join("%.4f" % t for t in seconds["host"]),
+                          " ".join("%.4f" % t for t in seconds["device"]),
+                          rate["host"], rate["device"], card))
+    return {"label": "loader paths", "card": card, "seconds": seconds,
+            "train_seq_s": rate}
+
+
+def graph_phase(torch, gemm, lrn_mod, fa, card, fused_mnist):
+    """Phase 4e: (a)-(d), each part's wall time printed; -> record."""
+    out, seconds = {}, {}
+    parts = (
+        ("mnist", lambda: graph_mnist_run(torch, gemm, card, fused_mnist)),
+        ("lrn_convnet", lambda: graph_lrn_net_run(torch, lrn_mod, card)),
+        ("attention", lambda: [graph_attention_run(torch, fa, card, *config)
+                               for config in ATTN_CONFIGS]),
+        ("mse", lambda: graph_mse_run(torch, gemm, card)),
+        ("loader_paths", lambda: loader_paths_run(torch, card)))
+    for name, part in parts:
+        t0 = time.perf_counter()
+        out[name] = part()
+        seconds[name] = time.perf_counter() - t0
+        _log("phase 4e %s: %.1f s" % (name, seconds[name]))
+    out["part_seconds"] = seconds
+    return out
+
+
+def trace_graph_train(torch, card):
+    """One graph-mode MNIST epoch (``precise_gemm=1``) under
+    ``torch.profiler``."""
+    return _traced(torch, "train graph precise_gemm=1", card,
+                   lambda: _epoch(_mnist_workflow(1, epochs=1, fused=False)))
+
 
 # -- phase 5: where the time goes ---------------------------------------------
 
@@ -4068,6 +4531,17 @@ def main():
         launches[name] = alexnet[0]["launches"][kid] + \
             lrn_net["launches"][kid]
     phase_done("4d LRN convnet training")
+    graph = graph_phase(torch, gemm, lrn_mod, fa, card, train[1])
+    record["graph_mode"] = graph
+    launches["precise_matmul_l1"] += graph["mnist"]["launches"]["k4"]
+    for name, kid in (("lrn_fwd", "K5"), ("lrn_bwd", "K6")):
+        launches[name] += graph["lrn_convnet"]["launches"][kid]
+    for name, kid in (("flash_attention_fwd", "K7"),
+                      ("flash_attention_dq", "K8"),
+                      ("flash_attention_dkv", "K9")):
+        launches[name] += sum(run["launches"][kid]
+                              for run in graph["attention"])
+    phase_done("4e graph mode")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (
@@ -4075,7 +4549,8 @@ def main():
         [trace_train(torch, card, precise) for precise in (0, 1)] +
         [trace_attention(torch, card, *config) for config in ATTN_CONFIGS] +
         [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS] +
-        [trace_options_run(torch, card, kv) for kv in ("f32", "int8")])
+        [trace_options_run(torch, card, kv) for kv in ("f32", "int8")] +
+        [trace_graph_train(torch, card)])
     for run, trace in zip(runs, record["traces"]):
         serving_summary(run, trace)
     phase_done("5 traces")

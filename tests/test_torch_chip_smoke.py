@@ -670,6 +670,13 @@ def test_needle_loader_makes_the_jax_tests_data():
     assert list(loader.original_labels) == list(labels)
     assert (loader.class_lengths[VALID], loader.class_lengths[TRAIN]) == \
         (15, 45)
+    # a second loader of the size shares the data, left as it was made
+    again = chip_smoke.needle_loader(n, t, d, c, n_valid=20)(
+        Workflow(name="w"), minibatch_size=10)
+    again.initialize(device=Device(backend="cpu"))
+    assert again.original_data.mem is loader.original_data.mem
+    assert again.original_data.map_read().tobytes() == x.tobytes()
+    assert again.class_lengths[VALID] == 20
 
 
 def test_lrn_form_is_set_on_the_lrn_layers_only():
@@ -772,7 +779,7 @@ def _phase_names():
 def test_phase3e_is_in_mains_order():
     names = [n.split()[0] for n in _phase_names()]
     assert names == ["2", "3", "3b", "3c", "4", "3d", "3e", "4b", "4c",
-                     "4d", "5"]
+                     "4d", "4e", "5"]
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         src = f.read()
     # 3d's fleet and 3e share one fresh build cache, removed after
@@ -850,3 +857,95 @@ def test_phase3e_restart_verdict_counts_nvcc_runs():
     with pytest.raises(AssertionError, match="listing changed"):
         chip_smoke.restart_verdict(_restart_record(), listing,
                                    listing + ["c.so"])
+
+
+def test_phase4e_runs_after_4d_and_is_counted_and_traced():
+    """Phase 4e (graph mode) runs after 4d, before the kernels line,
+    whose K4-K9 counts take its launches, and phase 5 traces one graph
+    MNIST epoch."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    main = src[src.index("def main():"):]
+    assert main.index("lrn_net_run(") < main.index("graph_phase(") < \
+        main.index("kernels_line(")
+    for key in ('graph["mnist"]["launches"]["k4"]',
+                'graph["lrn_convnet"]["launches"][kid]',
+                'run["launches"][kid]\n                              '
+                'for run in graph["attention"]'):
+        assert key in main, key
+    assert "trace_graph_train(torch, card)" in main
+
+
+def _count_runs(unit, counter):
+    run = unit.run
+
+    def counted():
+        counter.launches += 1
+        run()
+    unit.run = counted
+
+
+class _Counter:
+    launches = 0
+
+
+def test_graph_instrument_counts_steps_launches_and_the_first_epoch():
+    """On the CPU, the MNIST gate's graph workflow for one epoch: a
+    stand-in counter bumped by the first forward counts once per train
+    and eval step, one bumped by the first GD unit once per train step
+    and only inside GD units; the first epoch's weights are the trained
+    ones (taken after the epoch's last GD units)."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    wf = chip_smoke._mnist_workflow(0, device="cpu", epochs=1, fused=False)
+    fwd, gd = _Counter(), _Counter()
+    _count_runs(wf.forwards[0], fwd)
+    _count_runs(wf.gds[0], gd)
+    counters = {"fwd": fwd, "gd": gd}
+    rec, close = chip_smoke._graph_instrument(wf, counters)
+    inside = chip_smoke._gd_launches(wf, counters)
+    wf.run()
+    close()
+    n_train, n_valid = (wf.loader.class_lengths[c] for c in (TRAIN, VALID))
+    steps = {TRAIN: -(-n_train // 60), VALID: -(-n_valid // 60)}
+    assert rec["steps"] == steps
+    assert rec["launches"]["fwd"] == steps
+    assert rec["launches"]["gd"] == {TRAIN: steps[TRAIN], VALID: 0}
+    assert inside == {"fwd": 0, "gd": steps[TRAIN]}
+    assert len(rec["epoch_end"]) == 1 and len(rec["train_loss"][0]) == \
+        steps[TRAIN]
+    first = rec["first_epoch"]
+    assert first["n_err"] == list(wf.decision.epoch_n_err)
+    for got, want in zip(first["weights"], chip_smoke.host_weights(wf)):
+        for k in want:
+            assert (got[k] == want[k]).all(), k
+    with pytest.raises(AssertionError, match="graph mode"):
+        chip_smoke._want_launches("x", {"launches_per_train_eval_step": {
+            "k4": (1.0, 2.0)}}, {"k4": (2, 2)})
+
+
+def test_graph_train_steps_draw_the_same_masks_and_mse_modes_agree():
+    """``graph_train_steps`` on the LRN convnet (cut to 200 + 100 images)
+    twice on the CPU: the same dropout keys a step, one key a step;
+    the MSE regression workflow in graph and fused mode on the CPU
+    within phase 4e's limits."""
+    runs = []
+    for _ in range(2):
+        net = chip_smoke.lrn_net_workflow("cpu", fused=False,
+                                          n_train=200, n_valid=100)
+        runs.append(chip_smoke.graph_train_steps(net, 2))
+    (losses, keys), (losses2, keys2) = runs
+    assert losses == losses2 and keys == keys2
+    assert len(keys) == 2 and keys[0] != keys[1] and len(keys[0]) == 1
+    graph = chip_smoke.mse_workflow(False, "cpu")
+    fused = chip_smoke.mse_workflow(True, "cpu")
+    assert graph.fused_step is None and graph.evaluator is not None
+    graph.run()
+    fused.run()
+    assert chip_smoke._max_diff(chip_smoke.host_weights(graph),
+                                chip_smoke.host_weights(fused)) <= \
+        chip_smoke.GRAPH_FUSED_WEIGHT_ATOL
+    assert abs(graph.decision.best_rmse - fused.decision.best_rmse) <= \
+        chip_smoke.GRAPH_FUSED_RMSE_ATOL
+    ld = graph.loader
+    assert (ld.class_lengths, ld.original_targets.shape) == ([0, 50, 150],
+                                                             (200, 3))

@@ -263,26 +263,14 @@ def test_supervisor_restart_budget_in_metrics(fleet):
 
 def test_fleet_trace_one_id_router_to_batch(fleet):
     """One trace id spans router -> replica request -> serving.batch,
-    recorded by different processes; the batch span is looked for until
-    the replica has written it (it follows the answer)."""
+    recorded by different processes; the spans are looked for until
+    their writers have written them: the replica's batch span and the
+    router's ``fleet.route`` span both follow the answer, so tracing
+    stays on until both are found."""
     from tools.merge_traces import merge
     from veles_tpu_torch.config import root
     from veles_tpu_torch.logger import events
-    events.reset()
-    root.common.trace.enabled = True
-    root.common.trace.file = os.path.join(fleet.trace_dir,
-                                          "events-router.jsonl")
     trace_id = "feedfacefeedface"
-    try:
-        status, _, headers = _post(fleet.url + "/api/m",
-                                   {"input": [[1, 2, 3, 4]]},
-                                   headers={"X-Trace-Id": trace_id})
-        assert status == 200
-        assert headers.get("X-Trace-Id") == trace_id
-    finally:
-        root.common.trace.enabled = False
-        root.common.trace.file = None
-        events.reset()
     found = {}
 
     def linked():
@@ -300,7 +288,21 @@ def test_fleet_trace_one_id_router_to_batch(fleet):
             and set((e.get("args") or {}).get("links") or ()) & spans]
         found["by_name"] = by_name
         return "fleet.route" in by_name and found["batches"]
-    _wait(linked, 30, "the traced request's spans in the merged trace")
+    events.reset()
+    root.common.trace.enabled = True
+    root.common.trace.file = os.path.join(fleet.trace_dir,
+                                          "events-router.jsonl")
+    try:
+        status, _, headers = _post(fleet.url + "/api/m",
+                                   {"input": [[1, 2, 3, 4]]},
+                                   headers={"X-Trace-Id": trace_id})
+        assert status == 200
+        assert headers.get("X-Trace-Id") == trace_id
+        _wait(linked, 30, "the traced request's spans in the merged trace")
+    finally:
+        root.common.trace.enabled = False
+        root.common.trace.file = None
+        events.reset()
     by_name = found["by_name"]
     assert {e["pid"] for e in by_name["fleet.route"]} != \
         {e["pid"] for e in by_name["serving.request"]}

@@ -17,7 +17,9 @@
   (slice 12), which takes its plain version for CPU tensors without
   counting a launch; the bucket scheduler, the classifier route, the
   fleet and the replica command line (slice 15); the autotuner's probes
-  and a decode scheduler resolving ``"auto"`` (slice 16).
+  and a decode scheduler resolving ``"auto"`` (slice 16); graph mode's
+  workflows (softmax and MSE), its GD and evaluator units and the
+  ``InputJoiner`` (slice 17).
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -92,7 +94,7 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "compilecache.store", "compilecache.manifest",
                  "compilecache.cache", "autotune", "autotune.space",
                  "autotune.store", "autotune.dispatch", "autotune.runner",
-                 "autotune.probe", "autotune.__main__"):
+                 "autotune.probe", "autotune.__main__", "input_joiner"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -270,6 +272,59 @@ def test_slice16_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         DecodeScheduler(toy, spec_depth="auto")
     s = DecodeScheduler(toy, spec_depth="auto", device="cpu")
     s.close()
+
+
+def test_slice17_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """Graph mode (``fused=False``) and the MSE loss initialize on the
+    card by default and raise without one; so do a standalone GD unit,
+    an evaluator and the ``InputJoiner``.  Told the CPU, they run
+    there."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.input_joiner import InputJoiner
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.evaluator import EvaluatorMSE
+    from veles_tpu_torch.znicz.gd import GDTanh
+    from veles_tpu_torch.znicz.samples import mnist
+    from veles_tpu_torch.loader import FullBatchLoaderMSE
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+
+    class Regression(FullBatchLoaderMSE):
+        hide_from_registry = True
+
+        def load_data(self):
+            self.original_data.mem = numpy.ones((8, 3), numpy.float32)
+            self.original_targets.mem = numpy.ones((8, 2), numpy.float32)
+            self.class_lengths[1:] = [4, 4]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loader = {"n_train": 60, "n_valid": 60}
+    with pytest.raises(RuntimeError):
+        mnist.create_workflow(fused=False, loader=loader).initialize()
+    for fused in (False, True):
+        mse = StandardWorkflow(
+            None, loader_factory=Regression, loss_function="mse",
+            loader={"minibatch_size": 4}, fused=fused,
+            layers=[{"type": "all2all", "->": {"output_sample_shape": 2}}],
+            decision={"max_epochs": 1, "silent": True})
+        with pytest.raises(RuntimeError):
+            mse.initialize()
+        mse.initialize(device=Device(backend="cpu"))
+        mse.run()
+        assert mse.decision.best_rmse is not None
+    wf = mnist.create_workflow(fused=False, loader=loader,
+                               decision={"max_epochs": 1, "silent": True})
+    wf.initialize(device=Device(backend="cpu"))
+    wf.run()
+    assert wf.forwards[0].weights.devmem.device == torch.device("cpu")
+    for unit in (GDTanh(Workflow(name="w")), EvaluatorMSE(Workflow(
+            name="w")), InputJoiner(Workflow(name="w"))):
+        with pytest.raises(RuntimeError):
+            unit.initialize()
+    gd = GDTanh(Workflow(name="w"))
+    gd.err_output = Array(numpy.ones((2, 3), numpy.float32))
+    gd.initialize(device=Device(backend="cpu"))
+    assert gd.err_output.devmem.device == torch.device("cpu")
 
 
 def test_fleet_replica_subprocess_imports_no_jax(tmp_path):

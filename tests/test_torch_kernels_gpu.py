@@ -575,7 +575,7 @@ def test_precise_matmul_ragged_layouts(cuda, shape, layout, level):
     assert float((out - ref).abs().max()) <= 1e-6 * scale
 
 
-def _mnist(precise, device):
+def _mnist(precise, device, fused=True):
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
@@ -586,6 +586,7 @@ def _mnist(precise, device):
     root.common.engine.precise_gemm = precise
     try:
         wf = mnist.create_workflow(
+            fused=fused,
             loader={"minibatch_size": 60, "n_train": 600, "n_valid": 200,
                     "prng": RandomGenerator().seed(3)},
             decision={"max_epochs": 2, "silent": True})
@@ -593,6 +594,30 @@ def _mnist(precise, device):
         root.common.engine.precise_gemm = saved
     wf.initialize(device=Device(backend=device))
     return wf
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+def test_graph_mnist_on_the_card_matches_the_cpu(cuda, precise):
+    """Two epochs of the MNIST sample in graph mode: the card and the CPU
+    agree on the validation error and on the weights within 1e-4; with
+    ``precise_gemm=1`` every step launches K4 twice (the two forwards;
+    the GD units' products are plain matmuls)."""
+    card, host = (_mnist(precise, dev, fused=False)
+                  for dev in ("cuda", "cpu"))
+    steps = []
+    evaluate = card.evaluator.run
+    card.evaluator.run = lambda: (steps.append(1), evaluate())
+    before = gemm.precise_matmul.launches
+    card.run()
+    launches = gemm.precise_matmul.launches - before
+    host.run()
+    assert len(steps) == 2 * (10 + 4)
+    assert launches == precise * 2 * len(steps)
+    assert card.gather_results()["best_validation_error_pt"] == \
+        host.gather_results()["best_validation_error_pt"]
+    for f_card, f_host in zip(card.forwards, host.forwards):
+        for name, value in f_card.host_params.items():
+            assert numpy.abs(value - f_host.host_params[name]).max() <= 1e-4
 
 
 @pytest.mark.parametrize("precise", [0, 1])

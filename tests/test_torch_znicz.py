@@ -8,8 +8,9 @@
   standalone forward (``initialize`` + ``run``) from the same seeds,
   with and without ``precise_gemm``: ``atol=1e-6`` (the matmul sums in
   another order than XLA's dot).
-- ``StandardWorkflow`` routes flat layer keys as the JAX one does and
-  refuses what the port does not have yet.
+- ``StandardWorkflow`` routes flat layer keys as the JAX one does,
+  refuses what the port does not have yet, and builds graph mode's
+  unit chain.
 """
 
 import numpy
@@ -111,5 +112,24 @@ def test_standard_workflow_routes_and_refuses():
         mnist.create_workflow(loader=loader,
                               layers=[{"type": "stochastic_pooling",
                                        "kx": 2, "ky": 2}])
-    with pytest.raises(NotImplementedError, match="graph mode"):
-        mnist.create_workflow(fused=False, loader=loader)
+    # graph mode builds the unit chain: the forwards, the evaluator on
+    # the last one, the decision, the GD units reversed behind the
+    # train gate, the first layer's without err_input
+    from veles_tpu_torch.loader import TRAIN, VALID
+    from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
+    g = mnist.create_workflow(fused=False, loader=loader, layers=flat)
+    assert g.fused_step is None
+    assert isinstance(g.evaluator, EvaluatorSoftmax)
+    assert g.evaluator in g.forwards[-1].links_to
+    assert g.decision in g.evaluator.links_to
+    assert list(g.decision.links_to) == [g.gds[1]]
+    assert list(g.gds[1].links_to) == [g.gds[0]]
+    assert g.repeater in g.gds[0].links_to
+    assert g.gds[1].err_output is g.evaluator.err_output
+    assert g.gds[0].err_output is g.gds[1].err_input
+    assert (g.gds[0].need_err_input, g.gds[1].need_err_input) == (False,
+                                                                   True)
+    g.initialize(device=Device(backend="cpu"))
+    for cls, skipped in ((TRAIN, False), (VALID, True)):
+        g.loader.minibatch_class = cls
+        assert [bool(gd.gate_skip) for gd in g.gds] == [skipped] * 2

@@ -5,4 +5,4 @@ slices that use them."""
 
 from .base import (Loader, LoaderError, TEST, VALID, TRAIN, CLASS_NAME,
                    TRIAGE)                                  # noqa: F401
-from .fullbatch import FullBatchLoader                      # noqa: F401
+from .fullbatch import FullBatchLoader, FullBatchLoaderMSE  # noqa: F401

@@ -14,13 +14,19 @@ the buffers are padded.  ``last_minibatch``/``epoch_ended``/
 Decision units link on.  Seeded alike, the port serves the JAX
 package's minibatches in the same order.
 
-A loader serves indices only: the consumer (the fused train step)
-gathers the minibatch from the dataset on the device, the JAX
-package's ``defer_device_gather`` mode.  Not ported yet: the host-side
-serving path (``fill_minibatch`` and its normalize / label-mapping
-steps, which the JAX package's graph mode and non-resident loaders
-run), the master/slave index distribution (the ``IDistributable``
-half, with slice 4's distribution) and the background prefetcher.
+Each minibatch's indices go to ``minibatch_indices`` (``fill_indices``).
+A consumer that gathers the minibatch itself on the device (the fused
+train step, ``FusedTrainStep.link_fused_gather``) sets
+``defer_device_gather`` and the loader stops there.  A loader that
+gathers on its device (``FullBatchLoader``) stops there too, the
+minibatch served.  Otherwise the loader serves the minibatch on the
+host, as the JAX package's host-side loaders do: ``fill_minibatch``
+fills ``minibatch_data`` (and the raw labels), ``normalize_minibatch``
+and ``map_minibatch_labels`` follow, and the padded rows of a short
+minibatch are zero (labels and indices -1).  The consumer reads the
+Arrays' ``devmem``, uploaded to the loader's device.  Not ported yet:
+the master/slave index distribution (the ``IDistributable`` half, with
+slice 4's distribution) and the background prefetcher.
 """
 
 import numpy
@@ -57,8 +63,12 @@ class Loader(Unit, IResultProvider):
       gives the first forward its input shape;
     - ``analyze_dataset()`` — the normalization analysis pass;
     - ``fill_indices(start, count)`` — serve
-      ``shuffled_indices[start:start + count]`` to the consumer that
-      gathers them (FullBatchLoader).
+      ``shuffled_indices[start:start + count]``; True when the minibatch
+      needs no host fill (the consumer gathers it, or the loader did on
+      its device);
+    - ``fill_minibatch()`` — the host-side gather of the minibatch at
+      ``minibatch_indices`` into ``minibatch_data`` (and
+      ``raw_minibatch_labels``).
     """
 
     LABEL_DTYPE = numpy.int32
@@ -73,6 +83,12 @@ class Loader(Unit, IResultProvider):
         self.class_lengths = [0, 0, 0]
         self.class_end_offsets = [0, 0, 0]
         self.minibatch_data = Array()
+        self.minibatch_labels = Array()
+        self.minibatch_indices = Array()
+        self.raw_minibatch_labels = []
+        #: set by a consumer that gathers on the device itself (the fused
+        #: step): the loader then serves indices only
+        self.defer_device_gather = False
         self.minibatch_size = 0
         self.minibatch_offset = 0
         self.minibatch_class = TRAIN
@@ -124,7 +140,7 @@ class Loader(Unit, IResultProvider):
     #: methods every concrete loader must implement (reference ILoader,
     #: checked at initialize by verified.verify_contract)
     CONTRACT = ("load_data", "create_minibatch_data", "analyze_dataset",
-                "fill_indices")
+                "fill_indices", "fill_minibatch")
 
     def load_data(self):
         raise NotImplementedError
@@ -136,12 +152,44 @@ class Loader(Unit, IResultProvider):
         raise NotImplementedError
 
     def fill_indices(self, start_offset, count):
-        """Serve ``shuffled_indices[start_offset:start_offset + count]``
-        (reference base.py:736-744)."""
+        """Copy ``shuffled_indices[start_offset:start_offset + count]``
+        into ``minibatch_indices``; True when the data gather is the
+        consumer's (reference base.py:736-744)."""
+        self.minibatch_indices.map_write()[:count] = \
+            self.shuffled_indices[start_offset:start_offset + count]
+        return self.defer_device_gather
+
+    def fill_minibatch(self):
         raise NotImplementedError
 
+    def normalize_minibatch(self):
+        self.normalizer.normalize(
+            self.minibatch_data.map_write()[:self.minibatch_size])
+
+    def materialize_minibatch(self):
+        """Make ``minibatch_data`` / ``minibatch_labels`` hold the
+        current minibatch on the host: a no-op where the loader served
+        it there; a loader whose gather is the consumer's fills them on
+        demand.  Host-side readers call it before reading the Arrays."""
+        if self.defer_device_gather:
+            self.fill_minibatch()
+            self.map_minibatch_labels()
+
+    def map_minibatch_labels(self):
+        """Raw labels → dense ints (``labels_mapping``) into
+        ``minibatch_labels``."""
+        if not self.has_labels:
+            return
+        mem = self.minibatch_labels.map_write()
+        for i, raw in enumerate(
+                self.raw_minibatch_labels[:self.minibatch_size]):
+            if raw is None:
+                continue
+            mem[i] = self.labels_mapping.setdefault(
+                raw, len(self.labels_mapping))
+
     # -- lifecycle -----------------------------------------------------------
-    def initialize(self, **kwargs):
+    def initialize(self, device=None, **kwargs):
         from ..verified import verify_contract
         verify_contract(self, Loader)
         super().initialize(**kwargs)
@@ -154,6 +202,12 @@ class Loader(Unit, IResultProvider):
             self.class_end_offsets[cls] = offset
         self.max_minibatch_size = min(self.max_minibatch_size,
                                       max(self.class_lengths))
+        self.minibatch_labels.reset(
+            numpy.zeros(self.max_minibatch_size, self.LABEL_DTYPE)
+            if self.has_labels else None)
+        self.minibatch_indices.reset(
+            numpy.zeros(self.max_minibatch_size, self.INDEX_DTYPE))
+        self.raw_minibatch_labels = [None] * self.max_minibatch_size
         self.create_minibatch_data()
         if not self.minibatch_data:
             raise LoaderError(
@@ -162,6 +216,10 @@ class Loader(Unit, IResultProvider):
         self.analyze_dataset()
         self.shuffle()
         self._global_offset = 0
+        if device is not None:
+            for arr in (self.minibatch_data, self.minibatch_labels,
+                        self.minibatch_indices):
+                arr.initialize(device)
 
     def run(self):
         """Serve one minibatch."""
@@ -196,8 +254,17 @@ class Loader(Unit, IResultProvider):
         self.minibatch_offset, self.minibatch_size = \
             self._advance_global_offset()
         self.minibatch_class = self.class_of_offset(self.minibatch_offset)
-        self.fill_indices(self.minibatch_offset - self.minibatch_size,
-                          self.minibatch_size)
+        if self.fill_indices(self.minibatch_offset - self.minibatch_size,
+                             self.minibatch_size):
+            return
+        self.fill_minibatch()
+        self.normalize_minibatch()
+        self.map_minibatch_labels()
+        if self.minibatch_size < self.max_minibatch_size:
+            self.minibatch_data.map_write()[self.minibatch_size:] = 0
+            if self.has_labels:
+                self.minibatch_labels.map_write()[self.minibatch_size:] = -1
+            self.minibatch_indices.map_write()[self.minibatch_size:] = -1
 
     def _class_end(self, cls):
         if cls == TRAIN:

@@ -3,12 +3,13 @@
 The port's copy of the part of ``veles_tpu/normalization.py`` (a
 re-design of the reference's normalizers, veles/normalization.py) that
 the samples' loaders need: ``none``, ``range_linear`` (MNIST, the LRN
-convnet) and ``internal_mean`` (the CIFAR sample's default).  The
+convnet), ``internal_mean`` (the CIFAR sample's default) and
+``mean_disp`` (the JAX loader tests' normalizer).  The
 contract is the same: ``analyze(batch)`` accumulates statistics over a
 streaming pass and ``normalize(data)`` mutates a numpy array in place.
 Normalization runs once, host-side, when the loader bakes it into the
 resident dataset, so there is no tensor form.  The other families
-(``mean_disp``, ``linear``, ``exp``, ``pointwise``, ``external_mean``),
+(``linear``, ``exp``, ``pointwise``, ``external_mean``),
 ``denormalize`` and the snapshot ``state`` wait for the loaders and the
 snapshotter that use them.
 """
@@ -18,7 +19,8 @@ import numpy
 from .registry import MappedObjectsRegistry
 
 __all__ = ["NormalizerBase", "StatelessNormalizer", "NoneNormalizer",
-           "RangeLinearNormalizer", "InternalMeanNormalizer", "factory"]
+           "RangeLinearNormalizer", "InternalMeanNormalizer",
+           "MeanDispersionNormalizer", "factory"]
 
 
 class NormalizerBase(metaclass=MappedObjectsRegistry):
@@ -115,6 +117,38 @@ class InternalMeanNormalizer(NormalizerBase):
         data -= self.mean
         if self.scale != 1.0:
             data *= self.scale
+        return data
+
+
+class MeanDispersionNormalizer(NormalizerBase):
+    """(x - mean) / (max - min), featurewise over the analyze pass (the
+    reference's normalization.py:284-319: "dispersion" is the max-min
+    spread, not the variance)."""
+
+    MAPPING = "mean_disp"
+
+    def _initialize(self, data):
+        self._sum = numpy.zeros_like(data[0], dtype=numpy.float64)
+        self._count = 0
+        self._min = numpy.array(data[0], dtype=numpy.float64)
+        self._max = numpy.array(data[0], dtype=numpy.float64)
+
+    def _analyze(self, data):
+        self._count += data.shape[0]
+        self._sum += numpy.sum(data, axis=0, dtype=numpy.float64)
+        numpy.minimum(self._min, data.min(axis=0), self._min)
+        numpy.maximum(self._max, data.max(axis=0), self._max)
+
+    @property
+    def coefficients(self):
+        mean = self._sum / self._count
+        disp = self._max - self._min
+        return mean, numpy.where(disp == 0, 1.0, disp)
+
+    def normalize(self, data):
+        mean, disp = self.coefficients
+        data -= mean
+        data /= disp
         return data
 
 

@@ -4,12 +4,16 @@ The port's counterpart of ``veles_tpu/znicz/activation.py`` (the Znicz
 Forward/Backward Tanh, Sigmoid, RELU, StrictRELU, Log, TanhLog, SinCos
 and Mul): activations between non-activation layers, e.g. conv → pooling
 → ``activation_str`` in the CIFAR sample.  The forwards are the
-functions of :mod:`.activations`; each backward is the vjp of its
-forward (the fused step differentiates the forwards with autograd; the
-explicit derivatives come with graph mode).
+functions of :mod:`.activations`.  The fused step differentiates them
+with autograd; graph mode's backward units apply the explicit
+derivatives of the JAX units, ``err_output * deriv(y, x)`` (and
+``err_output * factor`` for Mul), with nothing divided by the batch and
+no parameters.  The ``tanhlog`` forward keeps ``log``'s argument finite
+(the gradient autograd takes at x = 0 is finite); its explicit
+derivative is the JAX one.
 """
 
-from .nn_units import ParamlessForward, GenericVJPBackward
+from .nn_units import ParamlessForward, GradientDescentBase
 from . import activations
 
 __all__ = ["ActivationForward", "ActivationBackward", "ForwardTanh",
@@ -32,8 +36,20 @@ class ActivationForward(ParamlessForward):
         return self.activation.fwd(x)
 
 
-class ActivationBackward(GenericVJPBackward):
+class ActivationBackward(GradientDescentBase):
+    """``err_input = err_output * act'(y, x)``, the activation named by
+    the class's forward twin (``MAPPING``)."""
+
     hide_from_registry = True
+    ACTIVATION = None
+
+    def __init__(self, workflow, **kwargs):
+        kwargs.setdefault("learning_rate", 0.0)
+        super().__init__(workflow, **kwargs)
+        self.activation = activations.get(self.ACTIVATION)
+
+    def backward(self, params, x, y, err_output, n_valid=None):
+        return err_output * self.activation.deriv(y, x), {}
 
 
 class ForwardTanh(ActivationForward):
@@ -43,6 +59,7 @@ class ForwardTanh(ActivationForward):
 
 class BackwardTanh(ActivationBackward):
     MAPPING = "activation_tanh"
+    ACTIVATION = "tanh"
 
 
 class ForwardSigmoid(ActivationForward):
@@ -52,6 +69,7 @@ class ForwardSigmoid(ActivationForward):
 
 class BackwardSigmoid(ActivationBackward):
     MAPPING = "activation_sigmoid"
+    ACTIVATION = "sigmoid"
 
 
 class ForwardRELU(ActivationForward):
@@ -61,6 +79,7 @@ class ForwardRELU(ActivationForward):
 
 class BackwardRELU(ActivationBackward):
     MAPPING = "activation_relu"
+    ACTIVATION = "relu"
 
 
 class ForwardStrictRELU(ActivationForward):
@@ -70,6 +89,7 @@ class ForwardStrictRELU(ActivationForward):
 
 class BackwardStrictRELU(ActivationBackward):
     MAPPING = "activation_str"
+    ACTIVATION = "strict_relu"
 
 
 class ForwardLog(ActivationForward):
@@ -79,6 +99,7 @@ class ForwardLog(ActivationForward):
 
 class BackwardLog(ActivationBackward):
     MAPPING = "activation_log"
+    ACTIVATION = "log"
 
 
 class ForwardTanhLog(ActivationForward):
@@ -88,6 +109,7 @@ class ForwardTanhLog(ActivationForward):
 
 class BackwardTanhLog(ActivationBackward):
     MAPPING = "activation_tanhlog"
+    ACTIVATION = "tanhlog"
 
 
 class ForwardSinCos(ActivationForward):
@@ -97,6 +119,7 @@ class ForwardSinCos(ActivationForward):
 
 class BackwardSinCos(ActivationBackward):
     MAPPING = "activation_sincos"
+    ACTIVATION = "sincos"
 
 
 class ForwardMul(ParamlessForward):
@@ -112,5 +135,15 @@ class ForwardMul(ParamlessForward):
         return x * self.factor
 
 
-class BackwardMul(ActivationBackward):
+class BackwardMul(GradientDescentBase):
+    """``err_input = err_output * factor``."""
+
     MAPPING = "activation_mul"
+
+    def __init__(self, workflow, **kwargs):
+        kwargs.setdefault("learning_rate", 0.0)
+        super().__init__(workflow, **kwargs)
+        self.factor = float(kwargs.get("factor", 1.0))
+
+    def backward(self, params, x, y, err_output, n_valid=None):
+        return err_output * self.factor, {}

@@ -122,7 +122,11 @@ class All2AllSoftmax(All2All):
         numerically-stable fused log-softmax cross-entropy."""
         return self.linear(params, x)
 
+    def initialize(self, device=None, **kwargs):
+        super().initialize(device=device, **kwargs)
+        self.max_idx.initialize(self.device)
+
     def run(self):
         super().run()
-        self.max_idx.mem = numpy.argmax(
-            self.output.map_read(), axis=-1).astype(numpy.int32)
+        self.max_idx.devmem = torch.argmax(self.output.devmem, dim=-1).to(
+            torch.int32)

@@ -22,7 +22,7 @@ from ..config import root
 from ..memory import Array
 from ..parallel.ring import attention_reference
 from .flash_attention import flash_attention
-from .nn_units import ForwardBase, GradientDescentBase, resolve_use_pallas
+from .nn_units import ForwardBase, VJPBackward, resolve_use_pallas
 
 __all__ = ["MultiHeadAttention", "GDMultiHeadAttention"]
 
@@ -143,16 +143,12 @@ class MultiHeadAttention(ForwardBase):
         return out
 
 
-class GDMultiHeadAttention(GradientDescentBase):
+class GDMultiHeadAttention(VJPBackward):
     """Trainer of MultiHeadAttention: its hyperparameters and solver
     state (``proj`` is a weight like ``weights``), and a backward through
-    autograd of the forward's ``apply``."""
+    autograd of the forward's ``apply``, ``(err_input, grads / n_valid)``.
+    In graph mode it differentiates the train forward's kept graph, so
+    a train step launches K7 once (the forward's ``run``) and K8 and K9
+    once (this unit's ``run``)."""
 
     MAPPING = "multihead_attention"
-
-    def backward(self, params, x, y, err_output, n_valid=None):
-        """``(err_input, grads)`` with the grads divided by ``n_valid``
-        (default: the batch)."""
-        if n_valid is None:
-            n_valid = x.shape[0]
-        return self.backward_via_vjp(params, x, err_output, n_valid)

@@ -4,7 +4,9 @@ The port's counterpart of ``veles_tpu/znicz/dropout.py``: inverted
 dropout, ``x * bernoulli(1 - p) / (1 - p)`` at train time and the
 identity at eval time.  The key arrives as an argument
 (``apply_train(params, x, key)``; the fused step folds one per
-stochastic layer out of its step seed), and the mask's bits are those of
+stochastic layer out of its step seed, graph mode draws the next key of
+the unit's ``key_tree`` stream on each train minibatch, as the JAX
+graph mode does), and the mask's bits are those of
 ``jax.random.bernoulli`` for the same key (:mod:`veles_tpu_torch.prng`,
 threefry2x32 in torch integer ops on the input's device).  The forward
 records the key it drew as ``last_key``, and the backward regenerates

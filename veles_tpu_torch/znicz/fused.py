@@ -7,6 +7,7 @@ graph mode would use); at run time one step runs per minibatch:
 
     x, y = index_select(dataset, idx), index_select(labels, idx)
     loss = masked cross-entropy(chain of apply(params, x), y)
+           (MSE: masked 0.5 * squared error against the targets)
     grads = autograd.grad(loss, params)
     per parameter: g = regularized_grad(g); delta, state = solver(g)
                    param += delta * (lr * lr_scale)
@@ -14,10 +15,13 @@ graph mode would use); at run time one step runs per minibatch:
 The dataset is resident on the device and gathered inside the step
 (``link_fused_gather``, which a FullBatchLoader takes).  The metrics
 (n_err, the confusion matrix, the largest row sum of |probabilities -
-one-hot|) accumulate in device
+one-hot|; for MSE the sum of per-sample mean squared errors and the
+largest and smallest sample rmse) accumulate in device
 tensors and reach the host only at class boundaries, through the same
-``n_err`` / ``confusion_matrix`` / ``max_err_output_sum`` Arrays an
-evaluator exposes, so the Decision works unchanged.  The step updates
+``n_err`` / ``confusion_matrix`` / ``max_err_output_sum`` / ``metrics``
+Arrays an evaluator exposes, so the Decision works unchanged.  The MSE
+loss's gradient at the output is ``err / n_valid``, graph mode's
+(``EvaluatorMSE.loss_from_output``).  The step updates
 its own copy of the parameters in place; ``sync_weights`` copies them
 into the forward units at class boundaries and at the end of a run.
 
@@ -29,9 +33,9 @@ forward at chain index ``i`` runs ``apply_train`` with ``fold_in(key,
 i)``, so its bits equal the JAX step's.  Eval steps run ``apply``.
 
 Not ported: bf16 compute, the persistent executable cache, the
-staged-seed path of stochastic units, the ``rng_impl`` switch, the MSE
-loss, steps fed by a host-side loader and the whole-workflow graph
-compiler's face.  ``compute_dtype``, ``root.common.engine.dtype`` and
+staged-seed path of stochastic units, the ``rng_impl`` switch, steps
+fed by a host-side loader and the whole-workflow graph compiler's
+face.  ``compute_dtype``, ``root.common.engine.dtype`` and
 ``root.common.engine.rng_impl`` raise ``NotImplementedError`` when set
 to anything but f32 / threefry2x32 (ROADMAP queue A item 9).
 ``compute_confusion_matrix=False`` is accepted: the step always
@@ -48,7 +52,7 @@ from ..result_provider import IResultProvider
 from ..units import Unit
 from .. import loader as loader_mod
 from .all2all import All2AllSoftmax
-from .evaluator import EvaluatorSoftmax
+from .evaluator import EvaluatorSoftmax, EvaluatorMSE
 from . import solvers
 
 __all__ = ["FusedTrainStep"]
@@ -59,7 +63,7 @@ class FusedTrainStep(Unit, IResultProvider):
 
     Parameters: ``forwards`` (list of ForwardBase), ``gd_units`` (one
     GradientDescentBase per forward: hyperparameters and solver state),
-    ``loss`` ("softmax"; the MSE loss is not ported yet).
+    ``loss`` ("softmax" or "mse").
     """
 
     def __init__(self, workflow, forwards, gd_units, loss="softmax",
@@ -78,9 +82,8 @@ class FusedTrainStep(Unit, IResultProvider):
                     "%s=%r is not ported yet: the port's step computes "
                     "in f32 with threefry2x32 (ROADMAP queue A item 9)"
                     % (knob, value))
-        if loss != "softmax":
-            raise ValueError("the port's fused step trains softmax heads "
-                             "only (loss=%r is not ported yet)" % (loss,))
+        if loss not in ("softmax", "mse"):
+            raise ValueError("unknown loss %r (softmax or mse)" % (loss,))
         self.view_group = "TRAINER"
         self.gather_loader = None   # set by link_fused_gather
         self.forwards = list(forwards)
@@ -93,6 +96,7 @@ class FusedTrainStep(Unit, IResultProvider):
         self.last_minibatch = None
         # evaluator-compatible metric surface:
         self.n_err = Array(numpy.zeros(1, numpy.int64))
+        self.metrics = Array(numpy.array([0.0, 0.0, numpy.inf]))
         self.confusion_matrix = Array()
         self.max_err_output_sum = Array(numpy.zeros(1, numpy.float32))
         self.loss = None
@@ -116,6 +120,7 @@ class FusedTrainStep(Unit, IResultProvider):
         """Gather each minibatch from the device-resident dataset inside
         the step: the loader then only computes shuffled indices."""
         self.gather_loader = loader
+        loader.defer_device_gather = True
         return self
 
     # -- construction --------------------------------------------------------
@@ -127,7 +132,9 @@ class FusedTrainStep(Unit, IResultProvider):
             if not fwd.is_initialized:
                 fwd.initialize(device=device, **kwargs)
         super().initialize(**kwargs)
-        if not isinstance(self.forwards[-1], All2AllSoftmax):
+        self._softmax = self.loss_kind == "softmax"
+        if self._softmax and not isinstance(self.forwards[-1],
+                                            All2AllSoftmax):
             raise ValueError("the fused softmax loss needs an "
                              "All2AllSoftmax head, got %r"
                              % self.forwards[-1])
@@ -138,7 +145,7 @@ class FusedTrainStep(Unit, IResultProvider):
         self.device = self.forwards[0].device
         self._dev_ = self.device.torch_device
         self._n_classes = int(self.forwards[-1].output.shape[-1])
-        if not self.confusion_matrix:
+        if self._softmax and not self.confusion_matrix:
             self.confusion_matrix.mem = numpy.zeros(
                 (self._n_classes, self._n_classes), numpy.int64)
         self.confusion_matrix.initialize(self.device)
@@ -146,8 +153,11 @@ class FusedTrainStep(Unit, IResultProvider):
         self._cm_dev_ = None    # device-resident running total
         ld = self.gather_loader
         self._data_dev_ = ld.original_data.devmem
-        self._y_dev_ = torch.from_numpy(
-            ld._dense_labels.astype(numpy.int64)).to(self._dev_)
+        if self._softmax:
+            self._y_dev_ = torch.from_numpy(
+                ld._dense_labels.astype(numpy.int64)).to(self._dev_)
+        else:
+            self._y_dev_ = ld.original_targets.devmem
         self.load_state()
 
     def load_state(self):
@@ -171,16 +181,23 @@ class FusedTrainStep(Unit, IResultProvider):
 
     def _macc_init(self):
         """Fresh device metric accumulator: (n_err, confusion counts
-        [pred, true], max row error)."""
+        [pred, true], max row error); for MSE (sum of sample mean
+        squared errors, max sample rmse, min sample rmse)."""
+        dev = self._dev_
+        if not self._softmax:
+            return (torch.zeros((), dtype=torch.float32, device=dev),
+                    torch.zeros((), dtype=torch.float32, device=dev),
+                    torch.full((), numpy.inf, dtype=torch.float32,
+                               device=dev))
         c = self._n_classes
-        return (torch.zeros((), dtype=torch.int64, device=self._dev_),
-                torch.zeros((c, c), dtype=torch.int64, device=self._dev_),
-                torch.zeros((), dtype=torch.float32, device=self._dev_))
+        return (torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((c, c), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.float32, device=dev))
 
     # -- the step ------------------------------------------------------------
     def _logits(self, x, seed=None):
-        """The chain's logits; ``seed`` (train steps) keys the stochastic
-        forwards."""
+        """The chain's logits (the output for MSE); ``seed`` (train
+        steps) keys the stochastic forwards."""
         h = x
         key = None
         if seed is not None and any(f.stochastic for f in self.forwards):
@@ -191,11 +208,36 @@ class FusedTrainStep(Unit, IResultProvider):
                 h = fwd.apply_train(params, h, prng.fold_in(key, i))
             else:
                 h = fwd.apply(params, h)
-        return self.forwards[-1].apply_logits(self._params_[-1], h)
+        last = self.forwards[-1]
+        if self._softmax:
+            return last.apply_logits(self._params_[-1], h)
+        return last.apply(self._params_[-1], h)
+
+    def _loss(self, out, y, mask):
+        if self._softmax:
+            return EvaluatorSoftmax.loss_from_logits(out, y, mask)
+        return EvaluatorMSE.loss_from_output(out, y, mask)
+
+    def _observable(self, out):
+        """What ``output`` shows: probabilities for a softmax head (the
+        graph forward's output), the output itself for MSE."""
+        return torch.softmax(out, dim=-1) if self._softmax else out
 
     def _accumulate(self, probs, y, mask):
         """Fold one step's outputs into the device accumulator (the graph
         evaluator's side channels)."""
+        if not self._softmax:
+            sse, mx, mn = self._macc_
+            err = (probs - y).reshape(probs.shape[0], -1)
+            sample_mse = (err * err).mean(dim=1)
+            rmse = torch.sqrt(sample_mse)
+            valid = mask > 0
+            sse += (sample_mse * mask).sum()
+            torch.maximum(mx, torch.where(valid, rmse, -numpy.inf).max(),
+                          out=mx)
+            torch.minimum(mn, torch.where(valid, rmse, numpy.inf).min(),
+                          out=mn)
+            return
         n_err, cm, mx = self._macc_
         pred = torch.argmax(probs, dim=-1)
         valid = mask > 0
@@ -210,7 +252,7 @@ class FusedTrainStep(Unit, IResultProvider):
         flat = [p for layer in self._params_ for p in layer.values()]
         self._seed_counter = (self._seed_counter + 1) % 0x7FFF0000
         logits = self._logits(x, self._seed_counter)
-        loss = EvaluatorSoftmax.loss_from_logits(logits, y, mask)
+        loss = self._loss(logits, y, mask)
         grads = iter(torch.autograd.grad(loss, flat))
         lr_scale = float(self.lr_scale)
         with torch.no_grad():
@@ -223,15 +265,15 @@ class FusedTrainStep(Unit, IResultProvider):
                     delta, opt[name] = gd.solver.update(
                         g, p, opt[name], gd.lr_for(name) * lr_scale)
                     p.add_(delta)
-            probs = torch.softmax(logits.detach(), dim=-1)
+            probs = self._observable(logits.detach())
             self._accumulate(probs, y, mask)
         return loss.detach(), probs
 
     def _eval_step(self, x, y, mask):
         with torch.no_grad():
             logits = self._logits(x)
-            loss = EvaluatorSoftmax.loss_from_logits(logits, y, mask)
-            probs = torch.softmax(logits, dim=-1)
+            loss = self._loss(logits, y, mask)
+            probs = self._observable(logits)
             self._accumulate(probs, y, mask)
         return loss, probs
 
@@ -260,6 +302,14 @@ class FusedTrainStep(Unit, IResultProvider):
         """Pull the device accumulator into the evaluator-compatible
         Arrays: one transfer per class boundary, not per step.  The
         confusion matrix stays on the device until someone reads it."""
+        if not self._softmax:
+            sse, mx, mn = torch.stack(self._macc_).double().tolist()
+            m = self.metrics.map_write()
+            m[0] += sse
+            m[1] = max(m[1], mx)
+            m[2] = min(m[2], mn)
+            self._macc_ = self._macc_init()
+            return
         n_err, cm, mx = self._macc_
         self._cm_dev_ = cm if self._cm_dev_ is None else self._cm_dev_ + cm
         self.confusion_matrix.devmem = self._cm_dev_

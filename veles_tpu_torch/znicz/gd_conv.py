@@ -4,23 +4,19 @@ The port's counterpart of ``veles_tpu/znicz/gd_conv.py``:
 GradientDescentConv and its activation variants.  They own the layer's
 hyperparameters and solver state, which the fused train step reads; its
 autograd differentiates the forward (cuDNN's data and weight gradient
-convolutions on the card).  ``backward`` is the vjp of the forward,
-``(err_input, {name: grad / n_valid})``.
+convolutions on the card).  ``backward``, graph mode's, is the vjp of
+the forward, ``(err_input, {name: grad / n_valid})``, as the JAX units'
+``jax.vjp``.
 """
 
-from .nn_units import GradientDescentBase
+from .nn_units import VJPBackward
 
 __all__ = ["GradientDescentConv", "GDTanhConv", "GDSigmoidConv",
            "GDRELUConv", "GDStrictRELUConv"]
 
 
-class GradientDescentConv(GradientDescentBase):
+class GradientDescentConv(VJPBackward):
     MAPPING = "conv"
-
-    def backward(self, params, x, y, err_output, n_valid=None):
-        if n_valid is None:
-            n_valid = x.shape[0]
-        return self.backward_via_vjp(params, x, err_output, n_valid)
 
 
 class GDTanhConv(GradientDescentConv):

@@ -270,4 +270,9 @@ class LRNormalizerForward(ParamlessForward):
 
 
 class LRNormalizerBackward(GenericVJPBackward):
+    """The vjp of the forward's ``apply``.  In graph mode it
+    differentiates the train forward's kept graph: with the kernel pair
+    a train step launches K5 once (the forward's ``run``) and K6 once
+    (this unit's, through ``_LRNPair.backward``)."""
+
     MAPPING = "norm"

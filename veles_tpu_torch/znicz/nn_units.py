@@ -21,10 +21,27 @@ no trainable tensors (pooling, LRN, dropout, activation units).
 
 GradientDescent units own the hyperparameters and the solver state the
 fused step reads (``lr_for``, ``decay_for``, ``solver``,
-``solver_state``).  :meth:`GradientDescentBase.backward_via_vjp` is the
-generic backward of a forward's ``apply`` (the attention and conv
-units'); :class:`GenericVJPBackward` is the backward of a paramless
-forward.  The per-unit graph-mode ``run`` is not ported yet.
+``solver_state``), and run as units of their own in graph mode
+(``StandardWorkflow(fused=False)``): ``GradientDescentBase.run`` takes
+``err_output`` (linked from the evaluator or the GD unit above), runs
+``backward`` with the forward's weights before the update, writes
+``err_input`` (unless ``need_err_input`` is False), then applies the
+regularized solver update to the forward's own Arrays.  Gradients are
+divided by ``batch_size``, the valid row count of the minibatch
+(padded rows carry zero error).
+
+In graph mode a forward's ``run`` on a train minibatch
+(``minibatch_class``, linked from the loader) calls ``apply_train`` with
+a fresh key from its ``key_tree`` when it is stochastic, recorded as
+``last_key`` for the backward, as the JAX package's ``tpu_run`` does.
+Where the GD unit's backward is the vjp of ``apply``
+(:meth:`GradientDescentBase.backward_via_vjp`: attention, conv,
+pooling, LRN), that train forward keeps its autograd graph and the GD
+unit differentiates it: each kernel runs once a step (K7 in the
+forward, K8 and K9 in the backward; K5 and K6 alike), where ``jax.vjp``
+in the JAX unit traces the forward again.  The GD unit recomputes the
+forward only when none is kept for the output it sees (a GD unit run
+beside a standalone forward).
 
 :func:`resolve_use_pallas` is the tri-state ``use_pallas`` knob of the
 units that have a kernel route (the name is the JAX package's, so a
@@ -40,7 +57,8 @@ from .. import prng
 from . import solvers
 
 __all__ = ["NNUnitBase", "ForwardBase", "ParamlessForward",
-           "GradientDescentBase", "GenericVJPBackward", "resolve_use_pallas"]
+           "GradientDescentBase", "VJPBackward", "GenericVJPBackward",
+           "resolve_use_pallas"]
 
 
 def resolve_use_pallas(setting, device):
@@ -74,6 +92,15 @@ class ForwardBase(NNUnitBase):
     MAPPING = None  # StandardWorkflow layer-type key
     #: True where ``apply_train`` draws random numbers from its key
     stochastic = False
+    #: the stochastic units' KeyTree: graph mode draws one key per train
+    #: minibatch (``step_key``) and records it as ``last_key``
+    key_tree = None
+    last_key = None
+    #: linked from the loader in graph mode; a train minibatch runs
+    #: ``apply_train`` and keeps the graph for a vjp backward
+    minibatch_class = None
+    #: set by a GD unit whose backward is the vjp of ``apply``
+    vjp_backward = False
 
     def __init__(self, workflow, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -178,12 +205,42 @@ class ForwardBase(NNUnitBase):
         v = self.input
         return v.shape if isinstance(v, Array) else tuple(numpy.shape(v))
 
+    def step_key(self):
+        """The next key of this unit's stream (``KeyTree.key_for`` its
+        name), recorded as ``last_key``."""
+        self.last_key = self.key_tree.key_for(self.name)
+        return self.last_key
+
+    def _graph_training(self):
+        from .. import loader as loader_mod
+        return self.minibatch_class == loader_mod.TRAIN
+
     def run(self):
-        """A standalone forward of the current input (no gradients)."""
+        """The forward of the current input.  On a train minibatch of
+        graph mode a stochastic unit draws its key, and a unit with a
+        vjp backward keeps the autograd graph (``vjp_state_``)."""
         x = self.input.devmem if isinstance(self.input, Array) \
             else self.input
-        with torch.no_grad():
-            self.output.devmem = self.apply(self.params, x)
+        train = self._graph_training()
+        key = self.step_key() if train and self.stochastic else None
+        self.vjp_state_ = None
+        if train and self.vjp_backward:
+            leaves = {n: p.detach().requires_grad_(True)
+                      for n, p in self.params.items()}
+            xx = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                y = self._forward(leaves, xx, key)
+            out = y.detach()
+            self.vjp_state_ = (out, y, leaves, xx)
+        else:
+            with torch.no_grad():
+                out = self._forward(self.params, x, key)
+        self.output.devmem = out
+
+    def _forward(self, params, x, key):
+        if key is None:
+            return self.apply(params, x)
+        return self.apply_train(params, x, key)
 
 
 class ParamlessForward(ForwardBase):
@@ -214,10 +271,20 @@ class GradientDescentBase(NNUnitBase):
     """Base for backward/update units.
 
     Linked attributes (reference GD contract): ``input`` and ``output``
-    (the forward's), ``weights``/``bias`` (two-way with the forward).
-    Holds the layer's hyperparameters and solver, and the solver state
-    (``{param name: state tuple}``) a snapshot or ``convert`` carries.
+    (the forward's), ``weights``/``bias`` (two-way with the forward),
+    ``err_output`` (the gradient at the forward's output, from the
+    evaluator or the GD unit above) and ``batch_size`` (the loader's
+    valid row count).  Produces ``err_input``.  Holds the layer's
+    hyperparameters and solver, and the solver state (``{param name:
+    state tuple}``) a snapshot or ``convert`` carries.
+
+    Subclasses implement ``backward(params, x, y, err_output, n_valid)
+    -> (err_input, {name: grad})``.
     """
+
+    #: True where ``backward`` is the vjp of the forward's ``apply``:
+    #: ``link_forward`` then has the forward keep its train graph
+    VJP = False
 
     hide_from_registry = True
     view_group = "TRAINER"
@@ -248,13 +315,26 @@ class GradientDescentBase(NNUnitBase):
             hyper.setdefault("momentum", self.gradient_moment or 0.9)
         self.solver = solvers.factory(self.solver_name, **hyper)
         self.solver_state = {}     # param name -> state tuple
+        self.err_output = None     # linked: evaluator / the GD above
+        self.batch_size = None     # linked: loader.minibatch_size
+        self.err_input = Array()
+        self.need_err_input = bool(kwargs.get("need_err_input", True))
 
     def link_forward(self, fwd):
         """Wire the standard attribute set to a forward unit."""
         self.forward_unit = fwd
         self.link_attrs(fwd, "input", "output", two_way=False)
         self.link_attrs(fwd, "weights", "bias", two_way=True)
+        if self.VJP:
+            fwd.vjp_backward = True
         return self
+
+    def initialize(self, device=None, **kwargs):
+        super().initialize(device=device, **kwargs)
+        self.err_input.initialize(self.device)
+        if isinstance(self.err_output, Array) and \
+                self.err_output.device is None:
+            self.err_output.initialize(self.device)  # a host-made error
 
     def lr_for(self, name):
         return self.learning_rate_bias if name == "bias" \
@@ -269,22 +349,101 @@ class GradientDescentBase(NNUnitBase):
         """Generic backward through autograd of the forward's ``apply``:
         ``(err_input, {name: grad / n_valid})`` for ``params`` (a dict of
         tensors), the input ``x`` and ``err_output`` (the gradient at the
-        output) -- the chain rule the fused step differentiates."""
-        names = list(params)
-        leaves = [params[n].detach().requires_grad_(True) for n in names]
-        xx = x.detach().requires_grad_(True)
+        output) -- the chain rule the fused step differentiates.  The
+        forward's train graph for the output ``y`` it last wrote is
+        differentiated where it kept one (graph mode), else the forward
+        runs again (its last key, if stochastic)."""
+        fwd = self.forward_unit
+        state = getattr(fwd, "vjp_state_", None)
+        if state is not None and state[0] is self._dev(self.output):
+            fwd.vjp_state_ = None
+            _, y, leaves, xx = state
+        else:
+            leaves = {n: p.detach().requires_grad_(True)
+                      for n, p in params.items()}
+            xx = x.detach().requires_grad_(True)
+            key = fwd.last_key if fwd.stochastic else None
+            with torch.enable_grad():
+                y = fwd._forward(leaves, xx, key)
+        names = list(leaves)
+        wrt = [leaves[n] for n in names] + [xx] * self.need_err_input
+        if not wrt:
+            return None, {}
         with torch.enable_grad():
-            y = self.forward_unit.apply(dict(zip(names, leaves)), xx)
-            grads = torch.autograd.grad(y, leaves + [xx], err_output)
-        return grads[-1], {n: g / n_valid for n, g in zip(names, grads)}
+            grads = torch.autograd.grad(y, wrt, err_output)
+        err_input = grads[-1] if self.need_err_input else None
+        return err_input, {n: g / n_valid for n, g in zip(names, grads)}
+
+    def backward(self, params, x, y, err_output, n_valid=None):
+        raise NotImplementedError
+
+    # -- graph mode ----------------------------------------------------------
+    def _n_valid(self, x):
+        return int(self.batch_size) if self.batch_size is not None \
+            else x.shape[0]
+
+    def ensure_solver_state(self, params):
+        """Fresh solver state where a parameter has none; a carried one
+        (host numpy from a snapshot, ``convert`` or the fused step's
+        ``sync_solver_state``) moves to the parameter's device."""
+        for name, p in params.items():
+            state = self.solver_state.get(name)
+            if state is None:
+                self.solver_state[name] = self.solver.init(p)
+            elif any(not isinstance(s, torch.Tensor) or s.device != p.device
+                     for s in state):
+                self.solver_state[name] = tuple(
+                    torch.as_tensor(s).to(p.device) for s in state)
+
+    def apply_updates(self, params, grads):
+        """The regularized solver step of every parameter, in place:
+        ``p += delta``; the solver state moves to ``solver_state``.
+        Returns ``params``."""
+        self.ensure_solver_state(params)
+        for name, p in params.items():
+            decay, l1l2, ortho = self.decay_for(name)
+            g = solvers.regularized_grad(grads[name], p, decay, l1l2, ortho)
+            delta, self.solver_state[name] = self.solver.update(
+                g, p, self.solver_state[name], self.lr_for(name))
+            p.add_(delta)
+        return params
 
     def run(self):
-        raise NotImplementedError(
-            "%s: the per-unit backward (graph mode) is not ported yet; "
-            "train through the fused step" % self)
+        """One backward and update (JAX ``_device_step``'s order):
+        ``err_input`` from the weights before the update, then the
+        update, handed back to the forward's own Arrays (attention's
+        ``proj`` too), whose device copies become the current ones."""
+        fwd = self.forward_unit
+        x = self._dev(self.input)
+        params = dict(fwd.params)
+        with torch.no_grad():
+            err_in, grads = self.backward(
+                params, x, self._dev(self.output),
+                self._dev(self.err_output), n_valid=self._n_valid(x))
+            if params:
+                fwd.set_params(self.apply_updates(params, grads))
+        if self.need_err_input:
+            self.err_input.devmem = err_in
+
+    @staticmethod
+    def _dev(v):
+        return v.devmem if isinstance(v, Array) else v
 
 
-class GenericVJPBackward(GradientDescentBase):
+class VJPBackward(GradientDescentBase):
+    """A GD unit whose backward is the vjp of the forward's ``apply``
+    (conv, attention): ``(err_input, {name: grad / n_valid})``."""
+
+    hide_from_registry = True
+    VJP = True
+
+    def backward(self, params, x, y, err_output, n_valid=None):
+        if n_valid is None:
+            n_valid = x.shape[0]
+        return self.backward_via_vjp(params, x, err_output, n_valid)
+
+
+class GenericVJPBackward(VJPBackward):
     """Backward of a paramless forward: the vjp of its ``apply``, no
     parameters to update."""
 
@@ -295,7 +454,4 @@ class GenericVJPBackward(GradientDescentBase):
         super().__init__(workflow, **kwargs)
 
     def backward(self, params, x, y, err_output, n_valid=None):
-        if n_valid is None:
-            n_valid = x.shape[0]
-        err_in, _ = self.backward_via_vjp({}, x, err_output, n_valid)
-        return err_in, {}
+        return super().backward({}, x, y, err_output, n_valid)[0], {}

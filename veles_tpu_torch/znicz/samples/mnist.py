@@ -18,7 +18,9 @@ Programmatic use, as the JAX package's sample and gate test do::
 ``root.common.engine.precise_gemm = N`` before ``create_workflow`` (or
 ``precise_gemm`` in a layer's ``"->"`` config) runs every fully
 connected matmul, forward and backward, through the compensated GEMM
-(kernel K4 on the card).
+(kernel K4 on the card); in graph mode (``create_workflow(fused=False)``)
+the forwards' matmuls, while the GD units' stay ``torch.matmul``, as in
+the JAX package.
 """
 
 import numpy
@@ -69,9 +71,11 @@ class MnistLoader(FullBatchLoader):
         self.class_lengths[TRAIN] = len(ti)
 
 
-def create_workflow(**overrides):
+def create_workflow(fused=True, **overrides):
     """The MnistSimple StandardWorkflow; ``loader`` / ``decision`` dicts
-    override the sample's config key by key, ``layers`` replaces."""
+    override the sample's config key by key, ``layers`` replaces.
+    ``fused=False`` builds graph mode (per-unit forwards, evaluator and
+    GD units)."""
     from . import build_standard
     return build_standard(root.mnist, "MnistSimple", MnistLoader, "softmax",
-                          **overrides)
+                          fused=fused, **overrides)

@@ -2,21 +2,36 @@
 
 The port's counterpart of ``veles_tpu/znicz/standard_workflow.py`` (the
 reference's StandardWorkflow, manualrst_veles_workflow_creation.rst:
-101-146): builds repeater → loader → fused train step → decision → loop
-from a ``layers`` config list, each entry ``{"type": <MAPPING>, "->":
-{forward kwargs}, "<-": {gd kwargs}}`` (flat kwargs are accepted too and
-routed by the known GD hyperparameter names).
+101-146): builds repeater → loader → forwards → evaluator → decision →
+GD units (reversed) → loop from a ``layers`` config list, each entry
+``{"type": <MAPPING>, "->": {forward kwargs}, "<-": {gd kwargs}}``
+(flat kwargs are accepted too and routed by the known GD
+hyperparameter names).  ``loss_function`` is "softmax" (an
+All2AllSoftmax head, :class:`~.decision.DecisionGD`) or "mse"
+(:class:`~.decision.DecisionMSE`, a FullBatchLoaderMSE's targets).
 
-Only the fused mode is ported: the forwards run inside one
-:class:`~.fused.FusedTrainStep` per minibatch, which gathers from the
-device-resident dataset of a FullBatchLoader; the graph carries the
-host-side control units.  ``initialize(device=None)`` means the card
-and raises without one; ``initialize(device=Device(backend="cpu"))``
-runs the same workflow on the host.
+Two modes, as in the JAX package:
 
-Not ported yet: graph mode (per-unit GD and evaluator units), the
-epoch scan, meshes, the snapshotter, the status reporter, the graph
-compiler, the prefetcher and the ``mcdnnic_topology`` notation.  Each
+- **fused** (the default): the forwards run inside one
+  :class:`~.fused.FusedTrainStep` per minibatch, which gathers from the
+  device-resident dataset of a FullBatchLoader; the graph carries the
+  host-side control units (loader → step → decision);
+- **graph** (``fused=False``): the per-unit chain.  The loader serves
+  each minibatch (gathered on its device, or on the host with
+  ``force_numpy``), each forward runs as a unit, the
+  evaluator (EvaluatorSoftmax or EvaluatorMSE) turns the last output
+  into ``err_output``, and the GD units run in reverse behind the
+  train gate (``gate_skip`` on every non-train minibatch), the first
+  layer's with ``need_err_input=False``.
+
+Both share the forward and GD units, weights and solver state.
+``initialize(device=None)`` means the card and raises without one;
+``initialize(device=Device(backend="cpu"))`` runs the same workflow on
+the host.
+
+Not ported yet: the epoch scan, meshes, the snapshotter, the status
+reporter, the graph compiler, the prefetcher and the
+``mcdnnic_topology`` notation.  Each
 of their knobs raises ``NotImplementedError`` when it is set to
 anything but its default (:data:`REFUSED_KNOBS`), so a config that
 would snapshot, scan or shard under the JAX package never trains
@@ -29,8 +44,10 @@ from ..loader.fullbatch import FullBatchLoader
 from ..plumbing import Repeater
 from ..registry import UnitRegistry
 from ..workflow import Workflow
+from .all2all import All2AllSoftmax
 from .nn_units import ForwardBase, GradientDescentBase
-from .decision import DecisionGD
+from .decision import DecisionGD, DecisionMSE
+from .evaluator import EvaluatorSoftmax, EvaluatorMSE
 from .fused import FusedTrainStep
 # registers the layer MAPPINGs
 from . import (activation, all2all, attention, conv, dropout,  # noqa: F401
@@ -76,7 +93,9 @@ def _find_pair(type_name):
 
 
 class StandardWorkflow(Workflow):
-    """repeater → loader → fused step → decision → loop."""
+    """repeater → loader → fused step → decision → loop, or with
+    ``fused=False`` repeater → loader → forwards → evaluator → decision
+    → GD units → loop."""
 
     hide_from_registry = True
 
@@ -91,14 +110,12 @@ class StandardWorkflow(Workflow):
         if kwargs.get("mcdnnic_topology"):
             raise NotImplementedError(
                 "mcdnnic_topology is not ported yet; pass layers=")
-        if not kwargs.get("fused", True):
-            raise NotImplementedError(
-                "graph mode (fused=False) is not ported yet")
+        self.fused = bool(kwargs.get("fused", True))
         self.layers_config = list(kwargs.get("layers", ()))
         self.loss_function = kwargs.get("loss_function", "softmax")
-        if self.loss_function != "softmax":
-            raise NotImplementedError(
-                "loss_function=%r is not ported yet" % self.loss_function)
+        if self.loss_function not in ("softmax", "mse"):
+            raise ValueError("unknown loss_function %r (softmax or mse)"
+                             % (self.loss_function,))
         self.decision_config = dict(kwargs.get("decision", {}))
         self.loader_config = dict(kwargs.get("loader", {}))
         self.trainer_config = dict(kwargs.get("trainer", {}))
@@ -110,6 +127,7 @@ class StandardWorkflow(Workflow):
         self.forwards = []
         self.gds = []
         self.fused_step = None
+        self.evaluator = None
         self.decision = None
         self._build()
 
@@ -142,8 +160,15 @@ class StandardWorkflow(Workflow):
             self.gds.append(gd_cls(self, **gd_kwargs).link_forward(fwd))
         if not self.forwards:
             raise ValueError("StandardWorkflow needs at least one layer")
-        self.decision = DecisionGD(self, **self.decision_config)
+        softmax = self.loss_function == "softmax"
+        self.decision = (DecisionGD if softmax else DecisionMSE)(
+            self, **self.decision_config)
+        tail = self._build_fused() if self.fused else self._build_graph()
+        self.repeater.link_from(tail)
+        self.end_point.link_from(tail)
+        self._relink_gates()
 
+    def _build_fused(self):
         self.fused_step = FusedTrainStep(
             self, self.forwards, self.gds, loss=self.loss_function,
             **self.trainer_config)
@@ -155,19 +180,71 @@ class StandardWorkflow(Workflow):
         self.decision.link_from(self.fused_step)
         self.decision.link_loader(self.loader)
         self.decision.link_evaluator(self.fused_step)
-        self.repeater.link_from(self.decision)
-        self.end_point.link_from(self.decision)
+        return self.decision
+
+    def _build_graph(self):
+        """The per-unit chain (JAX ``_build_graph``); returns its last
+        unit."""
+        prev = self.loader
+        for fwd in self.forwards:
+            fwd.link_from(prev)
+            # train minibatches draw keys and keep graphs for the GDs
+            fwd.link_attrs(self.loader, "minibatch_class")
+            prev = fwd
+        last_fwd = self.forwards[-1]
+        softmax = self.loss_function == "softmax"
+        self.evaluator = (EvaluatorSoftmax if softmax else EvaluatorMSE)(
+            self)
+        self.evaluator.link_from(last_fwd)
+        self.evaluator.link_attrs(last_fwd, "output")
+        if isinstance(last_fwd, All2AllSoftmax):
+            self.evaluator.link_attrs(last_fwd, "max_idx")
+        self.evaluator.link_attrs(
+            self.loader, ("labels", "minibatch_labels") if softmax else
+            ("target", "minibatch_targets"),
+            ("batch_size", "minibatch_size"))
+        self.decision.link_from(self.evaluator)
+        self.decision.link_loader(self.loader)
+        self.decision.link_evaluator(self.evaluator)
+        prev = self.decision
+        for i in reversed(range(len(self.forwards))):
+            gd = self.gds[i]
+            gd.link_from(prev)
+            gd.link_attrs(self.loader, ("batch_size", "minibatch_size"))
+            if i == len(self.forwards) - 1:
+                gd.link_attrs(self.evaluator, "err_output")
+            else:
+                gd.link_attrs(self.gds[i + 1], ("err_output", "err_input"))
+            if i == 0:
+                gd.need_err_input = False  # nothing below to backprop into
+            prev = gd
+        return prev
+
+    def _relink_gates(self):
+        """The loop's gates from the live decision and loader: the
+        repeater and the end point on ``complete``, and in graph mode
+        the GD units' train gate (``gate_skip`` on every non-train
+        minibatch).  Derived Bools flatten to constants on pickle, so a
+        restored workflow rebuilds them (JAX ``_relink_gates``)."""
         self.repeater.gate_block = self.decision.complete
         self.end_point.gate_block = ~self.decision.complete
+        self.decision.complete <<= False
+        if not self.fused:
+            train_gate = self.make_train_gate(self.loader)
+            for gd in self.gds:
+                gd.gate_skip = train_gate
 
     def initialize(self, device=None, **kwargs):
         """Bring every unit up on ``device`` (default: ``Device()``, the
         card; raises without one)."""
         if device is None:
             device = Device()
+        if self.restored_from_snapshot:
+            self._relink_gates()
         return super().initialize(device=device, **kwargs)
 
     def run(self):
         result = super().run()
-        self.fused_step.sync_weights()
+        if self.fused_step is not None:
+            self.fused_step.sync_weights()
         return result
