@@ -153,6 +153,34 @@ Phases (any failure raises and the script exits non-zero):
    burst with ``prefill_chunk_tokens="auto"`` (every token equal to
    the cache-free oracle) and trains two MNIST steps with the tuned K4
    split (weights within 1e-4 of the port's on the CPU).
+3f. Exported packages (slice 19, after phase 4d, whose trained
+   workflows it exports with ``veles_tpu_torch.export.export_model``;
+   each package's forward chain is rebuilt from the port's units).
+   (a) Phase 4's ``precise_gemm=1`` MNIST at fp32 and fp16, each served
+   through ``InferenceServer`` (max_batch 16): 8 threads send 64 rows
+   in requests of 1, 2, 3, 5 and 8 rows; K4 counted from 0 must be 2 a
+   dispatched batch (and the scheduler's own ``kernel_launches`` the
+   same); every answer within 1e-5 of the largest |output| of the live
+   workflow's own forward on the card (fp16: over the weights rounded
+   to fp16 and promoted back), the count of bitwise rows printed.
+   (b) Phase 4c's AlexNet (published widths, ``use_pallas`` unset)
+   exported at fp32, loaded as a ``PackageLoader`` and served on ``POST
+   /api/alexnet`` (max_batch 8): 16 requests of 1-8 images from 4
+   threads; K5 2 a dispatched batch; answers within 1e-5 relative of
+   the live forward, and 4 images within 1e-4 relative of the same
+   package on the CPU; package bytes, export, load and warmup seconds
+   and images/s printed.  (c) Phase 4b's attention net (d_model 512, 8
+   heads, T=2048, no mask) through the server's registry entry
+   in-process: 8 requests of 1-2 sequences, K7 once a dispatched batch,
+   held as (b).  (d) Phase 4d's LRN convnet served by a fleet of two
+   replicas (``--model lrn=<package> --device cuda``) over a fresh
+   build cache filled before they start: 24 requests of 8 images
+   through the router, every answer bitwise the in-process card
+   answer, each replica's K5 count over HTTP (``kernel_launches`` in
+   ``GET /metrics``) more than 0 and 2 a batch, no replica building a
+   kernel.  (e) ``RESTfulAPI`` over (a)'s fp32 package: ``POST /api``
+   held like (a).  Each part prints its wall time; the kernels line
+   adds the package launches.
 4. Training (slice 2): the MNIST sample through ``create_workflow()``
    → ``initialize()`` → ``run()`` on the card at the gate's settings
    (784-100-10, minibatch 60, 25 epochs, fail_iterations 12, loader
@@ -3219,7 +3247,7 @@ def attention_run(torch, fa, card, label, causal, window):
            "launches": launches, "launches_per_train_eval_step": per,
            "mean_train_loss": mean_loss,
            "best_validation_error_pt": res["best_validation_error_pt"],
-           "first_epoch": rec["first_epoch"]}
+           "first_epoch": rec["first_epoch"], "workflow": wf}
     _log("train %s: T=%d d_model=%d heads=%d, %d train + %d valid "
          "sequences, minibatch %d; %d epochs in %.3f s; epoch wall s %s; "
          "median %.4f s = %.1f train sequences/s = %.0f train tokens/s; "
@@ -3543,6 +3571,7 @@ def alexnet_run(torch, lrn_mod, card, label, use_pallas):
                              "%r" % (label,
                                      out["launches_per_train_eval_step"],
                                      want))
+    out["workflow"] = wf
     return out
 
 
@@ -3658,6 +3687,7 @@ def lrn_net_run(torch, lrn_mod, card):
                                                "K6": (2, 0)}:
         raise AssertionError("the LRN convnet's launches per train / eval "
                              "step: %r" % out["launches_per_train_eval_step"])
+    out["workflow"] = wf
     return out
 
 
@@ -3667,6 +3697,548 @@ def trace_alexnet(torch, card, label, use_pallas):
     with the top kernels and every device copy named."""
     return _traced(torch, "train " + label, card, lambda: _epoch(
         alexnet_workflow(use_pallas=use_pallas, epochs=1)), top=25)
+
+# -- phase 3f: exported packages (slice 19) -----------------------------------
+
+#: the MNIST bursts: request sizes (cycled), rows in all, client threads
+PKG_SIZES = (1, 2, 3, 5, 8)
+PKG_ROWS, PKG_CLIENTS, PKG_MAX_BATCH = 64, 8, 16
+#: a served answer against the live forward on the card, of the largest
+#: |output| of that forward
+PKG_TOL = 1e-5
+#: AlexNet: requests (sizes cycled), clients, max_batch; the rows held
+#: against the port on the CPU and their tolerance (of the largest |CPU
+#: output|)
+ALEX_PKG_REQUESTS, ALEX_PKG_CLIENTS, ALEX_PKG_MAX_BATCH = 16, 4, 8
+ALEX_PKG_CPU_ROWS, ALEX_PKG_CPU_TOL = 4, 1e-4
+#: attention: sequences a request (cycled), requests, clients, max_batch
+ATTN_PKG_SIZES = (1, 2)
+ATTN_PKG_REQUESTS, ATTN_PKG_CLIENTS, ATTN_PKG_MAX_BATCH = 8, 4, 4
+#: the fleet: clients, requests of FLEET_PKG_ROWS rows each (a full
+#: bucket, so every batch is one request), the replicas' max_batch
+FLEET_PKG_CLIENTS, FLEET_PKG_REQUESTS, FLEET_PKG_ROWS = 8, 24, 8
+
+
+def _plan(sizes, requests=None, rows=None):
+    """[(first row, rows)] of consecutive requests, ``sizes`` cycled,
+    until ``requests`` requests or ``rows`` rows."""
+    out, lo = [], 0
+    while (requests is None or len(out) < requests) and \
+            (rows is None or lo < rows):
+        n = sizes[len(out) % len(sizes)]
+        if rows is not None:
+            n = min(n, rows - lo)
+        out.append((lo, n))
+        lo += n
+    return out
+
+
+def _package_rows(wf, n, sample_shape):
+    """The first ``n`` samples of ``wf``'s dataset, as the package takes
+    them."""
+    data = wf.loader.original_data.map_read()[:n]
+    return numpy.ascontiguousarray(data, numpy.float32).reshape(
+        (n,) + tuple(sample_shape))
+
+
+def _live_answers(torch, wf, x, plan, params=None):
+    """``wf``'s own forward on the card of each request's rows (over
+    ``params``, default its live weights)."""
+    from veles_tpu_torch.export import forward_fn
+    fwd = forward_fn(wf.forwards)
+    params = params or [f.params for f in wf.forwards]
+    dev = next(t for p in params for t in p.values()).device
+    with torch.no_grad():
+        return [fwd(params, torch.from_numpy(x[lo:lo + n]).to(dev))
+                .cpu().numpy() for lo, n in plan]
+
+
+def _fp16_rounded(torch, wf):
+    """``wf``'s weights rounded to fp16 and promoted back, on the card."""
+    return [{k: v.to(torch.float16).to(torch.float32)
+             for k, v in f.params.items()} for f in wf.forwards]
+
+
+def _held_to_live(label, answers, want, tol):
+    """max |served - live| over every answer, of the largest |live|;
+    -> (that error, rows bitwise equal); raises past ``tol``."""
+    scale = max(float(numpy.abs(w).max()) for w in want)
+    err = max(float(numpy.abs(a - w).max()) for a, w in zip(answers, want))
+    bitwise = sum(int(numpy.all(a.reshape(len(a), -1) ==
+                                w.reshape(len(w), -1), axis=1).sum())
+                  for a, w in zip(answers, want))
+    if not err <= tol * scale:
+        raise AssertionError("%s: a served answer is %.3g off the live "
+                             "forward, %.3g of its largest |output| "
+                             "(limit %g)" % (label, err, err / scale, tol))
+    return err / scale, bitwise
+
+
+def _per_batch(label, launches, batches, per):
+    """``per`` launches a dispatched batch, and some batch dispatched."""
+    if batches <= 0 or launches != per * batches:
+        raise AssertionError("%s: %d launches over %d dispatched batches, "
+                             "want %d a batch" % (label, launches, batches,
+                                                  per))
+
+
+def _http_burst(url, x, plan, clients):
+    """``plan``'s requests POSTed from ``clients`` threads; -> (outputs
+    by request, seconds)."""
+    answers = [None] * len(plan)
+    errors = []
+
+    def client(c):
+        for i in range(c, len(plan), clients):
+            lo, n = plan[i]
+            try:
+                code, body, _ = _post_json(url,
+                                           {"input": x[lo:lo + n].tolist()})
+                if code != 200:
+                    raise RuntimeError("answered %d: %s" % (code, body))
+                answers[i] = numpy.asarray(body["output"], numpy.float32)
+            except Exception as exc:  # noqa: BLE001 — raised below
+                errors.append(exc)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    seconds = time.perf_counter() - t0
+    if errors or any(a is None for a in answers):
+        raise AssertionError("package requests failed: %r" % errors[:3])
+    return answers, seconds
+
+
+def _engine_precise(precise):
+    """Set ``root.common.engine.precise_gemm`` (a rebuilt All2All reads
+    it at construction, as a live one does); -> a restore function."""
+    from veles_tpu_torch.config import root
+    saved = root.common.engine.get("precise_gemm", 0)
+    root.common.engine.precise_gemm = precise
+    return lambda: setattr(root.common.engine, "precise_gemm", saved)
+
+
+def _live_precise(wf):
+    """The ``precise_gemm`` of ``wf``'s All2All layers (one value)."""
+    levels = {f.precise_gemm for f in wf.forwards
+              if hasattr(f, "precise_gemm")}
+    if len(levels) != 1:
+        raise AssertionError("mixed precise_gemm %s" % levels)
+    return levels.pop()
+
+
+def _served(card, label, model, dev, url_route, x, plan, clients, kernel,
+            per, want, max_batch, name):
+    """``model`` (a package path or loader) behind an InferenceServer on
+    ``dev``: ``kernel`` (its name in ``kernel_wrappers()``, its wrapper)
+    counted from 0 just before the burst, ``per`` launches a dispatched
+    batch, the scheduler's own count the same, every answer within
+    ``PKG_TOL`` of ``want``; -> record."""
+    from veles_tpu_torch.serving import InferenceServer
+    t0 = time.perf_counter()
+    server = InferenceServer({name: model}, device=dev,
+                             max_batch=max_batch)
+    warm_s = time.perf_counter() - t0
+    sched = server.registry.get(name).scheduler
+    kname, counter = kernel
+    try:
+        counter.launches = 0
+        answers, seconds = _http_burst(server.url + url_route, x, plan,
+                                       clients)
+        launches = counter.launches
+        stats = sched.stats()
+        batches = sched.metrics.snapshot()["batches"]
+    finally:
+        server.stop()
+    _per_batch(label, launches, batches, per)
+    if stats["kernel_launches"][kname] != launches:
+        raise AssertionError("%s: the scheduler counted %s, the wrapper %d"
+                             % (label, stats["kernel_launches"], launches))
+    err, bitwise = _held_to_live(label, answers, want, PKG_TOL)
+    rows = sum(n for _, n in plan)
+    return {"label": label, "card": card, "warm_s": warm_s,
+            "requests": len(plan), "rows": rows, "seconds": seconds,
+            "rows_s": rows / seconds, "batches": batches,
+            "launches": {kname: launches}, "max_rel_err": err,
+            "bitwise_rows": bitwise, "buckets": stats["buckets"]}
+
+
+def package_mnist_part(torch, gemm, card, wf, tmp, dev):
+    """(a) Phase 4's MNIST (``precise_gemm=1``) exported at fp32 and
+    fp16, each served through ``InferenceServer``: 8 threads send 64
+    rows in requests of 1, 2, 3, 5 and 8; K4 2 a dispatched batch;
+    fp32 answers within ``PKG_TOL`` of the live forward, fp16 answers of
+    the live forward over the fp16-rounded weights."""
+    from veles_tpu_torch.export import PackageLoader, export_model
+    t_part = time.perf_counter()
+    precise = _live_precise(wf)
+    if precise != 1:
+        raise AssertionError("phase 4's MNIST has precise_gemm=%d" % precise)
+    plan = _plan(PKG_SIZES, rows=PKG_ROWS)
+    out = {"runs": []}
+    for precision in (32, 16):
+        path = os.path.join(tmp, "mnist%d.zip" % precision)
+        t0 = time.perf_counter()
+        export_model(wf, path, precision=precision)
+        export_s = time.perf_counter() - t0
+        x = _package_rows(wf, PKG_ROWS, PackageLoader(path).sample_shape)
+        want = _live_answers(torch, wf, x, plan, None if precision == 32
+                             else _fp16_rounded(torch, wf))
+        restore = _engine_precise(precise)
+        try:
+            rec = _served(card, "3f MNIST fp%d" % precision, path, dev,
+                          "/api/mnist", x, plan, PKG_CLIENTS,
+                          ("precise_matmul", gemm.precise_matmul), 2, want,
+                          PKG_MAX_BATCH, "mnist")
+        finally:
+            restore()
+        rec.update(precision=precision, export_s=export_s,
+                   package_bytes=os.path.getsize(path))
+        out["runs"].append(rec)
+        out["fp%d" % precision] = path
+        _log("3f (a) MNIST package fp%d (precise_gemm=1): %d bytes, "
+             "export %.3f s, server up and warm %.3f s; %d requests of "
+             "%s rows from %d threads, %d rows in %.3f s = %.0f rows/s; "
+             "%d batches, K4 %d launches = 2 a batch; max |served - live| "
+             "%.3g of the largest |output| (limit %g), %d of %d rows "
+             "bitwise%s [%s]"
+             % (precision, rec["package_bytes"], export_s, rec["warm_s"],
+                rec["requests"], "/".join(map(str, PKG_SIZES)),
+                PKG_CLIENTS, rec["rows"], rec["seconds"], rec["rows_s"],
+                rec["batches"], rec["launches"]["precise_matmul"],
+                rec["max_rel_err"], PKG_TOL, rec["bitwise_rows"],
+                rec["rows"], "" if precision == 32 else
+                " (live over fp16-rounded weights)", card))
+    out["seconds"] = time.perf_counter() - t_part
+    _log("3f (a) MNIST: %.1f s" % out["seconds"])
+    return out
+
+
+def package_alexnet_part(torch, lrn_mod, card, wf, tmp, dev):
+    """(b) Phase 4c's AlexNet (published widths, ``use_pallas`` unset)
+    exported at fp32 and served on ``POST /api/alexnet`` (max_batch 8,
+    16 requests of 1-8 images from 4 threads): K5 2 a dispatched batch,
+    answers within ``PKG_TOL`` of the live forward; 4 images through the
+    server within ``ALEX_PKG_CPU_TOL`` of the same package on the CPU."""
+    from veles_tpu_torch.export import PackageLoader, export_model
+    t_part = time.perf_counter()
+    precise = _live_precise(wf)
+    path = os.path.join(tmp, "alexnet.zip")
+    t0 = time.perf_counter()
+    export_model(wf, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = PackageLoader(path)
+    load_s = time.perf_counter() - t0
+    plan = _plan(PKG_SIZES, requests=ALEX_PKG_REQUESTS)
+    images = sum(n for _, n in plan)
+    x = _package_rows(wf, images, loader.sample_shape)
+    want = _live_answers(torch, wf, x, plan)
+    restore = _engine_precise(precise)
+    try:
+        rec = _served(card, "3f AlexNet", loader, dev, "/api/alexnet", x,
+                      plan, ALEX_PKG_CLIENTS, ("lrn_fwd", lrn_mod.lrn), 2,
+                      want, ALEX_PKG_MAX_BATCH, "alexnet")
+        cpu_rows = x[:ALEX_PKG_CPU_ROWS]
+        cpu = PackageLoader(path).run(cpu_rows, device="cpu")
+        card_rows, _ = _http_burst_server(loader, dev, cpu_rows)
+    finally:
+        restore()
+    cpu_err = float(numpy.abs(card_rows - cpu).max() /
+                    numpy.abs(cpu).max())
+    if not cpu_err <= ALEX_PKG_CPU_TOL:
+        raise AssertionError("3f AlexNet: the card's answers are %.3g of "
+                             "the largest |output| off the CPU's (limit "
+                             "%g)" % (cpu_err, ALEX_PKG_CPU_TOL))
+    rec.update(precision=32, export_s=export_s, load_s=load_s,
+               package_bytes=os.path.getsize(path),
+               parameters=int(sum(a.size for u in loader.arrays.values()
+                                  for a in u.values())),
+               images_s=rec["rows_s"], cpu_rows=ALEX_PKG_CPU_ROWS,
+               cpu_rel_err=cpu_err)
+    rec["seconds_part"] = time.perf_counter() - t_part
+    _log("3f (b) AlexNet package (%d parameters, %d bytes): export %.3f "
+         "s, load %.3f s, server up and warm (buckets %s) %.3f s; %d "
+         "requests of 1-8 images from %d threads, %d images in %.3f s = "
+         "%.1f images/s; %d batches, K5 %d launches = 2 a batch; max "
+         "|served - live| %.3g of the largest |output| (limit %g), %d of "
+         "%d rows bitwise; %d images card vs CPU %.3g (limit %g); %.1f s "
+         "[%s]"
+         % (rec["parameters"], rec["package_bytes"], export_s, load_s,
+            rec["buckets"], rec["warm_s"], rec["requests"],
+            ALEX_PKG_CLIENTS, images, rec["seconds"], rec["images_s"],
+            rec["batches"], rec["launches"]["lrn_fwd"], rec["max_rel_err"],
+            PKG_TOL, rec["bitwise_rows"], images, ALEX_PKG_CPU_ROWS,
+            cpu_err, ALEX_PKG_CPU_TOL, rec["seconds_part"], card))
+    return rec
+
+
+def _http_burst_server(model, dev, x):
+    """One request of ``x`` to a fresh server over ``model`` on ``dev``;
+    -> (its output, seconds)."""
+    from veles_tpu_torch.serving import InferenceServer
+    server = InferenceServer({"m": model}, device=dev, max_batch=len(x))
+    try:
+        answers, seconds = _http_burst(server.url + "/api/m", x,
+                                       [(0, len(x))], 1)
+    finally:
+        server.stop()
+    return answers[0], seconds
+
+
+def package_attention_part(torch, fa, card, wf, tmp, dev):
+    """(c) Phase 4b's attention net (d_model 512, 8 heads, T=2048, no
+    mask) exported at fp32 and served through the server's registry
+    entry in-process (a sequence is 1M floats: JSON would time the
+    encoder), 8 requests of 1-2 sequences from 4 threads, max_batch 4:
+    K7 once a dispatched batch, answers within ``PKG_TOL`` of the live
+    forward."""
+    from veles_tpu_torch.export import PackageLoader, export_model
+    from veles_tpu_torch.serving import InferenceServer
+    t_part = time.perf_counter()
+    path = os.path.join(tmp, "attention.zip")
+    t0 = time.perf_counter()
+    export_model(wf, path)
+    export_s = time.perf_counter() - t0
+    plan = _plan(ATTN_PKG_SIZES, requests=ATTN_PKG_REQUESTS)
+    rows = sum(n for _, n in plan)
+    x = _package_rows(wf, rows, PackageLoader(path).sample_shape)
+    want = _live_answers(torch, wf, x, plan)
+    restore = _engine_precise(_live_precise(wf))
+    try:
+        t0 = time.perf_counter()
+        server = InferenceServer({"attention": path}, device=dev,
+                                 max_batch=ATTN_PKG_MAX_BATCH)
+        warm_s = time.perf_counter() - t0
+    finally:
+        restore()
+    entry = server.registry.get("attention")
+    answers = [None] * len(plan)
+    errors = []
+
+    def client(c):
+        for i in range(c, len(plan), ATTN_PKG_CLIENTS):
+            lo, n = plan[i]
+            try:
+                answers[i] = entry.infer(x[lo:lo + n], timeout=600)[1]
+            except Exception as exc:  # noqa: BLE001 — raised below
+                errors.append(exc)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(ATTN_PKG_CLIENTS)]
+    try:
+        fa.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        seconds = time.perf_counter() - t0
+        launches = fa.flash_attention_fwd.launches
+        stats = entry.scheduler.stats()
+        batches = entry.scheduler.metrics.snapshot()["batches"]
+    finally:
+        server.stop()
+    if errors or any(a is None for a in answers):
+        raise AssertionError("3f attention: requests failed: %r"
+                             % errors[:3])
+    _per_batch("3f attention", launches, batches, 1)
+    if stats["kernel_launches"]["flash_attention_fwd"] != launches:
+        raise AssertionError("3f attention: the scheduler counted %s"
+                             % stats["kernel_launches"])
+    err, bitwise = _held_to_live("3f attention", answers, want, PKG_TOL)
+    rec = {"label": "3f attention", "card": card, "export_s": export_s,
+           "package_bytes": os.path.getsize(path), "warm_s": warm_s,
+           "requests": len(plan), "rows": rows, "seconds": seconds,
+           "sequences_s": rows / seconds, "batches": batches,
+           "launches": {"flash_attention_fwd": launches},
+           "max_rel_err": err, "bitwise_rows": bitwise,
+           "buckets": stats["buckets"],
+           "seconds_part": time.perf_counter() - t_part}
+    t, d = x.shape[1:]
+    heads = wf.forwards[0].heads
+    rec.update(t=t, d_model=d, heads=heads)
+    _log("3f (c) attention package (T=%d, d_model %d, %d heads; %d "
+         "bytes): export %.3f s, warm (buckets %s) %.3f s; %d requests of "
+         "1-2 sequences from %d threads, %d sequences in %.3f s = %.1f "
+         "sequences/s; %d batches, K7 %d launches = 1 a batch; max "
+         "|served - live| %.3g of the largest |output| (limit %g), %d of "
+         "%d rows bitwise; %.1f s [%s]"
+         % (t, d, heads, rec["package_bytes"], export_s, rec["buckets"],
+            warm_s, len(plan), ATTN_PKG_CLIENTS, rows, seconds,
+            rec["sequences_s"],
+            batches, launches, err, PKG_TOL, bitwise, rows,
+            rec["seconds_part"], card))
+    return rec
+
+
+def package_fleet_part(card, wf, tmp, dev):
+    """(d) Phase 4d's LRN convnet exported and served by a fleet of two
+    replicas on the card (``--model lrn=<package> --device cuda``) over
+    a fresh shared build cache, filled by this process before the
+    replicas start (each replica's warmup then builds nothing): 8
+    threads send 24 requests of 8 images (one full bucket each) through
+    the router; every answer bitwise the in-process card answer of the
+    same package and rows; each replica's K5 count over HTTP more than 0
+    and 2 a dispatched batch."""
+    from veles_tpu_torch import _build
+    from veles_tpu_torch.compilecache import CompileCache
+    from veles_tpu_torch.export import PackageLoader, export_model
+    from veles_tpu_torch.fleet import Fleet
+    from veles_tpu_torch.serving import BucketScheduler
+    t_part = time.perf_counter()
+    path = os.path.join(tmp, "lrn_convnet.zip")
+    export_model(wf, path)
+    plan = [(i * FLEET_PKG_ROWS, FLEET_PKG_ROWS)
+            for i in range(FLEET_PKG_REQUESTS)]
+    x = _package_rows(wf, FLEET_PKG_ROWS * FLEET_PKG_REQUESTS,
+                      PackageLoader(path).sample_shape)
+    restore = _engine_precise(0)      # the replicas' own default
+    try:
+        sched = BucketScheduler(path, max_batch=FLEET_PKG_ROWS,
+                                name="in-process", device=dev)
+    finally:
+        restore()
+    try:
+        want = [sched.infer(x[lo:lo + n], timeout=600) for lo, n in plan]
+    finally:
+        sched.close()
+    cache_dir = tempfile.mkdtemp(prefix="veles-pkg-fleet-cache-", dir=tmp)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        _build.build(cache=CompileCache(cache_dir))
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = Fleet({"lrn": path}, replicas=2, max_batch=FLEET_PKG_ROWS,
+                  poll_interval=0.1, backoff=FLEET_BACKOFF,
+                  device=dev.type, cache_dir=cache_dir)
+    try:
+        fleet.start(ready_timeout=600)
+        start_s = time.perf_counter() - t0
+        answers, seconds = _http_burst(fleet.url + "/api/lrn", x, plan,
+                                       FLEET_PKG_CLIENTS)
+        merged = fleet.router.merged_metrics()["replicas"]
+    finally:
+        fleet.stop()
+    per_replica = {}
+    for rid, body in merged.items():
+        stats = body["lrn"]
+        k5 = stats["kernel_launches"]["lrn_fwd"]
+        per_replica[rid] = {"batches": stats["batches"], "k5": k5,
+                            "compiles": stats["compiles"],
+                            "cache_hits": stats["cache_hits"]}
+        _per_batch("3f fleet replica %s" % rid, k5, stats["batches"], 2)
+    if sum(r["batches"] for r in per_replica.values()) != len(plan):
+        raise AssertionError("3f fleet: %s batches for %d requests"
+                             % (per_replica, len(plan)))
+    diff = max(float(numpy.abs(a - w).max())
+               for a, w in zip(answers, want))
+    if diff != 0.0:
+        raise AssertionError("3f fleet: an answer is %.3g off the "
+                             "in-process card answer" % diff)
+    if dev.type == "cuda" and any(r["compiles"] for r in
+                                  per_replica.values()):
+        raise AssertionError("3f fleet: a replica built a kernel over the "
+                             "filled cache: %s" % per_replica)
+    rec = {"label": "3f fleet", "card": card, "start_s": start_s,
+           "cache_fill_s": fill_s,
+           "requests": len(plan), "rows": len(plan) * FLEET_PKG_ROWS,
+           "seconds": seconds,
+           "rows_s": len(plan) * FLEET_PKG_ROWS / seconds,
+           "replicas": per_replica, "max_abs_diff": diff,
+           "launches": {"lrn_fwd": sum(r["k5"]
+                                       for r in per_replica.values())},
+           "seconds_part": time.perf_counter() - t_part}
+    _log("3f (d) fleet of 2 replicas (--model lrn=<LRN convnet package> "
+         "--device %s, a fresh shared build cache filled in %.2f s): up "
+         "and ready in %.2f s; %d requests of %d images from %d threads "
+         "through the router "
+         "in %.3f s = %.1f images/s, every answer bitwise the in-process "
+         "card answer; per replica over HTTP (batches, K5, compiles, "
+         "cache hits) %s; %.1f s [%s]"
+         % (dev.type, fill_s, start_s, len(plan), FLEET_PKG_ROWS,
+            FLEET_PKG_CLIENTS,
+            seconds, rec["rows_s"], per_replica, rec["seconds_part"], card))
+    return rec
+
+
+def package_restful_part(torch, gemm, card, wf, path, dev):
+    """(e) ``RESTfulAPI`` over (a)'s fp32 MNIST package: ``POST /api``
+    held like (a)."""
+    from veles_tpu_torch.export import PackageLoader
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    t_part = time.perf_counter()
+    plan = _plan(PKG_SIZES, rows=PKG_ROWS)
+    x = _package_rows(wf, PKG_ROWS, PackageLoader(path).sample_shape)
+    want = _live_answers(torch, wf, x, plan)
+    restore = _engine_precise(_live_precise(wf))
+    try:
+        t0 = time.perf_counter()
+        api = RESTfulAPI(path, device=dev, max_batch=PKG_MAX_BATCH)
+        warm_s = time.perf_counter() - t0
+    finally:
+        restore()
+    try:
+        gemm.precise_matmul.launches = 0
+        answers, seconds = _http_burst(api.url + "/api", x, plan,
+                                       PKG_CLIENTS)
+        launches = gemm.precise_matmul.launches
+        stats = api.stats()
+        batches = api.server.registry.get(
+            "default").scheduler.metrics.snapshot()["batches"]
+    finally:
+        api.stop()
+    _per_batch("3f RESTfulAPI", launches, batches, 2)
+    err, bitwise = _held_to_live("3f RESTfulAPI", answers, want, PKG_TOL)
+    rec = {"label": "3f RESTfulAPI", "card": card, "warm_s": warm_s,
+           "requests": len(plan), "rows": PKG_ROWS, "seconds": seconds,
+           "rows_s": PKG_ROWS / seconds, "batches": batches,
+           "launches": {"precise_matmul": launches},
+           "scheduler_launches": stats["kernel_launches"]["precise_matmul"],
+           "max_rel_err": err, "bitwise_rows": bitwise,
+           "seconds_part": time.perf_counter() - t_part}
+    _log("3f (e) RESTfulAPI over the fp32 MNIST package, POST /api: "
+         "warm %.3f s; %d requests from %d threads, %d rows in %.3f s = "
+         "%.0f rows/s; %d batches, K4 %d launches = 2 a batch; max "
+         "|served - live| %.3g of the largest |output| (limit %g), %d of "
+         "%d rows bitwise; %.1f s [%s]"
+         % (warm_s, len(plan), PKG_CLIENTS, PKG_ROWS, seconds,
+            rec["rows_s"], batches, launches, err, PKG_TOL, bitwise,
+            PKG_ROWS, rec["seconds_part"], card))
+    return rec
+
+
+def package_phase(torch, gemm, lrn_mod, fa, card, workflows, dev):
+    """Phase 3f (slice 19): phases 4-4d's trained workflows exported and
+    served (``workflows``: "mnist", "alexnet", "attention", "lrn");
+    -> record with each part and the kernels' launches."""
+    tmp = tempfile.mkdtemp(prefix="veles-packages-")
+    try:
+        rec = {"mnist": package_mnist_part(torch, gemm, card,
+                                           workflows["mnist"], tmp, dev)}
+        rec["alexnet"] = package_alexnet_part(
+            torch, lrn_mod, card, workflows["alexnet"], tmp, dev)
+        rec["attention"] = package_attention_part(
+            torch, fa, card, workflows["attention"], tmp, dev)
+        rec["fleet"] = package_fleet_part(card, workflows["lrn"], tmp, dev)
+        rec["restful"] = package_restful_part(
+            torch, gemm, card, workflows["mnist"], rec["mnist"]["fp32"],
+            dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["launches"] = {
+        "precise_matmul_l1": sum(
+            r["launches"]["precise_matmul"] for r in
+            rec["mnist"]["runs"] + [rec["restful"]]),
+        "lrn_fwd": rec["alexnet"]["launches"]["lrn_fwd"] +
+        rec["fleet"]["launches"]["lrn_fwd"],
+        "flash_attention_fwd":
+            rec["attention"]["launches"]["flash_attention_fwd"]}
+    _log("3f launches: %s" % rec["launches"])
+    return rec
+
 
 # -- phase 4e: graph mode (slice 17) ------------------------------------------
 
@@ -4498,12 +5070,13 @@ def main():
         record["flight"] = flight_phase(torch, pa, gemm, card, runs,
                                         tiers["migration"], served_wf,
                                         cache_dir=cache_dir)
-        del served_wf
         phase_done("3d flight recorder, classifier route, fleet, profiler")
         record["autotune"] = autotune_phase(torch, card, cache_dir, dev)
         phase_done("3e autotuner and build cache")
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
+    served = {"mnist": served_wf}
+    del served_wf
     attention = [attention_run(torch, fa, card, *config)
                  for config in ATTN_CONFIGS]
     record["attention_first_epoch_vs_cpu"] = [
@@ -4511,8 +5084,10 @@ def main():
         for config in ATTN_CONFIGS]
     record["attention_small"] = attention_small_run(torch, fa, card)
     record["attention_wide"] = attention_wide_hold(torch, fa, card)
+    served["attention"] = attention[0]["workflow"]
     for run in attention:
         run.pop("first_epoch")
+        run.pop("workflow")
     for name, kid in (("flash_attention_fwd", "K7"),
                       ("flash_attention_dq", "K8"),
                       ("flash_attention_dkv", "K9")):
@@ -4522,15 +5097,25 @@ def main():
     phase_done("4b attention training")
     alexnet = [alexnet_run(torch, lrn_mod, card, *config)
                for config in ALEX_CONFIGS]
+    served["alexnet"] = alexnet[0]["workflow"]
+    for run in alexnet:
+        run.pop("workflow")
     record["alexnet"] = alexnet
     record["alexnet_first_steps_vs_cpu"] = alexnet_hold(torch, lrn_mod)
     phase_done("4c AlexNet training")
     lrn_net = lrn_net_run(torch, lrn_mod, card)
+    served["lrn"] = lrn_net.pop("workflow")
     record["lrn_convnet"] = lrn_net
     for name, kid in (("lrn_fwd", "K5"), ("lrn_bwd", "K6")):
         launches[name] = alexnet[0]["launches"][kid] + \
             lrn_net["launches"][kid]
     phase_done("4d LRN convnet training")
+    packages = package_phase(torch, gemm, lrn_mod, fa, card, served, dev)
+    del served
+    record["packages"] = packages
+    for name, n in packages["launches"].items():
+        launches[name] += n
+    phase_done("3f exported packages")
     graph = graph_phase(torch, gemm, lrn_mod, fa, card, train[1])
     record["graph_mode"] = graph
     launches["precise_matmul_l1"] += graph["mnist"]["launches"]["k4"]

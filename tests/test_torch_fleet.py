@@ -23,8 +23,17 @@ counters and ids, never by a wall-clock ratio:
   every token bitwise the toy's ``generate_reference``) fails nothing,
   the victim respawns ready, and ``GET /fleet/requests`` merges the
   router's and the replica's halves of a request under one trace id;
+- an exported package (the port's own ``export_model`` of the MNIST
+  net, the JAX test's ``tools/serve_bench.py`` package) served by two
+  replicas over a shared build cache: a SIGKILL under load fails
+  nothing, every answer is the package's own forward within 1e-6 of
+  its scale, the victim respawns ready with 0 builds, and each
+  replica's hand-kernel launches (``kernel_launches``) ride the merged
+  ``/metrics``;
 - on the card (marked ``gpu``): the respawned replica builds no kernel
-  (the build directory is unchanged across the respawn).
+  (the build directory is unchanged across the respawn); a package
+  replica (the LRN convnet) launches K5 twice a dispatched batch, read
+  over HTTP.
 
 Each fleet runs under its own time limit: past it a watchdog kills the
 replicas, so the waits fail instead of hanging; every fleet stops in a
@@ -440,6 +449,105 @@ def test_fleet_sigkill_zero_failures_and_ready_respawn(fleet):
     assert {"queue.enter", "first_token", "retire"} <= set(kinds[replica])
 
 
+@pytest.fixture(scope="module")
+def mnist_package(tmp_path_factory):
+    """The port's ``export_model`` of the MNIST net (seeded, untrained)
+    and its rows: (path, x, the package's forward of x on the CPU)."""
+    import numpy
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.export import PackageLoader, export_model
+    from veles_tpu_torch.znicz.samples import mnist
+    prng.get().seed(42)
+    wf = mnist.create_workflow(loader={"n_train": 60, "n_valid": 60},
+                               decision={"max_epochs": 1, "silent": True})
+    wf.initialize(device=Device(backend="cpu"))
+    path = str(tmp_path_factory.mktemp("fleet_pkg") / "mnist_pkg.zip")
+    export_model(wf, path)
+    x = numpy.random.RandomState(7).uniform(-1, 1, (16, 784)).astype(
+        numpy.float32)
+    return path, x, PackageLoader(path).run(x, device="cpu")
+
+
+def _package_client(url, x, want, done, counts, failures, lock, rows=2):
+    import numpy
+    i = 0
+    while not done.is_set():
+        lo = (i * rows) % (len(x) - rows)
+        i += 1
+        status, body = -1, {}
+        for _ in range(20):          # a well-behaved client retries 503
+            try:
+                status, body, _ = _post(url + "/api/mnist",
+                                        {"input": x[lo:lo + rows].tolist()})
+            except Exception as e:  # noqa: BLE001 — counted
+                status, body = -1, {"error": repr(e)}
+            if status != 503:
+                break
+            time.sleep(0.05)
+        with lock:
+            if status == 200:
+                counts["ok"] += 1
+                got = numpy.asarray(body["output"], numpy.float32)
+                ref = want[lo:lo + rows]
+                scale = numpy.abs(ref).max(axis=1, keepdims=True)
+                counts["mismatch"] += not bool(
+                    (numpy.abs(got - ref) <= 1e-6 * scale).all())
+            elif status == 429:
+                counts["shed"] += 1
+            else:
+                counts["failed"] += 1
+                failures.append((status, body))
+
+
+def test_fleet_sigkill_zero_failures_and_warm_respawn(mnist_package,
+                                                      tmp_path):
+    """test_fleet.py's acceptance on a real exported package: two
+    replicas over a shared build cache, one SIGKILLed under load; zero
+    failed answers, every answer the package's own forward, the
+    respawned replica ready with 0 builds, and each replica's
+    ``kernel_launches`` in the merged ``/metrics`` (0 on the CPU)."""
+    path, x, want = mnist_package
+    fl = Fleet({"mnist": path}, replicas=2, max_batch=4, device="cpu",
+               cache_dir=str(tmp_path / "build_cache"), poll_interval=0.1,
+               backoff=BACKOFF)
+    counts = {"ok": 0, "shed": 0, "failed": 0, "mismatch": 0}
+    failures = []
+    lock = threading.Lock()
+    done = threading.Event()
+    with running(fl):
+        victim = fl.router.replica_ids()[-1]
+        threads = [threading.Thread(target=_package_client, args=(
+            fl.url, x, want, done, counts, failures, lock))
+            for _ in range(4)]
+        for t in threads:
+            t.start()
+        try:
+            _wait(lambda: counts["ok"] >= 8, 60, "load to run")
+            fl.supervisor.kill(victim, signal.SIGKILL)
+            _wait(lambda: fl.supervisor.describe()[victim]["restarts"]
+                  >= 1, 60, "the supervisor to see the death")
+            _wait(lambda: fl.router.ready_count() == 2, 120,
+                  "the victim's respawn")
+            ok_at_respawn = counts["ok"]
+            _wait(lambda: counts["ok"] >= ok_at_respawn + 8, 60,
+                  "load after the respawn")
+        finally:
+            done.set()
+            for t in threads:
+                t.join(FLEET_LIMIT_S)
+        met = fl.router.merged_metrics()["replicas"]
+    assert counts["failed"] == 0, failures[:3]
+    assert counts["mismatch"] == 0, counts
+    assert counts["ok"] > 0
+    respawned = met[victim]["mnist"]
+    assert respawned["compiles"] == 0, respawned
+    assert respawned["buckets"] == [1, 2, 4]
+    for rid, body in met.items():
+        launches = body["mnist"]["kernel_launches"]
+        assert launches["precise_matmul"] == 0, (rid, launches)
+
+
 def test_cache_dir_refused(tmp_path):
     """Refused until the build cache was ported (ROADMAP queue A item
     3): now a fleet's ``cache_dir=`` reaches every replica's
@@ -479,9 +587,9 @@ def test_fleet_on_the_card_sigkill_respawns_ready(cuda):
     decode load; nothing fails, every answer is the oracle's, the victim
     respawns ready, and the build directory is unchanged across the
     respawn.  The toy decoder launches no hand kernel, so that last
-    check shows only that a replica's start builds nothing; a replica
-    model that runs a kernel waits for package serving (ROADMAP queue A
-    item 8)."""
+    check shows only that a replica's start builds nothing; a package
+    replica's kernels are held by
+    ``test_fleet_package_on_the_card_counts_kernel_launches``."""
     fl = Fleet({"toy": TOY}, replicas=2, max_batch=4, poll_interval=0.1,
                backoff=BACKOFF)
     with running(fl):
@@ -507,3 +615,33 @@ def test_fleet_on_the_card_sigkill_respawns_ready(cuda):
         assert [(s, b.get("tokens")) for s, b in answers] == \
             [(200, want)] * len(answers)
         assert _build_dir_state() == built
+
+
+@pytest.mark.gpu
+def test_fleet_package_on_the_card_counts_kernel_launches(cuda, tmp_path):
+    """Two replicas on the card serving an exported LRN convnet (two
+    LRN layers, ``use_pallas`` unset: K5 on the card): each replica's K5
+    count over HTTP is 2 a dispatched batch, and the fleet served every
+    request."""
+    import numpy
+    import chip_smoke
+    from veles_tpu_torch.export import export_model
+    wf = chip_smoke.lrn_net_workflow("cpu", epochs=1, n_train=100,
+                                     n_valid=100)
+    path = export_model(wf, str(tmp_path / "lrn.zip"))
+    fl = Fleet({"lrn": path}, replicas=2, max_batch=4, poll_interval=0.1,
+               backoff=BACKOFF)
+    x = numpy.random.RandomState(7).uniform(
+        -1, 1, (4, 32, 32, 3)).tolist()
+    with running(fl):
+        for _ in range(16):
+            status, body, _ = _post(fl.url + "/api/lrn", {"input": x})
+            assert status == 200, body
+        met = fl.router.merged_metrics()["replicas"]
+    served = 0
+    for rid, body in met.items():
+        stats = body["lrn"]
+        assert stats["kernel_launches"]["lrn_fwd"] == \
+            2 * stats["batches"], (rid, stats)
+        served += stats["batches"]
+    assert served == 16

@@ -19,11 +19,16 @@
   fleet and the replica command line (slice 15); the autotuner's probes
   and a decode scheduler resolving ``"auto"`` (slice 16); graph mode's
   workflows (softmax and MSE), its GD and evaluator units and the
-  ``InputJoiner`` (slice 17).
+  ``InputJoiner`` (slice 17); a package's ``PackageLoader`` (its chain,
+  its run), ``build_forwards``, a package served by the scheduler, the
+  registry and the server, ``RESTfulAPI`` and the package runner's
+  command line (slice 19).
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
-  interpreter's own import log.
+  interpreter's own import log; nor does the package runner (``python
+  -X importtime -m veles_tpu_torch.export.loader``) replaying a
+  package.
 """
 
 import ast
@@ -94,7 +99,9 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "compilecache.store", "compilecache.manifest",
                  "compilecache.cache", "autotune", "autotune.space",
                  "autotune.store", "autotune.dispatch", "autotune.runner",
-                 "autotune.probe", "autotune.__main__", "input_joiner"):
+                 "autotune.probe", "autotune.__main__", "input_joiner",
+                 "export", "export.packager", "export.model",
+                 "export.loader", "export.native", "restful_api"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -325,6 +332,79 @@ def test_slice17_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     gd.err_output = Array(numpy.ones((2, 3), numpy.float32))
     gd.initialize(device=Device(backend="cpu"))
     assert gd.err_output.devmem.device == torch.device("cpu")
+
+
+def _mnist_package(path):
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.export import export_model
+    from veles_tpu_torch.znicz.samples import mnist
+    wf = mnist.create_workflow(loader={"n_train": 60, "n_valid": 60},
+                               decision={"max_epochs": 1, "silent": True})
+    wf.initialize(device=Device(backend="cpu"))
+    return export_model(wf, str(path))
+
+
+def test_slice19_entry_points_need_a_card_unless_told_cpu(monkeypatch,
+                                                          tmp_path):
+    """A package's chain, its run, a package served by the scheduler,
+    the registry and the server, and the RESTful facade default to the
+    card and raise without one; told the CPU, each serves.  The runner's
+    command line without ``--device`` exits non-zero where torch sees
+    no card."""
+    from veles_tpu_torch.export import PackageLoader, build_forwards
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    from veles_tpu_torch.serving import (BucketScheduler, InferenceServer,
+                                         ModelRegistry)
+    path = _mnist_package(tmp_path / "mnist.zip")
+    x = numpy.zeros((2, 784), numpy.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pkg = PackageLoader(path)
+    for call in (lambda: pkg.forwards(), lambda: pkg.run(x),
+                 lambda: pkg.params(),
+                 lambda: build_forwards(pkg.model_metadata),
+                 lambda: BucketScheduler(path),
+                 lambda: ModelRegistry().load_package("m", path),
+                 lambda: InferenceServer({"m": path}),
+                 lambda: RESTfulAPI(path)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert pkg.run(x, device="cpu").shape == (2, 10)
+    sched = BucketScheduler(path, max_batch=2, device="cpu")
+    try:
+        assert sched.infer(x).shape == (2, 10)
+    finally:
+        sched.close()
+    api = RESTfulAPI(path, max_batch=2, device="cpu")
+    try:
+        assert api.infer(x)[1].shape == (2, 10)
+    finally:
+        api.stop()
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch.export.loader", path,
+         "random"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+
+
+def test_package_runner_subprocess_imports_no_jax(tmp_path):
+    path = _mnist_package(tmp_path / "mnist.zip")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = str(tmp_path / "out.npy")
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "veles_tpu_torch.export.loader", path, "random", out,
+         "--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "input (2, 784) -> output (2, 10)" in proc.stdout
+    assert numpy.load(out).shape == (2, 10)
+    names = {line.rsplit("|", 1)[-1].strip()
+             for line in proc.stderr.splitlines()
+             if line.startswith("import time:") and "|" in line}
+    assert "veles_tpu_torch.export.model" in names
+    assert [m for m in names if _foreign(m)] == []
 
 
 def test_fleet_replica_subprocess_imports_no_jax(tmp_path):

@@ -4,8 +4,9 @@ the JAX package.
 
 Mirrors ``tests/test_serving.py`` on ``device="cpu"``, with the port's
 MNIST workflow (its parameters carried over from the JAX workflow by
-``convert.workflow_params_from_jax``) in place of the exported package
-(package serving waits for ROADMAP queue A item 8):
+``convert.workflow_params_from_jax``) and with its exported package
+(written by the port's ``export_model``; the JAX package's own for the
+static-batch ladder):
 
 - concurrent clients with mixed batch sizes get the JAX ``JaxModel``'s
   answers within 1e-6 of their scale, with ``precise_gemm`` 0 and 1;
@@ -21,8 +22,14 @@ MNIST workflow (its parameters carried over from the JAX workflow by
   versions under concurrent traffic with zero failed requests and every
   answer from the old or the new version, held by counts (no time
   bound: the JAX package's test of it fails under load);
-- packages are refused by name; a build cache (``cache=``) and a
-  warmup manifest are taken;
+- a package path, a ``PackageLoader``, ``ModelRegistry.load_package``
+  and ``POST /admin/models`` serve packages (the JAX tests on
+  ``mnist_package``: mixed batches, two models, the error taxonomy,
+  keep-alive), the ``RESTfulAPI`` facade stays warm at any batch size,
+  a static-batch package's ladder is the JAX scheduler's, and a
+  ``TorchModel`` counts its dispatched batches' kernel launches (not
+  the warmup's); a build cache (``cache=``) and a warmup manifest are
+  taken;
 - a 500's flight timeline is closed before the client has the answer,
   also under many concurrent failing requests (fault C8: the server
   used to write the answer first and close the timeline after).
@@ -35,6 +42,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import zipfile
 
 import numpy
 import pytest
@@ -94,6 +102,30 @@ def _port_workflow(precise, jax_wf=None):
 def mnist_wf():
     """The port's MNIST workflow (untrained: serving does not care)."""
     return _port_workflow(0)
+
+
+@pytest.fixture(scope="module")
+def jax_mnist():
+    return _jax_workflow(0)
+
+
+@pytest.fixture(scope="module")
+def mnist_package(jax_mnist, tmp_path_factory):
+    """The port's ``export_model`` of its MNIST workflow, its weights
+    carried from the JAX workflow (the JAX test's ``mnist_package``)."""
+    from veles_tpu_torch.export import export_model
+    path = str(tmp_path_factory.mktemp("serving") / "mnist_pkg.zip")
+    export_model(_port_workflow(0, jax_mnist), path)
+    return path
+
+
+def _jax_answers(jwf, x):
+    from veles_tpu.export.model import forward_fn as jax_forward_fn
+    from veles_tpu.serving.scheduler import JaxModel
+    run, _ = JaxModel(jax_forward_fn(jwf.forwards),
+                      [f.params for f in jwf.forwards],
+                      (784,)).compile(len(x))
+    return numpy.asarray(run(x))
 
 
 def _post(port, payload, route="/api", headers=None):
@@ -649,7 +681,7 @@ def test_hot_swap_under_concurrent_traffic():
         server.stop()
 
 
-def test_admin_hot_load_endpoint_gated():
+def test_admin_hot_load_endpoint_gated(mnist_package):
     from veles_tpu_torch.fleet import resolve_model_spec
 
     plain = InferenceServer(device="cpu")
@@ -676,11 +708,17 @@ def test_admin_hot_load_endpoint_gated():
         assert described["m"]["version"] == "v1"
         code, body = _post_err(server.port, {"name": "m"}, "/admin/models")
         assert code == 400
-        # a package spec is refused by name (ROADMAP queue A item 8)
+        # a package spec loads through the registry (it was refused
+        # until packages were ported); a missing one fails the load only
         code, body = _post_err(server.port,
                                {"name": "p", "model": "/no/pkg.zip"},
                                "/admin/models")
-        assert code == 500 and "item 8" in body["error"]
+        assert code == 500 and "hot-load failed" in body["error"]
+        out = _post(server.port, {"name": "p", "model": mnist_package,
+                                  "version": "pkg"}, "/admin/models")
+        assert out == {"model": "p", "version": "pkg", "ready": True}
+        resp = _post(server.port, {"input": X[:3].tolist()}, "/api/p")
+        assert numpy.asarray(resp["output"]).shape == (3, 10)
     finally:
         server.stop()
 
@@ -711,12 +749,34 @@ def test_decode_and_classifier_routes_stay_apart(mnist_wf):
         server.stop()
 
 
-def test_unported_paths_refused_by_name(mnist_wf):
+def test_unported_paths_refused_by_name(mnist_package, tmp_path):
+    """Packages were refused naming ROADMAP queue A item 8 until they
+    were ported: now a path and ``load_package`` serve one, a missing
+    path is a FileNotFoundError, and a package holding a unit the port
+    lacks is refused naming its item."""
     from veles_tpu_torch.serving import ModelRegistry
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(FileNotFoundError):
         BucketScheduler("/no/pkg.zip", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ModelRegistry(device="cpu").load_package("p", "/no/pkg.zip")
+    registry = ModelRegistry(device="cpu", max_batch=4)
+    try:
+        entry = registry.load_package("p", mnist_package)
+        assert entry.scheduler.buckets == [1, 2, 4]
+        assert entry.infer(X[:2])[1].shape == (2, 10)
+        with pytest.raises(FileNotFoundError):
+            registry.load_package("q", "/no/pkg.zip")
+    finally:
+        registry.close()
+    with zipfile.ZipFile(mnist_package) as zf:
+        files = {n: zf.read(n) for n in zf.namelist()}
+    meta = json.loads(files["model.json"])
+    meta["forwards"][0]["class"] = "ResizableAll2All"
+    files["model.json"] = json.dumps(meta)
+    bad = str(tmp_path / "resizable.zip")
+    with zipfile.ZipFile(bad, "w") as zf:
+        for name, data in files.items():
+            zf.writestr(name, data)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        BucketScheduler(bad, device="cpu")
 
 
 def test_cache_and_manifest_are_taken(mnist_wf, tmp_path):
@@ -740,3 +800,235 @@ def test_cache_and_manifest_are_taken(mnist_wf, tmp_path):
         assert again._warmup_order() == [4, 1, 2, 8]
     finally:
         again.close()
+
+
+# -- exported packages --------------------------------------------------------
+
+def test_package_concurrent_mixed_batches_one_executable_per_bucket(
+        jax_mnist, mnist_package):
+    """test_serving.py's mixed-batch test on the package: 8 threads over
+    HTTP, every answer the JAX ``JaxModel``'s on the same weights within
+    1e-6 of its scale, one warm runner per bucket, nothing compiled, and
+    no hand kernel counted on the CPU."""
+    want = _jax_answers(jax_mnist, X)
+    server = InferenceServer({"mnist": mnist_package}, max_batch=16,
+                             device="cpu")
+    sched = server.registry.get("mnist").scheduler
+    assert sched.buckets == [1, 2, 4, 8, 16]
+    warm = sched.stats()
+    assert warm["executables"] == 5
+    assert warm["compiles"] == warm["warmup_compiles"] == 0
+    sizes = (1, 2, 3, 5, 8)
+    failures = []
+
+    def client(i):
+        offset = (i * 11) % 32
+        for k in range(6):
+            bs = sizes[(i + k) % len(sizes)]
+            lo = (offset + k * 3) % (64 - bs)
+            try:
+                resp = _post(server.port,
+                             {"input": X[lo:lo + bs].tolist()},
+                             "/api/mnist")
+                got = numpy.asarray(resp["output"], numpy.float32)
+                assert got.shape == (bs, 10)
+                assert _within(got, want[lo:lo + bs])
+                assert resp["result"] == [int(r) for r in
+                                          want[lo:lo + bs].argmax(axis=1)]
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                failures.append("client %d: %r" % (i, e))
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert not failures, failures
+        stats = sched.stats()
+        assert stats["post_warmup_compiles"] == 0
+        assert stats["compiles"] == 0
+        assert stats["jit_cache_size"] == 0
+        assert set(stats["kernel_launches"].values()) == {0}
+        snap = sched.metrics.snapshot()
+        assert snap["requests"] == 48
+        assert snap["batches"] >= 1
+        assert snap["batch_fill"] is not None
+    finally:
+        server.stop()
+
+
+def test_package_registry_serves_two_models(mnist_package):
+    server = InferenceServer({"mnist": mnist_package}, max_batch=8,
+                             device="cpu")
+    server.registry.add("double", lambda x: x * 2.0, sample_shape=(3,))
+    try:
+        out = _post(server.port, {"input": [[1.0, 2.0, 3.0]]},
+                    "/api/double")
+        assert out["output"] == [[2.0, 4.0, 6.0]]
+        resp = _post(server.port, {"input": numpy.zeros((2, 784)).tolist()},
+                     "/api/mnist")
+        assert numpy.asarray(resp["output"]).shape == (2, 10)
+        resp2 = _post(server.port, {"input": numpy.zeros((1, 784)).tolist()})
+        assert numpy.asarray(resp2["output"]).shape == (1, 10)
+        health = json.loads(urllib.request.urlopen(
+            server.url + "/healthz").read())
+        assert sorted(health["models"]) == ["double", "mnist"]
+        assert health["default_model"] == "mnist"
+        metrics = json.loads(urllib.request.urlopen(
+            server.url + "/metrics").read())
+        assert metrics["mnist"]["requests"] == 2
+        assert metrics["double"]["requests"] == 1
+        assert metrics["mnist"]["kernel_launches"]["precise_matmul"] == 0
+        models = json.loads(urllib.request.urlopen(
+            server.url + "/models").read())
+        assert models["mnist"]["sample_shape"] == [784]
+        assert models["mnist"]["source"] == "str"
+        assert server.registry.remove("double")
+        code, body = _post_err(server.port, {"input": [[1.0, 2.0, 3.0]]},
+                               "/api/double")
+        assert code == 404 and "unknown model" in body["error"]
+    finally:
+        server.stop()
+
+
+def test_package_error_taxonomy_400_vs_404_vs_500(mnist_package):
+    def broken(x):
+        raise RuntimeError("secret internal state: 0xdeadbeef")
+
+    server = InferenceServer({"mnist": mnist_package}, max_batch=4,
+                             device="cpu")
+    server.registry.add("broken", broken, sample_shape=(2,))
+    try:
+        req = urllib.request.Request(
+            server.url + "/api/mnist", b"{nope",
+            {"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(req)
+        assert err.value.code == 400
+        assert "JSON" in json.loads(err.value.read())["error"]
+        code, body = _post_err(server.port, {"x": [1]}, "/api/mnist")
+        assert code == 400 and "input" in body["error"]
+        code, body = _post_err(server.port, {"input": [[1, 2], [3]]},
+                               "/api/mnist")
+        assert code == 400
+        code, body = _post_err(server.port, {"input": [[1.0, 2.0]]},
+                               "/api/mnist")
+        assert code == 400 and "shape" in body["error"]
+        code, body = _post_err(server.port, {"input": [[1.0, 2.0]]},
+                               "/api/nosuch")
+        assert code == 404 and body["models"]
+        code, body = _post_err(server.port, {"input": [[1.0, 2.0]]},
+                               "/api/broken")
+        assert code == 500
+        assert body["error"] == "internal inference error"
+        text = json.dumps(body)
+        assert "secret internal state" not in text
+        assert "Traceback" not in text
+    finally:
+        server.stop()
+
+
+def test_package_http11_keepalive_connection_reuse(mnist_package):
+    server = InferenceServer({"mnist": mnist_package}, max_batch=4,
+                             device="cpu")
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port)
+        body = json.dumps(
+            {"input": numpy.zeros((1, 784)).tolist()}).encode()
+        for _ in range(5):
+            conn.request("POST", "/api", body,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = json.loads(resp.read())
+            assert resp.status == 200 and len(data["result"]) == 1
+        conn.close()
+    finally:
+        server.stop()
+
+
+def test_facade_any_batch_size_stays_warm(mnist_wf):
+    """The RESTfulAPI facade routes through the bucketed scheduler: mixed
+    client batch sizes land on the warm ladder and nothing is built
+    after the warmup."""
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    api = RESTfulAPI(mnist_wf, port=0, max_batch=8, device="cpu")
+    try:
+        warm = api.stats()["compiles"]
+        for bs in (1, 3, 2, 5, 8, 4):
+            resp = _post(api.port,
+                         {"input": numpy.zeros((bs, 784)).tolist()})
+            assert numpy.asarray(resp["output"]).shape == (bs, 10)
+        stats = api.stats()
+        assert stats["compiles"] == warm
+        assert stats["post_warmup_compiles"] == 0
+        assert stats["jit_cache_size"] == 0
+        assert stats["executables"] == len(stats["buckets"]) == 4
+        result, out = api.infer(numpy.zeros(784))
+        assert out.shape == (1, 10)
+    finally:
+        api.stop()
+
+
+@pytest.mark.parametrize("batch,max_batch", [(4, 16), (8, 8), (3, 16),
+                                             (4, 2)])
+def test_static_batch_package_ladder_equals_the_jax_scheduler(
+        jax_mnist, tmp_path, batch, max_batch):
+    """A static-batch package (``batch`` an int) serves the ladder the
+    JAX scheduler keeps for the same package (it drops every bucket the
+    artifact cannot take; the port states that ladder from the start),
+    or fails to load as the JAX scheduler does when no bucket is left;
+    its answers, short batches padded to the one bucket, are the JAX
+    package's."""
+    from veles_tpu.export import export_model as jax_export_model
+    from veles_tpu.serving import BucketScheduler as JaxScheduler
+    path = str(tmp_path / "static.zip")
+    jax_export_model(jax_mnist, path, batch=batch)
+    try:
+        jax_sched = JaxScheduler(path, max_batch=max_batch, name="s")
+    except ValueError:
+        with pytest.raises(ValueError, match="ladder"):
+            BucketScheduler(path, max_batch=max_batch, name="s",
+                            device="cpu")
+        return
+    sched = BucketScheduler(path, max_batch=max_batch, name="s",
+                            device="cpu")
+    try:
+        assert sched.buckets == jax_sched.buckets == [batch]
+        assert sched.max_batch == jax_sched.max_batch == batch
+        rows = X[:batch + 1]
+        got = sched.infer(rows, timeout=60)
+        want = jax_sched.infer(rows, timeout=60)
+        assert got.shape == want.shape == (batch + 1, 10)
+        assert numpy.abs(got - want).max() <= 1e-5
+    finally:
+        sched.close()
+        jax_sched.close()
+
+
+def test_kernel_launches_count_dispatched_batches_only():
+    """``stats()["kernel_launches"]`` counts the wrappers' launches of
+    the dispatched batches, not the warmup's (a stand-in forward bumps
+    K4's counter as each launch would)."""
+    import torch
+    from veles_tpu_torch.serving.scheduler import TorchModel
+    from veles_tpu_torch.znicz import gemm
+
+    def fn(params, x):
+        gemm.precise_matmul.launches += 2
+        return x @ params["w"]
+
+    model = TorchModel(fn, {"w": torch.ones(3, 2)}, (3,), device="cpu")
+    sched = BucketScheduler(model, max_batch=4, name="count",
+                            device="cpu")
+    try:
+        assert sched.stats()["kernel_launches"]["precise_matmul"] == 0
+        for rows in (1, 3, 4, 2):
+            sched.infer(numpy.ones((rows, 3), numpy.float32), timeout=60)
+        batches = sched.metrics.snapshot()["batches"]
+        assert batches == 4
+        assert sched.stats()["kernel_launches"]["precise_matmul"] == \
+            2 * batches
+    finally:
+        sched.close()

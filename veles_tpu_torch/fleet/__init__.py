@@ -20,7 +20,10 @@ its models on the card unless the fleet is given ``device="cpu"``
 - :mod:`.replica` — the replica process entry
   (``python -m veles_tpu_torch.fleet.replica``): a stock
   :class:`~veles_tpu_torch.serving.InferenceServer` with the admin
-  hot-load endpoint on;
+  hot-load endpoint on, serving exported packages (the production
+  model spec) or the ``sleep:`` / ``toydecode:`` stand-ins; its
+  schedulers' hand-kernel launches ride ``GET /metrics``
+  (``kernel_launches``);
 - :mod:`.chaos` — :class:`FaultPlan`: deterministic, scripted fault
   injection (refuse / black-hole / truncate / latency / SIGKILL /
   SIGSTOP) installed inside replica subprocesses via
@@ -30,17 +33,16 @@ its models on the card unless the fleet is given ``device="cpu"``
 Quickstart::
 
     from veles_tpu_torch.fleet import Fleet
-    fleet = Fleet({"m": "sleep:0.002:4",
+    fleet = Fleet({"mnist": "mnist_pkg.zip", "m": "sleep:0.002:4",
                    "toy": "toydecode:vocab=64"}, replicas=2).start()
-    # POST fleet.url + "/api/m" {"input": [[...]]}
+    # POST fleet.url + "/api/mnist" {"input": [[...]]}
     # POST fleet.url + "/api/toy/generate" {"prompt": [...]}
     fleet.rolling_update("m", "sleep:0.001:4", version="v2")
     fleet.stop()
 
 or from the CLI: ``python -m veles_tpu_torch.fleet --model
-m=sleep:0.002:4 --replicas 2`` (``--device cpu`` on a host without a
+mnist=mnist_pkg.zip --replicas 2`` (``--device cpu`` on a host without a
 card; ``--cache-dir DIR`` shares a build cache across the replicas).
-Exported packages (``NAME=pkg.zip``) wait for ROADMAP queue A item 8.
 """
 
 from .chaos import FaultPlan

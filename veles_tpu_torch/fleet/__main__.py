@@ -2,7 +2,7 @@
 
 Example::
 
-    python -m veles_tpu_torch.fleet --model m=sleep:0.002:4 \\
+    python -m veles_tpu_torch.fleet --model mnist=mnist_pkg.zip \\
         --model toy=toydecode:vocab=64 --replicas 2 --port 8080
 
 Every replica serves on the card; ``--device cpu`` runs them on the
@@ -21,8 +21,8 @@ def main(argv=None):
                     "with rolling updates (see veles_tpu_torch.fleet).")
     p.add_argument("--model", action="append", default=[],
                    metavar="NAME=SPEC", dest="models", required=True,
-                   help="sleep:SECONDS[:DIM] or toydecode:k=v,... "
-                        "(repeatable)")
+                   help="package zip path, sleep:SECONDS[:DIM] or "
+                        "toydecode:k=v,... (repeatable)")
     p.add_argument("--replicas", type=int, default=3)
     p.add_argument("--port", type=int, default=8080,
                    help="router port (replicas pick free ports)")

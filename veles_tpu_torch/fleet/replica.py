@@ -24,6 +24,12 @@ veles_tpu_torch.fleet.replica`` with:
 
 Model specs (``--model NAME=SPEC``, repeatable):
 
+- the path of an exported package zip (the production case,
+  :mod:`veles_tpu_torch.export`): its forward chain is rebuilt from the
+  port's units on ``--device``, so on the card its batches launch the
+  hand kernels (K4 in the All2All family under ``precise_gemm``, K5 in
+  LRN, K7 in attention); each scheduler's ``stats()`` counts them
+  (``kernel_launches``, over ``GET /metrics``);
 - ``sleep:SECONDS[:DIM]``: a deterministic device-bound STAND-IN model
   that sleeps ``SECONDS`` per sample ROW, then returns the input batch.
   Sleeping per row (not per call) means batching cannot amortize it: a
@@ -32,9 +38,7 @@ Model specs (``--model NAME=SPEC``, repeatable):
   (spread, failover, rollout) against it;
 - ``toydecode:k=v,...``: the decode-path stand-in
   (:func:`~veles_tpu_torch.serving.toydecode.from_spec`), with a host
-  oracle, on ``--device``;
-- an exported package path: not ported yet (ROADMAP queue A item 8);
-  the registry refuses it.
+  oracle, on ``--device``.
 """
 
 import argparse
@@ -47,7 +51,9 @@ import time
 
 
 def resolve_model_spec(spec, device=None):
-    """An admin/CLI model spec -> something ``registry.add`` accepts."""
+    """An admin/CLI model spec -> something ``registry.add`` accepts
+    (a package path stays a path: the registry loads it on its
+    device)."""
     if isinstance(spec, str) and spec.startswith("sleep:"):
         from ..serving.scheduler import OpaqueModel
         parts = spec.split(":")
@@ -75,8 +81,8 @@ def main(argv=None):
                     "with the admin hot-load endpoint on).")
     p.add_argument("--model", action="append", default=[],
                    metavar="NAME=SPEC", dest="models",
-                   help="sleep:SECONDS[:DIM] or toydecode:k=v,... "
-                        "(repeatable)")
+                   help="package zip path, sleep:SECONDS[:DIM] or "
+                        "toydecode:k=v,... (repeatable)")
     p.add_argument("--port", type=int, default=0,
                    help="0 = pick a free port (announced on stdout)")
     p.add_argument("--host", default="127.0.0.1")

@@ -477,7 +477,10 @@ class ReplicaSupervisor:
 class Fleet:
     """Convenience composition: a router plus a supervised replica set.
 
-    >>> fleet = Fleet({"m": "sleep:0.002:4"}, replicas=3).start()
+    ``models``: ``{name: spec}``, a spec being a package zip path or a
+    stand-in (``sleep:``, ``toydecode:``; :mod:`.replica`).
+
+    >>> fleet = Fleet({"m": "mnist_pkg.zip"}, replicas=3).start()
     >>> # POST fleet.url + "/api/m" ...
     >>> fleet.stop()
     """

@@ -7,8 +7,9 @@ result-shaping transform, behind ``POST /api/<name>``) or
 ``POST /api/<name>/generate``), with the first (or an explicitly
 flagged) entry as the default for bare ``POST /api``.  Re-adding a name
 hot-swaps it: the new entry is warm before the swap, and the replaced
-scheduler drains.  :meth:`ModelRegistry.load_package` raises until
-exported packages are ported (ROADMAP queue A item 8).
+scheduler drains.  :meth:`ModelRegistry.load_package` hot-loads an
+exported package zip (:mod:`veles_tpu_torch.export`), its forward chain
+rebuilt from the port's units on the registry's device.
 """
 
 import threading
@@ -16,7 +17,7 @@ import time
 
 from .decode import DecodeScheduler
 from .metrics import ServingMetrics
-from .scheduler import BucketScheduler, _unported
+from .scheduler import BucketScheduler
 
 __all__ = ["ServedModel", "DecodeServedModel", "ModelRegistry"]
 
@@ -143,9 +144,9 @@ class ModelRegistry:
 
     def add(self, name, model, transform=None, default=False,
             metrics=None, version=None, **scheduler_kwargs):
-        """Register a model (a workflow with ``forwards``, a
-        :class:`~.scheduler.TorchModel` / ``OpaqueModel`` or a callable)
-        under ``name``; warms its bucket ladder now so the first request
+        """Register a model (a package path or ``PackageLoader``, a
+        workflow with ``forwards``, a :class:`~.scheduler.TorchModel` /
+        ``OpaqueModel`` or a callable) under ``name``; warms its bucket ladder now so the first request
         is already warm.  A decode adapter (the ``prefill_fn`` /
         ``decode_fn`` / ``make_pools`` trio) routes to
         :meth:`add_decode` instead.
@@ -196,10 +197,8 @@ class ModelRegistry:
         return entry
 
     def load_package(self, name, path, **kwargs):
-        """Hot-load an exported package zip under ``name``: not ported
-        yet (ROADMAP queue A item 8)."""
-        raise _unported("serving an exported package (%r)" % (path,),
-                        "item 8, export")
+        """Hot-load an exported package zip under ``name``."""
+        return self.add(name, str(path), **kwargs)
 
     def remove(self, name, drain=True):
         with self._lock:

@@ -29,14 +29,18 @@ the backpressure and drain exceptions, the deadline check).
   :meth:`BucketScheduler.submit` raises :class:`SchedulerOverflow` and
   the server answers 429.
 
-A model is a live workflow with a ``forwards`` chain (its units'
-``apply`` over the parameters, copied once to the scheduler's device),
-a pre-built :class:`TorchModel` / :class:`OpaqueModel`, or a bare
-callable ``fn(x) -> y`` on numpy batches.  An exported package (a path
-or a ``PackageLoader``) raises ``NotImplementedError`` until the export
-path is ported (ROADMAP queue A item 8).
+A model is an exported package (a path or a
+:class:`~veles_tpu_torch.export.PackageLoader`: its forward chain
+rebuilt from the port's units on the scheduler's device), a live
+workflow with a ``forwards`` chain (its units' ``apply`` over the
+parameters, copied once to the scheduler's device), a pre-built
+:class:`TorchModel` / :class:`OpaqueModel`, or a bare callable
+``fn(x) -> y`` on numpy batches.  A :class:`TorchModel` counts the hand
+kernels its dispatched batches launch (``stats()["kernel_launches"]``,
+over ``GET /metrics``).
 """
 
+import functools
 import queue
 import threading
 import time
@@ -48,6 +52,7 @@ import torch
 from .. import _build
 from ..compilecache import WarmupManifest, default_cache
 from ..device import resolve_device
+from ..export import PackageLoader, forward_fn
 from ..logger import events
 from ..observability import trace as _trace
 from ..observability.flight import RECORDER as _flight
@@ -56,7 +61,7 @@ from .metrics import ServingMetrics
 __all__ = ["SchedulerOverflow", "SchedulerClosed", "DeadlineExpired",
            "deadline_expired", "bucket_sizes", "TorchModel",
            "OpaqueModel", "adapt_model", "forward_fn", "warm_kernels",
-           "BucketScheduler"]
+           "kernel_wrappers", "BucketScheduler"]
 
 
 class SchedulerOverflow(RuntimeError):
@@ -106,24 +111,33 @@ def warm_kernels(cache, device):
     return built, len(names) - built
 
 
-def _unported(what, item):
-    return NotImplementedError(
-        "%s is not ported yet (ROADMAP queue A %s)" % (what, item))
+@functools.lru_cache(maxsize=None)
+def kernel_wrappers():
+    """``{name: wrapper}`` of every hand kernel's wrapper; each counts
+    its launches on the card in ``wrapper.launches`` (read only)."""
+    from ..znicz import flash_attention as fa
+    from ..znicz import gemm, lrn
+    from ..znicz import paged_attention as pa
+    return {"precise_matmul": gemm.precise_matmul,
+            "quantized_matmul": gemm.quantized_matmul,
+            "lrn_fwd": lrn.lrn, "lrn_bwd": lrn.lrn_backward,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "paged_attention": pa.paged_attention,
+            "kv_append_int8": pa.kv_append_int8}
+
+
+#: one dispatched forward at a time a process while its launches are
+#: counted, so the wrappers' process-wide counters move for that batch
+#: alone (two schedulers' batches share the card's stream anyway)
+_LAUNCH_LOCK = threading.Lock()
 
 
 # -- model adapters ----------------------------------------------------------
-# One scheduler serves a live StandardWorkflow (its forward chain), a
-# pure fn(params, x) over tensors, or an opaque callable on numpy batches.
-
-def forward_fn(forwards):
-    """The chained eval-mode forward over explicit params (the JAX
-    package's ``export/model.py`` ``forward_fn``)."""
-    def fn(params, x):
-        h = x
-        for fwd, p in zip(forwards, params):
-            h = fwd.apply(p, h)
-        return h
-    return fn
+# One scheduler serves an exported package or a live StandardWorkflow
+# (their forward chains), a pure fn(params, x) over tensors, or an
+# opaque callable on numpy batches.
 
 
 def _on_device(tree, device):
@@ -138,29 +152,52 @@ def _on_device(tree, device):
 
 class TorchModel:
     """A pure ``fn(params, x)`` over params held on the device once;
-    each bucket's batch crosses to the device, its output back."""
+    each bucket's batch crosses to the device, its output back.
 
-    def __init__(self, fn, params, sample_shape, device=None):
+    ``static_batch``: the one batch size the model takes (a static-batch
+    package), else None.  ``launches`` counts, by
+    :func:`kernel_wrappers` name, the hand-kernel launches of the
+    dispatched batches (the warmup's not), read off the wrappers'
+    counters around each batch under a process-wide lock."""
+
+    def __init__(self, fn, params, sample_shape, device=None,
+                 static_batch=None):
         self._fn = fn
         self.device = resolve_device(device)
         # params live on the device once; per-dispatch host<->device
         # traffic is the padded batch and its output only
         self._params = _on_device(params, self.device)
         self.sample_shape = tuple(int(d) for d in sample_shape)
+        self.static_batch = (None if static_batch is None
+                             else int(static_batch))
+        self.launches = {name: 0 for name in kernel_wrappers()}
 
-    def _run(self, xs):
+    def _forward(self, xs):
+        if self.static_batch is not None and \
+                xs.shape[0] != self.static_batch:
+            raise ValueError("a static-batch model takes %d rows, given %d"
+                             % (self.static_batch, xs.shape[0]))
         with torch.no_grad():
             x = torch.from_numpy(numpy.ascontiguousarray(xs)).to(
                 self.device)
             return self._fn(self._params, x).cpu().numpy()  # D2H sync
+
+    def _run(self, xs):
+        wrappers = kernel_wrappers()
+        with _LAUNCH_LOCK:
+            before = {name: fn.launches for name, fn in wrappers.items()}
+            out = self._forward(xs)
+            for name, fn in wrappers.items():
+                self.launches[name] += fn.launches - before[name]
+        return out
 
     def compile(self, bucket):
         """-> (runner, cache_hit=None), the JAX adapters' contract.
         Runs the forward once on zeros of the bucket's shape (the
         kernels build and load there, before the first request);
         nothing compiles and no cache exists, so the hit is None."""
-        self._run(numpy.zeros((int(bucket),) + self.sample_shape,
-                              numpy.float32))
+        self._forward(numpy.zeros((int(bucket),) + self.sample_shape,
+                                  numpy.float32))
         return self._run, None
 
     def jit_cache_size(self):
@@ -170,7 +207,11 @@ class TorchModel:
 
 class OpaqueModel:
     """An opaque callable ``fn(x) -> y`` on numpy batches; nothing to
-    warm (the callable is never run before the first request)."""
+    warm (the callable is never run before the first request), no
+    launches counted."""
+
+    static_batch = None
+    launches = {}
 
     def __init__(self, fn, sample_shape=None):
         self._fn = fn
@@ -187,17 +228,21 @@ class OpaqueModel:
 def adapt_model(model, sample_shape=None, device=None):
     """model -> adapter with ``compile(bucket)`` + ``sample_shape``.
 
-    Accepts a pre-built adapter, anything with a non-empty ``forwards``
-    chain (a StandardWorkflow: its params are copied to ``device``), or
-    a bare callable.  A package path or a ``PackageLoader`` raises
-    ``NotImplementedError`` (ROADMAP queue A item 8).
+    Accepts a pre-built adapter, a package path or a ``PackageLoader``
+    (its chain rebuilt on ``device``, its parameters copied there
+    once), anything with a non-empty ``forwards`` chain (a
+    StandardWorkflow: its params are copied to ``device``), or a bare
+    callable.
     """
     if isinstance(model, (TorchModel, OpaqueModel)):
         return model                # pre-built adapter (tests, tools)
-    if isinstance(model, str) or (hasattr(model, "deserialize")
-                                  and hasattr(model, "unit_params")):
-        raise _unported("serving an exported package (%r)" % (model,),
-                        "item 8, export")
+    if isinstance(model, str):
+        model = PackageLoader(model)
+    if isinstance(model, PackageLoader):
+        dev = resolve_device(device)
+        return TorchModel(forward_fn(model.forwards(dev)),
+                          model.unit_params(), model.sample_shape,
+                          device=dev, static_batch=model.static_batch)
     forwards = getattr(model, "forwards", None)
     if forwards:
         return TorchModel(forward_fn(forwards),
@@ -205,7 +250,8 @@ def adapt_model(model, sample_shape=None, device=None):
                           forwards[0].input_shape[1:], device=device)
     if callable(model):
         return OpaqueModel(model, sample_shape)
-    raise TypeError("cannot serve %r: want a workflow with forwards, a "
+    raise TypeError("cannot serve %r: want a package path, a "
+                    "PackageLoader, a workflow with forwards, a "
                     "TorchModel or OpaqueModel, or a callable" % (model,))
 
 
@@ -277,6 +323,18 @@ class BucketScheduler:
                 default={"shape": "pow2"})
             self.buckets = _space.ladder(cfg["shape"], self.max_batch)
             self.bucket_config = dict(cfg)
+        static = self._adapter.static_batch
+        if static is not None:
+            # a static-batch package takes one batch size: its ladder is
+            # that bucket alone (the JAX scheduler ends at the same
+            # ladder by dropping every bucket its artifact fails to
+            # compile for); a ladder without it serves nothing
+            if static not in self.buckets:
+                raise ValueError(
+                    "model %r takes batches of %d rows only, which the "
+                    "ladder %s lacks" % (name, static, self.buckets))
+            self.buckets = [static]
+            self.max_batch = static
         self._executables = {}
         self._compile_seconds = 0.0     # warm-run wall seconds
         self._compiles = 0              # nvcc runs of the warmup
@@ -331,11 +389,11 @@ class BucketScheduler:
         """Warm every bucket up front (a :class:`TorchModel` runs each
         once on zeros), so no request pays for a kernel build.
 
-        A bucket that fails to warm fails the model, on every device:
-        the JAX scheduler drops buckets a static-batch package artifact
-        cannot take, but packages wait for ROADMAP queue A item 8, and
-        on the card a dropped bucket would hide a kernel that fails at
-        one row count.  With ``background`` (default: the
+        A bucket that fails to warm fails the model, on every device: on
+        the card a dropped bucket would hide a kernel that fails at one
+        row count.  (The JAX scheduler drops the buckets a static-batch
+        package's artifact cannot take; here that package's ladder is
+        its one batch size from the start.)  With ``background`` (default: the
         ``background_warmup`` argument) the tail of the ladder warms on
         a daemon thread after the first bucket, so a server answers its
         first warm bucket before the tail finishes; a tail bucket that
@@ -657,7 +715,10 @@ class BucketScheduler:
         libraries it found built (both 0 without a cache or off the
         card); every build happens in the warmup, so
         ``warmup_compiles`` is ``compiles`` and ``post_warmup_compiles``
-        0.  ``compile_seconds`` is the warm runs' wall time."""
+        0.  ``compile_seconds`` is the warm runs' wall time.
+        ``kernel_launches``: the hand kernels' launches of the dispatched
+        batches by wrapper (:class:`TorchModel`; ``{}`` for an opaque
+        callable; 0 off the card)."""
         return {
             "buckets": list(self.buckets),
             "bucket_config": dict(self.bucket_config,
@@ -671,6 +732,7 @@ class BucketScheduler:
             "warming": (self._warmup_thread.is_alive()
                         if self._warmup_thread is not None else False),
             "jit_cache_size": self._adapter.jit_cache_size(),
+            "kernel_launches": dict(self._adapter.launches),
             "queue_depth": self._depth,
             "queue_limit": self.queue_limit,
             "max_batch": self.max_batch,

@@ -31,8 +31,9 @@ Endpoints:
     GET  /api/<model>/kv           the KV pool's dump and integrity list
     GET  /api/<model>/requests     the flight recorder's timelines
                                    (``?id=<trace id>`` for one)
-    POST /admin/models             hot-load a model version, behind
-                                   ``enable_admin`` (404 without it)
+    POST /admin/models             hot-load a model version (a package
+                                   path too), behind ``enable_admin``
+                                   (404 without it)
     POST /admin/sessions/export    live-session migration, behind
     POST /admin/sessions/import    ``enable_admin``
     POST /admin/sessions/release
@@ -194,7 +195,9 @@ class _ServingHandler(JsonRequestHandler):
     def _admin_load(self):
         """``POST /admin/models {"name", "model", "version"?,
         "default"?}`` -> registry hot-load (the fleet's rolling-update
-        hook).  404 unless the server was built with ``enable_admin``."""
+        hook); a spec that resolves to a path is a package zip, loaded
+        through ``registry.load_package``.  404 unless the server was
+        built with ``enable_admin``."""
         srv = self.server_ref
         if not srv.enable_admin:
             self.send_json(404, {"error": "not found"})
@@ -214,9 +217,10 @@ class _ServingHandler(JsonRequestHandler):
             spec = payload["model"]
             model = (srv.model_resolver(spec)
                      if srv.model_resolver is not None else spec)
-            entry = srv.registry.add(
-                name, model, version=payload.get("version"),
-                default=bool(payload.get("default", False)))
+            load = (srv.registry.load_package if isinstance(model, str)
+                    else srv.registry.add)
+            entry = load(name, model, version=payload.get("version"),
+                         default=bool(payload.get("default", False)))
         except Exception as exc:  # noqa: BLE001 — report, keep serving
             log.exception("admin hot-load of %r failed", name)
             self.send_json(500, {"error": "hot-load failed: %s"

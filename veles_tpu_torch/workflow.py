@@ -6,10 +6,11 @@ initialize in dependency order with deferred-init retries, run/stop
 lifecycle via StartPoint/EndPoint, aggregation of the IDistributable
 5-method protocol across member units (workflow.py:478-574), Graphviz
 graph generation (:628), results gathering (:827), checksum (:852),
-per-unit timing table (:788-825).
+per-unit timing table (:788-825) and ``package_export`` (:401, the
+package zip of :mod:`.export`).
 
-Not ported yet (ROADMAP.md): the minibatch prefetcher, the graph
-compiler, the step profiler and ``package_export``.
+Not ported yet (ROADMAP.md): the minibatch prefetcher and the graph
+compiler.
 """
 
 import collections
@@ -339,3 +340,8 @@ class Workflow(Container):
         desc = json.dumps([u.describe() for u in self._units],
                           sort_keys=True, default=str)
         return hashlib.sha256(desc.encode()).hexdigest()
+
+    def package_export(self, path, precision=32):
+        """Write the workflow's package zip (:mod:`.export.packager`)."""
+        from .export.packager import package_export
+        return package_export(self, path, precision=precision)

@@ -79,6 +79,12 @@ class All2All(ForwardBase):
             y = y.reshape((x.shape[0],) + self.output_sample_shape)
         return y
 
+    def export_params(self):
+        return {"neurons": int(self.neurons_number),
+                "include_bias": bool(self.include_bias),
+                "output_sample_shape": [
+                    int(d) for d in self.output_sample_shape]}
+
 
 class All2AllTanh(All2All):
     """y = 1.7159 * tanh(0.6666 * (xW + b))."""

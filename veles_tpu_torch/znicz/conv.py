@@ -97,6 +97,13 @@ class Conv(ForwardBase):
                      groups=self.grouping)
         return self.activation.fwd(nhwc(y))
 
+    def export_params(self):
+        return {"n_kernels": int(self.n_kernels), "kx": int(self.kx),
+                "ky": int(self.ky), "padding": list(self.padding),
+                "sliding": list(self.sliding),
+                "grouping": int(self.grouping),
+                "include_bias": bool(self.include_bias)}
+
 
 class ConvTanh(Conv):
     MAPPING = "conv_tanh"

@@ -40,6 +40,9 @@ class DropoutForward(ParamlessForward):
     def apply(self, params, x):
         return x
 
+    def export_params(self):
+        return {"dropout_ratio": self.dropout_ratio}
+
     def apply_train(self, params, x, key):
         self.last_key = key
         return self.drop(x, key)

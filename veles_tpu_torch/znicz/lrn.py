@@ -268,6 +268,10 @@ class LRNormalizerForward(ParamlessForward):
             else lrn_mxu
         return form(x, self.n, self.alpha, self.beta, self.k)
 
+    def export_params(self):
+        return {"alpha": self.alpha, "beta": self.beta, "k": self.k,
+                "n": self.n}
+
 
 class LRNormalizerBackward(GenericVJPBackward):
     """The vjp of the forward's ``apply``.  In graph mode it

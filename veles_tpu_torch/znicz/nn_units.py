@@ -165,6 +165,12 @@ class ForwardBase(NNUnitBase):
             raise ValueError("unknown filling %r" % filling)
         arr.mem = mem
 
+    def export_params(self):
+        """Structural hyperparameters for the package archive: what a
+        reader needs to rebuild this unit (the ``config`` of its entry
+        in ``model.json``)."""
+        return {}
+
     def init_params(self):
         raise NotImplementedError
 

@@ -52,6 +52,11 @@ class PoolingBase(ParamlessForward):
         ow = (w + pl + pr - self.kx) // self.sliding[1] + 1
         return (b, oh, ow, c)
 
+    def export_params(self):
+        return {"kx": int(self.kx), "ky": int(self.ky),
+                "padding": list(self.padding),
+                "sliding": list(self.sliding)}
+
     def _padded(self, x, value):
         """The NCHW view of ``x``, padded with ``value`` where the unit
         pads."""

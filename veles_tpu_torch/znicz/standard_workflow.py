@@ -143,8 +143,13 @@ class StandardWorkflow(Workflow):
         return type_name, fwd_kwargs, gd_kwargs
 
     def _build(self):
+        """Units in the JAX ``_build``'s order (the forwards, graph
+        mode's evaluator, the decision, the GD units, the step), so the
+        unit list, and with it the checksum and a package's
+        ``contents.json``, is the JAX workflow's."""
         self.repeater.link_from(self.start_point)
         self.loader.link_from(self.repeater)
+        gd_pairs = []
         for cfg in self.layers_config:
             type_name, fwd_kwargs, gd_kwargs = self._split_layer_config(cfg)
             fwd_cls, gd_cls = _find_pair(type_name)
@@ -155,14 +160,19 @@ class StandardWorkflow(Workflow):
             else:
                 fwd.link_attrs(prev, ("input", "output"))
             self.forwards.append(fwd)
-            # the GD units own the solver state and hyperparameters the
-            # fused step reads
-            self.gds.append(gd_cls(self, **gd_kwargs).link_forward(fwd))
+            gd_pairs.append((gd_cls, gd_kwargs))
         if not self.forwards:
             raise ValueError("StandardWorkflow needs at least one layer")
         softmax = self.loss_function == "softmax"
+        if not self.fused:
+            self.evaluator = (EvaluatorSoftmax if softmax
+                              else EvaluatorMSE)(self)
         self.decision = (DecisionGD if softmax else DecisionMSE)(
             self, **self.decision_config)
+        # the GD units own the solver state and hyperparameters the
+        # fused step reads
+        for (gd_cls, gd_kwargs), fwd in zip(gd_pairs, self.forwards):
+            self.gds.append(gd_cls(self, **gd_kwargs).link_forward(fwd))
         tail = self._build_fused() if self.fused else self._build_graph()
         self.repeater.link_from(tail)
         self.end_point.link_from(tail)
@@ -193,8 +203,6 @@ class StandardWorkflow(Workflow):
             prev = fwd
         last_fwd = self.forwards[-1]
         softmax = self.loss_function == "softmax"
-        self.evaluator = (EvaluatorSoftmax if softmax else EvaluatorMSE)(
-            self)
         self.evaluator.link_from(last_fwd)
         self.evaluator.link_attrs(last_fwd, "output")
         if isinstance(last_fwd, All2AllSoftmax):
