@@ -252,6 +252,37 @@ Phases (any failure raises and the script exits non-zero):
    full-width attention unit with the host path (``force_numpy``) and
    with the device gather, in turns; each path's sequences/s printed.
    Each part's wall time is printed.
+4f. Snapshots and sharded data (slice 20), after 4e.  Each part
+   restores in a fresh process (``chip_smoke.py --resume-child``,
+   importing only the port), which counts the kernels from 0 and writes
+   its weights (``.npz``) and record (JSON) for this process to hold.
+   (a) MNIST at the gate's settings with ``precise_gemm=1``, fused and
+   graph mode: 6 epochs uninterrupted, and 3 with ``SnapshotterToFile``
+   (async, gz) whose ``_current`` resumes to 6: weights, bias and
+   ``epoch_n_err_pt`` bit for bit the uninterrupted run's; K4 5 a train
+   and 2 an eval step fused, 2 and 2 in graph mode.  The card's fused
+   snapshot resumed on the CPU too (CUDA hidden from that process: the
+   snapshot names no device): n_err within 1, weights within 1e-4 of
+   the card's resume.  (b) AlexNet at its published widths (phase 4c's
+   net, ``use_pallas`` unset, dropout 0.5) on 512 + 128 images at
+   minibatch 128: 2 epochs uninterrupted, and 1 with
+   ``SnapshotterToShards`` (16 MiB chunks) shot at its end and resumed
+   for the second: every dropout mask of that epoch bit for bit,
+   losses within 1e-4 relative, parameters within 1e-4 of each tensor's
+   largest magnitude (cuDNN's f32 algorithms may differ between
+   processes); K5 2 a step, K6 2 a train step; the checkpoint's bytes
+   and chunks, the capture stall, the writer's save and the restore
+   seconds printed; the dataset is not in it.  (c) Phase 4b's
+   full-width attention net (no mask) on 16 + 8 sequences at minibatch
+   8: 2 epochs uninterrupted, and 1 with ``SnapshotterToDB`` (SQLite)
+   shot at its end and resumed for the second: weights bit for bit; K7,
+   K8 and K9 once a train step (K7 once an eval step).  (d) (a)'s fused
+   run for 3 epochs fed by a ``ShardedBatchLoader`` over the digits
+   written by ``write_shards`` (1000 rows a shard, a window of a third
+   of the data, global shuffle): weights bit for bit the 3-epoch
+   FullBatchLoader run's, the window within its budget, shards loaded;
+   images/s of both loaders printed.  The kernels line adds every launch
+   of the phase.
 5. Where the time goes: each serving configuration's burst, one
    training epoch of each matmul mode, one full-width attention epoch
    of each mask (none; causal, window 512) and one AlexNet epoch with
@@ -2931,11 +2962,14 @@ GATE_DECISION = {"max_epochs": 25, "fail_iterations": 12, "silent": True}
 FIRST_EPOCH_WEIGHT_ATOL = 1e-4
 
 
-def _mnist_workflow(precise, device="cuda", epochs=None, fused=True):
+def _mnist_workflow(precise, device="cuda", epochs=None, fused=True,
+                    **overrides):
     """The gate's workflow with ``root.common.engine.precise_gemm`` set
     to ``precise``, initialized on ``device`` (the card unless the CPU
     is asked for, whatever ``$VELES_BACKEND`` says); ``fused=False``:
-    graph mode."""
+    graph mode; ``overrides`` go to ``create_workflow`` (a
+    ``snapshotter``, a ``loader_factory``), a ``loader`` dict merged into
+    the gate's."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
@@ -2950,8 +2984,9 @@ def _mnist_workflow(precise, device="cuda", epochs=None, fused=True):
     try:
         wf = mnist.create_workflow(
             fused=fused,
-            loader=dict(GATE_LOADER, prng=RandomGenerator().seed(3)),
-            decision=decision)
+            loader=dict(GATE_LOADER, prng=RandomGenerator().seed(3),
+                        **overrides.pop("loader", {})),
+            decision=decision, **overrides)
     finally:
         root.common.engine.precise_gemm = saved
     wf.initialize(device=Device(backend=device))
@@ -3131,17 +3166,10 @@ SMALL_ATTN_GATE_PT = 40.0
 _NEEDLE_DATA = {}
 
 
-def needle_loader(n, t, d, classes, n_valid=None):
-    """The needle task of the JAX package's tests/test_attention_unit.py
-    as a port FullBatchLoader: n sequences of [T, D] uniform noise in
-    [-0.2, 0.2], one marked position per sequence (feature 0 = 2.0) whose
-    payload feature 1 + label is 2.0 too; the first ``n_valid`` (default
-    n / 4) validate, the rest train."""
-    n_valid = n // 4 if n_valid is None else n_valid
-    from veles_tpu_torch.loader.base import TEST, TRAIN, VALID
-    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
-
-    def make():
+def _needle_data(n, t, d, classes):
+    """The needle task's (x, labels), made once a process."""
+    key = (n, t, d, classes)
+    if key not in _NEEDLE_DATA:
         rng = numpy.random.RandomState(3)
         x = rng.uniform(-0.2, 0.2, (n, t, d)).astype(numpy.float32)
         labels = rng.randint(0, classes, n)
@@ -3149,29 +3177,70 @@ def needle_loader(n, t, d, classes, n_valid=None):
         rows = numpy.arange(n)
         x[rows, pos, 0] = 2.0                 # the marker
         x[rows, pos, 1 + labels] = 2.0        # the payload class
-        return x, list(labels.astype(numpy.int32))
+        _NEEDLE_DATA[key] = x, list(labels.astype(numpy.int32))
+    return _NEEDLE_DATA[key]
+
+
+def _needle_class():
+    """The needle task's FullBatchLoader class, made once and bound to
+    this module's ``NeedleLoader``, so a pickled workflow names it (the
+    module's ``__getattr__`` makes it for a fresh process)."""
+    cls = globals().get("NeedleLoader")
+    if cls is not None:
+        return cls
+    from veles_tpu_torch.loader.base import TEST, TRAIN, VALID
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 
     class NeedleLoader(FullBatchLoader):
+        hide_from_registry = True
+
+        def __init__(self, workflow, **kwargs):
+            self.n, self.t, self.d = (kwargs.pop(k) for k in "ntd")
+            self.classes = kwargs.pop("classes")
+            n_valid = kwargs.pop("n_valid", None)
+            self.n_valid = self.n // 4 if n_valid is None else n_valid
+            super().__init__(workflow, **kwargs)
+
         def load_data(self):
-            key = (n, t, d, classes)
-            if key not in _NEEDLE_DATA:
-                _NEEDLE_DATA[key] = make()
-            self.original_data.mem, labels = _NEEDLE_DATA[key]
+            self.original_data.mem, labels = _needle_data(
+                self.n, self.t, self.d, self.classes)
             self.original_labels = list(labels)
             self.class_lengths[TEST] = 0
-            self.class_lengths[VALID] = n_valid
-            self.class_lengths[TRAIN] = n - n_valid
+            self.class_lengths[VALID] = self.n_valid
+            self.class_lengths[TRAIN] = self.n - self.n_valid
 
+    NeedleLoader.__qualname__ = "NeedleLoader"   # pickle's lookup name
+    globals()["NeedleLoader"] = NeedleLoader
     return NeedleLoader
+
+
+def __getattr__(name):
+    # a fresh process unpickling an attention workflow looks the needle
+    # loader up by name before anything made it
+    if name == "NeedleLoader":
+        return _needle_class()
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))
+
+
+def needle_loader(n, t, d, classes, n_valid=None):
+    """The needle task of the JAX package's tests/test_attention_unit.py
+    as a port FullBatchLoader factory: n sequences of [T, D] uniform
+    noise in [-0.2, 0.2], one marked position per sequence (feature 0 =
+    2.0) whose payload feature 1 + label is 2.0 too; the first
+    ``n_valid`` (default n / 4) validate, the rest train."""
+    import functools
+    return functools.partial(_needle_class(), n=n, t=t, d=d,
+                             classes=classes, n_valid=n_valid)
 
 
 def attention_workflow(n, t, d, heads, causal=False, window=None,
                        minibatch=ATTN_MINIBATCH, epochs=ATTN_EPOCHS,
                        device="cuda", use_pallas=None, n_valid=None,
-                       fused=True):
+                       fused=True, snapshotter=None):
     """``StandardWorkflow([multihead_attention, softmax])`` on the needle
     task, weights from seed 42, initialized on ``device`` (the card
-    unless the CPU is asked for); ``fused=False``: graph mode."""
+    unless the CPU is asked for); ``fused=False``: graph mode;
+    ``snapshotter``: its config."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.prng import RandomGenerator
@@ -3193,7 +3262,8 @@ def attention_workflow(n, t, d, heads, causal=False, window=None,
                  "->": {"output_sample_shape": ATTN_CLASSES},
                  "<-": dict(ATTN_GD)}],
         loss_function="softmax",
-        decision={"max_epochs": epochs, "silent": True}, fused=fused)
+        decision={"max_epochs": epochs, "silent": True}, fused=fused,
+        snapshotter=snapshotter)
     wf.initialize(device=Device(backend=device))
     if wf.forwards[0].device.BACKEND != device:
         raise AssertionError("the attention unit runs on %s, not %s"
@@ -3425,10 +3495,11 @@ def _on(wf, device):
 
 
 def alexnet_workflow(device="cuda", use_pallas=None, epochs=ALEX_EPOCHS,
-                     **loader):
+                     snapshotter=None, **loader):
     """The AlexNet sample through ``create_workflow``, weights from seed
     42, loader seed 7, initialized on ``device`` (the card unless the CPU
-    is asked for); ``loader`` overrides the sample's loader config."""
+    is asked for); ``loader`` overrides the sample's loader config;
+    ``snapshotter``: its config."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
@@ -3438,7 +3509,8 @@ def alexnet_workflow(device="cuda", use_pallas=None, epochs=ALEX_EPOCHS,
     wf = alexnet.create_workflow(
         loader=dict(loader, prng=RandomGenerator().seed(7)),
         layers=_with_lrn_form(root.alexnet.layers, use_pallas),
-        decision={"max_epochs": epochs, "silent": True})
+        decision={"max_epochs": epochs, "silent": True},
+        snapshotter=snapshotter)
     wf.initialize(device=Device(backend=device))
     return _on(wf, device)
 
@@ -4652,6 +4724,515 @@ def trace_graph_train(torch, card):
                    lambda: _epoch(_mnist_workflow(1, epochs=1, fused=False)))
 
 
+# -- phase 4f: snapshots and sharded data (slice 20) --------------------------
+
+#: (a) MNIST: epochs before the snapshot, and in all
+SNAP_MNIST_EPOCHS = (3, 6)
+#: (b) AlexNet at its published widths on 512 + 128 images, minibatch 128
+SNAP_ALEX_LOADER = {"n_train": 512, "n_valid": 128, "minibatch_size": 128}
+#: (c) the full-width attention net on 16 + 8 sequences, minibatch 8
+SNAP_ATTN_N, SNAP_ATTN_VALID = 24, 8
+#: (b) losses (relative) and parameters (of each tensor's largest
+#: magnitude): cuDNN's f32 algorithms may differ between processes
+SNAP_ALEX_RTOL = 1e-4
+#: (d) rows a shard; the window holds a third of the data
+SNAP_SHARD_ROWS = 1000
+SNAP_CHILD_TIMEOUT = 600
+#: where the phase trains and resumes (a rehearsal sets "cpu")
+SNAP_DEVICE = "cuda"
+#: the kernels line's names of the counters
+SNAP_LINE_NAMES = {"K4": "precise_matmul_l1", "K5": "lrn_fwd",
+                   "K6": "lrn_bwd", "K7": "flash_attention_fwd",
+                   "K8": "flash_attention_dq", "K9": "flash_attention_dkv"}
+
+
+def _snap_counters(kind):
+    """The kernel wrappers (each with its ``launches`` count) of a
+    part: "k4", "lrn" or "flash"."""
+    from veles_tpu_torch.znicz import flash_attention as fa
+    from veles_tpu_torch.znicz import gemm
+    from veles_tpu_torch.znicz import lrn as lrn_mod
+    if kind == "k4":
+        return {"K4": gemm.precise_matmul}
+    return _lrn_counters(lrn_mod) if kind == "lrn" else _flash_counters(fa)
+
+
+def _transient(fn):
+    """Mark an instrumentation wrapper installed over a unit's method
+    transient: a snapshot drops it (``Pickleable.__getstate__``)."""
+    fn.transient_ = True
+    return fn
+
+
+def _snap_instrument(wf, counters, masks=False):
+    """Steps and launches of each class, the fused step's train losses,
+    the shard window's largest fill and (``masks``) every dropout keep
+    mask drawn, through transient wrappers, so the workflow still
+    snapshots; -> (record, close).  A step is everything from one
+    loader run to the next; ``close()`` ends the last."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    from veles_tpu_torch.znicz.dropout import DropoutForward
+    rec = {"steps": {TRAIN: 0, VALID: 0},
+           "launches": {n: {TRAIN: 0, VALID: 0} for n in counters},
+           "losses": [], "masks": [], "window_max": 0}
+    loader, step = wf.loader, {}
+    loader_run = loader.run
+
+    def close():
+        if step:
+            cls = step.pop("cls")
+            rec["steps"][cls] += 1
+            for name, fn in counters.items():
+                rec["launches"][name][cls] += fn.launches - step[name]
+            step.clear()
+
+    def run():
+        close()
+        loader_run()
+        rec["window_max"] = max(rec["window_max"],
+                                getattr(loader, "window_used_bytes", 0))
+        step.update({n: fn.launches for n, fn in counters.items()},
+                    cls=loader.minibatch_class)
+
+    loader.run = _transient(run)
+    fused = wf.fused_step
+    if fused is not None:
+        fused_run = fused.run
+
+        def step_run():
+            fused_run()
+            if fused.minibatch_class == TRAIN:  # a device scalar: no sync
+                rec["losses"].append(fused.loss)
+
+        fused.run = _transient(step_run)
+    for fwd in wf.forwards if masks else ():
+        if isinstance(fwd, DropoutForward):
+            def record(params, x, key, fwd=fwd, apply_train=fwd.apply_train):
+                rec["masks"].append(fwd.mask(key, x.shape, x.device))
+                return apply_train(params, x, key)
+
+            fwd.apply_train = _transient(record)
+    return rec, close
+
+
+def _snap_summary(rec, wf):
+    """A JSON-able record of a run instrumented by ``_snap_instrument``:
+    [train, eval] steps and launches, losses, the masks' sha256, the
+    decision's per-class n_err, the loader's epoch."""
+    import hashlib
+    from veles_tpu_torch.loader import TRAIN, VALID
+    return {"steps": [rec["steps"][TRAIN], rec["steps"][VALID]],
+            "launches": {n: [c[TRAIN], c[VALID]]
+                         for n, c in rec["launches"].items()},
+            "losses": [float(x) for x in rec["losses"]],
+            "masks": [hashlib.sha256(m.cpu().numpy().tobytes()).hexdigest()
+                      for m in rec["masks"]],
+            "window_max": rec["window_max"],
+            "epoch_n_err": list(wf.decision.epoch_n_err),
+            "epoch_n_err_pt": list(wf.decision.epoch_n_err_pt),
+            "best_n_err": wf.decision.best_n_err,
+            "epoch_number": wf.loader.epoch_number}
+
+
+def resume_child(spec_path):
+    """The fresh process of phase 4f: for each job of the spec, restore
+    its snapshot, run it to ``max_epochs`` on its device with the
+    kernels' counts from 0, write its weights (``.npz``) and a record
+    (JSON).  Imports only the port."""
+    import torch
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.snapshotter import restore
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out = []
+    for job in spec["jobs"]:
+        counters = _snap_counters(job["counters"])
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        wf = restore(job["path"])
+        restore_s = time.perf_counter() - t0
+        wf.decision.max_epochs = job["max_epochs"]
+        if job.get("interval"):
+            wf.snapshotter.interval = job["interval"]
+        wf.initialize(device=Device(backend=job["device"]))
+        rec, close = _snap_instrument(wf, counters, job.get("masks"))
+        t0 = time.perf_counter()
+        wf.run()
+        close()
+        if job["device"] == "cuda":
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        numpy.savez(job["weights"], **{
+            "%d.%s" % (i, k): v for i, layer in enumerate(host_weights(wf))
+            for k, v in layer.items()})
+        summary = _snap_summary(rec, wf)
+        summary.update(
+            label=job["label"], restore_s=restore_s, run_s=run_s,
+            restored=wf.restored_from_snapshot,
+            device=str(wf.forwards[0].weights.devmem.device),
+            cuda_visible=torch.cuda.is_available(),
+            launches_total={n: fn.launches for n, fn in counters.items()},
+            foreign=sorted(m for m in sys.modules if m.split(".")[0] in
+                           ("jax", "jaxlib", "veles_tpu")))
+        out.append(summary)
+        del wf
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _run_child(jobs, tmp, label, env=None):
+    """Run ``jobs`` in one fresh process (``--resume-child``); -> (its
+    records with their weights, wall seconds)."""
+    spec = os.path.join(tmp, "child-%s.json" % re.sub(r"\W+", "-", label))
+    with open(spec, "w") as f:
+        json.dump({"jobs": jobs, "result": spec + ".out"}, f)
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, here, "--resume-child", spec],
+        cwd=os.path.dirname(here), env=env, capture_output=True, text=True,
+        timeout=SNAP_CHILD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("%s: the fresh process exited %d:\n%s"
+                             % (label, proc.returncode, proc.stderr[-6000:]))
+    with open(spec + ".out") as f:
+        out = json.load(f)
+    for job, res in zip(jobs, out, strict=True):
+        if res["foreign"]:
+            raise AssertionError("%s: the fresh process imported %s"
+                                 % (label, res["foreign"]))
+        if not res["restored"]:
+            raise AssertionError("%s: not a restored workflow" % label)
+        with numpy.load(job["weights"]) as z:
+            layers = {}
+            for key in z.files:
+                i, name = key.split(".", 1)
+                layers.setdefault(int(i), {})[name] = z[key]
+        res["weights"] = [layers.get(i, {}) for i in range(max(layers) + 1)]
+    return out, wall
+
+
+def _snap_ref(torch, wf, counters, masks=False):
+    """Run an uninterrupted (or snapshotting) workflow with its kernels'
+    counts from 0; -> its summary with weights and wall seconds."""
+    rec, close = _snap_instrument(wf, counters, masks)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    wf.run()
+    close()
+    if SNAP_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    out = _snap_summary(rec, wf)
+    out.update(run_s=time.perf_counter() - t0, weights=host_weights(wf),
+               launches_total={n: fn.launches for n, fn in counters.items()})
+    return out
+
+
+def _per_step(label, res, want):
+    """Refuse launches of each class other than ``want`` ({name: (per
+    train step, per eval step)}) a step."""
+    train, evals = res["steps"]
+    for name, (per_train, per_eval) in want.items():
+        got = res["launches"][name]
+        if got != [per_train * train, per_eval * evals] or not train:
+            raise AssertionError(
+                "%s: %s launched %r over %d train + %d eval steps, want %d "
+                "and %d a step" % (label, name, got, train, evals,
+                                   per_train, per_eval))
+
+
+def _bitwise(label, got, want):
+    """Refuse any parameter that is not the reference's bit for bit."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        for name in w:
+            if not numpy.array_equal(g[name], w[name]):
+                raise AssertionError(
+                    "%s: layer %d %s differs, max |diff| %g" % (
+                        label, i, name,
+                        float(numpy.abs(g[name] - w[name]).max())))
+
+
+def _add_launches(total, *records):
+    for rec in records:
+        for name, n in rec["launches_total"].items():
+            total[SNAP_LINE_NAMES[name]] = \
+                total.get(SNAP_LINE_NAMES[name], 0) + n
+
+
+def snap_mnist_part(torch, card, tmp, total):
+    """(a) MNIST at the gate's settings with ``precise_gemm=1``: 6
+    epochs uninterrupted, and 3 with ``SnapshotterToFile`` (async, gz)
+    restored in a fresh process to 6, fused and graph mode; the card's
+    fused snapshot also restored on the CPU (CUDA hidden)."""
+    first, last = SNAP_MNIST_EPOCHS
+    counters = _snap_counters("k4")
+    refs, jobs, parts = {}, [], {}
+    for fused in (True, False):
+        mode = "fused" if fused else "graph"
+        refs[mode] = _snap_ref(torch, _mnist_workflow(
+            1, SNAP_DEVICE, epochs=last, fused=fused), counters)
+        d = os.path.join(tmp, "mnist-" + mode)
+        parts[mode] = _snap_ref(torch, _mnist_workflow(
+            1, SNAP_DEVICE, epochs=first, fused=fused, snapshotter={
+                "prefix": "mnist", "directory": d, "time_interval": 0,
+                "compression": "gz", "async_write": True}), counters)
+        jobs.append({"label": "mnist " + mode, "max_epochs": last,
+                     "path": os.path.join(d, "mnist_current"),
+                     "device": SNAP_DEVICE, "counters": "k4",
+                     "weights": os.path.join(tmp, "mnist-%s.npz" % mode)})
+    resumed, wall = _run_child(jobs, tmp, "mnist")
+    cpu_job = dict(jobs[0], label="mnist fused on the CPU", device="cpu",
+                   weights=os.path.join(tmp, "mnist-cpu.npz"))
+    (cpu,), cpu_wall = _run_child([cpu_job], tmp, "mnist cpu", env=dict(
+        os.environ, CUDA_VISIBLE_DEVICES=""))
+    _add_launches(total, *refs.values(), *parts.values(), *resumed, cpu)
+    out = {"card": card, "fresh_process_s": wall, "cpu_process_s": cpu_wall}
+    for (mode, ref), res in zip(refs.items(), resumed):
+        label = "4f(a) mnist %s" % mode
+        if not res["device"].startswith(SNAP_DEVICE):
+            raise AssertionError("%s: resumed on %s" % (label, res["device"]))
+        _bitwise(label, res["weights"], ref["weights"])
+        if res["epoch_n_err_pt"] != ref["epoch_n_err_pt"] or \
+                res["epoch_number"] != ref["epoch_number"]:
+            raise AssertionError("%s: epoch_n_err_pt %r epoch %d, want %r "
+                                 "epoch %d" % (label, res["epoch_n_err_pt"],
+                                               res["epoch_number"],
+                                               ref["epoch_n_err_pt"],
+                                               ref["epoch_number"]))
+        _per_step(label, res, {"K4": (5, 2) if mode == "fused" else (2, 2)})
+        out[mode] = {k: res[k] for k in ("steps", "launches", "restore_s",
+                                         "run_s", "epoch_n_err_pt")}
+        out[mode]["uninterrupted_s"] = ref["run_s"]
+        _log("4f(a) mnist %s: resumed from epoch %d of %d in a fresh "
+             "process: weights, bias and epoch_n_err_pt %s bit for bit the "
+             "uninterrupted run's; K4 %s over [train, eval] steps %s; "
+             "restore %.4f s, run %.3f s (uninterrupted %.3f s) [%s]"
+             % (mode, first, last, res["epoch_n_err_pt"],
+                res["launches"]["K4"], res["steps"], res["restore_s"],
+                res["run_s"], ref["run_s"], card))
+    card_fused = resumed[0]
+    n_diff = max(abs(a - b) for a, b in zip(cpu["epoch_n_err"],
+                                            card_fused["epoch_n_err"]))
+    w_diff = _max_diff(cpu["weights"], card_fused["weights"])
+    _log("4f(a) mnist: the card's snapshot resumed on the CPU (CUDA hidden, "
+         "K4 launches %d): n_err %s against the card's %s, max|w_cpu - "
+         "w_card| = %.3g (limit %g), %.3f s" % (
+             cpu["launches_total"]["K4"], cpu["epoch_n_err"],
+             card_fused["epoch_n_err"], w_diff, FIRST_EPOCH_WEIGHT_ATOL,
+             cpu["run_s"]))
+    if cpu["cuda_visible"] or not cpu["device"] == "cpu" or \
+            cpu["launches_total"]["K4"] or n_diff > 1 or \
+            not w_diff <= FIRST_EPOCH_WEIGHT_ATOL:
+        raise AssertionError("4f(a): the CPU resume differs from the card's")
+    out["cpu"] = {"epoch_n_err": cpu["epoch_n_err"], "max_weight_diff": w_diff,
+                  "run_s": cpu["run_s"]}
+    out["fullbatch_3_epochs"] = parts["fused"]
+    out["uninterrupted_fused"] = refs["fused"]
+    return out
+
+
+def snap_alexnet_part(torch, card, tmp, total):
+    """(b) AlexNet at its published widths: 2 epochs uninterrupted, and
+    1 with ``SnapshotterToShards`` (default chunk) shot at its end and
+    restored in a fresh process for the second."""
+    from veles_tpu_torch.mutable import Bool
+    counters = _snap_counters("lrn")
+    ref = _snap_ref(torch, alexnet_workflow(SNAP_DEVICE, epochs=2,
+                                            **SNAP_ALEX_LOADER),
+                    counters, masks=True)
+    d = os.path.join(tmp, "alexnet")
+    part = alexnet_workflow(SNAP_DEVICE, epochs=1, snapshotter={
+        "prefix": "alexnet", "directory": d, "time_interval": 0,
+        "format": "shards", "interval": 2}, **SNAP_ALEX_LOADER)
+    first = _snap_ref(torch, part, counters)
+    snap = part.snapshotter
+    snap.skip = Bool(False)
+    snap.run()                 # the 2nd call: a shot of epoch 1's end
+    if not snap.flush(timeout=300):
+        raise AssertionError("4f(b): the writer did not drain: %r"
+                             % snap._writer_.take_failure())
+    from veles_tpu_torch.checkpoint import open_checkpoint
+    stats = dict(snap._last_write_stats_)
+    chunks = len(os.listdir(os.path.join(d, "chunks")))
+    n_params = sum(v.size for layer in first["weights"]
+                   for v in layer.values())
+    data_shape = list(part.loader.original_data.shape)
+    data_bytes = part.loader.original_data.nbytes
+    _, man, _ = open_checkpoint(snap.destination)
+    if not stats["bytes_total"] >= 2 * 4 * n_params or \
+            data_shape in [e["shape"] for e in man.tensors.values()]:
+        raise AssertionError("4f(b): a checkpoint of %d bytes for %d "
+                             "parameters and their momentum, tensors %s"
+                             % (stats["bytes_total"], n_params,
+                                sorted(e["shape"]
+                                       for e in man.tensors.values())))
+    shot = {"bytes_total": stats["bytes_total"],
+            "bytes_written": stats["bytes_written"], "chunks": chunks,
+            "stall_s": snap.last_stall_s, "save_s": snap.last_write_s,
+            "params": n_params}
+    del part, snap
+    torch.cuda.empty_cache()
+    (res,), wall = _run_child([{
+        "label": "alexnet", "max_epochs": 2, "device": SNAP_DEVICE,
+        "path": os.path.join(d, "alexnet_current"), "counters": "lrn",
+        "masks": True, "interval": 10 ** 9,
+        "weights": os.path.join(tmp, "alexnet.npz")}], tmp, "alexnet")
+    _add_launches(total, ref, first, res)
+    label = "4f(b) alexnet"
+    _per_step(label, res, {"K5": (2, 2), "K6": (2, 0)})
+    n = len(res["masks"])
+    if not n or res["masks"] != ref["masks"][-n:]:
+        raise AssertionError("%s: %d dropout masks, %d equal to the "
+                             "uninterrupted run's last" % (
+                                 label, n, sum(a == b for a, b in zip(
+                                     res["masks"], ref["masks"][-n:]))))
+    loss_diff, w_diff = steps_agree(
+        label, res["losses"], res["weights"],
+        ref["losses"][-len(res["losses"]):], ref["weights"])
+    _log("4f(b) alexnet: epoch 2 resumed in a fresh process: %d dropout "
+         "masks bit for bit, losses within %.3g relative, parameters within "
+         "%.3g of their largest magnitude (limits %g); K5 / K6 %s / %s over "
+         "[train, eval] steps %s; checkpoint %d bytes (%d new) in %d chunks "
+         "(%d parameters and their momentum; the %d bytes of data not in "
+         "it), capture stall %.4f s, writer save %.3f s, restore %.3f s, "
+         "epoch run %.3f s, process %.1f s [%s]" % (
+             n, loss_diff, w_diff, SNAP_ALEX_RTOL, res["launches"]["K5"],
+             res["launches"]["K6"], res["steps"], stats["bytes_total"],
+             stats["bytes_written"], chunks, n_params, data_bytes,
+             shot["stall_s"], shot["save_s"], res["restore_s"], res["run_s"],
+             wall, card))
+    shot.update(restore_s=res["restore_s"], run_s=res["run_s"],
+                fresh_process_s=wall, masks=n, loss_rel_diff=loss_diff,
+                weight_rel_diff=w_diff, steps=res["steps"],
+                launches=res["launches"])
+    return shot
+
+
+def snap_attention_part(torch, card, tmp, total):
+    """(c) Phase 4b's full-width attention net (no mask) on 16 + 8
+    sequences: 2 epochs uninterrupted, and 1 with ``SnapshotterToDB``
+    (SQLite) shot at its end and restored in a fresh process for the
+    second: weights bit for bit."""
+    from veles_tpu_torch.mutable import Bool
+    counters = _snap_counters("flash")
+
+    def make(epochs, snapshotter=None):
+        return attention_workflow(SNAP_ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS,
+                                  n_valid=SNAP_ATTN_VALID, epochs=epochs,
+                                  device=SNAP_DEVICE,
+                                  snapshotter=snapshotter)
+
+    ref = _snap_ref(torch, make(2), counters)
+    db = os.path.join(tmp, "attention", "snapshots.sqlite3")
+    part = make(1, {"prefix": "attention", "format": "db", "database": db,
+                    "time_interval": 0, "interval": 2})
+    first = _snap_ref(torch, part, counters)
+    part.snapshotter.skip = Bool(False)
+    part.snapshotter.run()
+    if not part.snapshotter.flush(timeout=300):
+        raise AssertionError("4f(c): the writer did not drain: %r"
+                             % part.snapshotter._writer_.take_failure())
+    path = part.snapshotter.destination
+    del part
+    (res,), wall = _run_child([{
+        "label": "attention", "max_epochs": 2, "device": SNAP_DEVICE,
+        "path": path, "counters": "flash", "interval": 10 ** 9,
+        "weights": os.path.join(tmp, "attention.npz")}], tmp, "attention")
+    _add_launches(total, ref, first, res)
+    label = "4f(c) attention"
+    _bitwise(label, res["weights"], ref["weights"])
+    _per_step(label, res, {"K7": (1, 1), "K8": (1, 0), "K9": (1, 0)})
+    _log("4f(c) attention: epoch 2 resumed from %s in a fresh process: "
+         "weights bit for bit the uninterrupted run's; K7 / K8 / K9 %s / %s "
+         "/ %s over [train, eval] steps %s; restore %.3f s, run %.3f s, "
+         "process %.1f s [%s]" % (
+             path.split("#")[0], res["launches"]["K7"], res["launches"]["K8"],
+             res["launches"]["K9"], res["steps"], res["restore_s"],
+             res["run_s"], wall, card))
+    return {"steps": res["steps"], "launches": res["launches"],
+            "restore_s": res["restore_s"], "run_s": res["run_s"],
+            "fresh_process_s": wall}
+
+
+def snap_shards_part(torch, card, tmp, total, fullbatch, uninterrupted):
+    """(d) (a)'s fused ``precise_gemm=1`` MNIST for 3 epochs fed by a
+    ``ShardedBatchLoader`` (the digits written by ``write_shards`` in
+    shards of 1000 rows, a window of a third of the data, global
+    shuffle): weights bit for bit the FullBatchLoader run's."""
+    from veles_tpu_torch.loader import ShardedBatchLoader, write_shards
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.samples.mnist import MnistLoader
+    probe = MnistLoader(Workflow(name="probe"), **GATE_LOADER)
+    probe.load_data()
+    data = numpy.asarray(probe.original_data.mem)
+    path = os.path.join(tmp, "digits")
+    write_shards(path, data, labels=probe.original_labels,
+                 class_lengths=list(probe.class_lengths),
+                 rows_per_shard=SNAP_SHARD_ROWS)
+    budget = data.nbytes // 3
+    first = SNAP_MNIST_EPOCHS[0]
+    wf = _mnist_workflow(1, SNAP_DEVICE, epochs=first,
+                         loader_factory=ShardedBatchLoader,
+                         loader={"path": path, "window_bytes": budget,
+                                 "shuffle_mode": "global"})
+    if wf.fused_step._use_gather_:
+        raise AssertionError("4f(d): the step gathers from a dataset")
+    res = _snap_ref(torch, wf, _snap_counters("k4"))
+    _add_launches(total, res)
+    label = "4f(d) sharded mnist"
+    _bitwise(label, res["weights"], fullbatch["weights"])
+    _per_step(label, res, {"K4": (5, 2)})
+    loads = wf.loader.shard_loads
+    if not res["window_max"] <= budget or not loads > 0:
+        raise AssertionError("%s: window %d of %d bytes, %d shard loads"
+                             % (label, res["window_max"], budget, loads))
+    rows = sum(wf.loader.class_lengths)
+    rate = rows * first / res["run_s"]
+    full_rate = rows * SNAP_MNIST_EPOCHS[1] / uninterrupted["run_s"]
+    _log("4f(d) sharded mnist: %d epochs, weights bit for bit the "
+         "FullBatchLoader run's; %d shards of %d rows, window at most %d of "
+         "%d bytes, %d shard loads; K4 %s over [train, eval] steps %s; "
+         "%.0f images/s (train + valid served) against %.0f with the "
+         "FullBatchLoader [%s]" % (
+             first, len(os.listdir(path)) - 2, SNAP_SHARD_ROWS,
+             res["window_max"], budget, loads, res["launches"]["K4"],
+             res["steps"], rate, full_rate, card))
+    return {"window_max": res["window_max"], "window_bytes": budget,
+            "shard_loads": loads, "images_s": rate,
+            "fullbatch_images_s": full_rate, "steps": res["steps"],
+            "launches": res["launches"], "run_s": res["run_s"]}
+
+
+def snapshot_phase(torch, card):
+    """Phase 4f: (a)-(d); -> record with the launches of every run of
+    the phase (the fresh processes' too) under the kernels line's
+    names."""
+    tmp = tempfile.mkdtemp(prefix="veles-snapshots-")
+    total, out = {}, {}
+    try:
+        t0 = time.perf_counter()
+        mnist = snap_mnist_part(torch, card, tmp, total)
+        out["shards"] = snap_shards_part(
+            torch, card, tmp, total, mnist.pop("fullbatch_3_epochs"),
+            mnist.pop("uninterrupted_fused"))
+        out["mnist"] = mnist
+        out["seconds_mnist_shards"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["alexnet"] = snap_alexnet_part(torch, card, tmp, total)
+        out["seconds_alexnet"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["attention"] = snap_attention_part(torch, card, tmp, total)
+        out["seconds_attention"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = total
+    return out
+
+
 # -- phase 5: where the time goes ---------------------------------------------
 
 def trace_run(torch, card, label, kv_dtype, weight_dtype):
@@ -4989,7 +5570,11 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
                         help="also write every number to PATH")
+    parser.add_argument("--resume-child", metavar="SPEC",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.resume_child:
+        return resume_child(args.resume_child)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to measure",
@@ -5127,6 +5712,11 @@ def main():
         launches[name] += sum(run["launches"][kid]
                               for run in graph["attention"])
     phase_done("4e graph mode")
+    snaps = snapshot_phase(torch, card)
+    record["snapshots"] = snaps
+    for name, n in snaps["launches"].items():
+        launches[name] += n
+    phase_done("4f snapshots and shards")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (

@@ -2,8 +2,11 @@
 held against the JAX package.
 
 Mirrors ``tests/test_checkpoint.py`` (the chunk store, tensor extraction
-through pickle, ``save_state`` / ``load_state`` and the decode KV
-restore; the workflow snapshotter waits for ROADMAP queue A item 8) and
+through pickle, ``save_state`` / ``load_state``, the decode KV restore
+and the workflow snapshotter's sharded backend: a bitwise continuation,
+dedupe across checkpoints, resolve and gc, ``restore``'s routes into
+``import_dir``, the quarantine of partials; the sharded
+``restore_array`` waits for ROADMAP queue A item 11) and
 the checkpoint tests of ``tests/test_quantized.py``,
 ``tests/test_prefix_kv.py`` and ``tests/test_speculative.py``, with the
 port's ``checkpoint`` package and ``DecodeScheduler`` on
@@ -21,7 +24,12 @@ port's ``checkpoint`` package and ``DecodeScheduler`` on
 - a checkpoint written by either package's scheduler restores in the
   other's and finishes with the oracle's tokens;
 - a dtype mismatch is refused by name, a geometry mismatch with both
-  geometries, a busy scheduler outright.
+  geometries, a busy scheduler outright;
+- a workflow checkpoint's tensors cross packages: the JAX reader reads
+  every tensor of a port ``SnapshotterToShards`` checkpoint, the port's
+  weights and biases among them bit for bit, and the port's reader a
+  JAX checkpoint's the same way (the topology pickle names each
+  package's own classes and stays with it).
 
 Tolerances: tokens equal, tensors and pools bitwise.
 """
@@ -43,16 +51,23 @@ from veles_tpu.checkpoint import save_state as jax_save_state
 from veles_tpu.serving import DecodeScheduler as JaxScheduler
 from veles_tpu.serving import ToyDecodeModel as JaxToy
 from veles_tpu.znicz.samples import flagship as jf
+from veles_tpu_torch.backends import Device
 from veles_tpu_torch.checkpoint import (ChunkStore, CorruptChunkError,
-                                        Manifest, TensorReader, TensorSink,
-                                        extracting, list_checkpoints,
-                                        load_state, open_checkpoint,
+                                        Manifest, SnapshotterToShards,
+                                        TensorReader, TensorSink,
+                                        extracting, import_dir,
+                                        list_checkpoints, load_state,
+                                        open_checkpoint,
+                                        quarantine_partials,
                                         resolve_checkpoint, restoring,
                                         save_state)
 from veles_tpu_torch.checkpoint.tensors import write_tensors
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.serving import DecodeScheduler, ToyDecodeModel
+from veles_tpu_torch.snapshotter import restore
 from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
+
+from test_torch_snapshot import build
 
 GEO = dict(stages=2, experts=2, d=16, heads=2, hidden=32, vocab=32, seed=0)
 GEOM = dict(max_batch=4, block_size=4, max_prompt_len=8, max_new_tokens=8)
@@ -192,6 +207,133 @@ def test_array_extracts_through_pickle_and_restores(tmp_path, where):
         back = pickle.loads(blob)
     assert numpy.array_equal(back.mem, value)
     assert back.mem.dtype == numpy.float32
+
+
+# -- SnapshotterToShards end to end -------------------------------------------
+
+def test_shards_snapshot_restore_bitwise_continuation(tmp_path):
+    """A checkpoint mid-training restores and continues to the
+    uninterrupted run's weights bit for bit, through the async capture
+    (no synchronous fallback)."""
+    ref = build(6)
+    ref.run()
+    ref_w = [numpy.array(f.weights.map_read()) for f in ref.forwards]
+    wf = build(3, tmp_path, snap_kwargs={"format": "shards",
+                                         "min_tensor_bytes": 1})
+    assert isinstance(wf.snapshotter, SnapshotterToShards)
+    assert wf.snapshotter._async_enabled()
+    wf.run()
+    assert wf.snapshotter._last_write_stats_["bytes_total"] > 0
+    current = str(tmp_path / "blob_current")
+    assert os.path.islink(current)
+    resumed = restore(current)
+    assert resumed.restored_from_snapshot
+    resumed.decision.max_epochs = 6
+    resumed.initialize(device=Device(backend="cpu"))
+    resumed.run()
+    for a, f in zip(ref_w, resumed.forwards):
+        b = numpy.array(f.weights.map_read())
+        assert a.dtype == b.dtype and numpy.array_equal(a, b)
+
+
+def test_shards_dedupe_across_checkpoints(tmp_path):
+    """Exporting unchanged state again writes no new chunk bytes."""
+    wf = build(2, tmp_path, snap_kwargs={"format": "shards",
+                                         "min_tensor_bytes": 1,
+                                         "chunk_bytes": 4096})
+    wf.run()
+    snap = wf.snapshotter
+    stats = []
+    for _ in range(2):
+        snap._counter += 1
+        snap.export()
+        assert snap.flush()
+        stats.append(dict(snap._last_write_stats_))
+    assert stats[1]["bytes_written"] == 0
+    assert stats[1]["chunks_deduped"] > 0
+    assert stats[1]["bytes_total"] == stats[0]["bytes_total"]
+
+
+def test_resolve_and_gc(tmp_path):
+    wf = build(2, tmp_path, snap_kwargs={"format": "shards",
+                                         "min_tensor_bytes": 1})
+    wf.run()
+    snap = wf.snapshotter
+    ckpts = list_checkpoints(str(tmp_path))
+    assert ckpts
+    newest = os.path.realpath(ckpts[-1])
+    for spec in (str(tmp_path), ckpts[-1],
+                 os.path.join(ckpts[-1], "manifest.json")):
+        assert resolve_checkpoint(spec) == newest
+    removed, _ = snap.gc()
+    assert removed == 0
+    ckpt, man, reader = open_checkpoint(str(tmp_path))
+    snap.gc(keep=[ckpt])
+    for ref in man.tensors:
+        reader.resolve(ref)               # the newest stays whole
+
+
+def test_import_dir_via_generic_restore_routes(tmp_path):
+    wf = build(2, tmp_path, snap_kwargs={"format": "shards",
+                                         "min_tensor_bytes": 1})
+    wf.run()
+    ckpt = resolve_checkpoint(str(tmp_path))
+    for spec in (ckpt, os.path.join(ckpt, "manifest.json"),
+                 str(tmp_path / "blob_current")):
+        assert restore(spec).restored_from_snapshot
+    assert import_dir(ckpt).restored_from_snapshot
+
+
+def test_quarantine_partials(tmp_path):
+    torn = tmp_path / "snap.3.ckpt.tmp"
+    torn.mkdir()
+    (torn / "manifest.json").write_text("{}")
+    parts = tmp_path / "snap.3.ckpt.parts"
+    parts.mkdir()
+    moved = quarantine_partials(str(tmp_path))
+    assert len(moved) == 2
+    assert not torn.exists() and not parts.exists()
+    assert all(".quarantine" in m for m in moved)
+
+
+def _tensors(reader, man):
+    return [reader.resolve(ref) for ref in sorted(man.tensors)]
+
+
+def _holds(tensors, value):
+    value = numpy.asarray(value)
+    return any(t.dtype == value.dtype and t.shape == value.shape and
+               numpy.array_equal(t, value) for t in tensors)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_workflow_checkpoint_tensors_cross_packages(tmp_path, writer):
+    """A ``SnapshotterToShards`` checkpoint of the blob workflow (every
+    tensor chunked): the other package's ``open_checkpoint`` resolves
+    each of its tensors, the writer's trained weights and biases among
+    them bit for bit, and both readers give the same tensors."""
+    from veles_tpu.checkpoint import open_checkpoint as jax_open
+    if writer == "port":
+        wf = build(2, tmp_path, snap_kwargs={"format": "shards",
+                                             "min_tensor_bytes": 1})
+    else:
+        from test_snapshot_async import build as jax_build
+        wf = jax_build(2, tmp_path, snap_kwargs={"format": "shards",
+                                                 "min_tensor_bytes": 1})
+    wf.run()
+    snap = wf.snapshotter
+    snap.skip = type(snap.skip)(False)
+    snap.run()                          # a shot of the final weights
+    assert snap.flush()
+    _, man, reader = open_checkpoint(snap.destination)
+    _, jman, jreader = jax_open(snap.destination)
+    port_t, jax_t = _tensors(reader, man), _tensors(jreader, jman)
+    assert len(port_t) == len(jax_t) > 0
+    for a, b in zip(port_t, jax_t):
+        assert a.dtype == b.dtype and numpy.array_equal(a, b)
+    for fwd in wf.forwards:
+        for value in (fwd.weights.map_read(), fwd.bias.map_read()):
+            assert _holds(port_t, value)
 
 
 def test_save_load_state_mixed_pytree_across_packages(tmp_path):

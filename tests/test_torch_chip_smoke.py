@@ -42,6 +42,12 @@
   here); and its fresh-process verdict refuses a restart that ran
   ``nvcc``, missed the build cache, changed the cache's listing,
   resolved a site untuned or served a token off the oracle.
+- Phase 4f's fresh process (``chip_smoke.py --resume-child``), on the
+  CPU: the attention net snapshotted through ``_snap_instrument``'s
+  wrappers (transient, so the writer pickles it) into SQLite, resumed
+  in a child that imports only the port and finds the needle loader by
+  name, ends bit for bit on the uninterrupted run's weights, with its
+  steps counted by class.
 """
 
 import os
@@ -779,7 +785,7 @@ def _phase_names():
 def test_phase3e_is_in_mains_order():
     names = [n.split()[0] for n in _phase_names()]
     assert names == ["2", "3", "3b", "3c", "4", "3d", "3e", "4b", "4c",
-                     "4d", "3f", "4e", "5"]
+                     "4d", "3f", "4e", "4f", "5"]
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         src = f.read()
     # 3d's fleet and 3e share one fresh build cache, removed after
@@ -1029,3 +1035,36 @@ def test_phase3f_rehearses_on_the_cpu(monkeypatch):
         == chip_smoke.FLEET_PKG_REQUESTS
     assert rec["launches"] == {"precise_matmul_l1": 0, "lrn_fwd": 0,
                                "flash_attention_fwd": 0}
+
+
+def test_phase4f_fresh_process_resumes_an_instrumented_workflow(tmp_path):
+    from veles_tpu_torch.mutable import Bool
+    counters = chip_smoke._snap_counters("flash")
+
+    def make(epochs, snapshotter=None):
+        return chip_smoke.attention_workflow(
+            24, 8, 8, 2, n_valid=8, epochs=epochs, device="cpu",
+            snapshotter=snapshotter)
+
+    saved = chip_smoke.SNAP_DEVICE
+    chip_smoke.SNAP_DEVICE = "cpu"
+    try:
+        ref = chip_smoke._snap_ref(torch, make(2), counters)
+        part = make(1, {"prefix": "a", "format": "db", "interval": 2,
+                        "database": str(tmp_path / "s.sqlite3"),
+                        "time_interval": 0})
+        first = chip_smoke._snap_ref(torch, part, counters)
+    finally:
+        chip_smoke.SNAP_DEVICE = saved
+    assert first["steps"] == [2, 1]
+    part.snapshotter.skip = Bool(False)
+    part.snapshotter.run()
+    assert part.snapshotter.flush()
+    (res,), _ = chip_smoke._run_child([{
+        "label": "attention", "max_epochs": 2, "device": "cpu",
+        "path": part.snapshotter.destination, "counters": "flash",
+        "interval": 10 ** 9, "weights": str(tmp_path / "a.npz")}],
+        str(tmp_path), "attention")
+    assert res["device"] == "cpu" and res["steps"] == [2, 1]
+    assert res["launches"] == {"K7": [0, 0], "K8": [0, 0], "K9": [0, 0]}
+    chip_smoke._bitwise("resume", res["weights"], ref["weights"])

@@ -22,7 +22,9 @@
   ``InputJoiner`` (slice 17); a package's ``PackageLoader`` (its chain,
   its run), ``build_forwards``, a package served by the scheduler, the
   registry and the server, ``RESTfulAPI`` and the package runner's
-  command line (slice 19).
+  command line (slice 19); a restored workflow's ``initialize()``, the
+  ``ShardedBatchLoader`` and a snapshotting ``StandardWorkflow`` (slice
+  20).
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -101,7 +103,8 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "autotune.store", "autotune.dispatch", "autotune.runner",
                  "autotune.probe", "autotune.__main__", "input_joiner",
                  "export", "export.packager", "export.model",
-                 "export.loader", "export.native", "restful_api"):
+                 "export.loader", "export.native", "restful_api",
+                 "snapshotter", "loader.shards"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -386,6 +389,52 @@ def test_slice19_entry_points_need_a_card_unless_told_cpu(monkeypatch,
         timeout=120)
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
+
+
+def test_slice20_entry_points_need_a_card_unless_told_cpu(monkeypatch,
+                                                          tmp_path):
+    """A workflow restored from a snapshot (pickle and shards) and a
+    snapshotting ``StandardWorkflow`` initialize on the card without a
+    device and raise without one, as does a ``ShardedBatchLoader``;
+    told the CPU, each runs there (a restored workflow written on any
+    device: a snapshot carries none)."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.loader import ShardedBatchLoader, write_shards
+    from veles_tpu_torch.snapshotter import restore
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.samples import mnist
+    cpu = Device(backend="cpu")
+    loader = {"n_train": 60, "n_valid": 60}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fmt in ("pickle", "shards"):
+        snap = {"prefix": fmt, "directory": str(tmp_path / fmt),
+                "time_interval": 0, "format": fmt}
+        wf = mnist.create_workflow(loader=loader, snapshotter=snap,
+                                   decision={"max_epochs": 1,
+                                             "silent": True})
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wf.initialize()
+        wf.initialize(device=cpu)
+        wf.run()
+        current = str(tmp_path / fmt / (fmt + "_current"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            restore(current).initialize()
+        back = restore(current)
+        back.decision.max_epochs = 2
+        back.initialize(device=cpu)
+        back.run()
+        assert back.fused_step._dev_ == torch.device("cpu")
+    write_shards(str(tmp_path / "ds"), numpy.ones((8, 3), numpy.float32),
+                 labels=[0, 1] * 4, class_lengths=[0, 4, 4])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedBatchLoader(Workflow(name="w"), path=str(tmp_path / "ds"),
+                           minibatch_size=4).initialize()
+    sharded = ShardedBatchLoader(Workflow(name="w"),
+                                 path=str(tmp_path / "ds"),
+                                 minibatch_size=4)
+    sharded.initialize(device=cpu)
+    sharded.run()
+    assert sharded.minibatch_data.devmem.device == torch.device("cpu")
 
 
 def test_package_runner_subprocess_imports_no_jax(tmp_path):

@@ -5,7 +5,10 @@ The JAX ``StandardWorkflow`` reads ``snapshotter``, ``epoch_scan``,
 step reads ``compute_dtype``, ``root.common.engine.dtype`` and
 ``root.common.engine.rng_impl``.  The port refuses each of them, set to
 anything but its default, with a ``NotImplementedError`` that names the
-knob, so no config trains differently here without a word.  Three stay
+knob, so no config trains differently here without a word.
+``snapshotter`` is honoured since the snapshotter was ported (ROADMAP
+queue A item 8): its case trains one epoch and finds the ``_current``
+snapshot, which restores.  Three stay
 accepted: ``web_status`` (ignored), ``precision_level`` (the port is
 IEEE f32 already) and ``compute_confusion_matrix=False`` (the port
 always computes the matrix).  The MNIST sample at a cut size is the
@@ -31,8 +34,8 @@ LOADER = {"n_train": 60, "n_valid": 60}
 #: (label, create_workflow overrides, root.common.engine settings, the
 #: name the error must carry)
 REFUSED = [
-    ("snapshotter", {"snapshotter": {"prefix": "mnist"}}, {},
-     "snapshotter"),
+    # honoured (queue A item 8): writes and restores a snapshot
+    ("snapshotter", {"snapshotter": {"prefix": "mnist"}}, {}, None),
     ("epoch_scan", {"epoch_scan": True}, {}, "epoch_scan"),
     ("mesh", {"mesh": object()}, {}, "mesh"),
     ("model_axis", {"model_axis": "model"}, {}, "model_axis"),
@@ -63,8 +66,21 @@ def engine():
 @pytest.mark.parametrize("label,overrides,settings,name",
                          REFUSED + [("allowed", None, None, None)],
                          ids=[c[0] for c in REFUSED] + ["allowed"])
-def test_ignored_knobs_are_refused(engine, label, overrides, settings,
-                                   name):
+def test_ignored_knobs_are_refused(engine, tmp_path, label, overrides,
+                                   settings, name):
+    if name is None and overrides is not None:
+        from veles_tpu_torch.snapshotter import restore
+        cfg = dict(overrides["snapshotter"], directory=str(tmp_path),
+                   time_interval=0)
+        wf = mnist.create_workflow(
+            loader=LOADER, snapshotter=cfg,
+            decision={"max_epochs": 1, "silent": True})
+        wf.initialize(device=Device(backend="cpu"))
+        wf.run()
+        current = tmp_path / (cfg["prefix"] + "_current")
+        assert current.is_symlink()
+        assert restore(str(current)).restored_from_snapshot
+        return
     if overrides is None:
         # the three accepted knobs, and every refused one at its default
         engine(precision_level=2)

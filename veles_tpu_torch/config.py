@@ -284,8 +284,26 @@ root.update({
             "enabled": True,
         },
         "snapshot": {
-            # checkpoint/save_state: target chunk size for tensor bands
+            # the snapshotter (snapshotter.py): capture on the training
+            # thread, pickle + compress + fsync + rename on a writer
+            # thread.  False = the synchronous path (still atomic:
+            # tmp-write + rename).
+            "async_write": True,
+            # gz/bz2/xz codec level
+            "compression_level": 6,
+            # _report_size fattest-units diagnostic threshold, bytes
+            # (0 disables)
+            "report_size_threshold": 64 << 20,
+            # StandardWorkflow(snapshotter=...) backend: "pickle"
+            # (SnapshotterToFile, one whole-workflow pickle) or "shards"
+            # (checkpoint.SnapshotterToShards, content-addressed chunks)
+            "format": "pickle",
+            # sharded checkpoints and save_state: target chunk size for
+            # tensor bands
             "chunk_bytes": 16 << 20,
+            # tensors smaller than this stay inline in the topology
+            # pickle instead of becoming chunks
+            "min_tensor_bytes": 65536,
         },
         "trace": {"enabled": False, "file": None},
         "timings": set(),

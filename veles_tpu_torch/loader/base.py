@@ -61,7 +61,8 @@ class Loader(Unit, IResultProvider):
     - ``load_data()`` — fill ``class_lengths``;
     - ``create_minibatch_data()`` — allocate ``minibatch_data``, which
       gives the first forward its input shape;
-    - ``analyze_dataset()`` — the normalization analysis pass;
+    - ``analyze_dataset()`` — the normalization analysis pass
+      (``prepare_restored_dataset()`` in its place after a restore);
     - ``fill_indices(start, count)`` — serve
       ``shuffled_indices[start:start + count]``; True when the minibatch
       needs no host fill (the consumer gathers it, or the loader did on
@@ -112,6 +113,8 @@ class Loader(Unit, IResultProvider):
             root.common.ensemble.get("train_ratio", 1.0) or 1.0))
         self.has_labels = True
         self.labels_mapping = {}
+        #: a testing loader analyzes and shuffles again when restored
+        self.testing = bool(kwargs.get("testing", False))
         self._global_offset = 0
 
     # -- derived sizes -------------------------------------------------------
@@ -161,6 +164,11 @@ class Loader(Unit, IResultProvider):
 
     def fill_minibatch(self):
         raise NotImplementedError
+
+    def prepare_restored_dataset(self):
+        """Apply the restored normalizer state after a snapshot restore
+        (loaders that bake normalization into a resident dataset
+        override)."""
 
     def normalize_minibatch(self):
         self.normalizer.normalize(
@@ -213,9 +221,17 @@ class Loader(Unit, IResultProvider):
             raise LoaderError(
                 "minibatch_data MUST be initialized in "
                 "create_minibatch_data()")
-        self.analyze_dataset()
-        self.shuffle()
-        self._global_offset = 0
+        restored = getattr(self.workflow, "restored_from_snapshot", False)
+        if not restored or self.testing:
+            self.analyze_dataset()
+            self.shuffle()
+            self._global_offset = 0
+        else:
+            # the normalizer's statistics, the shuffle order, the
+            # offset and the prng came back with the snapshot: analyzing
+            # or shuffling again would move the run off its course; only
+            # apply the restored state to the reloaded data
+            self.prepare_restored_dataset()
         if device is not None:
             for arr in (self.minibatch_data, self.minibatch_labels,
                         self.minibatch_indices):

@@ -111,6 +111,11 @@ class FullBatchLoader(Loader):
             self.normalizer.analyze(train.astype(numpy.float64))
         else:
             self.normalizer.analyze(self.original_data.mem)
+        self.prepare_restored_dataset()
+
+    def prepare_restored_dataset(self):
+        """Bake the (current or restored) normalizer state into the
+        resident dataset and build the dense label table."""
         cast_normalized(self.original_data, self._dtype, self.normalizer)
         if self.has_labels:     # labels → dense int mapping once, host-side
             self._dense_labels = numpy.zeros(len(self.original_labels),
@@ -211,6 +216,9 @@ class FullBatchLoaderMSE(FullBatchLoader):
         self.targets_normalizer.analyze(
             self.original_targets.map_read().astype(self._dtype))
         super().analyze_dataset()
+
+    def prepare_restored_dataset(self):
+        super().prepare_restored_dataset()
         cast_normalized(self.original_targets, self._dtype,
                         self.targets_normalizer)
 

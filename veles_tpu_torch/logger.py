@@ -1,8 +1,9 @@
 """The event log the serving modules and the units write their spans to.
 
-The part of ``veles_tpu/logger.py`` the port calls:
-``events.span(name, seconds, **info)`` and ``events.event(name,
-**info)`` (``Unit.execute`` spans every unit run while tracing is on).
+The part of ``veles_tpu/logger.py`` the port calls: the ``Logger``
+mixin (a named ``logging`` logger a class) and ``events.span(name,
+seconds, **info)`` / ``events.event(name, **info)`` (``Unit.execute``
+spans every unit run while tracing is on).
 Records are Chrome-trace JSONL (``ph`` X for spans, i for instants),
 loadable in Perfetto.  Tracing is on when ``$VELES_TRACE_DIR`` is set
 (records go to ``$VELES_TRACE_DIR/events-<pid>.jsonl``) or when
@@ -18,6 +19,7 @@ is on (the flight recorder's span bridge).
 
 import atexit
 import json
+import logging
 import os
 import threading
 import time
@@ -25,9 +27,30 @@ import time
 from .config import root
 from .observability import trace as _trace
 
-__all__ = ["EventLog", "events"]
+__all__ = ["Logger", "EventLog", "events"]
 
 TRACE_DIR_ENV = "VELES_TRACE_DIR"
+
+
+class Logger:
+    """Mixin giving every class its own named logger (the JAX package's
+    ``Logger``)."""
+
+    @property
+    def logger(self):
+        return logging.getLogger(type(self).__name__)
+
+    def debug(self, msg, *args):
+        self.logger.debug(msg, *args)
+
+    def info(self, msg, *args):
+        self.logger.info(msg, *args)
+
+    def warning(self, msg, *args):
+        self.logger.warning(msg, *args)
+
+    def error(self, msg, *args):
+        self.logger.error(msg, *args)
 
 
 class EventLog:

@@ -7,20 +7,27 @@ convnet), ``internal_mean`` (the CIFAR sample's default) and
 ``mean_disp`` (the JAX loader tests' normalizer).  The
 contract is the same: ``analyze(batch)`` accumulates statistics over a
 streaming pass and ``normalize(data)`` mutates a numpy array in place.
-Normalization runs once, host-side, when the loader bakes it into the
-resident dataset, so there is no tensor form.  The other families
-(``linear``, ``exp``, ``pointwise``, ``external_mean``),
-``denormalize`` and the snapshot ``state`` wait for the loaders and the
-snapshotter that use them.
+Normalization runs host-side, once when a FullBatchLoader bakes it
+into the resident dataset, or on each minibatch of a
+ShardedBatchLoader, so there is no tensor form.  A normalizer pickles
+with its statistics, and ``state`` reads or sets them (JAX
+``normalization.py:70-92``): a restored loader applies the snapshot's
+statistics instead of analyzing again.  The other families
+(``linear``, ``exp``, ``pointwise``, ``external_mean``) and
+``denormalize`` wait for the loaders that use them.
 """
 
 import numpy
 
 from .registry import MappedObjectsRegistry
 
-__all__ = ["NormalizerBase", "StatelessNormalizer", "NoneNormalizer",
+__all__ = ["UninitializedStateError", "NormalizerBase", "StatelessNormalizer", "NoneNormalizer",
            "RangeLinearNormalizer", "InternalMeanNormalizer",
            "MeanDispersionNormalizer", "factory"]
+
+
+class UninitializedStateError(Exception):
+    pass
 
 
 class NormalizerBase(metaclass=MappedObjectsRegistry):
@@ -49,12 +56,40 @@ class NormalizerBase(metaclass=MappedObjectsRegistry):
     def normalize(self, data):
         raise NotImplementedError
 
+    # -- snapshot state ------------------------------------------------------
+    @property
+    def state(self):
+        if not self._initialized and self._has_state():
+            raise UninitializedStateError(
+                "uninitialized normalizers have no state")
+        return {k: v for k, v in self.__dict__.items()
+                if k != "_initialized"}
+
+    @state.setter
+    def state(self, value):
+        if not isinstance(value, dict):
+            raise TypeError("state must be a dict")
+        self.__dict__.update(value)
+        self._initialized = True
+
+    def _has_state(self):
+        return True
+
+    def __getstate__(self):
+        return dict(self.__dict__)
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
 
 class StatelessNormalizer(NormalizerBase):
     """analyze() is a no-op (reference normalization.py:260-282)."""
 
     def analyze(self, data):
         self._initialized = True
+
+    def _has_state(self):
+        return False
 
 
 class NoneNormalizer(StatelessNormalizer):

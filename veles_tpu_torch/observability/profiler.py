@@ -13,9 +13,9 @@ splits every step into:
   returns (on the CPU every operation has finished when it returns, so
   this share is ~0 there);
 - **snapshot**: the stall a workflow's snapshotter reports (its
-  ``stall_s``), when the workflow has one.  The port's workflows have
-  none until the snapshotter is ported (ROADMAP queue A item 8), so
-  this slice stays absent from their summaries.
+  ``stall_s``: the capture, or the whole write when synchronous), when
+  the workflow has one (``StandardWorkflow(snapshotter=...)``); a
+  workflow without one has no such slice in its summary.
 
 It also counts examples/sec over a sliding window and the card's peak
 memory (``torch.cuda.max_memory_allocated``).  The recompile count

@@ -4,9 +4,14 @@ Mirrors the reference ``Pickleable`` semantics
 (veles/distributable.py:48-133): every attribute whose name
 ends with ``_`` is *transient* — excluded from pickles — and must be restored
 by ``init_unpickled()``, which runs both at construction and after unpickling.
+An attribute holding a torch tensor (a step's loss, an output's argmax)
+is pickled as a host copy, so a pickle never names a device: a snapshot
+taken on the card restores in a process without one.
 """
 
 import threading
+
+import torch
 
 
 class Pickleable:
@@ -36,6 +41,9 @@ class Pickleable:
                 # transient: they hold threads/queues and are re-attached
                 # after restore, never pickled
                 continue
+            if isinstance(value, torch.Tensor) and \
+                    value.device.type != "cpu":
+                value = value.detach().to("cpu")
             state[key] = value
         return state
 

@@ -12,8 +12,12 @@ graph mode would use); at run time one step runs per minibatch:
     per parameter: g = regularized_grad(g); delta, state = solver(g)
                    param += delta * (lr * lr_scale)
 
-The dataset is resident on the device and gathered inside the step
-(``link_fused_gather``, which a FullBatchLoader takes).  The metrics
+With a FullBatchLoader the dataset is resident on the device and
+gathered inside the step (``link_fused_gather``).  Any other loader (a
+``ShardedBatchLoader``), or a FullBatchLoader serving host minibatches
+(``force_numpy``), serves the minibatch itself and the step runs on its
+``minibatch_data`` / ``minibatch_labels`` (``minibatch_targets``), as
+the JAX step falls back to its plain step.  The metrics
 (n_err, the confusion matrix, the largest row sum of |probabilities -
 one-hot|; for MSE the sum of per-sample mean squared errors and the
 largest and smallest sample rmse) accumulate in device
@@ -23,7 +27,11 @@ Arrays an evaluator exposes, so the Decision works unchanged.  The MSE
 loss's gradient at the output is ``err / n_valid``, graph mode's
 (``EvaluatorMSE.loss_from_output``).  The step updates
 its own copy of the parameters in place; ``sync_weights`` copies them
-into the forward units at class boundaries and at the end of a run.
+into the forward units at class boundaries and at the end of a run,
+and ``sync_solver_state`` its solver state into the GD units before a
+snapshot.  A restored step rebuilds both from the units on the device
+its ``initialize`` is given (the forwards of a pickled workflow hold a
+device stub and are initialized again there).
 
 Stochastic units (dropout) draw from a per-step seed, as the JAX
 package's step does: ``_seed_counter`` starts at ``seed * 1_000_003 mod
@@ -33,11 +41,11 @@ forward at chain index ``i`` runs ``apply_train`` with ``fold_in(key,
 i)``, so its bits equal the JAX step's.  Eval steps run ``apply``.
 
 Not ported: bf16 compute, the persistent executable cache, the
-staged-seed path of stochastic units, the ``rng_impl`` switch, steps
-fed by a host-side loader and the whole-workflow graph compiler's
-face.  ``compute_dtype``, ``root.common.engine.dtype`` and
-``root.common.engine.rng_impl`` raise ``NotImplementedError`` when set
-to anything but f32 / threefry2x32 (ROADMAP queue A item 9).
+staged-seed path of stochastic units, the ``rng_impl`` switch and the
+whole-workflow graph compiler's face.  ``compute_dtype``,
+``root.common.engine.dtype`` and ``root.common.engine.rng_impl`` raise
+``NotImplementedError`` when set to anything but f32 / threefry2x32
+(ROADMAP queue A item 9).
 ``compute_confusion_matrix=False`` is accepted: the step always
 computes the matrix, which costs a small scatter-add a step.
 """
@@ -45,6 +53,7 @@ computes the matrix, which costs a small scatter-add a step.
 import numpy
 import torch
 
+from ..backends import Device
 from ..config import root
 from ..memory import Array
 from .. import prng
@@ -112,24 +121,34 @@ class FusedTrainStep(Unit, IResultProvider):
         self.eval_steps = 0
 
     def link_loader(self, loader):
-        self.link_attrs(loader, "minibatch_size", "minibatch_class",
-                        "last_minibatch")
+        self.link_attrs(loader, "minibatch_data", "minibatch_size",
+                        "minibatch_class", "last_minibatch")
+        self.link_attrs(loader, "minibatch_targets"
+                        if hasattr(loader, "minibatch_targets") else
+                        "minibatch_labels")
         return self
 
     def link_fused_gather(self, loader):
         """Gather each minibatch from the device-resident dataset inside
-        the step: the loader then only computes shuffled indices."""
+        the step: the loader then only computes shuffled indices.  A
+        loader told to serve host minibatches (``force_numpy``) goes on
+        serving them, and the step runs on its ``minibatch_data``."""
         self.gather_loader = loader
-        loader.defer_device_gather = True
+        loader.defer_device_gather = not getattr(loader, "force_numpy",
+                                                 False)
         return self
 
     # -- construction --------------------------------------------------------
     def initialize(self, device=None, **kwargs):
         # forwards live outside the control graph in fused mode, so the
         # dependency walk has not initialized them: bring them up in
-        # chain order (shapes propagate input → output)
+        # chain order (shapes propagate input → output).  A restored
+        # forward holds the pickled device stub: it is initialized again
+        # on this device (fault C11)
+        if device is None:
+            device = Device()
         for fwd in self.forwards:
-            if not fwd.is_initialized:
+            if not fwd.is_initialized or fwd.device is not device:
                 fwd.initialize(device=device, **kwargs)
         super().initialize(**kwargs)
         self._softmax = self.loss_kind == "softmax"
@@ -138,10 +157,6 @@ class FusedTrainStep(Unit, IResultProvider):
             raise ValueError("the fused softmax loss needs an "
                              "All2AllSoftmax head, got %r"
                              % self.forwards[-1])
-        if self.gather_loader is None:
-            raise ValueError("%s gathers its minibatches from a "
-                             "FullBatchLoader: call link_fused_gather"
-                             % self)
         self.device = self.forwards[0].device
         self._dev_ = self.device.torch_device
         self._n_classes = int(self.forwards[-1].output.shape[-1])
@@ -152,12 +167,17 @@ class FusedTrainStep(Unit, IResultProvider):
         self.output.initialize(self.device)
         self._cm_dev_ = None    # device-resident running total
         ld = self.gather_loader
-        self._data_dev_ = ld.original_data.devmem
-        if self._softmax:
-            self._y_dev_ = torch.from_numpy(
-                ld._dense_labels.astype(numpy.int64)).to(self._dev_)
-        else:
-            self._y_dev_ = ld.original_targets.devmem
+        # the gather rides inside the step only where the loader defers
+        # it; otherwise the loader serves the minibatch (the JAX step's
+        # plain step on the host's minibatch)
+        self._use_gather_ = ld is not None and ld.defer_device_gather
+        if self._use_gather_:
+            self._data_dev_ = ld.original_data.devmem
+            if self._softmax:
+                self._y_dev_ = torch.from_numpy(
+                    ld._dense_labels.astype(numpy.int64)).to(self._dev_)
+            else:
+                self._y_dev_ = ld.original_targets.devmem
         self.load_state()
 
     def load_state(self):
@@ -277,14 +297,26 @@ class FusedTrainStep(Unit, IResultProvider):
             self._accumulate(probs, y, mask)
         return loss, probs
 
+    def _minibatch(self):
+        """(x, y) of the current minibatch on the step's device."""
+        if self._use_gather_:
+            idx = torch.from_numpy(self.gather_loader._padded_indices_)
+            if self._dev_.type == "cuda":
+                # pinned and asynchronous: the host runs ahead of the card
+                idx = idx.pin_memory().to(self._dev_, non_blocking=True)
+            return (torch.index_select(self._data_dev_, 0, idx),
+                    torch.index_select(self._y_dev_, 0, idx))
+        x = self.minibatch_data.devmem.to(self._dev_)
+        if not self._softmax:
+            return x, self.minibatch_targets.devmem.to(self._dev_)
+        # a short minibatch's padded labels are -1: any class will do
+        # under the mask
+        y = self.minibatch_labels.devmem.to(self._dev_, torch.int64)
+        return x, y.clamp_min(0)
+
     def run(self):
         size = int(self.minibatch_size)
-        idx = torch.from_numpy(self.gather_loader._padded_indices_)
-        if self._dev_.type == "cuda":
-            # pinned and asynchronous: the host runs ahead of the card
-            idx = idx.pin_memory().to(self._dev_, non_blocking=True)
-        x = torch.index_select(self._data_dev_, 0, idx)
-        y = torch.index_select(self._y_dev_, 0, idx)
+        x, y = self._minibatch()
         mask = (torch.arange(x.shape[0], device=self._dev_) < size).to(
             torch.float32)
         if self.minibatch_class == loader_mod.TRAIN:
@@ -311,7 +343,14 @@ class FusedTrainStep(Unit, IResultProvider):
             self._macc_ = self._macc_init()
             return
         n_err, cm, mx = self._macc_
-        self._cm_dev_ = cm if self._cm_dev_ is None else self._cm_dev_ + cm
+        if self._cm_dev_ is None:
+            # a restored step goes on from the snapshot's counts (fault
+            # C12), as the JAX step seeds its total from the host
+            host = self.confusion_matrix.map_read()
+            self._cm_dev_ = cm + torch.as_tensor(host).to(cm) \
+                if host is not None and host.any() else cm
+        else:
+            self._cm_dev_ = self._cm_dev_ + cm
         self.confusion_matrix.devmem = self._cm_dev_
         n, m = torch.stack((n_err.double(), mx.double())).tolist()
         self.n_err.map_write()[0] += int(n)

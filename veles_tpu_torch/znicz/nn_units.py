@@ -326,6 +326,18 @@ class GradientDescentBase(NNUnitBase):
         self.err_input = Array()
         self.need_err_input = bool(kwargs.get("need_err_input", True))
 
+    def __getstate__(self):
+        # graph mode keeps the solver state on the parameters' device; a
+        # pickle carries it as host numpy (ensure_solver_state moves it
+        # back)
+        state = super().__getstate__()
+        state["solver_state"] = {
+            name: tuple(s.detach().to("cpu", copy=True).numpy()
+                        if isinstance(s, torch.Tensor) else s
+                        for s in st)
+            for name, st in self.solver_state.items()}
+        return state
+
     def link_forward(self, fwd):
         """Wire the standard attribute set to a forward unit."""
         self.forward_unit = fwd

@@ -29,20 +29,31 @@ Both share the forward and GD units, weights and solver state.
 ``initialize(device=Device(backend="cpu"))`` runs the same workflow on
 the host.
 
-Not ported yet: the epoch scan, meshes, the snapshotter, the status
-reporter, the graph compiler, the prefetcher and the
-``mcdnnic_topology`` notation.  Each
+``snapshotter={...}`` adds a snapshotter after the decision (the
+JAX ``_build``'s place): ``format`` (default
+``root.common.snapshot.format``) chooses ``SnapshotterToFile``
+("pickle"), ``SnapshotterToShards`` ("shards") or a registered family
+member ("db": ``SnapshotterToDB``), the rest are its keyword arguments.
+It shoots when validation ends on an improvement
+(``skip = ~(improved & valid_ended)``), before the next train pass
+moves the weights.  ``snapshotter.restore(path)`` gives the workflow
+back; its ``initialize`` rebuilds the gates, the loader keeps its
+shuffle order and normalizer, and the run goes on where it stopped.
+
+Not ported yet: the epoch scan, meshes, the status reporter, the graph
+compiler, the prefetcher and the ``mcdnnic_topology`` notation.  Each
 of their knobs raises ``NotImplementedError`` when it is set to
 anything but its default (:data:`REFUSED_KNOBS`), so a config that
-would snapshot, scan or shard under the JAX package never trains
-differently here without a word.  ``web_status`` is accepted and
-ignored: the status reporter only watches a run.
+would scan or shard under the JAX package never trains differently
+here without a word.  ``web_status`` is accepted and ignored: the
+status reporter only watches a run.
 """
 
 from ..backends import Device
+from ..config import root
 from ..loader.fullbatch import FullBatchLoader
 from ..plumbing import Repeater
-from ..registry import UnitRegistry
+from ..registry import MappedObjectsRegistry, UnitRegistry
 from ..workflow import Workflow
 from .all2all import All2AllSoftmax
 from .nn_units import ForwardBase, GradientDescentBase
@@ -58,7 +69,6 @@ __all__ = ["StandardWorkflow", "REFUSED_KNOBS"]
 #: knobs of the JAX workflow the port does not honour yet: name ->
 #: (the values that mean "off", the ROADMAP queue A item that ports it)
 REFUSED_KNOBS = {
-    "snapshotter": ((None,), "item 8, persistence"),
     "epoch_scan": ((False, None), "item 7, ScanEpochStep"),
     "mesh": ((None,), "item 11, distribution"),
     "model_axis": ((None,), "item 11, distribution"),
@@ -119,6 +129,8 @@ class StandardWorkflow(Workflow):
         self.decision_config = dict(kwargs.get("decision", {}))
         self.loader_config = dict(kwargs.get("loader", {}))
         self.trainer_config = dict(kwargs.get("trainer", {}))
+        self.snapshotter_config = kwargs.get("snapshotter")  # dict | None
+        self.snapshotter = None
         loader_factory = kwargs.get("loader_factory")
         if loader_factory is None:
             raise ValueError("StandardWorkflow requires loader_factory")
@@ -173,10 +185,34 @@ class StandardWorkflow(Workflow):
         # fused step reads
         for (gd_cls, gd_kwargs), fwd in zip(gd_pairs, self.forwards):
             self.gds.append(gd_cls(self, **gd_kwargs).link_forward(fwd))
+        if self.snapshotter_config is not None:
+            self._build_snapshotter(dict(self.snapshotter_config))
         tail = self._build_fused() if self.fused else self._build_graph()
         self.repeater.link_from(tail)
         self.end_point.link_from(tail)
         self._relink_gates()
+
+    def _build_snapshotter(self, cfg):
+        """The snapshotter of ``format`` (JAX ``_build``)."""
+        fmt = cfg.pop("format", None)
+        if fmt is None:
+            fmt = root.common.snapshot.get("format", "pickle")
+        if fmt in ("shards", "sharded"):
+            from ..checkpoint import SnapshotterToShards as snap_cls
+        elif fmt in ("pickle", "file", None):
+            from ..snapshotter import SnapshotterToFile as snap_cls
+        else:
+            from ..snapshotter import SnapshotterBase
+            snap_cls = MappedObjectsRegistry.get(SnapshotterBase.mapping,
+                                                 fmt)
+        self.snapshotter = snap_cls(self, **cfg)
+        self.snapshotter.link_decision(self.decision)
+
+    def _link_snapshotter(self, tail):
+        if self.snapshotter is None:
+            return tail
+        self.snapshotter.link_from(tail)
+        return self.snapshotter
 
     def _build_fused(self):
         self.fused_step = FusedTrainStep(
@@ -190,7 +226,7 @@ class StandardWorkflow(Workflow):
         self.decision.link_from(self.fused_step)
         self.decision.link_loader(self.loader)
         self.decision.link_evaluator(self.fused_step)
-        return self.decision
+        return self._link_snapshotter(self.decision)
 
     def _build_graph(self):
         """The per-unit chain (JAX ``_build_graph``); returns its last
@@ -214,7 +250,7 @@ class StandardWorkflow(Workflow):
         self.decision.link_from(self.evaluator)
         self.decision.link_loader(self.loader)
         self.decision.link_evaluator(self.evaluator)
-        prev = self.decision
+        prev = self._link_snapshotter(self.decision)
         for i in reversed(range(len(self.forwards))):
             gd = self.gds[i]
             gd.link_from(prev)
@@ -230,13 +266,18 @@ class StandardWorkflow(Workflow):
 
     def _relink_gates(self):
         """The loop's gates from the live decision and loader: the
-        repeater and the end point on ``complete``, and in graph mode
-        the GD units' train gate (``gate_skip`` on every non-train
-        minibatch).  Derived Bools flatten to constants on pickle, so a
-        restored workflow rebuilds them (JAX ``_relink_gates``)."""
+        repeater and the end point on ``complete``, the snapshotter's
+        ``skip`` (it shoots when validation ends on an improvement), and
+        in graph mode the GD units' train gate (``gate_skip`` on every
+        non-train minibatch).  Derived Bools flatten to constants on
+        pickle, so a restored workflow rebuilds them (JAX
+        ``_relink_gates``)."""
         self.repeater.gate_block = self.decision.complete
         self.end_point.gate_block = ~self.decision.complete
         self.decision.complete <<= False
+        if self.snapshotter is not None:
+            self.snapshotter.skip = ~(self.decision.improved &
+                                      self.loader.valid_ended)
         if not self.fused:
             train_gate = self.make_train_gate(self.loader)
             for gd in self.gds:
