@@ -31,10 +31,11 @@ Phases (any failure raises and the script exits non-zero):
    against the exact product, level 1 must beat level 0 by 1e4x on a
    cancellation case, and level 2 must beat level 1 by 1e4x on a case
    where Neumaier's own carry rounds off; K4 is timed at the five MNIST
-   shapes and at 4096^3 with CUDA events and with the profiler's device
-   time, each call marked split or not (split-K launches the fold too),
-   its bound 6MNK TF32 operations (3xTF32) beside the CUDA-core bound of
-   2MNK f32 FMAs; untimed, at the MNIST forward shape (which splits) each
+   shapes, at level 1 also at STL-10's six (phase 4g's), and at 4096^3
+   with CUDA events and with the profiler's device time, each call
+   marked split or not (split-K launches the fold too), its bound 6MNK
+   TF32 operations (3xTF32) beside the CUDA-core bound of 2MNK f32 FMAs;
+   untimed, at the MNIST and STL-10 forward shapes (each splits) each
    level must equal the top-left corner of operands too large to split
    bit for bit.  Flash attention (K7 forward,
    K8 dq, K9 dk/dv) on ``randn * 0.5`` inputs, q/k/v as strided views of
@@ -283,6 +284,30 @@ Phases (any failure raises and the script exits non-zero):
    FullBatchLoader run's, the window within its budget, shards loaded;
    images/s of both loaders printed.  The kernels line adds every launch
    of the phase.
+4g. The structural conv units and the two conv samples (slice 21),
+   after 4f, at the samples' published widths.  (a) STL-10 (96x96x3,
+   minibatch 50, its synthetic twin's 5000 train + 800 valid images)
+   with ``precise_gemm=1``, fused and in graph mode, ``STL10_EPOCHS``
+   epochs each (cut from the sample's 100): K4 ``STL10_K4`` times a
+   train / eval step (fused 6 / 2: the all2all and softmax forwards,
+   their weight and input gradients; graph mode 2 / 2, never inside a
+   GD unit); the best validation error under the JAX gate's 50 %;
+   graph mode's mean train loss of each epoch within
+   ``CONV_MODES_LOSS_RTOL`` of fused mode's largest (the validation error
+   reads 0 % from the first epoch on the separable twin, so it cannot
+   tell the modes apart), the first epoch's weights' distance printed;
+   the first ``CONV_HOLD_STEPS`` train steps of each
+   mode on 300 + 100 images on the card and on the CPU: losses within
+   ``CONV_LOSS_RTOL`` relative, parameters within ``CONV_WEIGHT_RTOL``
+   of their largest magnitude.  (b) VideoAE (32x32x1 frames, 480 + 120,
+   minibatch 50; conv, max pooling, depooling, deconv, MSE) for its 15
+   epochs, fused and graph mode: no hand kernel launched (cuDNN runs its
+   conv and deconv); the best validation rmse under half the targets'
+   standard deviation (the JAX gate); graph against fused mode and the
+   first steps against the CPU as in (a).  The synthetic twins are made
+   once for the phase.  Each run's train images/s (the median epoch after
+   the first) is printed; phase 5 traces one fused STL-10 epoch.  The
+   kernels line adds (a)'s K4 launches.
 5. Where the time goes: each serving configuration's burst, one
    training epoch of each matmul mode, one full-width attention epoch
    of each mask (none; causal, window 512) and one AlexNet epoch with
@@ -298,7 +323,7 @@ Phases (any failure raises and the script exits non-zero):
    beside its traced burst's launches and device-to-device copies, and
    int8-kv's beside the burst's numbers before the append kernel
    (``PASSES_INT8_KV``).  Last, one graph-mode MNIST epoch
-   (``precise_gemm=1``).
+   (``precise_gemm=1``) and one fused STL-10 epoch (``precise_gemm=1``).
    A trace that holds no device time is taken again on a fresh run, up
    to ``TRACE_TRIES`` times in all; a run with none in every try fails.
 6. The ``kernels`` JSON line, the card's line, and the result line.
@@ -309,6 +334,7 @@ every number to PATH as well.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -771,6 +797,15 @@ K4_MAIN_SHAPES = (("fwd 60x784 @ 784x100", 60, 784, 100, ""),
                   ("bwd dx g @ W2^T", 60, 10, 100, "bt"),
                   ("bwd dW2 h^T @ g", 100, 60, 10, "at"),
                   ("bwd dW1 x^T @ g", 784, 60, 100, "at"))
+#: the same for an STL-10 train step at minibatch 50 (phase 4g: the
+#: all2all 7744 -> 128, its input 11x11x64, and the softmax 128 -> 10;
+#: ``precise_gemm=1``, so held at level 1)
+K4_STL10_SHAPES = (("STL-10 fwd 50x7744 @ 7744x128", 50, 7744, 128, ""),
+                   ("STL-10 fwd 50x128 @ 128x10", 50, 128, 10, ""),
+                   ("STL-10 bwd dx g @ W2^T", 50, 10, 128, "bt"),
+                   ("STL-10 bwd dW2 h^T @ g", 128, 50, 10, "at"),
+                   ("STL-10 bwd dx g @ W1^T", 50, 128, 7744, "bt"),
+                   ("STL-10 bwd dW1 x^T @ g", 7744, 50, 128, "at"))
 #: the JAX package's realistic precise-GEMM shape (bench.py)
 K4_REALISTIC = (4096, 4096, 4096)
 #: compensation flops per output element per K tile, beyond the 2MNK
@@ -840,29 +875,31 @@ def _measure_k4(torch, gemm, dev, level, label, m, k, n, layout, seed,
 
 
 def _k4_split_equal(torch, gemm, dev):
-    """Untimed: at the MNIST forward shape (which splits K) each level
-    equals, bit for bit, the top-left corner of operands too large to
-    split."""
-    _, m, k, n, _ = K4_MAIN_SHAPES[0]
+    """Untimed: at the MNIST and STL-10 forward shapes (each splits K)
+    each level equals, bit for bit, the top-left corner of operands too
+    large to split."""
     out = {}
-    for level in (0, 1, 2):
-        a_big, b_big = _k4_operands(torch, dev, 2048, k, 1024, "",
-                                    seed=50 + level)
-        folds = gemm.precise_matmul.fold_launches
-        small = gemm.precise_matmul(a_big[:m].contiguous(),
-                                    b_big[:, :n].contiguous(), level)
-        split = gemm.precise_matmul.fold_launches - folds
-        big = gemm.precise_matmul(a_big, b_big, level)
-        torch.cuda.synchronize()
-        unsplit = gemm.precise_matmul.fold_launches - folds == split
-        equal = bool(torch.equal(small, big[:m, :n]))
-        if not (split == 1 and unsplit and equal):
-            raise AssertionError(
-                "K4 level %d: split %d, large call unsplit %s, split equal "
-                "to unsplit %s" % (level, split, unsplit, equal))
-        out[level] = equal
-    _log("kernel precise_matmul split-K: M=%d K=%d N=%d splits and equals "
-         "the unsplit corner bit for bit at levels 0-2" % (m, k, n))
+    for _, m, k, n, _ in (K4_MAIN_SHAPES[0], K4_STL10_SHAPES[0]):
+        for level in (0, 1, 2):
+            a_big, b_big = _k4_operands(torch, dev, 2048, k, 1024, "",
+                                        seed=50 + level)
+            folds = gemm.precise_matmul.fold_launches
+            small = gemm.precise_matmul(a_big[:m].contiguous(),
+                                        b_big[:, :n].contiguous(), level)
+            split = gemm.precise_matmul.fold_launches - folds
+            big = gemm.precise_matmul(a_big, b_big, level)
+            torch.cuda.synchronize()
+            unsplit = gemm.precise_matmul.fold_launches - folds == split
+            equal = bool(torch.equal(small, big[:m, :n]))
+            if not (split == 1 and unsplit and equal):
+                raise AssertionError(
+                    "K4 level %d at K=%d: split %d, large call unsplit %s, "
+                    "split equal to unsplit %s"
+                    % (level, k, split, unsplit, equal))
+            out["M=%d K=%d N=%d level %d" % (m, k, n, level)] = equal
+        _log("kernel precise_matmul split-K: M=%d K=%d N=%d splits and "
+             "equals the unsplit corner bit for bit at levels 0-2"
+             % (m, k, n))
     return out
 
 
@@ -931,14 +968,16 @@ def _k4_cancellation(torch, gemm, dev):
 
 def k4_phase(torch, gemm, dev):
     """-> {level: {"main": [records], "realistic": [record]}},
-    cancellation errors."""
+    cancellation errors.  Level 1's main records are MNIST's then
+    STL-10's."""
     out = {}
     for level in (0, 1, 2):
+        shapes = K4_MAIN_SHAPES + (K4_STL10_SHAPES if level == 1 else ())
         out[level] = {
             "main": [_measure_k4(torch, gemm, dev, level, label, m, k, n,
                                  layout, seed=10 * level + i)
                      for i, (label, m, k, n, layout)
-                     in enumerate(K4_MAIN_SHAPES)],
+                     in enumerate(shapes)],
             "realistic": [_measure_k4(torch, gemm, dev, level, "bench",
                                       *K4_REALISTIC, "", seed=99,
                                       iters=5)]}
@@ -2996,6 +3035,13 @@ def _mnist_workflow(precise, device="cuda", epochs=None, fused=True,
     return wf
 
 
+def _epoch_metric(wf):
+    """Each class's n_err of the epoch just ended (rmse for MSE)."""
+    decision = wf.decision
+    return list(decision.epoch_rmse if wf.loss_function == "mse"
+                else decision.epoch_n_err)
+
+
 def _instrument(wf, counters):
     """Record each epoch's end time, first-epoch state and train losses,
     and the launches of each wrapper of ``counters`` ({name: wrapper
@@ -3006,7 +3052,7 @@ def _instrument(wf, counters):
            "steps": {TRAIN: 0, VALID: 0}, "train_loss": [[]],
            "launches": {name: {TRAIN: 0, VALID: 0} for name in counters}}
     step, decision = wf.fused_step, wf.decision
-    step_run, epoch_end = step.run, decision._on_epoch_end
+    step_run, decision_run = step.run, decision.run
 
     def run():
         before = {name: fn.launches for name, fn in counters.items()}
@@ -3018,19 +3064,25 @@ def _instrument(wf, counters):
         if cls == TRAIN:     # a device scalar: read at the end, no sync
             rec["train_loss"][-1].append(step.loss)
 
-    def on_epoch_end():
+    def mark_epoch_end():
         rec["epoch_end"].append(time.perf_counter())
         rec["train_loss"].append([])
         if rec["first_epoch"] is None:
             rec["first_epoch"] = {
-                "n_err": list(decision.epoch_n_err),
+                "n_err": _epoch_metric(wf),
                 "weights": [{k: numpy.array(v)
                              for k, v in f.host_params.items()}
                             for f in wf.forwards]}
-        epoch_end()
 
-    step.run = run
-    decision._on_epoch_end = on_epoch_end
+    def run_decision():
+        # an epoch ends where the decision closes its last minibatch
+        ended = bool(decision.last_minibatch) and \
+            bool(decision.epoch_ended)
+        decision_run()
+        if ended:
+            mark_epoch_end()
+
+    step.run, decision.run = run, run_decision
     return rec
 
 
@@ -3532,22 +3584,20 @@ def train_steps(wf, n):
     return losses
 
 
-def steps_agree(label, losses, weights, want_losses, want_weights):
-    """Losses within ``STEP_LOSS_RTOL``, each parameter tensor within
-    ``STEP_WEIGHT_RTOL`` of its largest magnitude; -> (max loss rel
-    diff, max weight rel diff)."""
+def steps_agree(label, losses, weights, want_losses, want_weights,
+                loss_rtol=STEP_LOSS_RTOL, weight_rtol=STEP_WEIGHT_RTOL):
+    """Losses within ``loss_rtol``, each parameter tensor within
+    ``weight_rtol`` of its largest magnitude; -> (max loss rel diff, max
+    weight rel diff)."""
     loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses,
                                                         want_losses))
-    w_diff = max(float(numpy.abs(w[k] - ref[k]).max()) /
-                 float(numpy.abs(ref[k]).max())
-                 for w, ref in zip(weights, want_weights) for k in ref)
+    w_diff = _max_rel_diff(weights, want_weights)
     if len(losses) != len(want_losses) or \
-            not loss_diff <= STEP_LOSS_RTOL or \
-            not w_diff <= STEP_WEIGHT_RTOL:
+            not loss_diff <= loss_rtol or not w_diff <= weight_rtol:
         raise AssertionError("%s: losses %r against %r (rel %g, limit %g),"
                              " weights rel %g (limit %g)"
                              % (label, losses, want_losses, loss_diff,
-                                STEP_LOSS_RTOL, w_diff, STEP_WEIGHT_RTOL))
+                                loss_rtol, w_diff, weight_rtol))
     return loss_diff, w_diff
 
 
@@ -3563,9 +3613,10 @@ def _lrn_counters(lrn_mod):
 def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
     """Run ``wf`` (fused or graph mode) with its kernels' counts reset;
     -> record of epoch times, train samples/s (median epoch, the first
-    apart), losses, launches (total and per train / eval step) and the
-    best error; in graph mode also the launches made inside GD units
-    (``gd_launches``) and the first epoch's state (``first_epoch``)."""
+    apart), losses, launches (total and per train / eval step), the
+    best error and the first epoch's state (``first_epoch``, numpy: the
+    caller pops it); in graph mode also the launches made inside GD
+    units (``gd_launches``)."""
     from veles_tpu_torch.loader import TRAIN, VALID
     graph = wf.fused_step is None
     if graph:
@@ -3578,7 +3629,8 @@ def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
     t0 = time.perf_counter()
     wf.run()
     close()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     ends = [t0] + rec["epoch_end"]
@@ -3591,6 +3643,8 @@ def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
                   rec["launches"][name][VALID] / max(steps[VALID], 1))
            for name in counters}
     res = wf.gather_results()
+    mse = "best_validation_rmse" in res
+    best = "best_validation_rmse" if mse else "best_validation_error_pt"
     out = {"label": label, "card": card, "init_s": t_init,
            "seconds": seconds, "epochs": len(epoch_s), "epoch_s": epoch_s,
            "epoch_s_median_after_first": median_s,
@@ -3598,14 +3652,14 @@ def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
            "train_steps": steps[TRAIN], "eval_steps": steps[VALID],
            "launches": launches, "launches_per_train_eval_step": per,
            "mean_train_loss": [statistics.fmean(e) for e in losses],
-           "best_validation_error_pt": res["best_validation_error_pt"],
-           "best_epoch": res["best_epoch"]}
+           best: res[best], "best_epoch": res["best_epoch"]}
+    out["first_epoch"] = rec["first_epoch"]
     if graph:
-        out.update(gd_launches=inside, first_epoch=rec["first_epoch"])
+        out["gd_launches"] = inside
     _log("train %s%s: %d train + %d valid %s, minibatch %d; %d epochs in "
          "%.3f s; epoch wall s %s; median after the first %.4f s = %.1f "
-         "train %s/s; mean train loss by epoch %s; best validation error "
-         "%.2f%% (epoch %d); launches %s (per train / eval step %s%s); "
+         "train %s/s; mean train loss by epoch %s; best validation %s "
+         "(epoch %d); launches %s (per train / eval step %s%s); "
          "init %.3f s [%s]"
          % (label, " (graph mode)" if graph else "", n_train,
             wf.loader.class_lengths[VALID], n_seq_label,
@@ -3613,7 +3667,8 @@ def _train_record(torch, wf, counters, label, card, t_init, n_seq_label):
             " ".join("%.4f" % x for x in epoch_s), median_s,
             out["train_samples_s_median"], n_seq_label,
             " ".join("%.5f" % x for x in out["mean_train_loss"]),
-            out["best_validation_error_pt"], out["best_epoch"], launches,
+            ("rmse %.6f" if mse else "error %.2f%%") % out[best],
+            out["best_epoch"], launches,
             per, "; inside GD units %s" % inside if graph else "", t_init,
             card))
     if any(not math.isfinite(x) for e in losses for x in e):
@@ -3636,6 +3691,7 @@ def alexnet_run(torch, lrn_mod, card, label, use_pallas):
                              % label)
     out = _train_record(torch, wf, _lrn_counters(lrn_mod), label, card,
                         init_s, "images")
+    out.pop("first_epoch")
     want = {"K5": (2, 2), "K6": (2, 0)} if use_pallas is None else \
         {"K5": (0, 0), "K6": (0, 0)}
     if out["launches_per_train_eval_step"] != want:
@@ -3751,6 +3807,7 @@ def lrn_net_run(torch, lrn_mod, card):
         raise AssertionError("CIFAR came from %r" % wf.loader.provenance)
     out = _train_record(torch, wf, _lrn_counters(lrn_mod), "LRN convnet",
                         card, init_s, "images")
+    out.pop("first_epoch")
     if not out["best_validation_error_pt"] < LRN_NET_GATE_PT:
         raise AssertionError("the LRN convnet missed its gate: %.2f%% >= "
                              "%.0f%%" % (out["best_validation_error_pt"],
@@ -4338,6 +4395,20 @@ MSE_LAYERS = (
 MSE_EPOCHS = 3
 
 
+def _graph_loss(wf):
+    """Graph mode's loss of the minibatch just evaluated, a device
+    scalar, as the fused step defines it: the softmax evaluator's; for
+    MSE, whose evaluator keeps no loss, half the squared error summed
+    over a sample's features, averaged over the valid samples
+    (``EvaluatorMSE.loss_from_output``), from their mean squared
+    errors."""
+    ev = wf.evaluator
+    if wf.loss_function == "mse":
+        return (ev.mse.devmem ** 2).mean() * (0.5 * ev.err_output.devmem[0]
+                                              .numel())
+    return ev.loss
+
+
 def _graph_instrument(wf, counters):
     """``_instrument`` for graph mode; -> (record, close).  A graph step
     is everything from one loader run to the next (the forwards, the
@@ -4362,13 +4433,13 @@ def _graph_instrument(wf, counters):
             rec["launches"][name][cls] += \
                 fn.launches - open_step["launches"][name]
         if cls == TRAIN:     # a device scalar: read at the end, no sync
-            rec["train_loss"][-1].append(wf.evaluator.loss)
+            rec["train_loss"][-1].append(_graph_loss(wf))
         if open_step["epoch_ended"]:
             rec["epoch_end"].append(time.perf_counter())
             rec["train_loss"].append([])
             if rec["first_epoch"] is None:
                 rec["first_epoch"] = {
-                    "n_err": list(decision.epoch_n_err),
+                    "n_err": _epoch_metric(wf),
                     "weights": host_weights(wf)}
         open_step.clear()
 
@@ -4409,6 +4480,12 @@ def _want_launches(label, out, want):
 def _max_diff(a, b):
     return max(float(numpy.abs(x[k] - y[k]).max())
                for x, y in zip(a, b) for k in y)
+
+
+def _max_rel_diff(a, b):
+    """max over the tensors of ``b`` of |a - b| against max|b|."""
+    return max(float(numpy.abs(x[k] - y[k]).max()) /
+               float(numpy.abs(y[k]).max()) for x, y in zip(a, b) for k in y)
 
 
 def graph_mnist_run(torch, gemm, card, fused_run):
@@ -4471,7 +4548,7 @@ def graph_train_steps(wf, n):
         wf.evaluator.run()
         for gd in reversed(wf.gds):
             gd.run()
-        losses.append(float(wf.evaluator.loss))
+        losses.append(float(_graph_loss(wf)))
         keys.append([f.last_key for f in wf.forwards if f.stochastic])
     return losses, keys
 
@@ -5233,6 +5310,253 @@ def snapshot_phase(torch, card):
     return out
 
 
+# -- phase 4g: the structural conv units and the two conv samples (slice 21) -
+
+#: STL-10 at its published widths on its synthetic twin's defaults (96x96x3,
+#: 5000 train + 800 valid images, minibatch 50), ``precise_gemm=1``; the
+#: epochs cut from the sample's 100
+STL10_EPOCHS = 5
+#: the JAX gate (tests/test_samples_gates.py::test_stl10_sample_trains):
+#: best validation error under this, in percent
+STL10_GATE_PT = 50.0
+#: graph against fused mode on the card: each epoch's mean train loss,
+#: against the largest of fused mode's.  Not the weights: 1e-7 apart
+#: after a step, the modes' parameters drift to ~1e-3 of their scale over
+#: STL-10's first epoch (100 steps through max pooling and strict RELU;
+#: 9.7e-4 on the CPU), while its mean train loss stays 5.9e-6 apart
+CONV_MODES_LOSS_RTOL = 1e-4
+#: K4 launches a (train, eval) step.  Fused: the all2all and softmax
+#: forwards, both weight gradients and both input gradients (pooling and
+#: conv layers sit below the all2all), 6 and 2.  Graph mode: the two
+#: forwards (the GD units multiply with ``torch.matmul``), 2 and 2
+STL10_K4 = {True: (6, 2), False: (2, 2)}
+#: VideoAE at its published widths (32x32x1 frames, 480 train + 120
+#: valid, minibatch 50) for the sample's 15 epochs
+VIDEO_AE_EPOCHS = 15
+#: the JAX gate (tests/test_mcdnnic_samples.py::test_video_ae_
+#: reconstructs): best validation rmse under this fraction of the
+#: targets' standard deviation
+VIDEO_AE_GATE = 0.5
+#: the first train steps held card against CPU in each mode; STL-10 on
+#: the JAX gate test's 300 + 100 images (widths untouched)
+CONV_HOLD_STEPS = 2
+CONV_HOLD_LOADER = {"stl10": {"n_train": 300, "n_valid": 100},
+                    "video_ae": {}}
+#: card against CPU: each step's loss relative, each parameter tensor
+#: against its largest magnitude (cuDNN's f32 algorithms are not the
+#: CPU's summation order)
+CONV_LOSS_RTOL = 1e-5
+CONV_WEIGHT_RTOL = 1e-4
+
+
+#: STL-10's synthetic twins made in this process, by their arguments
+_STL10_TWINS = {}
+
+
+@contextlib.contextmanager
+def stl10_twins_shared():
+    """Within the block the STL-10 sample makes each synthetic twin once
+    in the process (its loader copies what it reads), as the needle
+    loader's data is made once."""
+    from veles_tpu_torch.znicz.samples import stl10
+    make = stl10._synthetic_stl10
+
+    def twin(*args):
+        if args not in _STL10_TWINS:
+            _STL10_TWINS[args] = make(*args)
+        return _STL10_TWINS[args]
+
+    stl10._synthetic_stl10 = twin
+    try:
+        yield
+    finally:
+        stl10._synthetic_stl10 = make
+
+
+def conv_sample_workflow(name, device="cuda", fused=True, epochs=1,
+                         precise=0, **loader):
+    """The ``stl10`` or ``video_ae`` sample through ``create_workflow``
+    with ``root.common.engine.precise_gemm`` set to ``precise``, weights
+    from seed 42, loader seed 3, initialized on ``device`` (the card
+    unless the CPU is asked for); ``loader`` overrides the sample's
+    loader config."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.samples import stl10, video_ae
+    mod = {"stl10": stl10, "video_ae": video_ae}[name]
+    prng.get().seed(42)
+    saved = root.common.engine.get("precise_gemm", 0)
+    root.common.engine.precise_gemm = precise
+    try:
+        wf = mod.create_workflow(
+            fused=fused, loader=dict(loader, prng=RandomGenerator().seed(3)),
+            decision={"max_epochs": epochs, "silent": True})
+    finally:
+        root.common.engine.precise_gemm = saved
+    wf.initialize(device=Device(backend=device))
+    return _on(wf, device)
+
+
+def conv_hold(name, fused, precise, devices=("cuda", "cpu")):
+    """The first ``CONV_HOLD_STEPS`` train steps of the sample ``name`` in
+    one mode on ``devices[0]`` and by the port on ``devices[1]`` from the
+    same seeds: losses and weights within ``CONV_LOSS_RTOL`` and
+    ``CONV_WEIGHT_RTOL``; -> record."""
+    runs = {}
+    for device in devices:
+        wf = conv_sample_workflow(name, device, fused, precise=precise,
+                                  **CONV_HOLD_LOADER[name])
+        t0 = time.perf_counter()
+        losses = (train_steps(wf, CONV_HOLD_STEPS) if fused else
+                  graph_train_steps(wf, CONV_HOLD_STEPS)[0])
+        runs[device] = (losses, host_weights(wf),
+                        time.perf_counter() - t0)
+    (card_losses, card_w, _), (cpu_losses, cpu_w, cpu_s) = \
+        runs[devices[0]], runs[devices[1]]
+    label = "%s %s first steps, card vs CPU" % (
+        name, "fused" if fused else "graph mode")
+    loss_diff, w_diff = steps_agree(label, card_losses, card_w, cpu_losses,
+                                    cpu_w, CONV_LOSS_RTOL, CONV_WEIGHT_RTOL)
+    _log("train %s: losses card %s cpu %s (max rel diff %.3g, limit %g); "
+         "max|w_card - w_cpu| / max|w_cpu| = %.3g (limit %g); CPU steps "
+         "%.3f s" % (label, card_losses, cpu_losses, loss_diff,
+                     CONV_LOSS_RTOL, w_diff, CONV_WEIGHT_RTOL, cpu_s))
+    return {"steps": CONV_HOLD_STEPS, "losses_card": card_losses,
+            "losses_cpu": cpu_losses, "max_loss_rel_diff": loss_diff,
+            "max_weight_rel_diff": w_diff, "cpu_seconds": cpu_s}
+
+
+def stl10_run(torch, card, fused, counters, device="cuda",
+              epochs=STL10_EPOCHS, **loader):
+    """STL-10 with ``precise_gemm=1`` in one mode; -> ``_train_record``'s
+    record (its ``first_epoch`` for the caller to pop).  K4 (``counters["k4"]``) must launch ``STL10_K4[fused]`` a
+    train / eval step (never inside a GD unit), and the best validation
+    error must pass the gate."""
+    t0 = time.perf_counter()
+    wf = conv_sample_workflow("stl10", device, fused, epochs, precise=1,
+                              **loader)
+    init_s = time.perf_counter() - t0
+    if [f.precise_gemm for f in wf.forwards[-2:]] != [1, 1]:
+        raise AssertionError("precise_gemm did not reach STL-10's "
+                             "all2all and softmax")
+    out = _train_record(torch, wf, counters, "STL-10 precise_gemm=1", card,
+                        init_s, "images")
+    if not fused:
+        if out.pop("gd_launches")["k4"]:
+            raise AssertionError("STL-10 graph mode: K4 launched inside a "
+                                 "GD unit")
+    want = {"k4": STL10_K4[fused]}
+    if out["launches_per_train_eval_step"] != want:
+        raise AssertionError("STL-10 %s: K4 launches per train / eval step "
+                             "%r, want %r" % (
+                                 "fused" if fused else "graph mode",
+                                 out["launches_per_train_eval_step"], want))
+    if not out["best_validation_error_pt"] < STL10_GATE_PT:
+        raise AssertionError("STL-10 missed its gate: %.2f%%"
+                             % out["best_validation_error_pt"])
+    return out
+
+
+def video_ae_run(torch, card, fused, counters, device="cuda",
+                 epochs=VIDEO_AE_EPOCHS, **loader):
+    """VideoAE in one mode; -> ``_train_record``'s record (its
+    ``first_epoch`` for the caller to pop) with the targets' standard
+    deviation.  It launches no hand kernel (its conv
+    and deconv run on cuDNN, ``counters`` must stay 0), and its best
+    validation rmse must pass the gate."""
+    t0 = time.perf_counter()
+    wf = conv_sample_workflow("video_ae", device, fused, epochs, **loader)
+    init_s = time.perf_counter() - t0
+    if [type(f).MAPPING for f in wf.forwards] != [
+            "conv_tanh", "max_pooling", "depooling", "deconv"]:
+        raise AssertionError("VideoAE's layers are %r" % wf.forwards)
+    out = _train_record(torch, wf, counters, "VideoAE", card, init_s,
+                        "frames")
+    out.pop("gd_launches", None)
+    floor = float(wf.loader.original_targets.map_read().std())
+    out["targets_std"] = floor
+    if any(out["launches"].values()):
+        raise AssertionError("VideoAE launched a hand kernel: %r"
+                             % out["launches"])
+    if not out["best_validation_rmse"] < VIDEO_AE_GATE * floor:
+        raise AssertionError("VideoAE missed its gate: rmse %.6f, targets' "
+                             "std %.6f" % (out["best_validation_rmse"],
+                                           floor))
+    return out
+
+
+def modes_agree(label, runs):
+    """Graph mode's mean train loss of each epoch (``runs[False]``)
+    against fused mode's (``runs[True]``) on the card, within
+    ``CONV_MODES_LOSS_RTOL`` of fused mode's largest; pops both runs'
+    ``first_epoch`` (its weights' distance is logged); -> record."""
+    fused, graph = runs[True], runs[False]
+    first_f, first_g = fused.pop("first_epoch"), graph.pop("first_epoch")
+    loss_f, loss_g = fused["mean_train_loss"], graph["mean_train_loss"]
+    scale = max(abs(x) for x in loss_f)
+    diff = max(abs(a - b) for a, b in zip(loss_g, loss_f)) / scale
+    w_diff = _max_rel_diff(first_g["weights"], first_f["weights"])
+    _log("train %s: graph against fused mode: mean train loss "
+         "by epoch graph %s fused %s, max diff %.3g of the largest (limit "
+         "%g); first epoch's weights max|w_graph - w_fused| / max|w_fused| "
+         "= %.3g, its metric graph %s fused %s"
+         % (label, loss_g, loss_f, diff, CONV_MODES_LOSS_RTOL, w_diff,
+            first_g["n_err"], first_f["n_err"]))
+    if len(loss_g) != len(loss_f) or not diff <= CONV_MODES_LOSS_RTOL:
+        raise AssertionError("%s: graph mode's mean train losses %r are %.3g "
+                             "of their scale from fused mode's %r"
+                             % (label, loss_g, diff, loss_f))
+    return {"max_loss_diff_of_scale": diff,
+            "first_epoch_max_weight_rel_diff": w_diff}
+
+
+def conv_phase(torch, gemm, card):
+    """Phase 4g: STL-10 (K4) and VideoAE at their published widths, fused
+    and graph mode, each held against its gate, graph against fused mode
+    and its first steps against the CPU; -> record with the launches of
+    the phase's runs under the kernels line's names."""
+    counters = {"k4": gemm.precise_matmul}
+    out = {}
+    t0 = time.perf_counter()
+    with stl10_twins_shared():
+        stl = {fused: stl10_run(torch, card, fused, counters)
+               for fused in (True, False)}
+        modes = modes_agree("STL-10 precise_gemm=1", stl)
+        _log("train STL-10 precise_gemm=1: train images/s fused %.1f graph "
+             "%.1f (median epoch after the first) [%s]"
+             % (stl[True]["train_samples_s_median"],
+                stl[False]["train_samples_s_median"], card))
+        out["stl10"] = {"fused": stl[True], "graph": stl[False],
+                        "graph_vs_fused": modes,
+                        "hold_fused": conv_hold("stl10", True, 1),
+                        "hold_graph": conv_hold("stl10", False, 1),
+                        "seconds": time.perf_counter() - t0}
+    _log("phase 4g STL-10: %.1f s" % out["stl10"]["seconds"])
+    t0 = time.perf_counter()
+    vae = {fused: video_ae_run(torch, card, fused, counters)
+           for fused in (True, False)}
+    out["video_ae"] = {"fused": vae[True], "graph": vae[False],
+                       "graph_vs_fused": modes_agree("VideoAE", vae),
+                       "hold_fused": conv_hold("video_ae", True, 0),
+                       "hold_graph": conv_hold("video_ae", False, 0),
+                       "seconds": time.perf_counter() - t0}
+    _log("phase 4g VideoAE: %.1f s" % out["video_ae"]["seconds"])
+    out["launches"] = {"precise_matmul_l1": sum(
+        run["launches"]["k4"] for run in stl.values())}
+    return out
+
+
+def trace_stl10(torch, card):
+    """One fused STL-10 epoch (``precise_gemm=1``) under
+    ``torch.profiler``, on the twin phase 4g made."""
+    with stl10_twins_shared():
+        return _traced(torch, "train STL-10 precise_gemm=1", card,
+                       lambda: _epoch(conv_sample_workflow("stl10",
+                                                           precise=1)))
+
+
 # -- phase 5: where the time goes ---------------------------------------------
 
 def trace_run(torch, card, label, kv_dtype, weight_dtype):
@@ -5717,6 +6041,11 @@ def main():
     for name, n in snaps["launches"].items():
         launches[name] += n
     phase_done("4f snapshots and shards")
+    conv = conv_phase(torch, gemm, card)
+    record["conv_samples"] = conv
+    for name, n in conv["launches"].items():
+        launches[name] += n
+    phase_done("4g STL-10 and VideoAE")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (
@@ -5725,7 +6054,7 @@ def main():
         [trace_attention(torch, card, *config) for config in ATTN_CONFIGS] +
         [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS] +
         [trace_options_run(torch, card, kv) for kv in ("f32", "int8")] +
-        [trace_graph_train(torch, card)])
+        [trace_graph_train(torch, card), trace_stl10(torch, card)])
     for run, trace in zip(runs, record["traces"]):
         serving_summary(run, trace)
     phase_done("5 traces")

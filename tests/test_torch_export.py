@@ -26,7 +26,9 @@ each trained by the JAX package and carried into the port
   ``test_deserialize_is_thread_safe`` (the chain is rebuilt once under
   two concurrent first calls) and ``test_native_cli_runner`` (the
   native binary and the port's runner, ``--device cpu``);
-- a class the port lacks raises naming its ROADMAP queue A item.
+- a class the port lacks raises naming its ROADMAP queue A item; a
+  ``misc_units`` class raises that the JAX package records no
+  configuration for it.
 """
 
 import json
@@ -452,6 +454,34 @@ def test_a_class_the_port_lacks_raises_naming_its_item(nets):
                                     **{"class": "NoSuchUnit"})])
     with pytest.raises(ValueError, match="NoSuchUnit"):
         build_forwards(bad, device="cpu")
+
+
+def test_structural_classes_raise_that_no_configuration_is_recorded(nets):
+    """The ``misc_units`` forwards are ported, but a package does not
+    record their structure (the JAX units define no ``export_params``),
+    so a chain holding one is refused with that reason; the stochastic
+    pooling classes still wait for item 6 (6b)."""
+    from veles_tpu.znicz import misc_units as jax_misc
+    from veles_tpu.znicz.nn_units import ForwardBase as JaxForwardBase
+    from veles_tpu_torch.export import build_forwards
+    meta = json.loads(_zip(nets("mnist").package("port"))["model.json"])
+    for cls in ("Cutter", "ChannelSplitter", "ChannelMerger", "ZeroFiller",
+                "Deconv", "Depooling"):
+        assert getattr(jax_misc, cls).export_params is \
+            JaxForwardBase.export_params, cls
+        bad = dict(meta, forwards=[dict(meta["forwards"][0], **{
+            "class": cls, "config": {}})])
+        with pytest.raises(NotImplementedError,
+                           match="%s cannot be served: the JAX package "
+                           "records no configuration for it" % cls):
+            build_forwards(bad, device="cpu")
+    for cls in ("StochasticPooling", "StochasticAbsPooling",
+                "StochasticPoolingDepooling",
+                "StochasticAbsPoolingDepooling"):
+        bad = dict(meta, forwards=[dict(meta["forwards"][0], **{
+            "class": cls})])
+        with pytest.raises(NotImplementedError, match="item 6"):
+            build_forwards(bad, device="cpu")
 
 
 def test_rebuilt_chain_is_the_live_forward(nets):

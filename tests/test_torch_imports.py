@@ -24,7 +24,8 @@
   registry and the server, ``RESTfulAPI`` and the package runner's
   command line (slice 19); a restored workflow's ``initialize()``, the
   ``ShardedBatchLoader`` and a snapshotting ``StandardWorkflow`` (slice
-  20).
+  20); the STL-10 and VideoAE samples' workflows in both modes and a
+  ``Deconv`` unit (slice 21).
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -104,7 +105,8 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "autotune.probe", "autotune.__main__", "input_joiner",
                  "export", "export.packager", "export.model",
                  "export.loader", "export.native", "restful_api",
-                 "snapshotter", "loader.shards"):
+                 "snapshotter", "loader.shards", "znicz.misc_units",
+                 "znicz.samples.stl10", "znicz.samples.video_ae"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -435,6 +437,44 @@ def test_slice20_entry_points_need_a_card_unless_told_cpu(monkeypatch,
     sharded.initialize(device=cpu)
     sharded.run()
     assert sharded.minibatch_data.devmem.device == torch.device("cpu")
+
+
+def test_slice21_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """The STL-10 and VideoAE samples' workflows, fused and in graph
+    mode, and a ``Deconv`` unit initialize on the card without a device
+    and raise without one; told the CPU, each runs there."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.misc_units import Deconv
+    from veles_tpu_torch.znicz.samples import stl10, video_ae
+    cpu = Device(backend="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mod, loader in ((stl10, {"n_train": 50, "n_valid": 50}),
+                        (video_ae, {"n_train": 50, "n_valid": 50})):
+        for fused in (True, False):
+            wf = mod.create_workflow(fused=fused, loader=loader,
+                                     decision={"max_epochs": 1,
+                                               "silent": True})
+            with pytest.raises(RuntimeError, match="CUDA"):
+                wf.initialize()
+            wf = mod.create_workflow(fused=fused, loader=loader,
+                                     decision={"max_epochs": 1,
+                                               "silent": True})
+            wf.initialize(device=cpu)
+            wf.run()
+            assert wf.forwards[-1].output.devmem.device == \
+                torch.device("cpu")
+    x = numpy.zeros((2, 6, 6, 3), numpy.float32)
+    unit = Deconv(Workflow(name="w"), n_kernels=2, kx=3, ky=3, padding=1)
+    unit.input = Array(x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        unit.initialize()
+    unit = Deconv(Workflow(name="w"), n_kernels=2, kx=3, ky=3, padding=1)
+    unit.input = Array(x)
+    unit.initialize(device=cpu)
+    unit.run()
+    assert unit.output.devmem.shape == (2, 6, 6, 2)
 
 
 def test_package_runner_subprocess_imports_no_jax(tmp_path):

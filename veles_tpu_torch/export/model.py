@@ -42,14 +42,22 @@ _CLASSES = dict(
         "ForwardTanh", "ForwardSigmoid", "ForwardRELU",
         "ForwardStrictRELU")])
 
-#: forward classes of the JAX package the port has not ported yet, by
-#: their ROADMAP queue A item
-_WAITING = dict(
-    [(name, "item 9") for name in (
+#: forward classes of the JAX package whose packages the port refuses,
+#: and why: not ported yet (by their ROADMAP queue A item), or ported
+#: but not recorded in a package (the JAX units define no
+#: ``export_params``, so their ``model.json`` ``config`` is ``{}``)
+_UNPORTED = "the unit is not ported yet (ROADMAP queue A %s)"
+_UNRECORDED = ("the JAX package records no configuration for it (the unit "
+               "has no export_params; its model.json config is {}), so the "
+               "chain cannot be rebuilt without model.stablehlo, which the "
+               "port does not run")
+_REFUSED = dict(
+    [(name, _UNPORTED % "item 9") for name in (
         "ResizableAll2All", "KohonenForward", "SimpleRNN", "LSTM")] +
-    [(name, "item 6") for name in (
+    [(name, _UNPORTED % "item 6b") for name in (
         "StochasticPooling", "StochasticAbsPooling",
-        "StochasticPoolingDepooling", "StochasticAbsPoolingDepooling",
+        "StochasticPoolingDepooling", "StochasticAbsPoolingDepooling")] +
+    [(name, _UNRECORDED) for name in (
         "Cutter", "ChannelSplitter", "ChannelMerger", "ZeroFiller",
         "Deconv", "Depooling")])
 
@@ -100,10 +108,9 @@ def export_model(workflow, path, precision=32, batch="b"):
 
 
 def _unit_class(name):
-    if name in _WAITING:
-        raise NotImplementedError(
-            "a package holding %s cannot be served: the unit is not "
-            "ported yet (ROADMAP queue A %s)" % (name, _WAITING[name]))
+    if name in _REFUSED:
+        raise NotImplementedError("a package holding %s cannot be served: "
+                                  "%s" % (name, _REFUSED[name]))
     if name not in _CLASSES:
         raise ValueError("a package unit of class %r: the forward chain "
                          "rebuilds %s" % (name, ", ".join(sorted(_CLASSES))))

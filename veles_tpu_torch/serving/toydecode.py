@@ -338,8 +338,9 @@ def from_spec(spec, device=None):
     ddelay and agree are model knobs; the rest are geometry).
     ``spec=K`` turns on speculative decoding at depth K.  The JAX
     package's keys all parse; ``spec=auto`` reaches the scheduler, which
-    refuses it (not ported yet), and the ``tier_*`` keys its ``kvtier``
-    (``tier_disk=1``: the directory from ``VELES_KVTIER_DIR``)."""
+    resolves it through the ``serving.spec_depth`` tuning site, and the
+    ``tier_*`` keys its ``kvtier`` (``tier_disk=1``: the directory from
+    ``VELES_KVTIER_DIR``)."""
     body = spec.partition(":")[2]
     vocab, delay, pdelay, ddelay, agree = 97, 0.0, 0.0, 0.0, 1.0
     defaults = {}

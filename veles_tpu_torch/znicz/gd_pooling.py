@@ -5,7 +5,7 @@ GDMaxPooling (the error goes to the argmax element), GDAvgPooling
 (spread over the window) and GDMaxAbsPooling.  All are paramless; the
 error routing is the vjp of the forward, in graph mode as in the fused
 step.  ``GDStochasticPooling`` waits for stochastic pooling (ROADMAP
-queue A item 6).
+queue A item 6b).
 """
 
 from .nn_units import GenericVJPBackward

@@ -17,7 +17,9 @@ autograd gives the backward (the argmax scatter of max pooling).
 
 Not ported: the JAX ``MaxPooling``'s ``pool_separable`` and
 ``pool_bf16`` knobs (TPU layout experiments; set, they raise here),
-``fast_max_pool``, and the stochastic pooling and depooling units.
+``fast_max_pool``, and the stochastic pooling units and their depooling
+variants (ROADMAP queue A item 6b; the plain ``Depooling`` is in
+:mod:`.misc_units`).
 """
 
 import numpy

@@ -1,7 +1,9 @@
 """Sample models of the port (the counterpart of
 ``veles_tpu.znicz.samples``): the flagship decode model (serving) and
-the StandardWorkflow training samples MNIST, AlexNet and the CIFAR
-convnet."""
+the StandardWorkflow training samples MNIST, AlexNet, the CIFAR and
+STL-10 convnets and the VideoAE conv autoencoder.  The JAX samples'
+``run(load, main)`` entries wait for the command line (ROADMAP queue A
+item 10)."""
 
 
 def build_standard(cfg, name, default_loader_factory, loss_function,

@@ -9,6 +9,11 @@ GD units (reversed) → loop from a ``layers`` config list, each entry
 hyperparameter names).  ``loss_function`` is "softmax" (an
 All2AllSoftmax head, :class:`~.decision.DecisionGD`) or "mse"
 (:class:`~.decision.DecisionMSE`, a FullBatchLoaderMSE's targets).
+A paramless layer type with no GD unit of its own (depooling, the
+channel splitter and merger, zero_filler) gets a
+:class:`~.nn_units.GenericVJPBackward`; a layer with parameters and no
+GD unit raises ``ValueError``, as does a ``zero_filler`` layer in a
+fused build (its masking runs only as a unit of graph mode).
 
 Two modes, as in the JAX package:
 
@@ -56,13 +61,14 @@ from ..plumbing import Repeater
 from ..registry import MappedObjectsRegistry, UnitRegistry
 from ..workflow import Workflow
 from .all2all import All2AllSoftmax
-from .nn_units import ForwardBase, GradientDescentBase
+from .nn_units import (ForwardBase, GenericVJPBackward,
+                       GradientDescentBase, ParamlessForward)
 from .decision import DecisionGD, DecisionMSE
 from .evaluator import EvaluatorSoftmax, EvaluatorMSE
 from .fused import FusedTrainStep
 # registers the layer MAPPINGs
 from . import (activation, all2all, attention, conv, dropout,  # noqa: F401
-               gd, gd_conv, gd_pooling, lrn, pooling)
+               gd, gd_conv, gd_pooling, lrn, misc_units, pooling)
 
 __all__ = ["StandardWorkflow", "REFUSED_KNOBS"]
 
@@ -85,7 +91,7 @@ _GD_KEYS = {"learning_rate", "learning_rate_bias", "weights_decay",
 
 def _find_pair(type_name):
     """Resolve a layer-type MAPPING to its (forward, gd) classes through
-    the unit registry."""
+    the unit registry; gd is None where no GD unit has the MAPPING."""
     fwd = gd_cls = None
     for cls in UnitRegistry.units.values():
         if getattr(cls, "MAPPING", None) != type_name:
@@ -94,7 +100,7 @@ def _find_pair(type_name):
             fwd = cls
         elif issubclass(cls, GradientDescentBase):
             gd_cls = cls
-    if fwd is None or gd_cls is None:
+    if fwd is None:
         raise ValueError("unknown layer type %r (the port has: %s)" % (
             type_name, ", ".join(sorted(
                 {c.MAPPING for c in UnitRegistry.units.values()
@@ -184,6 +190,12 @@ class StandardWorkflow(Workflow):
         # the GD units own the solver state and hyperparameters the
         # fused step reads
         for (gd_cls, gd_kwargs), fwd in zip(gd_pairs, self.forwards):
+            if gd_cls is None:
+                if not isinstance(fwd, ParamlessForward):
+                    raise ValueError(
+                        "no GD unit registered for parameterized layer %r"
+                        % type(fwd).MAPPING)
+                gd_cls = GenericVJPBackward  # paramless structural layer
             self.gds.append(gd_cls(self, **gd_kwargs).link_forward(fwd))
         if self.snapshotter_config is not None:
             self._build_snapshotter(dict(self.snapshotter_config))
@@ -215,6 +227,11 @@ class StandardWorkflow(Workflow):
         return self.snapshotter
 
     def _build_fused(self):
+        for fwd in self.forwards:
+            if isinstance(fwd, misc_units.ZeroFiller):
+                raise ValueError(
+                    "zero_filler is graph-mode only; use Conv(grouping=N) "
+                    "in fused workflows (see ZeroFiller docstring)")
         self.fused_step = FusedTrainStep(
             self, self.forwards, self.gds, loss=self.loss_function,
             **self.trainer_config)
