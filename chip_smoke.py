@@ -187,7 +187,8 @@ Phases (any failure raises and the script exits non-zero):
    (784-100-10, minibatch 60, 25 epochs, fail_iterations 12, loader
    seed 3, weights seed 42, the committed digits fixture), with plain
    matmuls and with ``precise_gemm`` 1 and 2 (every All2All matmul,
-   forward and backward, on K4).  Each run's best validation error must
+   forward and backward, on K4); the plain and ``precise_gemm=2`` runs
+   for ``GATE_SHORT_EPOCHS``.  Each run's best validation error must
    be <= 1.48 %; K4 launches are counted from 0 over each run, per train
    and per eval step.  The first epoch of the ``precise_gemm=1`` run is
    held against the same epoch run by the port on the CPU: n_err of each
@@ -308,22 +309,43 @@ Phases (any failure raises and the script exits non-zero):
    once for the phase.  Each run's train images/s (the median epoch after
    the first) is printed; phase 5 traces one fused STL-10 epoch.  The
    kernels line adds (a)'s K4 launches.
+4h. Stochastic pooling (ROADMAP queue A item 6b), after 4g, at the
+   samples' published widths (``stochastic_layers``): (a) STL-10 as in
+   4g (a) for ``STOCH_STL10_EPOCHS`` epochs, its max pooling swapped for
+   ``stochastic_pooling`` and its first average pooling for
+   ``stochastic_abs_pooling``, the same windows; (b)
+   VideoAE as in 4g (b), its max pooling and depooling swapped for one
+   ``stochastic_abs_pool_depool`` of the max pooling's window.  Each
+   fused and in graph mode: 4g's gates, K4's launches (STL-10: 4g's
+   ``STL10_K4``; VideoAE: none), the first steps card against CPU
+   within 4g's limits (``STOCH_HOLD_LOADER``: STL-10's in minibatches of
+   5), and graph mode's mean train losses within
+   ``STOCH_MODES_LOSS_RTOL`` of fused mode's largest (the modes draw
+   other samples, and graph mode's backward of the depooling pair is
+   the expectation's, as in the JAX package).  The draws: STL-10's
+   first stochastic layer over the first conv's output of
+   ``STOCH_DRAW_ROWS`` images on the card and on the CPU for the same
+   key; a choice that differs must be a near-tie (the CPU's two largest
+   perturbed logits within ``STOCH_NEAR_TIE_RTOL``), and is counted;
+   agreeing draws' values bitwise.  Each run's images or frames/s is
+   printed; phase 5 traces one fused stochastic STL-10 epoch (on a twin
+   of ``STOCH_TRACE_LOADER``'s size) and prints the threefry draws'
+   share of the busy card.  The kernels line adds (a)'s K4 launches.
 5. Where the time goes: each serving configuration's burst, one
-   training epoch of each matmul mode, one full-width attention epoch
-   of each mask (none; causal, window 512) and one AlexNet epoch with
-   each LRN form once
+   training epoch with ``precise_gemm=1``, one full-width attention
+   epoch (no mask) and one AlexNet epoch with K5/K6 once
    more under ``torch.profiler`` (after every untraced measurement):
    the share of the wall time the card is busy, the top kernels, the
    device copies and cuDNN's layout transforms, the int64
    elementwise kernels (dropout's threefry draws), and the device time
    of K1 and K2 (with their merge), K3, K4 (each with its split-K
-   fold), K5 and K6; then phase 3b's two turns with the options (f32,
-   int8).  Each serving
+   fold), K5 and K6.  Each serving
    configuration's tok/s and decode step p50 (phase 3) are printed
    beside its traced burst's launches and device-to-device copies, and
    int8-kv's beside the burst's numbers before the append kernel
    (``PASSES_INT8_KV``).  Last, one graph-mode MNIST epoch
-   (``precise_gemm=1``) and one fused STL-10 epoch (``precise_gemm=1``).
+   (``precise_gemm=1``), one fused STL-10 epoch (``precise_gemm=1``) and
+   one with stochastic pooling.
    A trace that holds no device time is taken again on a fresh run, up
    to ``TRACE_TRIES`` times in all; a run with none in every try fails.
 6. The ``kernels`` JSON line, the card's line, and the result line.
@@ -2998,6 +3020,11 @@ def autotune_phase(torch, card, cache_dir, dev):
 GATE_ERROR_PT = 1.48
 GATE_LOADER = {"minibatch_size": 60, "n_train": None, "n_valid": None}
 GATE_DECISION = {"max_epochs": 25, "fail_iterations": 12, "silent": True}
+#: the plain and ``precise_gemm=2`` gate runs' epochs (cut from 25; on the
+#: CPU's trajectory of the same seeds both pass the gate by epoch 12:
+#: 1.05 % and 0.95 %).  ``precise_gemm=1`` keeps 25: phases 3d, 3f and 4e
+#: reuse its workflow and compare with its result
+GATE_SHORT_EPOCHS = 15
 FIRST_EPOCH_WEIGHT_ATOL = 1e-4
 
 
@@ -3110,11 +3137,12 @@ def _first_epochs_agree(label, gpu, cpu, seconds):
             "cpu_seconds": seconds}
 
 
-def train_run(torch, gemm, card, precise):
-    """The gate's training run on the card; -> record."""
+def train_run(torch, gemm, card, precise, epochs=None):
+    """The gate's training run on the card (``epochs`` unless None, else
+    the gate's 25); -> record."""
     from veles_tpu_torch.loader import TRAIN, VALID
     t_init = time.perf_counter()
-    wf = _mnist_workflow(precise)
+    wf = _mnist_workflow(precise, epochs=epochs)
     init_s = time.perf_counter() - t_init
     if wf.loader.provenance not in ("fixture", "real"):
         raise AssertionError("digits came from %r" % wf.loader.provenance)
@@ -5374,12 +5402,12 @@ def stl10_twins_shared():
 
 
 def conv_sample_workflow(name, device="cuda", fused=True, epochs=1,
-                         precise=0, **loader):
+                         precise=0, layers=None, **loader):
     """The ``stl10`` or ``video_ae`` sample through ``create_workflow``
     with ``root.common.engine.precise_gemm`` set to ``precise``, weights
     from seed 42, loader seed 3, initialized on ``device`` (the card
     unless the CPU is asked for); ``loader`` overrides the sample's
-    loader config."""
+    loader config, ``layers`` (unless None) replaces its layers."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
@@ -5392,22 +5420,28 @@ def conv_sample_workflow(name, device="cuda", fused=True, epochs=1,
     try:
         wf = mod.create_workflow(
             fused=fused, loader=dict(loader, prng=RandomGenerator().seed(3)),
-            decision={"max_epochs": epochs, "silent": True})
+            decision={"max_epochs": epochs, "silent": True},
+            **({} if layers is None else {"layers": layers}))
     finally:
         root.common.engine.precise_gemm = saved
     wf.initialize(device=Device(backend=device))
     return _on(wf, device)
 
 
-def conv_hold(name, fused, precise, devices=("cuda", "cpu")):
+def conv_hold(name, fused, precise, devices=("cuda", "cpu"), layers=None,
+              loader=None):
     """The first ``CONV_HOLD_STEPS`` train steps of the sample ``name`` in
     one mode on ``devices[0]`` and by the port on ``devices[1]`` from the
     same seeds: losses and weights within ``CONV_LOSS_RTOL`` and
-    ``CONV_WEIGHT_RTOL``; -> record."""
+    ``CONV_WEIGHT_RTOL``; ``layers`` as ``conv_sample_workflow``'s,
+    ``loader`` (default ``CONV_HOLD_LOADER[name]``) its loader config;
+    -> record."""
     runs = {}
+    if loader is None:
+        loader = CONV_HOLD_LOADER[name]
     for device in devices:
         wf = conv_sample_workflow(name, device, fused, precise=precise,
-                                  **CONV_HOLD_LOADER[name])
+                                  layers=layers, **loader)
         t0 = time.perf_counter()
         losses = (train_steps(wf, CONV_HOLD_STEPS) if fused else
                   graph_train_steps(wf, CONV_HOLD_STEPS)[0])
@@ -5415,8 +5449,9 @@ def conv_hold(name, fused, precise, devices=("cuda", "cpu")):
                         time.perf_counter() - t0)
     (card_losses, card_w, _), (cpu_losses, cpu_w, cpu_s) = \
         runs[devices[0]], runs[devices[1]]
-    label = "%s %s first steps, card vs CPU" % (
-        name, "fused" if fused else "graph mode")
+    label = "%s%s %s first steps, card vs CPU" % (
+        name, "" if layers is None else " stochastic",
+        "fused" if fused else "graph mode")
     loss_diff, w_diff = steps_agree(label, card_losses, card_w, cpu_losses,
                                     cpu_w, CONV_LOSS_RTOL, CONV_WEIGHT_RTOL)
     _log("train %s: losses card %s cpu %s (max rel diff %.3g, limit %g); "
@@ -5429,69 +5464,72 @@ def conv_hold(name, fused, precise, devices=("cuda", "cpu")):
 
 
 def stl10_run(torch, card, fused, counters, device="cuda",
-              epochs=STL10_EPOCHS, **loader):
-    """STL-10 with ``precise_gemm=1`` in one mode; -> ``_train_record``'s
-    record (its ``first_epoch`` for the caller to pop).  K4 (``counters["k4"]``) must launch ``STL10_K4[fused]`` a
-    train / eval step (never inside a GD unit), and the best validation
-    error must pass the gate."""
+              epochs=STL10_EPOCHS, layers=None,
+              label="STL-10 precise_gemm=1", **loader):
+    """STL-10 with ``precise_gemm=1`` in one mode (``layers`` as
+    ``conv_sample_workflow``'s); -> ``_train_record``'s record (its
+    ``first_epoch`` for the caller to pop).  K4 (``counters["k4"]``)
+    must launch ``STL10_K4[fused]`` a train / eval step (never inside a
+    GD unit), and the best validation error must pass the gate."""
     t0 = time.perf_counter()
     wf = conv_sample_workflow("stl10", device, fused, epochs, precise=1,
-                              **loader)
+                              layers=layers, **loader)
     init_s = time.perf_counter() - t0
     if [f.precise_gemm for f in wf.forwards[-2:]] != [1, 1]:
         raise AssertionError("precise_gemm did not reach STL-10's "
                              "all2all and softmax")
-    out = _train_record(torch, wf, counters, "STL-10 precise_gemm=1", card,
-                        init_s, "images")
+    out = _train_record(torch, wf, counters, label, card, init_s, "images")
     if not fused:
         if out.pop("gd_launches")["k4"]:
-            raise AssertionError("STL-10 graph mode: K4 launched inside a "
-                                 "GD unit")
+            raise AssertionError("%s graph mode: K4 launched inside a "
+                                 "GD unit" % label)
     want = {"k4": STL10_K4[fused]}
     if out["launches_per_train_eval_step"] != want:
-        raise AssertionError("STL-10 %s: K4 launches per train / eval step "
+        raise AssertionError("%s %s: K4 launches per train / eval step "
                              "%r, want %r" % (
-                                 "fused" if fused else "graph mode",
+                                 label, "fused" if fused else "graph mode",
                                  out["launches_per_train_eval_step"], want))
     if not out["best_validation_error_pt"] < STL10_GATE_PT:
-        raise AssertionError("STL-10 missed its gate: %.2f%%"
-                             % out["best_validation_error_pt"])
+        raise AssertionError("%s missed its gate: %.2f%%"
+                             % (label, out["best_validation_error_pt"]))
     return out
 
 
 def video_ae_run(torch, card, fused, counters, device="cuda",
-                 epochs=VIDEO_AE_EPOCHS, **loader):
-    """VideoAE in one mode; -> ``_train_record``'s record (its
-    ``first_epoch`` for the caller to pop) with the targets' standard
-    deviation.  It launches no hand kernel (its conv
-    and deconv run on cuDNN, ``counters`` must stay 0), and its best
-    validation rmse must pass the gate."""
+                 epochs=VIDEO_AE_EPOCHS, layers=None, label="VideoAE",
+                 **loader):
+    """VideoAE in one mode (``layers`` as ``conv_sample_workflow``'s);
+    -> ``_train_record``'s record (its ``first_epoch`` for the caller to
+    pop) with the targets' standard deviation.  It launches no hand
+    kernel (its conv and deconv run on cuDNN, ``counters`` must stay 0),
+    and its best validation rmse must pass the gate."""
     t0 = time.perf_counter()
-    wf = conv_sample_workflow("video_ae", device, fused, epochs, **loader)
+    wf = conv_sample_workflow("video_ae", device, fused, epochs,
+                              layers=layers, **loader)
     init_s = time.perf_counter() - t0
-    if [type(f).MAPPING for f in wf.forwards] != [
-            "conv_tanh", "max_pooling", "depooling", "deconv"]:
-        raise AssertionError("VideoAE's layers are %r" % wf.forwards)
-    out = _train_record(torch, wf, counters, "VideoAE", card, init_s,
-                        "frames")
+    want = ["conv_tanh", "max_pooling", "depooling", "deconv"] \
+        if layers is None else [layer["type"] for layer in layers]
+    if [type(f).MAPPING for f in wf.forwards] != want:
+        raise AssertionError("%s's layers are %r" % (label, wf.forwards))
+    out = _train_record(torch, wf, counters, label, card, init_s, "frames")
     out.pop("gd_launches", None)
     floor = float(wf.loader.original_targets.map_read().std())
     out["targets_std"] = floor
     if any(out["launches"].values()):
-        raise AssertionError("VideoAE launched a hand kernel: %r"
-                             % out["launches"])
+        raise AssertionError("%s launched a hand kernel: %r"
+                             % (label, out["launches"]))
     if not out["best_validation_rmse"] < VIDEO_AE_GATE * floor:
-        raise AssertionError("VideoAE missed its gate: rmse %.6f, targets' "
-                             "std %.6f" % (out["best_validation_rmse"],
+        raise AssertionError("%s missed its gate: rmse %.6f, targets' "
+                             "std %.6f" % (label, out["best_validation_rmse"],
                                            floor))
     return out
 
 
-def modes_agree(label, runs):
+def modes_agree(label, runs, rtol=CONV_MODES_LOSS_RTOL):
     """Graph mode's mean train loss of each epoch (``runs[False]``)
-    against fused mode's (``runs[True]``) on the card, within
-    ``CONV_MODES_LOSS_RTOL`` of fused mode's largest; pops both runs'
-    ``first_epoch`` (its weights' distance is logged); -> record."""
+    against fused mode's (``runs[True]``) on the card, within ``rtol`` of
+    fused mode's largest; pops both runs' ``first_epoch`` (its weights'
+    distance is logged); -> record."""
     fused, graph = runs[True], runs[False]
     first_f, first_g = fused.pop("first_epoch"), graph.pop("first_epoch")
     loss_f, loss_g = fused["mean_train_loss"], graph["mean_train_loss"]
@@ -5502,9 +5540,9 @@ def modes_agree(label, runs):
          "by epoch graph %s fused %s, max diff %.3g of the largest (limit "
          "%g); first epoch's weights max|w_graph - w_fused| / max|w_fused| "
          "= %.3g, its metric graph %s fused %s"
-         % (label, loss_g, loss_f, diff, CONV_MODES_LOSS_RTOL, w_diff,
-            first_g["n_err"], first_f["n_err"]))
-    if len(loss_g) != len(loss_f) or not diff <= CONV_MODES_LOSS_RTOL:
+         % (label, loss_g, loss_f, diff, rtol, w_diff, first_g["n_err"],
+            first_f["n_err"]))
+    if len(loss_g) != len(loss_f) or not diff <= rtol:
         raise AssertionError("%s: graph mode's mean train losses %r are %.3g "
                              "of their scale from fused mode's %r"
                              % (label, loss_g, diff, loss_f))
@@ -5557,6 +5595,208 @@ def trace_stl10(torch, card):
                                                            precise=1)))
 
 
+# -- phase 4h: stochastic pooling -------------------------------------------
+
+#: graph against fused mode with stochastic pooling: each epoch's mean train
+#: loss within this of fused mode's largest.  The modes draw other samples
+#: (the fused step keys its layers from its step seed, graph mode from each
+#: unit's KeyTree), and graph mode's backward of the depooling pair is the
+#: expectation's (both as in the JAX package), so they agree as two draws
+#: of one training do, not to rounding
+STOCH_MODES_LOSS_RTOL = 0.05
+#: STL-10's epochs with stochastic pooling (cut from the sample's 100, and
+#: from 4g's 5: a step draws 40M Gumbel samples, ~6 s an epoch on the card;
+#: the twin reads 0 % validation error from epoch 1 on)
+STOCH_STL10_EPOCHS = 2
+#: the first steps card against CPU on 4g's loaders, STL-10's in minibatches
+#: of 5 (the CPU draws a 50-image step's 32M samples in ~15 s)
+STOCH_HOLD_LOADER = {"stl10": dict(CONV_HOLD_LOADER["stl10"],
+                                   minibatch_size=5),
+                     "video_ae": CONV_HOLD_LOADER["video_ae"]}
+#: the traced stochastic STL-10 epoch's twin (train + valid images)
+STOCH_TRACE_LOADER = {"n_train": 500, "n_valid": 100}
+#: the draws card against CPU: the first stochastic layer of STL-10 (its
+#: published width, 47x47 windows of 3x3 over 32 channels) over the first
+#: conv's output of this many train images
+STOCH_DRAW_ROWS = 10
+STOCH_DRAW_SEED = 22
+#: a draw that differs card against CPU must be a near-tie: the CPU's two
+#: largest perturbed logits within this of the larger's magnitude (CUDA's
+#: logf is not the CPU's log to the last ulp)
+STOCH_NEAR_TIE_RTOL = 1e-6
+
+
+def stochastic_layers(name):
+    """The sample ``name``'s layers with stochastic pooling: STL-10's max
+    pooling drawn (``stochastic_pooling``) and its first average pooling
+    drawn by magnitude (``stochastic_abs_pooling``), the same windows;
+    VideoAE's max pooling and depooling one
+    ``stochastic_abs_pool_depool`` of the max pooling's window."""
+    import copy
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.znicz.samples import stl10, video_ae  # noqa: F401
+    layers = copy.deepcopy(list(getattr(root, name).layers))
+    types = [layer["type"] for layer in layers]
+    if name == "stl10":
+        layers[types.index("max_pooling")]["type"] = "stochastic_pooling"
+        layers[types.index("avg_pooling")]["type"] = \
+            "stochastic_abs_pooling"
+        return layers
+    i = types.index("max_pooling")
+    if types[i + 1] != "depooling":
+        raise AssertionError("%s: no depooling after its max pooling" % name)
+    return layers[:i] + [dict(layers[i], type="stochastic_abs_pool_depool")] \
+        + layers[i + 2:]
+
+
+def near_ties(torch, prng, unit, patches, key, differ, rtol):
+    """The draws of ``differ`` (a boolean ``(b, oh, ow, c)`` mask) whose
+    two largest Gumbel-perturbed logits, computed on ``patches``' device,
+    are within ``rtol`` of the larger's magnitude; -> (count, largest
+    relative gap among them)."""
+    with torch.no_grad():
+        logits = torch.log(unit._probs(patches) + 1e-30).permute(
+            0, 1, 2, 4, 3)
+        perturbed = prng.gumbel(key, logits.shape, logits.device) + logits
+        top = perturbed[differ].topk(2, dim=-1).values
+    gap = (top[:, 0] - top[:, 1]) / top[:, 0].abs().clamp_min(1e-30)
+    return int((gap <= rtol).sum()), float(gap.max()) if len(gap) else 0.0
+
+
+def stochastic_draws(torch, layers, device="cuda", rows=STOCH_DRAW_ROWS,
+                     **loader):
+    """STL-10's first stochastic pooling layer, on ``device`` and on the
+    CPU, for the same key over the same input: the first conv's output
+    (on ``device``, initial weights) of the first ``rows`` train images
+    (``loader`` as ``conv_sample_workflow``'s).  The choices are equal
+    but at near-ties, which are counted (a difference that is no
+    near-tie fails); where they agree the drawn values are equal bit
+    for bit; -> record."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.znicz.pooling import StochasticPoolingBase
+    wf = conv_sample_workflow("stl10", device, True, precise=1,
+                              layers=layers, **loader)
+    i = next(n for n, f in enumerate(wf.forwards)
+             if isinstance(f, StochasticPoolingBase))
+    unit = wf.forwards[i]
+    key = prng.fold_in(prng.key(STOCH_DRAW_SEED), i)
+    with torch.no_grad():
+        h = wf.loader.original_data.devmem[:rows]
+        for fwd in wf.forwards[:i]:
+            h = fwd.apply(fwd.params, h)
+        got = []
+        for x in (h, h.cpu()):
+            p = unit._patches(x)
+            choice = unit._choice(p, key)
+            value = torch.gather(p, 3, choice.unsqueeze(3)).squeeze(3)
+            got.append((p, choice.cpu(), value.cpu()))
+    (_, card, card_values), (cpu_p, cpu, cpu_values) = got
+    differ = card != cpu
+    n_differ = int(differ.sum())
+    ties, gap = near_ties(torch, prng, unit, cpu_p, key, differ,
+                          STOCH_NEAR_TIE_RTOL)
+    same = ~differ
+    bitwise = bool(torch.equal(card_values[same], cpu_values[same]))
+    rec = {"layer": unit.name, "input_shape": list(h.shape),
+           "draws": int(differ.numel()), "differing": n_differ,
+           "near_ties": ties, "largest_differing_gap": gap,
+           "agreeing_values_bitwise": bitwise}
+    _log("train STL-10 stochastic: %s's draws on %s against the CPU, "
+         "input %s: %d of %d differ, %d of them near-ties (gap <= %g; "
+         "largest %.3g); agreeing draws' values bitwise: %s"
+         % (unit.name, device, list(h.shape), n_differ, rec["draws"], ties,
+            STOCH_NEAR_TIE_RTOL, gap, bitwise))
+    if ties != n_differ or not bitwise:
+        raise AssertionError("STL-10 stochastic: %d draws differ card "
+                             "against CPU, %d of them near-ties; agreeing "
+                             "values bitwise: %s" % (n_differ, ties, bitwise))
+    return rec
+
+
+def stochastic_phase(torch, gemm, card, device="cuda", stl10_loader=None,
+                     video_ae_loader=None, epochs=None,
+                     draw_rows=STOCH_DRAW_ROWS):
+    """Phase 4h: STL-10 and VideoAE with stochastic pooling
+    (``stochastic_layers``) at their published widths, fused and graph
+    mode: each gate, graph against fused mode within
+    ``STOCH_MODES_LOSS_RTOL``, the first steps card against CPU, K4's
+    launches as phase 4g's (``stl10_run``), and one layer's draws card
+    against CPU; -> record with the phase's launches under the kernels
+    line's names.  ``device``, the loaders, ``epochs`` (STL-10's,
+    VideoAE's) and ``draw_rows`` cut it for a rehearsal on the CPU."""
+    counters = {"k4": gemm.precise_matmul}
+    stl10_loader = stl10_loader or {}
+    video_ae_loader = video_ae_loader or {}
+    stl_epochs, vae_epochs = epochs or (STOCH_STL10_EPOCHS, VIDEO_AE_EPOCHS)
+    out = {}
+    t0 = time.perf_counter()
+    layers = stochastic_layers("stl10")
+    label = "STL-10 stochastic pooling precise_gemm=1"
+    with stl10_twins_shared():
+        stl = {fused: stl10_run(torch, card, fused, counters, device,
+                                stl_epochs, layers=layers, label=label,
+                                **stl10_loader)
+               for fused in (True, False)}
+        modes = modes_agree(label, stl, STOCH_MODES_LOSS_RTOL)
+        _log("train %s: train images/s fused %.1f graph %.1f (median epoch "
+             "after the first) [%s]"
+             % (label, stl[True]["train_samples_s_median"],
+                stl[False]["train_samples_s_median"], card))
+        holds = {} if device == "cpu" else {
+            "hold_fused": conv_hold("stl10", True, 1, layers=layers,
+                                    loader=STOCH_HOLD_LOADER["stl10"]),
+            "hold_graph": conv_hold("stl10", False, 1, layers=layers,
+                                    loader=STOCH_HOLD_LOADER["stl10"])}
+        out["stl10"] = dict(
+            {"fused": stl[True], "graph": stl[False],
+             "graph_vs_fused": modes,
+             "draws": stochastic_draws(torch, layers, device, draw_rows,
+                                       **stl10_loader)},
+            **holds, seconds=time.perf_counter() - t0)
+    _log("phase 4h STL-10: %.1f s" % out["stl10"]["seconds"])
+    t0 = time.perf_counter()
+    layers = stochastic_layers("video_ae")
+    label = "VideoAE stochastic abs pool-depool"
+    vae = {fused: video_ae_run(torch, card, fused, counters, device,
+                               vae_epochs, layers=layers, label=label,
+                               **video_ae_loader)
+           for fused in (True, False)}
+    holds = {} if device == "cpu" else {
+        "hold_fused": conv_hold("video_ae", True, 0, layers=layers,
+                                loader=STOCH_HOLD_LOADER["video_ae"]),
+        "hold_graph": conv_hold("video_ae", False, 0, layers=layers,
+                                loader=STOCH_HOLD_LOADER["video_ae"])}
+    out["video_ae"] = dict(
+        {"fused": vae[True], "graph": vae[False],
+         "graph_vs_fused": modes_agree(label, vae, STOCH_MODES_LOSS_RTOL)},
+        **holds, seconds=time.perf_counter() - t0)
+    _log("phase 4h VideoAE: %.1f s" % out["video_ae"]["seconds"])
+    out["launches"] = {"precise_matmul_l1": sum(
+        run["launches"]["k4"] for run in stl.values())}
+    return out
+
+
+def trace_stochastic(torch, card):
+    """One fused STL-10 epoch with stochastic pooling (``precise_gemm=1``)
+    on a twin of ``STOCH_TRACE_LOADER``'s size under ``torch.profiler``;
+    the threefry draws' share of the busy card (the int64 elementwise
+    kernels) is logged."""
+    layers = stochastic_layers("stl10")
+    with stl10_twins_shared():
+        rec = _traced(torch, "train STL-10 stochastic pooling "
+                      "precise_gemm=1", card,
+                      lambda: _epoch(conv_sample_workflow(
+                          "stl10", precise=1, layers=layers,
+                          **STOCH_TRACE_LOADER)))
+    rec["int64_elementwise_share"] = \
+        rec["int64_elementwise_ms"] / rec["device_busy_ms"]
+    _log("trace STL-10 stochastic pooling: threefry (int64 elementwise) "
+         "%.3f ms of %.3f ms busy (%.1f%%) [%s]"
+         % (rec["int64_elementwise_ms"], rec["device_busy_ms"],
+            100 * rec["int64_elementwise_share"], card))
+    return rec
+
+
 # -- phase 5: where the time goes ---------------------------------------------
 
 def trace_run(torch, card, label, kv_dtype, weight_dtype):
@@ -5606,22 +5846,6 @@ def serving_summary(run, trace):
                 run["ttft_p50_ms"], run["traced_launches"],
                 *PASSES_INT8_KV["ttft_p50_ms"],
                 PASSES_INT8_KV["traced_launches"], run["card"]))
-
-
-def trace_options_run(torch, card, kv_dtype):
-    """Phase 3b's two turns once more under ``torch.profiler``, through
-    the scheduler directly, with ``OPTIONS_SERVER``."""
-    from veles_tpu_torch.serving import DecodeScheduler
-    from veles_tpu_torch.znicz.samples.flagship import FlagshipDecodeModel
-
-    def turns():
-        model = FlagshipDecodeModel(**README_MODEL, kv_dtype=kv_dtype)
-        sched = DecodeScheduler(model, name="trace-options-" + kv_dtype,
-                                kv_dtype=kv_dtype, **README_SERVER,
-                                **OPTIONS_SERVER)
-        return (lambda: _scheduler_turns(sched, turn1_prompts()),
-                sched.close)
-    return _traced(torch, "%s options" % kv_dtype, card, turns)
 
 
 def device_rows(events):
@@ -5963,7 +6187,9 @@ def main():
         launches["kv_append_int8"] += run["launches"]["kv_append_int8"]
     record["e2e_tiers"] = tiers
     phase_done("3c tiers, checkpoints and session migration")
-    train = [train_run(torch, gemm, card, precise) for precise in (0, 1, 2)]
+    train = [train_run(torch, gemm, card, precise,
+                       None if precise == 1 else GATE_SHORT_EPOCHS)
+             for precise in (0, 1, 2)]
     record["first_epoch_vs_cpu"] = first_epoch_on_the_cpu(train[1], gemm)
     served_wf = train[1]["workflow"]
     for run in train:
@@ -6046,15 +6272,20 @@ def main():
     for name, n in conv["launches"].items():
         launches[name] += n
     phase_done("4g STL-10 and VideoAE")
+    stochastic = stochastic_phase(torch, gemm, card)
+    record["stochastic_pooling"] = stochastic
+    for name, n in stochastic["launches"].items():
+        launches[name] += n
+    phase_done("4h stochastic pooling")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (
         [trace_run(torch, card, *config) for config in CONFIGS] +
-        [trace_train(torch, card, precise) for precise in (0, 1)] +
-        [trace_attention(torch, card, *config) for config in ATTN_CONFIGS] +
-        [trace_alexnet(torch, card, *config) for config in ALEX_CONFIGS] +
-        [trace_options_run(torch, card, kv) for kv in ("f32", "int8")] +
-        [trace_graph_train(torch, card), trace_stl10(torch, card)])
+        [trace_train(torch, card, 1)] +
+        [trace_attention(torch, card, *ATTN_CONFIGS[0])] +
+        [trace_alexnet(torch, card, *ALEX_CONFIGS[0])] +
+        [trace_graph_train(torch, card), trace_stl10(torch, card),
+         trace_stochastic(torch, card)])
     for run, trace in zip(runs, record["traces"]):
         serving_summary(run, trace)
     phase_done("5 traces")

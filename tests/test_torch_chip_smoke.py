@@ -42,22 +42,12 @@
   here); and its fresh-process verdict refuses a restart that ran
   ``nvcc``, missed the build cache, changed the cache's listing,
   resolved a site untuned or served a token off the oracle.
-- Phase 4f's fresh process (``chip_smoke.py --resume-child``), on the
-  CPU: the attention net snapshotted through ``_snap_instrument``'s
-  wrappers (transient, so the writer pickles it) into SQLite, resumed
-  in a child that imports only the port and finds the needle loader by
-  name, ends bit for bit on the uninterrupted run's weights, with its
-  steps counted by class.
-- Phase 4g (STL-10 and VideoAE) runs after 4f and before the kernels
-  line, which takes its K4 launches; its K4 prediction (6 / 2 a train /
-  eval step fused, 2 / 2 in graph mode and none inside GD units) holds
-  on the CPU, where a stand-in counts the plain version's calls, and a
-  wrong prediction fails the phase; VideoAE at its published size
-  passes the phase's gate on the CPU with no launch, its graph mode's
-  mean train losses agree with fused mode's, and the first-steps hold
-  runs in both modes; ``modes_agree`` refuses graph-mode losses off
-  fused mode's past its limit; STL-10's synthetic twin is made once
-  per size inside ``stl10_twins_shared``.
+- The rehearsals of the later phases are files of their own, so that
+  ``pytest-xdist --dist loadfile`` spreads them over its workers:
+  ``test_torch_chip_smoke_3f.py`` (exported packages),
+  ``_4e.py`` (graph mode), ``_4f.py`` (snapshots), ``_4g.py`` (STL-10
+  and VideoAE) and ``_4h.py`` (stochastic pooling); what they share is
+  in ``tests/_chip_smoke_shared.py``.
 """
 
 import os
@@ -67,9 +57,7 @@ import numpy
 import pytest
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke  # noqa: E402
+from _chip_smoke_shared import ROOT, chip_smoke
 
 
 class _Row:
@@ -796,7 +784,7 @@ def _phase_names():
 def test_phase3e_is_in_mains_order():
     names = [n.split()[0] for n in _phase_names()]
     assert names == ["2", "3", "3b", "3c", "4", "3d", "3e", "4b", "4c",
-                     "4d", "3f", "4e", "4f", "4g", "5"]
+                     "4d", "3f", "4e", "4f", "4g", "4h", "5"]
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         src = f.read()
     # 3d's fleet and 3e share one fresh build cache, removed after
@@ -874,337 +862,3 @@ def test_phase3e_restart_verdict_counts_nvcc_runs():
     with pytest.raises(AssertionError, match="listing changed"):
         chip_smoke.restart_verdict(_restart_record(), listing,
                                    listing + ["c.so"])
-
-
-def test_phase4e_runs_after_4d_and_is_counted_and_traced():
-    """Phase 4e (graph mode) runs after 4d, before the kernels line,
-    whose K4-K9 counts take its launches, and phase 5 traces one graph
-    MNIST epoch."""
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        src = f.read()
-    main = src[src.index("def main():"):]
-    assert main.index("lrn_net_run(") < main.index("graph_phase(") < \
-        main.index("kernels_line(")
-    for key in ('graph["mnist"]["launches"]["k4"]',
-                'graph["lrn_convnet"]["launches"][kid]',
-                'run["launches"][kid]\n                              '
-                'for run in graph["attention"]'):
-        assert key in main, key
-    assert "trace_graph_train(torch, card)" in main
-
-
-def _count_runs(unit, counter):
-    run = unit.run
-
-    def counted():
-        counter.launches += 1
-        run()
-    unit.run = counted
-
-
-class _Counter:
-    launches = 0
-
-
-def test_graph_instrument_counts_steps_launches_and_the_first_epoch():
-    """On the CPU, the MNIST gate's graph workflow for one epoch: a
-    stand-in counter bumped by the first forward counts once per train
-    and eval step, one bumped by the first GD unit once per train step
-    and only inside GD units; the first epoch's weights are the trained
-    ones (taken after the epoch's last GD units)."""
-    from veles_tpu_torch.loader import TRAIN, VALID
-    wf = chip_smoke._mnist_workflow(0, device="cpu", epochs=1, fused=False)
-    fwd, gd = _Counter(), _Counter()
-    _count_runs(wf.forwards[0], fwd)
-    _count_runs(wf.gds[0], gd)
-    counters = {"fwd": fwd, "gd": gd}
-    rec, close = chip_smoke._graph_instrument(wf, counters)
-    inside = chip_smoke._gd_launches(wf, counters)
-    wf.run()
-    close()
-    n_train, n_valid = (wf.loader.class_lengths[c] for c in (TRAIN, VALID))
-    steps = {TRAIN: -(-n_train // 60), VALID: -(-n_valid // 60)}
-    assert rec["steps"] == steps
-    assert rec["launches"]["fwd"] == steps
-    assert rec["launches"]["gd"] == {TRAIN: steps[TRAIN], VALID: 0}
-    assert inside == {"fwd": 0, "gd": steps[TRAIN]}
-    assert len(rec["epoch_end"]) == 1 and len(rec["train_loss"][0]) == \
-        steps[TRAIN]
-    first = rec["first_epoch"]
-    assert first["n_err"] == list(wf.decision.epoch_n_err)
-    for got, want in zip(first["weights"], chip_smoke.host_weights(wf)):
-        for k in want:
-            assert (got[k] == want[k]).all(), k
-    with pytest.raises(AssertionError, match="graph mode"):
-        chip_smoke._want_launches("x", {"launches_per_train_eval_step": {
-            "k4": (1.0, 2.0)}}, {"k4": (2, 2)})
-
-
-def test_graph_train_steps_draw_the_same_masks_and_mse_modes_agree():
-    """``graph_train_steps`` on the LRN convnet (cut to 200 + 100 images)
-    twice on the CPU: the same dropout keys a step, one key a step;
-    the MSE regression workflow in graph and fused mode on the CPU
-    within phase 4e's limits."""
-    runs = []
-    for _ in range(2):
-        net = chip_smoke.lrn_net_workflow("cpu", fused=False,
-                                          n_train=200, n_valid=100)
-        runs.append(chip_smoke.graph_train_steps(net, 2))
-    (losses, keys), (losses2, keys2) = runs
-    assert losses == losses2 and keys == keys2
-    assert len(keys) == 2 and keys[0] != keys[1] and len(keys[0]) == 1
-    graph = chip_smoke.mse_workflow(False, "cpu")
-    fused = chip_smoke.mse_workflow(True, "cpu")
-    assert graph.fused_step is None and graph.evaluator is not None
-    graph.run()
-    fused.run()
-    assert chip_smoke._max_diff(chip_smoke.host_weights(graph),
-                                chip_smoke.host_weights(fused)) <= \
-        chip_smoke.GRAPH_FUSED_WEIGHT_ATOL
-    assert abs(graph.decision.best_rmse - fused.decision.best_rmse) <= \
-        chip_smoke.GRAPH_FUSED_RMSE_ATOL
-    ld = graph.loader
-    assert (ld.class_lengths, ld.original_targets.shape) == ([0, 50, 150],
-                                                             (200, 3))
-
-
-def test_phase3f_runs_after_4d_and_its_launches_reach_the_kernels_line():
-    """Phase 3f (exported packages) runs on phases 4-4d's trained
-    workflows, after 4d and before 4e, and its K4 / K5 / K7 launches are
-    added to the kernels line's counts."""
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        src = f.read()
-    main = src[src.index("def main():"):]
-    assert main.index("lrn_net_run(") < main.index("package_phase(") < \
-        main.index("graph_phase(") < main.index("kernels_line(")
-    for key in ('served = {"mnist": served_wf}',
-                'served["attention"] = attention[0]["workflow"]',
-                'served["alexnet"] = alexnet[0]["workflow"]',
-                'served["lrn"] = lrn_net.pop("workflow")',
-                'for name, n in packages["launches"].items():\n'
-                '        launches[name] += n'):
-        assert key in main, key
-    plan = chip_smoke._plan(chip_smoke.PKG_SIZES, rows=chip_smoke.PKG_ROWS)
-    assert sum(n for _, n in plan) == 64 and {n for _, n in plan} == \
-        {1, 2, 3, 5, 8}
-    assert [lo for lo, _ in plan] == \
-        [sum(n for _, n in plan[:i]) for i in range(len(plan))]
-    alex = chip_smoke._plan(chip_smoke.PKG_SIZES,
-                            requests=chip_smoke.ALEX_PKG_REQUESTS)
-    assert len(alex) >= 16 and max(n for _, n in alex) <= \
-        chip_smoke.ALEX_PKG_MAX_BATCH == 8
-    with pytest.raises(AssertionError, match="2 a batch"):
-        chip_smoke._per_batch("x", 3, 2, 2)
-    with pytest.raises(AssertionError, match="0 dispatched"):
-        chip_smoke._per_batch("x", 0, 0, 2)
-    chip_smoke._per_batch("x", 4, 2, 2)
-
-
-def test_phase3f_rehearses_on_the_cpu(monkeypatch):
-    """Phase 3f end to end on the CPU at a cut size (the kernels' plain
-    versions count no launch, so the per-batch counts are recorded
-    instead of held): every part's answers hold against the live
-    forward (MNIST, the side-67 AlexNet, a small attention net, the LRN
-    convnet), the AlexNet card rows against the CPU, the fleet's
-    answers bitwise the in-process ones, and each part dispatched
-    batches."""
-    import torch
-    from veles_tpu_torch.znicz import flash_attention as fa
-    from veles_tpu_torch.znicz import gemm, lrn
-    calls = []
-    monkeypatch.setattr(chip_smoke, "_per_batch",
-                        lambda *args: calls.append(args))
-    monkeypatch.setattr(chip_smoke, "ALEX_PKG_REQUESTS", 4)
-    wfs = {"mnist": chip_smoke._mnist_workflow(1, device="cpu", epochs=1),
-           "alexnet": chip_smoke.alexnet_workflow(
-               "cpu", epochs=1, minibatch_size=4, n_train=8, n_valid=4,
-               n_classes=20, side=67),
-           "attention": chip_smoke.attention_workflow(
-               40, 8, 8, 2, minibatch=10, epochs=1, device="cpu"),
-           "lrn": chip_smoke.lrn_net_workflow("cpu", epochs=1, n_train=200,
-                                              n_valid=100)}
-    for wf in wfs.values():
-        wf.run()
-    rec = chip_smoke.package_phase(torch, gemm, lrn, fa, "CPU", wfs,
-                                   torch.device("cpu"))
-    labels = [c[0] for c in calls]
-    assert labels[:4] == ["3f MNIST fp32", "3f MNIST fp16", "3f AlexNet",
-                          "3f attention"]
-    assert sorted(labels[4:6]) == ["3f fleet replica r0",
-                                   "3f fleet replica r1"]
-    assert labels[6:] == ["3f RESTfulAPI"]
-    assert all(launches == 0 and batches > 0 for _, launches, batches, _
-               in calls)
-    assert [c[3] for c in calls] == [2, 2, 2, 1, 2, 2, 2]
-    for run in rec["mnist"]["runs"]:
-        assert run["max_rel_err"] <= chip_smoke.PKG_TOL
-        assert run["rows"] == 64
-    assert rec["alexnet"]["cpu_rel_err"] <= chip_smoke.ALEX_PKG_CPU_TOL
-    assert rec["attention"]["rows"] == 12
-    assert rec["fleet"]["max_abs_diff"] == 0.0
-    assert sum(r["batches"] for r in rec["fleet"]["replicas"].values()) \
-        == chip_smoke.FLEET_PKG_REQUESTS
-    assert rec["launches"] == {"precise_matmul_l1": 0, "lrn_fwd": 0,
-                               "flash_attention_fwd": 0}
-
-
-def test_phase4f_fresh_process_resumes_an_instrumented_workflow(tmp_path):
-    from veles_tpu_torch.mutable import Bool
-    counters = chip_smoke._snap_counters("flash")
-
-    def make(epochs, snapshotter=None):
-        return chip_smoke.attention_workflow(
-            24, 8, 8, 2, n_valid=8, epochs=epochs, device="cpu",
-            snapshotter=snapshotter)
-
-    saved = chip_smoke.SNAP_DEVICE
-    chip_smoke.SNAP_DEVICE = "cpu"
-    try:
-        ref = chip_smoke._snap_ref(torch, make(2), counters)
-        part = make(1, {"prefix": "a", "format": "db", "interval": 2,
-                        "database": str(tmp_path / "s.sqlite3"),
-                        "time_interval": 0})
-        first = chip_smoke._snap_ref(torch, part, counters)
-    finally:
-        chip_smoke.SNAP_DEVICE = saved
-    assert first["steps"] == [2, 1]
-    part.snapshotter.skip = Bool(False)
-    part.snapshotter.run()
-    assert part.snapshotter.flush()
-    (res,), _ = chip_smoke._run_child([{
-        "label": "attention", "max_epochs": 2, "device": "cpu",
-        "path": part.snapshotter.destination, "counters": "flash",
-        "interval": 10 ** 9, "weights": str(tmp_path / "a.npz")}],
-        str(tmp_path), "attention")
-    assert res["device"] == "cpu" and res["steps"] == [2, 1]
-    assert res["launches"] == {"K7": [0, 0], "K8": [0, 0], "K9": [0, 0]}
-    chip_smoke._bitwise("resume", res["weights"], ref["weights"])
-
-
-def test_phase4g_runs_after_4f_and_is_counted_and_traced():
-    """Phase 4g (STL-10 and VideoAE) runs after 4f, before the kernels
-    line, whose K4 count takes its launches, and phase 5 traces one
-    STL-10 epoch."""
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        src = f.read()
-    main = src[src.index("def main():"):]
-    assert main.index("snapshot_phase(") < main.index("conv_phase(") < \
-        main.index("kernels_line(")
-    assert 'conv["launches"].items()' in main
-    assert "trace_stl10(torch, card)" in main
-
-
-def test_phase4g_k4_launches_as_predicted_on_the_cpu(monkeypatch):
-    """On the CPU the K4 wrapper takes its plain version and counts no
-    launch, so a stand-in counts the plain version's calls: STL-10 with
-    ``precise_gemm=1`` (cut to 100 + 50 images, one epoch) calls it
-    ``STL10_K4`` times a train / eval step, fused and in graph mode,
-    and never inside a GD unit; ``stl10_run``'s check refuses any other
-    count."""
-    import torch
-    from veles_tpu_torch.znicz import gemm
-    counter = _Counter()
-    plain = gemm.precise_matmul_reference
-
-    def counted(a, b, level=1):
-        counter.launches += 1
-        return plain(a, b, level)
-
-    monkeypatch.setattr(gemm, "precise_matmul_reference", counted)
-    for fused in (True, False):
-        wf = chip_smoke.conv_sample_workflow("stl10", "cpu", fused,
-                                             precise=1, n_train=100,
-                                             n_valid=50)
-        rec = chip_smoke._train_record(torch, wf, {"k4": counter}, "STL-10",
-                                       "CPU", 0.0, "images")
-        assert rec["launches_per_train_eval_step"] == {
-            "k4": chip_smoke.STL10_K4[fused]}
-        assert (rec["train_steps"], rec["eval_steps"]) == (2, 1)
-        if not fused:
-            assert rec["gd_launches"] == {"k4": 0}
-    monkeypatch.setattr(chip_smoke, "STL10_K4", {True: (5, 2),
-                                                 False: (2, 2)})
-    with pytest.raises(AssertionError, match="K4 launches per train"):
-        chip_smoke.stl10_run(torch, "CPU", True, {"k4": counter}, "cpu",
-                             epochs=1, n_train=100, n_valid=50)
-
-
-def test_phase4g_video_ae_and_holds_rehearse_on_the_cpu():
-    """VideoAE at its published size on the CPU in both modes passes
-    ``video_ae_run``'s gate with no launch counted, its graph mode's
-    mean train losses pass ``modes_agree`` against fused mode's, and
-    ``conv_hold`` holds the CPU against itself (both samples, both
-    modes)."""
-    import torch
-    runs = {}
-    for fused in (True, False):
-        rec = runs[fused] = chip_smoke.video_ae_run(
-            torch, "CPU", fused, {"k4": _Counter()}, "cpu")
-        assert rec["epochs"] == chip_smoke.VIDEO_AE_EPOCHS
-        assert rec["best_validation_rmse"] < 0.5 * rec["targets_std"]
-        for name, precise in (("video_ae", 0), ("stl10", 1)):
-            hold = chip_smoke.conv_hold(name, fused, precise,
-                                        devices=("cpu", "cpu"))
-            assert hold["max_loss_rel_diff"] == 0.0
-            assert hold["max_weight_rel_diff"] == 0.0
-    modes = chip_smoke.modes_agree("VideoAE", runs)
-    assert modes["max_loss_diff_of_scale"] <= \
-        chip_smoke.CONV_MODES_LOSS_RTOL
-    assert "first_epoch" not in runs[True]
-    assert "first_epoch" not in runs[False]
-
-
-def test_phase4g_modes_agree_refuses_a_graph_epoch_off_the_fused_one():
-    """``modes_agree`` takes each epoch's mean train loss against fused
-    mode's largest: a graph-mode epoch off by 1e-5 of that passes, one
-    off by 1e-3 fails, as does a run with another number of epochs;
-    the first epoch's weights are compared tensor by tensor against
-    each one's largest magnitude and reported."""
-    weights = [{"weights": numpy.array([1.0, -4.0]),
-                "bias": numpy.array([0.01, 0.0])}]
-    moved = [{"weights": weights[0]["weights"],
-              "bias": numpy.array([0.0101, 0.0])}]
-
-    def runs(off, epochs=3):
-        losses = [2.0, 0.5, 0.01]
-        graph = list(losses)
-        graph[2] += off * 2.0
-        return {fused: {"first_epoch": {"weights": w, "n_err": [0, 0, 0]},
-                        "mean_train_loss": l[:epochs]}
-                for fused, w, l in ((True, weights, losses),
-                                    (False, moved, graph))}
-
-    got = chip_smoke.modes_agree("t", runs(1e-5))
-    assert got["max_loss_diff_of_scale"] == pytest.approx(1e-5)
-    assert got["first_epoch_max_weight_rel_diff"] == pytest.approx(1e-2)
-    with pytest.raises(AssertionError, match="of their scale"):
-        chip_smoke.modes_agree("t", runs(1e-3))
-    short = runs(0.0)
-    short[False]["mean_train_loss"] = short[False]["mean_train_loss"][:2]
-    with pytest.raises(AssertionError, match="of their scale"):
-        chip_smoke.modes_agree("t", short)
-
-
-def test_phase4g_makes_each_stl10_twin_once(monkeypatch):
-    """Inside ``stl10_twins_shared`` two STL-10 workflows of one size make
-    the synthetic twin once and read the same data; the sample's own
-    maker is back after the block."""
-    from veles_tpu_torch.znicz.samples import stl10
-    made = []
-    make = stl10._synthetic_stl10
-
-    def counted(*args):
-        made.append(args)
-        return make(*args)
-
-    monkeypatch.setattr(stl10, "_synthetic_stl10", counted)
-    monkeypatch.setattr(chip_smoke, "_STL10_TWINS", {})
-    with chip_smoke.stl10_twins_shared():
-        wfs = [chip_smoke.conv_sample_workflow("stl10", "cpu", fused,
-                                               n_train=60, n_valid=20)
-               for fused in (True, False)]
-    assert made == [(60, 20)]
-    assert stl10._synthetic_stl10 is counted
-    numpy.testing.assert_array_equal(wfs[0].loader.original_data.mem,
-                                     wfs[1].loader.original_data.mem)
-    assert wfs[0].loader.original_labels == wfs[1].loader.original_labels

@@ -34,10 +34,13 @@
   identity forward and then the mask, which is what the port's does.
 """
 
+import contextlib
 import importlib
 
 import numpy
 import pytest
+
+from _torch_workers import default_threads
 
 SAMPLE_RTOL = 2e-6
 RMSE_RTOL = 1e-5
@@ -116,7 +119,11 @@ def test_sample_matches_jax(name, epochs, fused):
     mse = name == "video_ae"
     j_epochs, t_epochs = _record_epochs(jwf, mse), _record_epochs(twf, mse)
     jwf.run()
-    twf.run()
+    # VideoAE's weights meet SAMPLE_RTOL of the JAX ones at torch's own
+    # thread count, which sets how its CPU convolutions split their sums
+    # (tests/_torch_workers.py)
+    with default_threads() if mse else contextlib.nullcontext():
+        twf.run()
     assert _scaled_diff(_host(twf), _host(jwf)) <= SAMPLE_RTOL
     assert [e[:2] for e in t_epochs] == [e[:2] for e in j_epochs]
     assert len(t_epochs) == 2 * epochs

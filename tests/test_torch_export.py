@@ -28,7 +28,15 @@ each trained by the JAX package and carried into the port
   native binary and the port's runner, ``--device cpu``);
 - a class the port lacks raises naming its ROADMAP queue A item; a
   ``misc_units`` class raises that the JAX package records no
-  configuration for it.
+  configuration for it;
+- the stochastic pooling classes rebuild from their ``config`` (the
+  JAX units' ``export_params``) into the JAX units' eval forward; a net
+  holding ``StochasticPooling`` and ``StochasticAbsPoolingDepooling``
+  (the CIFAR sample's loader, a small convnet) trained by the JAX
+  package: its JAX package served by the port within 1e-5 of the JAX
+  ``PackageLoader``, fp32 and fp16, and the port's ``package_export``
+  equal to the JAX one (``contents.json`` as JSON, every ``.npy`` byte
+  for byte).
 """
 
 import json
@@ -93,6 +101,21 @@ ATTN_LAYERS = [
      "<-": {"learning_rate": 0.01}}]
 
 
+#: a convnet on the CIFAR sample's loader with both kinds of stochastic
+#: pooling unit a package can hold
+STOCHASTIC_LAYERS = [
+    {"type": "conv_str", "->": {"n_kernels": 4, "kx": 3, "ky": 3,
+                                "padding": 1},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9}},
+    {"type": "stochastic_pooling", "->": {"kx": 2, "ky": 2}},
+    {"type": "conv_tanh", "->": {"n_kernels": 4, "kx": 3, "ky": 3,
+                                 "padding": 1},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9}},
+    {"type": "stochastic_abs_pool_depool", "->": {"kx": 2, "ky": 2}},
+    {"type": "softmax", "->": {"output_sample_shape": 10},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9}}]
+
+
 def _create(pkg, net, fused=True, epochs=1):
     """``net``'s workflow in ``pkg`` (``veles_tpu`` or
     ``veles_tpu_torch``), weights from seed 42, not initialized."""
@@ -107,12 +130,14 @@ def _create(pkg, net, fused=True, epochs=1):
             loader={"minibatch_size": 100, "n_train": 400,
                     "n_valid": 100, "prng": rg().seed(3)},
             decision=decision, fused=fused)
-    if net == "convnet":
+    if net in ("convnet", "stochastic"):
         mod = importlib.import_module(pkg + ".znicz.samples.cifar")
+        layers = {"layers": STOCHASTIC_LAYERS} if net == "stochastic" \
+            else {}
         return mod.create_workflow(
             loader={"minibatch_size": 50, "n_train": 200, "n_valid": 50,
                     "prng": rg().seed(3)},
-            decision=decision, fused=fused)
+            decision=decision, fused=fused, **layers)
     if net == "alexnet":
         mod = importlib.import_module(pkg + ".znicz.samples.alexnet")
         return mod.create_workflow(
@@ -161,7 +186,8 @@ class Net:
         self.name = name
         self.jax_wf = _jax_trained(name)
         self.wf = _port_carried(name, self.jax_wf)
-        rows = {"mnist": 7, "convnet": 3, "attention": 4, "alexnet": 2}
+        rows = {"mnist": 7, "convnet": 3, "attention": 4, "alexnet": 2,
+                "stochastic": 5}
         self.x = numpy.asarray(
             self.jax_wf.loader.original_data.map_read()[:rows[name]],
             numpy.float32)
@@ -442,26 +468,46 @@ def test_native_cli_runner(native_build, nets, tmp_path):
 # -- the chain's classes ------------------------------------------------------
 
 def test_a_class_the_port_lacks_raises_naming_its_item(nets):
+    """``ResizableAll2All`` waits for item 9 and raises naming it;
+    ``StochasticPooling`` is ported (item 6b) and builds."""
     from veles_tpu_torch.export import build_forwards
+    from veles_tpu_torch.znicz.pooling import StochasticPooling
     meta = json.loads(_zip(nets("mnist").package("port"))["model.json"])
-    for cls, item in (("ResizableAll2All", "item 9"),
-                      ("StochasticPooling", "item 6")):
-        bad = dict(meta, forwards=[dict(meta["forwards"][0], **{
-            "class": cls})])
-        with pytest.raises(NotImplementedError, match=item):
-            build_forwards(bad, device="cpu")
+    bad = dict(meta, forwards=[dict(meta["forwards"][0], **{
+        "class": "ResizableAll2All"})])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_forwards(bad, device="cpu")
+    good = dict(meta, forwards=[{
+        "unit": "pool", "class": "StochasticPooling", "params": [],
+        "config": {"kx": 2, "ky": 2, "padding": [0, 0, 0, 0],
+                   "sliding": [2, 2]}}])
+    (unit,) = build_forwards(good, device="cpu")
+    assert type(unit) is StochasticPooling and unit.padding == (0, 0, 0, 0)
     bad = dict(meta, forwards=[dict(meta["forwards"][0],
                                     **{"class": "NoSuchUnit"})])
     with pytest.raises(ValueError, match="NoSuchUnit"):
         build_forwards(bad, device="cpu")
 
 
+STOCHASTIC_CLASSES = (
+    ("StochasticPooling", {"kx": 3, "ky": 3, "sliding": (2, 2),
+                           "padding": 1}),
+    ("StochasticAbsPooling", {"kx": 2, "ky": 3, "padding": (1, 0, 0, 1)}),
+    ("StochasticPoolingDepooling", {"kx": 2, "ky": 2}),
+    ("StochasticAbsPoolingDepooling", {"kx": 3, "ky": 3}))
+
+
 def test_structural_classes_raise_that_no_configuration_is_recorded(nets):
     """The ``misc_units`` forwards are ported, but a package does not
     record their structure (the JAX units define no ``export_params``),
-    so a chain holding one is refused with that reason; the stochastic
-    pooling classes still wait for item 6 (6b)."""
+    so a chain holding one is refused with that reason.  The stochastic
+    pooling classes record theirs (``PoolingBase.export_params``): each
+    rebuilds from the JAX unit's config into its eval forward, within
+    1e-5 of the JAX unit's ``apply``."""
+    import jax.numpy as jnp
+    import torch
     from veles_tpu.znicz import misc_units as jax_misc
+    from veles_tpu.znicz import pooling as jax_pooling
     from veles_tpu.znicz.nn_units import ForwardBase as JaxForwardBase
     from veles_tpu_torch.export import build_forwards
     meta = json.loads(_zip(nets("mnist").package("port"))["model.json"])
@@ -475,13 +521,67 @@ def test_structural_classes_raise_that_no_configuration_is_recorded(nets):
                            match="%s cannot be served: the JAX package "
                            "records no configuration for it" % cls):
             build_forwards(bad, device="cpu")
-    for cls in ("StochasticPooling", "StochasticAbsPooling",
-                "StochasticPoolingDepooling",
-                "StochasticAbsPoolingDepooling"):
-        bad = dict(meta, forwards=[dict(meta["forwards"][0], **{
-            "class": cls})])
-        with pytest.raises(NotImplementedError, match="item 6"):
-            build_forwards(bad, device="cpu")
+    x = numpy.random.RandomState(4).uniform(
+        -1, 1, (2, 12, 12, 3)).astype(numpy.float32)
+    x[x < -0.5] = 0.0
+    for cls, kwargs in STOCHASTIC_CLASSES:
+        jax_unit = getattr(jax_pooling, cls)(None, **kwargs)
+        config = json.loads(json.dumps(jax_unit.export_params()))
+        (unit,) = build_forwards(dict(meta, forwards=[{
+            "unit": "pool", "class": cls, "params": [],
+            "config": config}]), device="cpu")
+        assert type(unit).__name__ == cls
+        assert unit.export_params() == jax_unit.export_params()
+        with torch.no_grad():
+            got = unit.apply({}, torch.from_numpy(x)).numpy()
+        want = numpy.asarray(jax_unit.apply({}, jnp.asarray(x)))
+        assert got.shape == want.shape
+        assert numpy.abs(got - want).max() <= PARITY_TOL, cls
+
+
+@pytest.mark.parametrize("precision", [32, 16])
+def test_port_serves_a_jax_stochastic_pooling_package(nets, precision):
+    """A JAX package (StableHLO and ``model.json``) holding
+    ``StochasticPooling`` and ``StochasticAbsPoolingDepooling``: the
+    port's ``PackageLoader`` rebuilds the eval chain from ``model.json``
+    and answers within 1e-5 of the JAX ``PackageLoader``."""
+    from veles_tpu.export import PackageLoader as JaxLoader
+    from veles_tpu_torch.export import PackageLoader
+    n = nets("stochastic")
+    assert [type(f).__name__ for f in n.jax_wf.forwards] == [
+        "ConvStrictRELU", "StochasticPooling", "ConvTanh",
+        "StochasticAbsPoolingDepooling", "All2AllSoftmax"]
+    path = n.package("jax", precision=precision)
+    want = numpy.asarray(JaxLoader(path).run(n.x))
+    pkg = PackageLoader(path)
+    got = pkg.run(n.x, device="cpu")
+    assert got.shape == want.shape == (5, 10)
+    assert numpy.abs(got - want).max() <= PARITY_TOL
+    assert [type(u).__name__ for u in pkg.forwards("cpu")] == \
+        [type(f).__name__ for f in n.jax_wf.forwards]
+    if precision == 32:
+        assert numpy.abs(got - n.live).max() <= PARITY_TOL
+
+
+@pytest.mark.parametrize("precision", [32, 16])
+def test_stochastic_pooling_package_equals_the_jax_package(nets, precision):
+    """The port's ``package_export`` of the stochastic net equals the JAX
+    one: ``contents.json`` as JSON, every ``.npy`` byte for byte; and
+    ``model.json`` equals the JAX metadata but for ``format``."""
+    n = nets("stochastic")
+    want = _zip(n.package("jax", "package", precision))
+    got = _zip(n.package("port", "package", precision))
+    assert sorted(got) == sorted(want)
+    assert json.loads(got.pop("contents.json")) == \
+        json.loads(want.pop("contents.json"))
+    assert got, "no arrays exported"
+    for name, data in want.items():
+        assert got[name] == data, name
+    if precision == 32:
+        meta, jax_meta = (json.loads(_zip(n.package(side))["model.json"])
+                          for side in ("port", "jax"))
+        assert meta.pop("format") != jax_meta.pop("format")
+        assert meta == jax_meta
 
 
 def test_rebuilt_chain_is_the_live_forward(nets):

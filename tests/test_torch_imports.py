@@ -25,7 +25,9 @@
   command line (slice 19); a restored workflow's ``initialize()``, the
   ``ShardedBatchLoader`` and a snapshotting ``StandardWorkflow`` (slice
   20); the STL-10 and VideoAE samples' workflows in both modes and a
-  ``Deconv`` unit (slice 21).
+  ``Deconv`` unit (slice 21); the four stochastic pooling units, a
+  workflow holding the stochastic depooling pair in both modes and the
+  Gumbel draws, where ``categorical`` draws on its logits' device.
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -475,6 +477,58 @@ def test_slice21_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     unit.initialize(device=cpu)
     unit.run()
     assert unit.output.devmem.shape == (2, 6, 6, 2)
+
+
+def test_stochastic_pooling_entry_points_need_a_card_unless_told_cpu(
+        monkeypatch):
+    """The four stochastic pooling units, and the VideoAE sample with the
+    stochastic depooling pair in place of its pooling, fused and in
+    graph mode, initialize on the card without a device and raise
+    without one; told the CPU, each runs there (a unit's train draw
+    too).  The Gumbel draws ask for the card without a device."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz import pooling
+    from veles_tpu_torch.znicz.samples import video_ae
+    cpu = Device(backend="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = numpy.random.RandomState(0).uniform(-1, 1, (2, 6, 6, 3)).astype(
+        numpy.float32)
+    for name in ("StochasticPooling", "StochasticAbsPooling",
+                 "StochasticPoolingDepooling",
+                 "StochasticAbsPoolingDepooling"):
+        cls = getattr(pooling, name)
+        unit = cls(Workflow(name="w"), kx=2, ky=2)
+        unit.input = Array(x)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            unit.initialize()
+        unit = cls(Workflow(name="w"), kx=2, ky=2)
+        unit.input = Array(x)
+        unit.initialize(device=cpu)
+        unit.run()
+        out = unit.apply_train({}, unit.input.devmem, prng.key(1))
+        assert out.device == unit.output.devmem.device == \
+            torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prng.gumbel(prng.key(1), (2, 3))
+    layers = [dict(layer) for layer in video_ae.root.video_ae.layers]
+    layers[1:3] = [{"type": "stochastic_pool_depool",
+                    "->": {"kx": 2, "ky": 2}},
+                   {"type": "stochastic_abs_pool_depool",
+                    "->": {"kx": 2, "ky": 2}}]
+    for fused in (True, False):
+        kwargs = dict(fused=fused, layers=layers,
+                      loader={"n_train": 50, "n_valid": 50},
+                      decision={"max_epochs": 1, "silent": True})
+        wf = video_ae.create_workflow(**kwargs)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wf.initialize()
+        wf = video_ae.create_workflow(**kwargs)
+        wf.initialize(device=cpu)
+        wf.run()
+        assert wf.forwards[-1].output.devmem.device == torch.device("cpu")
 
 
 def test_package_runner_subprocess_imports_no_jax(tmp_path):

@@ -9,6 +9,13 @@
   (``jax_threefry_partitionable``) is checked, not assumed.
 - The bits do not depend on how the shape is split into axes: element
   ``i`` of the flattened shape hashes the counter ``i``.
+- ``uniform(minval=tiny)`` gives ``jax.random.uniform``'s bits,
+  ``gumbel`` is ``jax.random.gumbel`` within an ulp or two (``log`` is
+  not XLA's to the last ulp), and ``categorical`` gives
+  ``jax.random.categorical``'s choices: a choice may differ only at a
+  near-tie (JAX's two largest perturbed logits within 1e-6 of the
+  larger), and such draws are counted (``differing_draws`` in the junit
+  record).  Of equal maxima the first wins, as in ``jnp.argmax``.
 """
 
 import numpy
@@ -78,3 +85,68 @@ def test_bits_follow_the_flat_index():
     for shape in ((3, 4, 5), (6, 10)):
         assert torch.equal(prng.random_bits(k, shape, "cpu").reshape(-1),
                            flat)
+
+
+TINY = float(numpy.finfo(numpy.float32).tiny)
+CATEGORICAL_SHAPES = [(7, 4), (2, 3, 5, 9), (4096, 9), (3, 25)]
+
+
+def _categorical_logits(shape, seed):
+    """``log(p + 1e-30)`` of window weights as the stochastic pooling
+    units make them: Dirichlet rows with some categories at 0 and some
+    rows uniform."""
+    rng = numpy.random.RandomState(seed)
+    p = rng.dirichlet(numpy.ones(shape[-1]), size=shape[:-1])
+    p[rng.uniform(size=p.shape) < 0.2] = 0.0
+    p[rng.uniform(size=shape[:-1]) < 0.1] = 1.0 / shape[-1]
+    total = p.sum(axis=-1, keepdims=True)
+    p = numpy.where(total > 0, p / numpy.maximum(total, 1e-30),
+                    1.0 / shape[-1])
+    return numpy.log(p.astype(numpy.float32) + numpy.float32(1e-30))
+
+
+@pytest.mark.parametrize("shape", CATEGORICAL_SHAPES)
+@pytest.mark.parametrize("seed", [0, 42])
+def test_categorical_choices_equal_jax(seed, shape, record_property):
+    logits = _categorical_logits(shape, seed)
+    jk = jax.random.fold_in(jax.random.key(seed), 11)
+    k = prng.fold_in(prng.key(seed), 11)
+    u = prng.uniform(k, shape, "cpu", minval=TINY)
+    assert u.numpy().tobytes() == numpy.asarray(jax.random.uniform(
+        jk, shape, minval=TINY)).tobytes()
+    want_g = numpy.asarray(jax.random.gumbel(jk, shape))
+    numpy.testing.assert_allclose(prng.gumbel(k, shape, "cpu").numpy(),
+                                  want_g, rtol=1e-6, atol=1e-6)
+    got = prng.categorical(k, torch.from_numpy(logits))
+    assert got.dtype == torch.int64 and tuple(got.shape) == shape[:-1]
+    want = numpy.asarray(jax.random.categorical(jk, logits))
+    perturbed = want_g + logits
+    bad = numpy.argwhere(got.numpy() != want)
+    for idx in map(tuple, bad):
+        lo, hi = numpy.sort(perturbed[idx])[-2:]
+        assert hi - lo <= 1e-6 * abs(hi), (idx, hi - lo)
+    record_property("differing_draws", len(bad))
+
+
+def test_categorical_takes_the_first_of_equal_maxima(monkeypatch):
+    from veles_tpu_torch.prng import random_generator
+    monkeypatch.setattr(random_generator, "gumbel",
+                        lambda k, shape, device=None: torch.zeros(shape))
+    logits = numpy.array([[0.0, 1.0, 1.0, 0.5], [2.0, 2.0, 2.0, 2.0],
+                          [-1.0, -3.0, -1.0, -1.0], [0.0, 0.0, 0.0, 7.0]],
+                         numpy.float32)
+    got = prng.categorical(prng.key(0), torch.from_numpy(logits))
+    assert got.tolist() == numpy.asarray(
+        jnp.argmax(logits, axis=-1)).tolist() == [1, 0, 0, 3]
+
+
+def test_categorical_draws_on_its_logits_device_and_gumbel_on_the_card(
+        monkeypatch):
+    """``categorical`` draws where its logits are; ``gumbel`` without a
+    device asks for the card, and raises without one."""
+    got = prng.categorical(prng.key(1), torch.zeros((2, 3)))
+    assert got.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prng.gumbel(prng.key(1), (2, 3))
+    assert prng.gumbel(prng.key(1), (2, 3), "cpu").shape == (2, 3)

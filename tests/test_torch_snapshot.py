@@ -748,18 +748,35 @@ def _masks(wf):
     return seen
 
 
+@pytest.fixture(scope="module")
+def uninterrupted():
+    """``get(net, fused, make, epochs)`` -> (the uninterrupted run of
+    ``make(epochs, fused)``, its dropout masks), run once a module: both
+    snapshot formats resume against the same reference."""
+    runs = {}
+
+    def get(net, fused, make, epochs):
+        if (net, fused) not in runs:
+            ref = make(epochs, fused)
+            masks = _masks(ref)
+            ref.run()
+            runs[net, fused] = ref, masks
+        return runs[net, fused]
+    yield get
+    runs.clear()
+
+
 @pytest.mark.parametrize("fmt", ["pickle", "shards"])
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "graph"])
 @pytest.mark.parametrize("net", ["mnist", "lrn_dropout", "attention",
                                  "mse"])
-def test_resume_equals_uninterrupted_bitwise(tmp_path, net, fused, fmt):
+def test_resume_equals_uninterrupted_bitwise(tmp_path, uninterrupted, net,
+                                             fused, fmt):
     make, (first, total) = {"mnist": (_mnist, (3, 6)),
                             "lrn_dropout": (_lrn_net, (2, 4)),
                             "attention": (_attention, (3, 6)),
                             "mse": (_mse, (3, 6))}[net]
-    ref = make(total, fused)
-    ref_masks = _masks(ref)
-    ref.run()
+    ref, ref_masks = uninterrupted(net, fused, make, total)
     snap = {"prefix": "r", "directory": str(tmp_path), "time_interval": 0,
             "format": fmt}
     make(first, fused, snap).run()

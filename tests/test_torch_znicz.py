@@ -108,9 +108,19 @@ def test_standard_workflow_routes_and_refuses():
     assert wf.gds[1].solver.name == "sgd"
     wf.initialize(device=Device(backend="cpu"))
     assert wf.forwards[0].weights.shape == (784, 20)
+    # stochastic pooling resolves to its forward and GD pair; a type
+    # nothing registers still raises
+    from veles_tpu_torch.znicz.gd_pooling import GDStochasticPooling
+    from veles_tpu_torch.znicz.pooling import StochasticPooling
+    sp = mnist.create_workflow(loader=loader,
+                               layers=[{"type": "stochastic_pooling",
+                                        "kx": 2, "ky": 2}] + flat)
+    assert type(sp.forwards[0]) is StochasticPooling
+    assert type(sp.gds[0]) is GDStochasticPooling
+    assert (sp.forwards[0].kx, sp.forwards[0].ky) == (2, 2)
     with pytest.raises(ValueError, match="unknown layer type"):
         mnist.create_workflow(loader=loader,
-                              layers=[{"type": "stochastic_pooling",
+                              layers=[{"type": "no_such_pooling",
                                        "kx": 2, "ky": 2}])
     # graph mode builds the unit chain: the forwards, the evaluator on
     # the last one, the decision, the GD units reversed behind the

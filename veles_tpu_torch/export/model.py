@@ -34,7 +34,9 @@ _CLASSES = dict(
     [(name, ("znicz.conv", name)) for name in (
         "Conv", "ConvTanh", "ConvSigmoid", "ConvRELU", "ConvStrictRELU")] +
     [(name, ("znicz.pooling", name)) for name in (
-        "MaxPooling", "AvgPooling")] +
+        "MaxPooling", "AvgPooling", "StochasticPooling",
+        "StochasticAbsPooling", "StochasticPoolingDepooling",
+        "StochasticAbsPoolingDepooling")] +
     [("LRNormalizerForward", ("znicz.lrn", "LRNormalizerForward")),
      ("DropoutForward", ("znicz.dropout", "DropoutForward")),
      ("MultiHeadAttention", ("znicz.attention", "MultiHeadAttention"))] +
@@ -54,9 +56,6 @@ _UNRECORDED = ("the JAX package records no configuration for it (the unit "
 _REFUSED = dict(
     [(name, _UNPORTED % "item 9") for name in (
         "ResizableAll2All", "KohonenForward", "SimpleRNN", "LSTM")] +
-    [(name, _UNPORTED % "item 6b") for name in (
-        "StochasticPooling", "StochasticAbsPooling",
-        "StochasticPoolingDepooling", "StochasticAbsPoolingDepooling")] +
     [(name, _UNRECORDED) for name in (
         "Cutter", "ChannelSplitter", "ChannelMerger", "ZeroFiller",
         "Deconv", "Depooling")])

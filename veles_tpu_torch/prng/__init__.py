@@ -3,4 +3,4 @@
 
 from .random_generator import (  # noqa: F401
     RandomGenerator, get, KeyTree, key, fold_in, random_bits, uniform,
-    bernoulli)
+    bernoulli, gumbel, categorical)

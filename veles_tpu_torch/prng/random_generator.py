@@ -7,15 +7,19 @@ The port's counterpart of ``veles_tpu/prng/random_generator.py``:
   RandomState wrapper with state save/restore and global keyed
   instances).  Seeded alike, it gives the JAX package's bytes: initial
   weights and shuffle orders are equal in the two packages.
-- :class:`KeyTree` and the stateless keys of stochastic units (dropout):
+- :class:`KeyTree` and the stateless keys of stochastic units (dropout,
+  stochastic pooling):
   ``jax.random``'s default threefry2x32 generator in torch integer ops,
   so the same key gives the JAX package's bits.  A key is a pair of
   32-bit words held as Python ints (:func:`key`, :func:`fold_in`),
-  derived on the host; :func:`random_bits`, :func:`uniform` and
-  :func:`bernoulli` draw per-element bits on their ``device`` (the card
-  unless the CPU is asked for), in int64 tensors masked to 32 bits (all values
-  non-negative, so every right shift is a logical one), and the CPU and
-  the card give the same bits.  The element counters are those of
+  derived on the host; :func:`random_bits`, :func:`uniform`,
+  :func:`bernoulli`, :func:`gumbel` and :func:`categorical` draw
+  per-element bits on their ``device`` (the card unless the CPU is
+  asked for; :func:`categorical` on its logits' device), in int64
+  tensors masked to 32 bits (all values non-negative, so every right
+  shift is a logical one), and the CPU and the card give the same
+  bits (a Gumbel sample's ``log`` is the device's).  The element
+  counters are those of
   ``jax_threefry_partitionable=True`` (the default of jax 0.9): element
   ``i`` of the flattened shape hashes the words ``(i >> 32, i & mask)``,
   and its 32-bit draw is the xor of the two output words.
@@ -176,17 +180,50 @@ def random_bits(k, shape, device=None):
     return (y0 ^ y1).reshape(shape)
 
 
-def uniform(k, shape, device=None):
-    """``jax.random.uniform(k, shape)`` (f32 in ``[0, 1)``): the top 23
-    bits of each draw as the mantissa of a float in ``[1, 2)``, minus 1."""
+def uniform(k, shape, device=None, minval=0.0):
+    """``jax.random.uniform(k, shape, minval=minval)`` (f32 in ``[minval,
+    1)``): the top 23 bits of each draw as the mantissa of a float in
+    ``[1, 2)``, minus 1, then ``max(minval, f * (1 - minval) + minval)``
+    in f32 where ``minval`` is not 0."""
     bits = (random_bits(k, shape, device) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0:
+        return f
+    lo = numpy.float32(minval)
+    return torch.clamp_min(f * float(numpy.float32(1.0) - lo) + float(lo),
+                           float(lo))
 
 
 def bernoulli(k, p, shape, device=None):
     """``jax.random.bernoulli(k, p, shape)``: ``uniform < p``, with ``p``
     rounded to f32 as JAX compares it."""
     return uniform(k, shape, device) < float(numpy.float32(p))
+
+
+#: float32's smallest normal number (``jnp.finfo(float32).tiny``), the
+#: low end of :func:`gumbel`'s uniform draw
+_TINY = float(numpy.finfo(numpy.float32).tiny)
+
+
+def gumbel(k, shape, device=None):
+    """``jax.random.gumbel(k, shape)`` in its default ``mode="low"``:
+    ``-log(-log(u))`` of ``u = uniform(k, shape, minval=tiny)``.  ``log``
+    is the device's, which may differ from XLA's in the last ulp."""
+    return -torch.log(-torch.log(uniform(k, shape, device, minval=_TINY)))
+
+
+def categorical(k, logits):
+    """``jax.random.categorical(k, logits)`` (axis -1, with replacement,
+    ``mode="low"``): the index of the largest ``gumbel(k, logits.shape) +
+    logits`` along the last axis, on the logits' device.  The Gumbel
+    draws follow the row-major order of ``logits.shape`` (a permuted
+    view draws in its own order).  Of equal maxima the first wins, as in
+    ``jnp.argmax``: the least index where the maximum is reached."""
+    v = gumbel(k, logits.shape, logits.device) + logits
+    n = v.shape[-1]
+    idx = torch.arange(n, dtype=torch.int64, device=v.device)
+    at_max = v == v.amax(dim=-1, keepdim=True)
+    return torch.where(at_max, idx, n).amin(dim=-1)
 
 
 class KeyTree:

@@ -291,6 +291,11 @@ class GradientDescentBase(NNUnitBase):
     #: True where ``backward`` is the vjp of the forward's ``apply``:
     #: ``link_forward`` then has the forward keep its train graph
     VJP = False
+    #: for a stochastic forward: True where the vjp is that of the draw
+    #: its train run made (``apply_train`` with ``last_key``), False
+    #: where it is that of its eval ``apply`` (the JAX
+    #: ``GenericVJPBackward``'s, which differentiates ``fwd.apply``)
+    VJP_OF_DRAW = True
 
     hide_from_registry = True
     view_group = "TRAINER"
@@ -343,7 +348,7 @@ class GradientDescentBase(NNUnitBase):
         self.forward_unit = fwd
         self.link_attrs(fwd, "input", "output", two_way=False)
         self.link_attrs(fwd, "weights", "bias", two_way=True)
-        if self.VJP:
+        if self.VJP and (self.VJP_OF_DRAW or not fwd.stochastic):
             fwd.vjp_backward = True
         return self
 
@@ -370,7 +375,8 @@ class GradientDescentBase(NNUnitBase):
         output) -- the chain rule the fused step differentiates.  The
         forward's train graph for the output ``y`` it last wrote is
         differentiated where it kept one (graph mode), else the forward
-        runs again (its last key, if stochastic)."""
+        runs again: with its last key if it is stochastic and
+        ``VJP_OF_DRAW``, else its eval ``apply``."""
         fwd = self.forward_unit
         state = getattr(fwd, "vjp_state_", None)
         if state is not None and state[0] is self._dev(self.output):
@@ -380,7 +386,8 @@ class GradientDescentBase(NNUnitBase):
             leaves = {n: p.detach().requires_grad_(True)
                       for n, p in params.items()}
             xx = x.detach().requires_grad_(True)
-            key = fwd.last_key if fwd.stochastic else None
+            key = fwd.last_key if fwd.stochastic and self.VJP_OF_DRAW \
+                else None
             with torch.enable_grad():
                 y = fwd._forward(leaves, xx, key)
         names = list(leaves)
@@ -463,9 +470,14 @@ class VJPBackward(GradientDescentBase):
 
 class GenericVJPBackward(VJPBackward):
     """Backward of a paramless forward: the vjp of its ``apply``, no
-    parameters to update."""
+    parameters to update.  For a stochastic forward without a GD unit of
+    its own (the stochastic depooling pair) that is the vjp of the eval
+    ``apply``, the expectation, though its train run drew a sample: the
+    JAX ``GenericVJPBackward`` differentiates ``fwd.apply`` (the fused
+    step differentiates the draw in both packages)."""
 
     hide_from_registry = True
+    VJP_OF_DRAW = False
 
     def __init__(self, workflow, **kwargs):
         kwargs.setdefault("learning_rate", 0.0)
