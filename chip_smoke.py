@@ -184,11 +184,11 @@ Phases (any failure raises and the script exits non-zero):
    adds the package launches.
 4. Training (slice 2): the MNIST sample through ``create_workflow()``
    → ``initialize()`` → ``run()`` on the card at the gate's settings
-   (784-100-10, minibatch 60, 25 epochs, fail_iterations 12, loader
-   seed 3, weights seed 42, the committed digits fixture), with plain
-   matmuls and with ``precise_gemm`` 1 and 2 (every All2All matmul,
-   forward and backward, on K4); the plain and ``precise_gemm=2`` runs
-   for ``GATE_SHORT_EPOCHS``.  Each run's best validation error must
+   (784-100-10, minibatch 60, fail_iterations 12, loader seed 3, weights
+   seed 42, the committed digits fixture), with plain matmuls and with
+   ``precise_gemm`` 1 and 2 (every All2All matmul, forward and backward,
+   on K4); the ``precise_gemm=1`` run for ``GATE_MAIN_EPOCHS``, the
+   plain and ``precise_gemm=2`` runs for ``GATE_SHORT_EPOCHS``.  Each run's best validation error must
    be <= 1.48 %; K4 launches are counted from 0 over each run, per train
    and per eval step.  The first epoch of the ``precise_gemm=1`` run is
    held against the same epoch run by the port on the CPU: n_err of each
@@ -197,7 +197,8 @@ Phases (any failure raises and the script exits non-zero):
    and a softmax head through ``StandardWorkflow`` on the needle task of
    the JAX package's tests/test_attention_unit.py (find the marked
    position's payload class), T=2048, 480 sequences (360 train, 120
-   valid), minibatch 8, 5 epochs, lr 0.01 and momentum 0.9 on both
+   valid), minibatch 8, ``ATTN_EPOCHS`` epochs, lr 0.01 and momentum
+   0.9 on both
    layers; without a mask and causal with window 512.  Every train step
    launches K7, K8 and K9 once, every eval step K7 once; every loss is
    finite and the last epoch's mean train loss is below the first's.
@@ -216,7 +217,8 @@ Phases (any failure raises and the script exits non-zero):
    (227x227x3, conv 96/256/384/384/256 with LRN after the first two, fc
    4096/4096 with dropout 0.5, softmax 1000, minibatch 128) through
    ``create_workflow()`` on its synthetic loader's defaults (2048 train
-   + 256 valid images, 1.42 GB resident), 3 epochs, dropout on: once
+   + 256 valid images, 1.42 GB resident), ``ALEX_EPOCHS`` epochs,
+   dropout on: once
    with ``use_pallas`` unset (K5 twice every step, K6 twice every train
    step) and once with the band form (``use_pallas=False``, neither
    kernel).  Train images/s is the median epoch after the first.  Every
@@ -228,7 +230,8 @@ Phases (any failure raises and the script exits non-zero):
 4d. Training (slice 4): the LRN convnet (conv 32 5x5 → LRN → max 3x3/2,
    twice, then fc 64 → dropout 0.5 → softmax 10; lr 0.02, momentum 0.9)
    on the CIFAR sample's synthetic data (5000 train + 1000 valid,
-   range_linear), minibatch 100, 5 epochs: best validation error < 25 %,
+   range_linear), minibatch 100, ``LRN_NET_EPOCHS`` epochs: best
+   validation error < 25 %,
    K5/K6 launched on every step.
 4e. Graph mode (slice 17): ``StandardWorkflow(fused=False)``, each
    forward, the evaluator and each GD unit a unit of its own, on the
@@ -239,7 +242,8 @@ Phases (any failure raises and the script exits non-zero):
    each class within 1, weights within 1e-4); the best validation error
    within 0.2 points of phase 4's fused ``precise_gemm=1`` run; graph
    MNIST's train images/s printed beside the fused run's.  (b) Phase
-   4d's LRN convnet, 5 epochs: K5 2 per train and eval step, K6 2 per
+   4d's LRN convnet, ``LRN_NET_EPOCHS`` epochs: K5 2 per train and
+   eval step, K6 2 per
    train step; best validation error < 25 %; the first 2 train steps on
    300 + 100 images on the card and on the CPU: each dropout mask equal
    bit for bit, losses and weights within ``steps_agree``'s limits.  (c)
@@ -331,6 +335,30 @@ Phases (any failure raises and the script exits non-zero):
    printed; phase 5 traces one fused stochastic STL-10 epoch (on a twin
    of ``STOCH_TRACE_LOADER``'s size) and prints the threefry draws'
    share of the busy card.  The kernels line adds (a)'s K4 launches.
+4i. The epoch scan and the prefetcher (ROADMAP queue A item 7), after
+   4h.  ``epoch_scan=True`` trains a class a ``ScanEpochStep`` run: on
+   the card one CUDA graph of the train step and one of the eval step,
+   each replayed once a minibatch after ``WARMUP_ROWS`` eager rows; the
+   kernel wrappers' counts are carried through the replays.  (a) phase
+   4's MNIST (``precise_gemm=1``) for ``SCAN_MNIST_EPOCHS`` epochs per
+   step (the default prefetcher attached) and scanned: weights bit for
+   bit, each epoch's n_err equal, K4 5 / 2 a train / eval step in both;
+   ``train_epochs`` of as many epochs bit for bit the scanned run; the
+   images/s of each, the replays' host time a step, and one scanned
+   epoch under ``torch.profiler`` (the card's busy share; "not
+   measured" when the trace holds no device time).  (b) phase 4b's
+   attention (no mask) for one epoch, scanned bit for bit per step, K7
+   / K8 / K9 1 / 1 / 1 a train step and 1 / 0 / 0 an eval step.  (c)
+   AlexNet with dropout (tensor keys in the graph) and the LRN convnet
+   on 4f's 512 + 128 images for one epoch, scanned against per step:
+   losses within ``SNAP_ALEX_RTOL`` relative, parameters within it of
+   their largest magnitude, K5 / K6 2 / 2 a train step, 2 / 0 an eval
+   step.  (d) MNIST per step with ``prefetch_depth`` 0 and 2 for
+   ``PREFETCH_EPOCHS`` epochs under a fencing ``StepProfiler``: the
+   recorded minibatch sequence (offset, size, class, flags, indices)
+   equal, weights bit for bit, the staged indices on the card, images/s
+   and the data-wait share of each.  The kernels line adds every run's
+   K4-K9 launches.
 5. Where the time goes: each serving configuration's burst, one
    training epoch with ``precise_gemm=1``, one full-width attention
    epoch (no mask) and one AlexNet epoch with K5/K6 once
@@ -3020,11 +3048,16 @@ def autotune_phase(torch, card, cache_dir, dev):
 GATE_ERROR_PT = 1.48
 GATE_LOADER = {"minibatch_size": 60, "n_train": None, "n_valid": None}
 GATE_DECISION = {"max_epochs": 25, "fail_iterations": 12, "silent": True}
-#: the plain and ``precise_gemm=2`` gate runs' epochs (cut from 25; on the
-#: CPU's trajectory of the same seeds both pass the gate by epoch 12:
-#: 1.05 % and 0.95 %).  ``precise_gemm=1`` keeps 25: phases 3d, 3f and 4e
-#: reuse its workflow and compare with its result
-GATE_SHORT_EPOCHS = 15
+#: the plain and ``precise_gemm=2`` gate runs' epochs (cut from 25, then
+#: from 15 for phase 4i; on the CPU's trajectory of the same seeds both
+#: pass the gate by epoch 12: 1.05 % and 0.95 %, and on the card both
+#: reached their best at epoch 12)
+GATE_SHORT_EPOCHS = 12
+#: the ``precise_gemm=1`` run's epochs, and graph mode's in phase 4e,
+#: which is held to its best error (cut from 25 for phase 4i; the plain
+#: and ``precise_gemm=2`` runs pass the gate within 12); phases 3d and 3f
+#: serve its workflow
+GATE_MAIN_EPOCHS = 15
 FIRST_EPOCH_WEIGHT_ATOL = 1e-4
 
 
@@ -3226,7 +3259,8 @@ def first_epoch_on_the_cpu(card_run, gemm):
 #: the needle task at the unit's measured width (bench.py:543): T 2048,
 #: d_model 512, 8 heads, 4 classes
 ATTN_T, ATTN_D, ATTN_HEADS, ATTN_CLASSES = 2048, 512, 8, 4
-ATTN_N, ATTN_MINIBATCH, ATTN_EPOCHS = 480, 8, 5
+#: (5 epochs before phase 4i, cut for it: the full-width runs have no gate)
+ATTN_N, ATTN_MINIBATCH, ATTN_EPOCHS = 480, 8, 3
 #: sequences (and validation ones) of the first epoch held against the
 #: CPU
 ATTN_CPU_N, ATTN_CPU_VALID = 24, 8
@@ -3316,11 +3350,11 @@ def needle_loader(n, t, d, classes, n_valid=None):
 def attention_workflow(n, t, d, heads, causal=False, window=None,
                        minibatch=ATTN_MINIBATCH, epochs=ATTN_EPOCHS,
                        device="cuda", use_pallas=None, n_valid=None,
-                       fused=True, snapshotter=None):
+                       fused=True, snapshotter=None, epoch_scan=False):
     """``StandardWorkflow([multihead_attention, softmax])`` on the needle
     task, weights from seed 42, initialized on ``device`` (the card
     unless the CPU is asked for); ``fused=False``: graph mode;
-    ``snapshotter``: its config."""
+    ``snapshotter``: its config; ``epoch_scan``: a class a run."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.prng import RandomGenerator
@@ -3343,7 +3377,7 @@ def attention_workflow(n, t, d, heads, causal=False, window=None,
                  "<-": dict(ATTN_GD)}],
         loss_function="softmax",
         decision={"max_epochs": epochs, "silent": True}, fused=fused,
-        snapshotter=snapshotter)
+        snapshotter=snapshotter, epoch_scan=epoch_scan)
     wf.initialize(device=Device(backend=device))
     if wf.forwards[0].device.BACKEND != device:
         raise AssertionError("the attention unit runs on %s, not %s"
@@ -3539,7 +3573,7 @@ def trace_train(torch, card, precise):
 #: the AlexNet sample as published (227x227x3, conv 96/256/384/384/256, fc
 #: 4096/4096, softmax 1000, minibatch 128) on its own synthetic loader
 #: defaults (2048 train + 256 valid images, 1.42 GB resident)
-ALEX_EPOCHS = 3
+ALEX_EPOCHS = 2
 #: the card-vs-CPU hold: the first train steps at minibatch 128 on a cut
 #: dataset (256 train + 128 valid images; widths untouched)
 ALEX_HOLD_STEPS = 2
@@ -3575,11 +3609,11 @@ def _on(wf, device):
 
 
 def alexnet_workflow(device="cuda", use_pallas=None, epochs=ALEX_EPOCHS,
-                     snapshotter=None, **loader):
+                     snapshotter=None, epoch_scan=False, **loader):
     """The AlexNet sample through ``create_workflow``, weights from seed
     42, loader seed 7, initialized on ``device`` (the card unless the CPU
     is asked for); ``loader`` overrides the sample's loader config;
-    ``snapshotter``: its config."""
+    ``snapshotter``: its config; ``epoch_scan``: a class a run."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
@@ -3590,7 +3624,7 @@ def alexnet_workflow(device="cuda", use_pallas=None, epochs=ALEX_EPOCHS,
         loader=dict(loader, prng=RandomGenerator().seed(7)),
         layers=_with_lrn_form(root.alexnet.layers, use_pallas),
         decision={"max_epochs": epochs, "silent": True},
-        snapshotter=snapshotter)
+        snapshotter=snapshotter, epoch_scan=epoch_scan)
     wf.initialize(device=Device(backend=device))
     return _on(wf, device)
 
@@ -3801,15 +3835,17 @@ LRN_NET_LAYERS = (
      "<-": LRN_NET_GD})
 #: the CIFAR loader's synthetic defaults (5000 train + 1000 valid)
 LRN_NET_LOADER = {"minibatch_size": 100, "normalization_type": "range_linear"}
-LRN_NET_EPOCHS = 5
+#: (5 before phase 4i, cut for it; 0.00 % validation error from epoch 2)
+LRN_NET_EPOCHS = 3
 LRN_NET_GATE_PT = 25.0
 
 
 def lrn_net_workflow(device="cuda", use_pallas=None, epochs=LRN_NET_EPOCHS,
-                     fused=True, **loader):
+                     fused=True, epoch_scan=False, **loader):
     """The LRN convnet through the CIFAR sample's ``create_workflow``,
     weights from seed 42, loader seed 7, on ``device`` (the card unless
-    the CPU is asked for); ``fused=False``: graph mode."""
+    the CPU is asked for); ``fused=False``: graph mode; ``epoch_scan``:
+    a class a run."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.prng import RandomGenerator
@@ -3819,7 +3855,8 @@ def lrn_net_workflow(device="cuda", use_pallas=None, epochs=LRN_NET_EPOCHS,
         loader=dict(LRN_NET_LOADER, prng=RandomGenerator().seed(7),
                     **loader),
         layers=_with_lrn_form(LRN_NET_LAYERS, use_pallas),
-        decision={"max_epochs": epochs, "silent": True}, fused=fused)
+        decision={"max_epochs": epochs, "silent": True}, fused=fused,
+        epoch_scan=epoch_scan)
     wf.initialize(device=Device(backend=device))
     return _on(wf, device)
 
@@ -4523,7 +4560,7 @@ def graph_mnist_run(torch, gemm, card, fused_run):
     against graph mode on the CPU; the best validation error within
     ``GRAPH_MNIST_ERROR_PP`` of phase 4's fused run (``fused_run``)."""
     t0 = time.perf_counter()
-    wf = _mnist_workflow(1, fused=False)
+    wf = _mnist_workflow(1, fused=False, epochs=GATE_MAIN_EPOCHS)
     init_s = time.perf_counter() - t0
     out = _train_record(torch, wf, {"k4": gemm.precise_matmul},
                         "MNIST precise_gemm=1", card, init_s, "images")
@@ -5342,8 +5379,9 @@ def snapshot_phase(torch, card):
 
 #: STL-10 at its published widths on its synthetic twin's defaults (96x96x3,
 #: 5000 train + 800 valid images, minibatch 50), ``precise_gemm=1``; the
-#: epochs cut from the sample's 100
-STL10_EPOCHS = 5
+#: epochs cut from the sample's 100 (to 5, then to 3 for phase 4i; the
+#: twin reads 0 % validation error from epoch 1 on)
+STL10_EPOCHS = 3
 #: the JAX gate (tests/test_samples_gates.py::test_stl10_sample_trains):
 #: best validation error under this, in percent
 STL10_GATE_PT = 50.0
@@ -5606,7 +5644,8 @@ def trace_stl10(torch, card):
 STOCH_MODES_LOSS_RTOL = 0.05
 #: STL-10's epochs with stochastic pooling (cut from the sample's 100, and
 #: from 4g's 5: a step draws 40M Gumbel samples, ~6 s an epoch on the card;
-#: the twin reads 0 % validation error from epoch 1 on)
+#: the twin reads 0 % validation error from the second epoch on; one epoch
+#: misses the gate, 87.75 %)
 STOCH_STL10_EPOCHS = 2
 #: the first steps card against CPU on 4g's loaders, STL-10's in minibatches
 #: of 5 (the CPU draws a 50-image step's 32M samples in ~15 s)
@@ -5795,6 +5834,335 @@ def trace_stochastic(torch, card):
          % (rec["int64_elementwise_ms"], rec["device_busy_ms"],
             100 * rec["int64_elementwise_share"], card))
     return rec
+
+
+# -- phase 4i: the epoch scan and the prefetcher (queue A item 7) -------------
+
+#: MNIST epochs of (a)'s per-step, scanned and ``train_epochs`` runs
+SCAN_MNIST_EPOCHS = 3
+#: MNIST epochs of (d)'s two prefetch depths
+PREFETCH_EPOCHS = 2
+#: (c) AlexNet and the LRN convnet on 4f's 512 + 128 images
+SCAN_CONV_LOADER = {"n_train": 512, "n_valid": 128}
+
+
+def _class_instrument(wf, counters):
+    """Rows (minibatches) and kernel launches by class, each train
+    class's last loss and each epoch's n_err, of a fused workflow per
+    step or scanned (its class known after each step run); -> record."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    step, decision = wf.fused_step, wf.decision
+    rec = {"rows": {TRAIN: 0, VALID: 0}, "losses": [], "epoch_n_err": [],
+           "launches": {n: {TRAIN: 0, VALID: 0} for n in counters}}
+    step_run, decision_run = step.run, decision.run
+
+    def run():
+        before = {n: fn.launches for n, fn in counters.items()}
+        rows = step.train_steps + step.eval_steps
+        step_run()
+        cls = wf.loader.minibatch_class
+        rec["rows"][cls] += step.train_steps + step.eval_steps - rows
+        for n, fn in counters.items():
+            rec["launches"][n][cls] += fn.launches - before[n]
+        if cls == TRAIN and bool(wf.loader.last_minibatch):
+            # the class's last loss (a device scalar: read at the end)
+            rec["losses"].append(step.loss)
+
+    def run_decision():
+        ended = bool(decision.last_minibatch) and bool(decision.epoch_ended)
+        decision_run()
+        if ended:
+            rec["epoch_n_err"].append(list(decision.epoch_n_err))
+
+    step.run, decision.run = _transient(run), _transient(run_decision)
+    return rec
+
+
+def _scan_run(torch, wf, counters, label, card, run=None):
+    """Run ``wf`` (or ``run()``) with the kernels' counts from 0; ->
+    record: seconds, images/s (every image served), rows and launches
+    by [train, eval], launches a row, losses, n_err by epoch, weights,
+    and the scan step's captures, replays and replay host time."""
+    from veles_tpu_torch.loader import TRAIN, VALID
+    rec = _class_instrument(wf, counters)
+    for fn in counters.values():
+        fn.launches = 0
+    served = wf.loader.samples_served
+    t0 = time.perf_counter()
+    (run or wf.run)()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    step = wf.fused_step
+    rows = [rec["rows"][TRAIN], rec["rows"][VALID]]
+    out = {"label": label, "card": card, "seconds": seconds,
+           "images_s": (wf.loader.samples_served - served) / seconds,
+           "rows": rows, "epoch_n_err": rec["epoch_n_err"],
+           "launches": {n: [c[TRAIN], c[VALID]]
+                        for n, c in rec["launches"].items()},
+           "per_row": {n: [c[TRAIN] / max(rows[0], 1),
+                           c[VALID] / max(rows[1], 1)]
+                       for n, c in rec["launches"].items()},
+           "launches_total": {n: fn.launches
+                              for n, fn in counters.items()},
+           "losses": [float(x) for x in rec["losses"]],
+           "weights": host_weights(wf)}
+    if hasattr(step, "replays"):
+        out.update(captures=step.captures, replays=step.replays,
+                   eager_rows=step.eager_rows, replay_s=step.replay_s,
+                   replay_host_ms=1e3 * step.replay_s / max(step.replays,
+                                                            1))
+        if step._dev_.type == "cuda" and (step.captures < 1 or
+                                          not step.replays):
+            raise AssertionError("%s: %d graphs captured, %d replays"
+                                 % (label, step.captures, step.replays))
+    _log("4i %s: %.3f s, %.0f images/s; [train, eval] rows %s, launches "
+         "%s (%s a row)%s [%s]" % (
+             label, seconds, out["images_s"], rows, out["launches"],
+             {n: ["%.2f" % x for x in v] for n, v in out["per_row"].items()},
+             "" if "replays" not in out else
+             "; %d graphs, %d replays, %d eager rows, replay host %.4f ms "
+             "a row" % (out["captures"], out["replays"], out["eager_rows"],
+                        out["replay_host_ms"]), card))
+    return out
+
+
+def _want_per_row(label, res, want):
+    """Refuse launches a row other than ``want`` ({name: (train,
+    eval)})."""
+    for name, pair in want.items():
+        if res["per_row"][name] != list(pair) or not res["rows"][0]:
+            raise AssertionError("%s: %s launched %r a [train, eval] row "
+                                 "over %r rows, want %r" % (
+                                     label, name, res["per_row"][name],
+                                     res["rows"], list(pair)))
+
+
+def _scan_pair(torch, make, counters, label, card, want):
+    """``make(epoch_scan)`` per step, then scanned; launches a row as
+    ``want`` in both; -> (per-step record, scanned record)."""
+    pair = []
+    for scanned in (False, True):
+        wf = make(scanned)
+        kind = type(wf.fused_step).__name__
+        if (kind == "ScanEpochStep") != scanned:
+            raise AssertionError("%s: a %s" % (label, kind))
+        res = _scan_run(torch, wf, counters, "%s %s" % (
+            label, "scanned" if scanned else "per step"), card)
+        _want_per_row(res["label"], res, want)
+        pair.append(res)
+        del wf
+        torch.cuda.empty_cache()
+    return pair
+
+
+def trace_scan(torch, card):
+    """The second scanned epoch of phase 4's MNIST under
+    ``torch.profiler`` (the first warms up and captures): the card's busy
+    share; None when the trace holds no device time."""
+    def make():
+        wf = _mnist_workflow(1, epochs=1, epoch_scan=True)
+        wf.run()
+        wf.decision.max_epochs = 2
+        wf.decision.complete <<= False
+        return wf.run, lambda: None
+    try:
+        return _traced(torch, "train precise_gemm=1 scanned", card, make)
+    except TraceLost as e:
+        _log("4i: %s: the scanned epoch's busy share not measured" % e)
+        return None
+
+
+def scan_mnist_part(torch, gemm, card):
+    """(a): per step against scanned, ``train_epochs``, and the traced
+    scanned epoch."""
+    from veles_tpu_torch.loader import TRAIN
+    counters = {"K4": gemm.precise_matmul}
+    per, scan = _scan_pair(
+        torch, lambda scanned: _mnist_workflow(
+            1, epochs=SCAN_MNIST_EPOCHS, epoch_scan=scanned),
+        counters, "(a) mnist", card, {"K4": (5, 2)})
+    _bitwise("4i(a) mnist scanned", scan["weights"], per["weights"])
+    if scan["epoch_n_err"] != per["epoch_n_err"] or \
+            len(per["epoch_n_err"]) != SCAN_MNIST_EPOCHS:
+        raise AssertionError("4i(a): n_err by epoch %r scanned, %r per step"
+                             % (scan["epoch_n_err"], per["epoch_n_err"]))
+    wf = _mnist_workflow(1, epochs=SCAN_MNIST_EPOCHS, epoch_scan=True)
+    bulk = _scan_run(torch, wf, counters, "(a) mnist train_epochs(%d)"
+                     % SCAN_MNIST_EPOCHS, card,
+                     run=lambda: wf.fused_step.train_epochs(
+                         SCAN_MNIST_EPOCHS))
+    # no class run: the rows and launches are the step's and the counter's
+    bulk["rows"] = [wf.fused_step.train_steps, 0]
+    bulk["launches"] = {"K4": [bulk["launches_total"]["K4"], 0]}
+    bulk["per_row"] = {"K4": [bulk["launches"]["K4"][0] / bulk["rows"][0],
+                              0.0]}
+    _bitwise("4i(a) mnist train_epochs", bulk["weights"], scan["weights"])
+    if bulk["rows"][0] != scan["rows"][0]:
+        raise AssertionError("4i(a) train_epochs: %d rows, want %d"
+                             % (bulk["rows"][0], scan["rows"][0]))
+    _want_per_row("4i(a) train_epochs", bulk, {"K4": (5, 0)})
+    del wf
+    trace = trace_scan(torch, card)
+    rows = per["rows"][0] + per["rows"][1]
+    out = {"per_step": per, "scanned": scan, "train_epochs": bulk,
+           "trace": trace, "speedup": scan["images_s"] / per["images_s"],
+           "per_step_host_ms": 1e3 * per["seconds"] / rows}
+    _log("4i(a) mnist: %d epochs scanned bit for bit per step (n_err by "
+         "epoch %s), K4 5 / 2 a row in both; %.0f images/s scanned against "
+         "%.0f per step (%.2fx), train_epochs(%d) %.0f; replays %.4f ms of "
+         "host a row against %.4f ms a step; scanned epoch busy %s [%s]"
+         % (SCAN_MNIST_EPOCHS, scan["epoch_n_err"], scan["images_s"],
+            per["images_s"], out["speedup"], SCAN_MNIST_EPOCHS,
+            bulk["images_s"], scan["replay_host_ms"],
+            out["per_step_host_ms"], "not measured" if trace is None else
+            "%.1f%% of %.4f s" % (100 * trace["device_busy_share"],
+                                  trace["traced_seconds"]), card))
+    for run in (per, scan, bulk):
+        run.pop("weights")
+    return out
+
+
+def scan_attention_part(torch, fa, card):
+    """(b): phase 4b's attention (no mask), one epoch, bit for bit."""
+    per, scan = _scan_pair(
+        torch, lambda scanned: attention_workflow(
+            ATTN_N, ATTN_T, ATTN_D, ATTN_HEADS, epochs=1,
+            epoch_scan=scanned),
+        _flash_counters(fa), "(b) attention", card,
+        {"K7": (1, 1), "K8": (1, 0), "K9": (1, 0)})
+    _bitwise("4i(b) attention scanned", scan["weights"], per["weights"])
+    _log("4i(b) attention: one epoch scanned bit for bit per step; %.1f "
+         "sequences/s scanned against %.1f per step [%s]"
+         % (scan["images_s"], per["images_s"], card))
+    for run in (per, scan):
+        run.pop("weights")
+    return {"per_step": per, "scanned": scan}
+
+
+def scan_conv_part(torch, lrn_mod, card):
+    """(c): AlexNet with dropout and the LRN convnet, one epoch each,
+    scanned within ``SNAP_ALEX_RTOL`` of per step."""
+    counters = _lrn_counters(lrn_mod)
+    want = {"K5": (2, 2), "K6": (2, 0)}
+    out = {}
+    for name, make in (
+            ("alexnet", lambda scanned: alexnet_workflow(
+                epochs=1, epoch_scan=scanned, minibatch_size=128,
+                **SCAN_CONV_LOADER)),
+            ("lrn convnet", lambda scanned: lrn_net_workflow(
+                epochs=1, epoch_scan=scanned, **SCAN_CONV_LOADER))):
+        per, scan = _scan_pair(torch, make, counters, "(c) " + name, card,
+                               want)
+        loss_diff, w_diff = steps_agree(
+            "4i(c) " + name, scan["losses"], scan["weights"],
+            per["losses"], per["weights"], SNAP_ALEX_RTOL, SNAP_ALEX_RTOL)
+        _log("4i(c) %s: one epoch scanned: losses within %.3g relative, "
+             "parameters within %.3g of their largest magnitude (limits "
+             "%g); %.1f images/s scanned against %.1f per step [%s]"
+             % (name, loss_diff, w_diff, SNAP_ALEX_RTOL, scan["images_s"],
+                per["images_s"], card))
+        for run in (per, scan):
+            run.pop("weights")
+        out[name] = {"per_step": per, "scanned": scan,
+                     "loss_rel_diff": loss_diff, "weight_rel_diff": w_diff}
+    return out
+
+
+def prefetch_part(torch, gemm, card):
+    """(d): MNIST per step at ``prefetch_depth`` 0 and 2 under a fencing
+    ``StepProfiler``: the same minibatch sequence, weights bit for bit,
+    the staged indices on the card."""
+    counters = {"K4": gemm.precise_matmul}
+    runs = {}
+    for depth in (0, 2):
+        wf = _mnist_workflow(1, epochs=PREFETCH_EPOCHS,
+                             loader={"prefetch_depth": depth})
+        pf = wf.loader.prefetcher_
+        if (pf is not None) != bool(depth):
+            raise AssertionError("4i(d): depth %d attached %r"
+                                 % (depth, pf))
+        seq, staged = [], []
+        step_run = wf.fused_step.run
+
+        def record(wf=wf, seq=seq, staged=staged, step_run=step_run):
+            ld = wf.loader
+            seq.append((ld.minibatch_offset, ld.minibatch_size,
+                        ld.minibatch_class, bool(ld.last_minibatch),
+                        bool(ld.epoch_ended), bool(ld.train_ended),
+                        bool(ld.valid_ended),
+                        ld._padded_indices_[:ld.minibatch_size].tobytes()))
+            if ld.prefetch_staged_ is not None:
+                staged.append(ld.prefetch_staged_[0].device.type)
+            return step_run()
+
+        wf.fused_step.run = _transient(record)
+        prof = wf.attach_profiler()
+        res = _scan_run(torch, wf, counters, "(d) mnist prefetch_depth=%d"
+                        % depth, card)
+        prof.detach()
+        summary = prof.summary()
+        res["profiler"] = summary
+        res["data_wait_share"] = summary["phase_pct"]["data_wait"] / 100
+        if depth and (summary.get("prefetch", {}).get("consumed") !=
+                      len(seq) or len(staged) != len(seq) or
+                      set(staged) != {wf.fused_step._dev_.type}):
+            raise AssertionError("4i(d): %d steps, prefetch %r, staged on "
+                                 "%r" % (len(seq), summary.get("prefetch"),
+                                         sorted(set(staged))))
+        _want_per_row(res["label"], res, {"K4": (5, 2)})
+        runs[depth] = (res, seq)
+        _log("4i(d) mnist prefetch_depth=%d: %d steps, %.0f images/s, "
+             "data-wait %.1f %% / host %.1f %% / device %.1f %% (fenced) "
+             "[%s]" % (depth, len(seq), res["images_s"],
+                       summary["phase_pct"]["data_wait"],
+                       summary["phase_pct"]["host"],
+                       summary["phase_pct"]["device"], card))
+        del wf, prof
+    (sync, seq0), (ahead, seq2) = runs[0], runs[2]
+    if seq2 != seq0:
+        first = next(i for i, (a, b) in enumerate(zip(seq0, seq2))
+                     if a != b) if len(seq0) == len(seq2) else None
+        raise AssertionError("4i(d): the sequences differ (%d and %d steps, "
+                             "first at %r)" % (len(seq0), len(seq2), first))
+    _bitwise("4i(d) prefetch_depth=2", ahead["weights"], sync["weights"])
+    _log("4i(d) mnist: prefetch_depth 2 served depth 0's %d minibatches in "
+         "the same order with the same flags, weights bit for bit; %.0f "
+         "against %.0f images/s, data-wait %.1f %% against %.1f %% [%s]"
+         % (len(seq0), ahead["images_s"], sync["images_s"],
+            100 * ahead["data_wait_share"], 100 * sync["data_wait_share"],
+            card))
+    for run in (sync, ahead):
+        run.pop("weights")
+    return {"depth_0": sync, "depth_2": ahead, "steps": len(seq0)}
+
+
+def scan_phase(torch, gemm, lrn_mod, fa, card):
+    """Phase 4i: (a)-(d); -> record with every run's launches under the
+    kernels line's names."""
+    out, times = {}, {}
+    for part, fn in (("mnist", lambda: scan_mnist_part(torch, gemm, card)),
+                     ("attention", lambda: scan_attention_part(torch, fa,
+                                                               card)),
+                     ("conv", lambda: scan_conv_part(torch, lrn_mod, card)),
+                     ("prefetch", lambda: prefetch_part(torch, gemm, card))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        times[part] = time.perf_counter() - t0
+    out["seconds"] = times
+    total = {}
+    runs = [out["mnist"]["per_step"], out["mnist"]["scanned"],
+            out["mnist"]["train_epochs"], out["attention"]["per_step"],
+            out["attention"]["scanned"], out["prefetch"]["depth_0"],
+            out["prefetch"]["depth_2"]] + [
+        r[k] for r in out["conv"].values() for k in ("per_step", "scanned")]
+    for run in runs:
+        for name, n in run["launches_total"].items():
+            key = SNAP_LINE_NAMES[name]
+            total[key] = total.get(key, 0) + n
+    out["launches"] = total
+    _log("4i: launches %s; parts %s s [%s]" % (
+        total, {k: round(v, 1) for k, v in times.items()}, card))
+    return out
 
 
 # -- phase 5: where the time goes ---------------------------------------------
@@ -6188,7 +6556,8 @@ def main():
     record["e2e_tiers"] = tiers
     phase_done("3c tiers, checkpoints and session migration")
     train = [train_run(torch, gemm, card, precise,
-                       None if precise == 1 else GATE_SHORT_EPOCHS)
+                       GATE_MAIN_EPOCHS if precise == 1
+                       else GATE_SHORT_EPOCHS)
              for precise in (0, 1, 2)]
     record["first_epoch_vs_cpu"] = first_epoch_on_the_cpu(train[1], gemm)
     served_wf = train[1]["workflow"]
@@ -6277,6 +6646,11 @@ def main():
     for name, n in stochastic["launches"].items():
         launches[name] += n
     phase_done("4h stochastic pooling")
+    scan = scan_phase(torch, gemm, lrn_mod, fa, card)
+    record["epoch_scan"] = scan
+    for name, n in scan["launches"].items():
+        launches[name] += n
+    phase_done("4i epoch scan and prefetcher")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (

@@ -27,7 +27,10 @@
   20); the STL-10 and VideoAE samples' workflows in both modes and a
   ``Deconv`` unit (slice 21); the four stochastic pooling units, a
   workflow holding the stochastic depooling pair in both modes and the
-  Gumbel draws, where ``categorical`` draws on its logits' device.
+  Gumbel draws, where ``categorical`` draws on its logits' device; the
+  ``MinibatchPrefetcher``, ``Workflow.attach_prefetcher`` on a workflow
+  initialized nowhere and an ``epoch_scan`` workflow's ``initialize``
+  (slice 23).
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -108,7 +111,8 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "export", "export.packager", "export.model",
                  "export.loader", "export.native", "restful_api",
                  "snapshotter", "loader.shards", "znicz.misc_units",
-                 "znicz.samples.stl10", "znicz.samples.video_ae"):
+                 "znicz.samples.stl10", "znicz.samples.video_ae",
+                 "loader.prefetch", "znicz.scan_step"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -529,6 +533,38 @@ def test_stochastic_pooling_entry_points_need_a_card_unless_told_cpu(
         wf.initialize(device=cpu)
         wf.run()
         assert wf.forwards[-1].output.devmem.device == torch.device("cpu")
+
+
+def test_slice23_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """The prefetcher (whatever its staging), ``attach_prefetcher`` on a
+    workflow initialized nowhere and a scanned workflow's ``initialize``
+    default to the card and raise without one; ``device="cpu"`` runs."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.loader import MinibatchPrefetcher
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.samples import mnist
+    from veles_tpu_torch.znicz.scan_step import ScanEpochStep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = {"n_train": 60, "n_valid": 60}
+    wf = mnist.create_workflow(loader=small, epoch_scan=True,
+                               decision={"max_epochs": 1, "silent": True})
+    assert isinstance(wf.fused_step, ScanEpochStep)
+    with pytest.raises(RuntimeError):
+        wf.initialize()
+    wf.initialize(device=Device(backend="cpu"))
+    wf.run()
+    assert wf.fused_step.eager_rows == 2 and wf.fused_step.captures == 0
+    loader = mnist.create_workflow(loader=small).loader
+    loader.initialize()
+    for stage in (True, False):
+        with pytest.raises(RuntimeError):
+            MinibatchPrefetcher(loader, depth=2, stage_to_device=stage)
+    with pytest.raises(RuntimeError):
+        Workflow(None).attach_prefetcher(loader=loader, depth=2)
+    assert loader.prefetcher_ is None and "run" not in loader.__dict__
+    pf = MinibatchPrefetcher(loader, depth=2, device="cpu")
+    assert pf.device == torch.device("cpu") and pf._stream is None
+    pf.detach()
 
 
 def test_package_runner_subprocess_imports_no_jax(tmp_path):

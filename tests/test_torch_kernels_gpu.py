@@ -1486,3 +1486,138 @@ def test_tuned_plans_reach_the_kernels(cuda, tmp_path):
     assert gemm.precise_split(60, 100, 784, 1, cuda) == 4   # the rule
     assert torch.equal(tuned, gemm.precise_matmul(a, b, 1))
     assert fa.flash_tiles(q, True) == space.flash_plan_tiles(64)
+
+
+# -- the epoch scan's CUDA graphs and the prefetcher's staged streams ---------
+
+def _scan_mnist(scanned, epochs=2, **loader):
+    return chip_smoke._mnist_workflow(
+        1, epochs=epochs, epoch_scan=scanned,
+        loader=dict({"n_train": 600, "n_valid": 200}, **loader))
+
+
+def _k4_run(wf, run=None):
+    """Run ``wf`` with K4's count from 0; -> (launches, weights)."""
+    gemm.precise_matmul.launches = 0
+    (run or wf.run)()
+    torch.cuda.synchronize()
+    return gemm.precise_matmul.launches, chip_smoke.host_weights(wf)
+
+
+def test_epoch_scan_graph_replays_equal_the_per_step_path(cuda):
+    """MNIST (``precise_gemm=1``) scanned: one train and one eval graph,
+    replayed after the warm-up rows; weights bit for bit the per-step
+    path's, K4 counted 5 / 2 a train / eval row through the replays."""
+    from veles_tpu_torch.znicz.scan_step import WARMUP_ROWS
+    per, scan = _scan_mnist(False), _scan_mnist(True)
+    n_per, w_per = _k4_run(per)
+    n_scan, w_scan = _k4_run(scan)
+    chip_smoke._bitwise("scan", w_scan, w_per)
+    step = scan.fused_step
+    rows = step.train_steps + step.eval_steps
+    assert (step.train_steps, step.eval_steps) == (20, 8)
+    assert n_scan == n_per == 5 * 20 + 2 * 8
+    assert step.captures == 2 and sorted(step._graphs_) == ["eval", "train"]
+    assert step.eager_rows == 2 * WARMUP_ROWS
+    assert step.replays == rows - step.eager_rows
+    assert list(scan.decision.epoch_n_err) == list(per.decision.epoch_n_err)
+
+
+def test_epoch_scan_captures_again_for_lr_scale_and_after_load_state(cuda):
+    """A new ``lr_scale`` captures the train graph again (the rate is a
+    host value baked into the graph), ``train_epochs`` past the buffers'
+    rows and ``load_state`` drop the graphs; every run stays bit for
+    bit the per-step path given the same schedule."""
+    per, scan = _scan_mnist(False, epochs=1), _scan_mnist(True, epochs=1)
+    for wf in (per, scan):
+        wf.run()
+        wf.fused_step.lr_scale = 0.5
+        wf.decision.max_epochs = 2
+        wf.decision.complete <<= False
+        wf.run()
+    chip_smoke._bitwise("lr_scale", chip_smoke.host_weights(scan),
+                        chip_smoke.host_weights(per))
+    step = scan.fused_step
+    assert step.captures == 3 and step._graphs_["train"][0] == 0.5
+    rows = step._buf_["rows"]
+    step.train_epochs(2)
+    assert step._buf_["rows"] > rows and step.captures == 4
+    step.load_state()
+    assert step._graphs_ == {} and step._buf_ is None
+
+
+def test_prefetch_stages_on_its_stream_and_equals_depth_zero(cuda):
+    """Depth 2 on the card: the indices, the size and the seed staged
+    on the device (the copies on the prefetcher's stream, ordered by its
+    event), weights bit for bit depth 0's, K4's count the same."""
+    sync, ahead = _scan_mnist(False, prefetch_depth=0), \
+        _scan_mnist(False, prefetch_depth=2)
+    pf = ahead.loader.prefetcher_
+    assert sync.loader.prefetcher_ is None and pf is not None
+    assert pf._stream is not None and pf.stats()["staging"]
+    assert pf._stream != torch.cuda.current_stream()
+    seen = []
+    step_run = ahead.fused_step.run
+
+    def record():
+        idx, size = ahead.loader.prefetch_staged_
+        seen.append((idx.device.type, size.device.type,
+                     torch.equal(idx.cpu(), torch.from_numpy(
+                         ahead.loader._padded_indices_))))
+        return step_run()
+    ahead.fused_step.run = record
+    n0, w0 = _k4_run(sync)
+    n2, w2 = _k4_run(ahead)
+    chip_smoke._bitwise("prefetch", w2, w0)
+    assert n0 == n2
+    assert len(seen) == 28 and set(seen) == {("cuda", "cuda", True)}
+    assert pf.consumed == 28
+
+
+def test_epoch_scan_alexnet_dropout_on_the_card(cuda):
+    """AlexNet with dropout (tensor keys inside the graph) at the JAX
+    test's side 67: scanned within chip_smoke's limits of per step, K5 /
+    K6 counted 2 / 2 a train row and 2 / 0 an eval row."""
+    runs = []
+    for scanned in (False, True):
+        wf = chip_smoke.alexnet_workflow(
+            epochs=1, epoch_scan=scanned, minibatch_size=4, n_train=12,
+            n_valid=4, n_classes=20, side=67)
+        lrn.lrn.launches = lrn.lrn_backward.launches = 0
+        wf.run()
+        torch.cuda.synchronize()
+        runs.append((float(wf.fused_step.loss),
+                     chip_smoke.host_weights(wf),
+                     (lrn.lrn.launches, lrn.lrn_backward.launches)))
+    (l0, w0, n0), (l1, w1, n1) = runs
+    chip_smoke.steps_agree("alexnet scan", [l1], w1, [l0], w0)
+    assert n0 == n1 == (2 * 3 + 2 * 1, 2 * 3)
+
+
+def test_prefetch_on_a_card_that_lags_the_host(cuda):
+    """AlexNet at its published widths (512 + 128 images, minibatch 128):
+    the card runs steps behind the host, so the prefetcher's ring slots
+    are refilled while earlier steps are queued; depth 2 within
+    chip_smoke's limits of depth 0, K5 / K6 2 / 2 and 2 / 0 a step."""
+    runs = []
+    for depth in (0, 2):
+        wf = chip_smoke.alexnet_workflow(
+            epochs=2, minibatch_size=128, n_train=512, n_valid=128,
+            prefetch_depth=depth)
+        assert (wf.loader.prefetcher_ is not None) == bool(depth)
+        losses = []
+        step_run = wf.fused_step.run
+
+        def record(wf=wf, losses=losses, step_run=step_run):
+            step_run()
+            losses.append(wf.fused_step.loss)
+        wf.fused_step.run = record
+        lrn.lrn.launches = lrn.lrn_backward.launches = 0
+        wf.run()
+        torch.cuda.synchronize()
+        runs.append(([float(x) for x in losses],
+                     chip_smoke.host_weights(wf),
+                     (lrn.lrn.launches, lrn.lrn_backward.launches)))
+    (l0, w0, n0), (l2, w2, n2) = runs
+    chip_smoke.steps_agree("prefetch alexnet", l2, w2, l0, w0)
+    assert len(l0) == 10 and n0 == n2 == (2 * 10, 2 * 8)

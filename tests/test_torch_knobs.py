@@ -8,7 +8,9 @@ anything but its default, with a ``NotImplementedError`` that names the
 knob, so no config trains differently here without a word.
 ``snapshotter`` is honoured since the snapshotter was ported (ROADMAP
 queue A item 8): its case trains one epoch and finds the ``_current``
-snapshot, which restores.  Three stay
+snapshot, which restores.  ``epoch_scan`` is honoured since the epoch
+scan was ported (item 7): its case trains one scanned epoch through a
+``ScanEpochStep``, which drives the blocked loader.  Three stay
 accepted: ``web_status`` (ignored), ``precision_level`` (the port is
 IEEE f32 already) and ``compute_confusion_matrix=False`` (the port
 always computes the matrix).  The MNIST sample at a cut size is the
@@ -36,7 +38,8 @@ LOADER = {"n_train": 60, "n_valid": 60}
 REFUSED = [
     # honoured (queue A item 8): writes and restores a snapshot
     ("snapshotter", {"snapshotter": {"prefix": "mnist"}}, {}, None),
-    ("epoch_scan", {"epoch_scan": True}, {}, "epoch_scan"),
+    # honoured (queue A item 7): trains one epoch a class a run
+    ("epoch_scan", {"epoch_scan": True}, {}, None),
     ("mesh", {"mesh": object()}, {}, "mesh"),
     ("model_axis", {"model_axis": "model"}, {}, "model_axis"),
     ("tp_mode", {"tp_mode": "row"}, {}, "tp_mode"),
@@ -68,6 +71,20 @@ def engine():
                          ids=[c[0] for c in REFUSED] + ["allowed"])
 def test_ignored_knobs_are_refused(engine, tmp_path, label, overrides,
                                    settings, name):
+    if label == "epoch_scan":
+        from veles_tpu_torch.znicz.scan_step import ScanEpochStep
+        wf = mnist.create_workflow(
+            loader=LOADER, decision={"max_epochs": 1, "silent": True},
+            **overrides)
+        assert isinstance(wf.fused_step, ScanEpochStep)
+        wf.initialize(device=Device(backend="cpu"))
+        assert wf.loader.prefetcher_ is None
+        wf.run()
+        assert wf.fused_step.eager_rows == wf.fused_step.train_steps + \
+            wf.fused_step.eval_steps > 0
+        assert wf.loader.samples_served == 120
+        assert wf.is_finished and wf.loader.epoch_number == 0
+        return
     if name is None and overrides is not None:
         from veles_tpu_torch.snapshotter import restore
         cfg = dict(overrides["snapshotter"], directory=str(tmp_path),

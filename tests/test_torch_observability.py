@@ -75,6 +75,10 @@ def _make_wf():
 def test_step_profiler_breakdown_and_registry(tmp_path):
     path = str(tmp_path / "prof.jsonl")
     wf = _make_wf()
+    # the default prefetch_depth serves the loader through the
+    # prefetcher's run(): the profiler wraps it and gives it back
+    served_by = wf.loader.__dict__.get("run")
+    assert served_by is wf.loader.prefetcher_._wrappers["run"]
     with tracing_to(path):
         prof = wf.attach_profiler()
         assert wf.profiler is prof
@@ -89,6 +93,7 @@ def test_step_profiler_breakdown_and_registry(tmp_path):
     assert abs(sum(summary["phase_pct"].values()) - 100) < 1.0
     assert summary["examples_per_sec"] > 0
     assert "device_peak_memory_bytes" not in summary     # the CPU
+    assert summary["prefetch"]["consumed"] == 8
     spans = [json.loads(x) for x in open(path)]
     assert spans[0]["name"] == "trace_start"
     steps = [r for r in spans if r["name"] == "train.step"]
@@ -105,7 +110,7 @@ def test_step_profiler_breakdown_and_registry(tmp_path):
     wf.fused_step.run()
     assert prof.steps == before
     assert "run" not in wf.fused_step.__dict__
-    assert "run" not in wf.loader.__dict__
+    assert wf.loader.__dict__.get("run") is served_by
 
 
 def test_serving_request_batch_trace_links(tmp_path):

@@ -3,9 +3,10 @@ package.
 
 Mirrors tests/test_snapshotter.py (all nine), tests/test_snapshot_async.py
 (ten of eleven: ``test_roundtrip_with_prefetcher_and_distributed_step``
-waits for the prefetcher and ``parallel/``, ROADMAP queue A items 7 and
-11) and tests/test_snapshot_crash.py (a child process that imports only
-the port is killed mid-write), on the JAX tests' gaussian blobs from the
+waits for ``parallel/``, ROADMAP queue A item 11; its half without a
+mesh is in tests/test_torch_scan_prefetch.py) and
+tests/test_snapshot_crash.py (a child process that imports only the
+port is killed mid-write), on the JAX tests' gaussian blobs from the
 same seeds, with the port's ``StandardWorkflow`` on the CPU.  Beyond
 the mirrors:
 

@@ -21,7 +21,15 @@ has no ``version.json``).
 
 Each C entry returns ``cudaGetLastError()`` after its launch; the
 wrappers pass the code to :func:`check`, which raises on anything but 0.
-The stream is PyTorch's current one, passed as a ``c_void_p``.
+The stream is PyTorch's current one, passed as a ``c_void_p``, so a
+launch made while a CUDA graph captures lands in the graph.
+
+The wrappers count their launches on the host (``<wrapper>.launches``
+and the like), each registered here with :func:`counted`.  A captured
+graph launches without calling a wrapper: whoever replays one reads
+:func:`launch_counts` around the capture, takes the capture's own
+counts back and adds them again at every replay (:func:`add_launches`),
+so the counts stay what the card ran.
 """
 
 import ctypes
@@ -36,7 +44,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
-           "load_all", "function", "check", "stream_ptr"]
+           "load_all", "function", "check", "stream_ptr", "counted",
+           "launch_counts", "launch_delta", "add_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
@@ -47,6 +56,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs = {}
 _fns = {}
+#: (kernel wrapper, its counter attributes), in registration order
+_counted = []
 
 
 def _nvcc():
@@ -215,3 +226,32 @@ def check(name, code, what):
 def stream_ptr(device):
     """PyTorch's current CUDA stream on ``device`` as a ``c_void_p``."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def counted(fn, *attrs):
+    """Register the launch counters of the kernel wrapper ``fn``: the
+    names of its integer attributes (default ``launches``)."""
+    _counted.append((fn, attrs or ("launches",)))
+    return fn
+
+
+def launch_counts():
+    """``{(wrapper, attribute): count}`` of every registered counter."""
+    return {(fn, name): getattr(fn, name)
+            for fn, names in _counted for name in names}
+
+
+def launch_delta(before, after=None):
+    """The counters that moved from ``before`` to ``after`` (default:
+    now), as ``{(wrapper, attribute): increase}``."""
+    after = launch_counts() if after is None else after
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def add_launches(delta, times=1):
+    """Add ``times`` x ``delta`` (a :func:`launch_delta`) to the
+    counters: a replayed graph's launches; ``times=-1`` takes a
+    capture's back."""
+    for (fn, name), n in delta.items():
+        setattr(fn, name, getattr(fn, name) + n * times)

@@ -283,6 +283,12 @@ root.update({
             "dir": None,
             "enabled": True,
         },
+        "loader": {
+            # how many minibatches a MinibatchPrefetcher (loader/
+            # prefetch.py) serves and stages ahead of the per-step fused
+            # training step; 0 = the synchronous path
+            "prefetch_depth": 2,
+        },
         "snapshot": {
             # the snapshotter (snapshotter.py): capture on the training
             # thread, pickle + compress + fsync + rename on a writer

@@ -24,10 +24,19 @@ host, as the JAX package's host-side loaders do: ``fill_minibatch``
 fills ``minibatch_data`` (and the raw labels), ``normalize_minibatch``
 and ``map_minibatch_labels`` follow, and the padded rows of a short
 minibatch are zero (labels and indices -1).  The consumer reads the
-Arrays' ``devmem``, uploaded to the loader's device.  Not ported yet:
-the master/slave index distribution (the ``IDistributable`` half, with
-slice 4's distribution) and the background prefetcher.
+Arrays' ``devmem``, uploaded to the loader's device.
+
+A :class:`~veles_tpu_torch.loader.prefetch.MinibatchPrefetcher` may
+serve ``run()`` ahead on a worker thread (``supports_prefetch``;
+``prefetcher_`` while one is attached, and ``prefetch_staged_`` the
+minibatch it staged on the device).  ``failed_minibatches`` holds
+``(end offset, size)`` pairs served again before the generator moves
+on, and no class ends while one waits.  Not ported yet: the master/slave
+index distribution (the ``IDistributable`` half, ROADMAP queue A item
+11).
 """
+
+import collections
 
 import numpy
 
@@ -76,6 +85,9 @@ class Loader(Unit, IResultProvider):
     INDEX_DTYPE = numpy.int32
 
     hide_from_registry = True
+    #: ``run()`` may be served ahead by a MinibatchPrefetcher; a loader
+    #: whose ``run()`` does more than serve minibatches opts out
+    supports_prefetch = True
 
     def __init__(self, workflow, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -116,6 +128,21 @@ class Loader(Unit, IResultProvider):
         #: a testing loader analyzes and shuffles again when restored
         self.testing = bool(kwargs.get("testing", False))
         self._global_offset = 0
+        #: minibatch definitions (end offset, size) to serve again first
+        self.failed_minibatches = []
+
+    def init_unpickled(self):
+        super().init_unpickled()
+        self.pending_minibatches_ = collections.defaultdict(list)
+        # set by an attached MinibatchPrefetcher; a restored workflow
+        # attaches a new one at initialize
+        self.prefetcher_ = None
+        self.prefetch_staged_ = None
+
+    def __setstate__(self, state):
+        # snapshots written before the requeue list existed restore
+        state.setdefault("failed_minibatches", [])
+        super().__setstate__(state)
 
     # -- derived sizes -------------------------------------------------------
     @property
@@ -238,8 +265,11 @@ class Loader(Unit, IResultProvider):
                 arr.initialize(device)
 
     def run(self):
-        """Serve one minibatch."""
+        """Serve one minibatch (with a MinibatchPrefetcher attached, this
+        runs ahead on its worker and ``run()`` installs the next one)."""
         self.serve_next_minibatch()
+        # served and consumed at once: nothing is outstanding
+        self.pending_minibatches_.pop(None, None)
         self._on_successful_serve()
 
     # -- serving -------------------------------------------------------------
@@ -266,9 +296,13 @@ class Loader(Unit, IResultProvider):
         self._global_offset += size
         return self._global_offset, size
 
-    def serve_next_minibatch(self):
-        self.minibatch_offset, self.minibatch_size = \
-            self._advance_global_offset()
+    def serve_next_minibatch(self, slave_id=None):
+        try:
+            minibatch_def = self.failed_minibatches.pop()
+        except IndexError:
+            minibatch_def = self._advance_global_offset()
+        self.pending_minibatches_[slave_id].append(minibatch_def)
+        self.minibatch_offset, self.minibatch_size = minibatch_def
         self.minibatch_class = self.class_of_offset(self.minibatch_offset)
         if self.fill_indices(self.minibatch_offset - self.minibatch_size,
                              self.minibatch_size):
@@ -290,6 +324,15 @@ class Loader(Unit, IResultProvider):
 
     def _on_successful_serve(self):
         self.samples_served += self.minibatch_size
+        # no class ends while a minibatch is outstanding or requeued
+        # (reference base.py:863-871); the class is judged at the
+        # generator's position
+        if self.failed_minibatches or any(
+                self.pending_minibatches_.values()):
+            for flag in (self.last_minibatch, self.train_ended,
+                         self.valid_ended, self.epoch_ended):
+                flag <<= False
+            return
         cls = self.class_of_offset(self._global_offset)
         done = self._global_offset >= self._class_end(cls)
         self.last_minibatch <<= done

@@ -18,6 +18,12 @@ the JAX loader does:
 - with ``force_numpy=True``, or initialized without a device, on the
   host: ``fill_minibatch``, the JAX package's host twin of the gather,
   uploaded at the consumer's first ``devmem`` read.
+
+A ``MinibatchPrefetcher``'s twin serves through the same methods: with
+the gather in the step it stages ``_padded_indices_`` and the size on
+the card, on the host path the served Arrays.  The epoch scan
+(``ScanEpochStep``) gathers each class's minibatches from the resident
+dataset itself.
 """
 
 import numpy

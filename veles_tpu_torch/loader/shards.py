@@ -32,7 +32,8 @@ FullBatchLoader computes (the train segment, float64, dataset order),
 and the normalizer pickles with them, so a restored snapshot resumes
 with the same transform.  The loader serves minibatches on the host:
 in a fused workflow the step runs on its ``minibatch_data``, uploaded
-to the step's device.
+to the step's device (staged there ahead of the step by a
+``MinibatchPrefetcher``, whose twin serves from the same window).
 """
 
 import bisect
@@ -127,7 +128,8 @@ class ShardedBatchLoader(Loader):
         super().init_unpickled()
         # one mutable holder for all window state, transient: a pickle
         # carries no shard, and a restored loader starts with an empty
-        # window (the JAX prefetcher's serving twin shares this dict)
+        # window (a MinibatchPrefetcher's serving twin shares this dict,
+        # so the window the worker fills is the loader's)
         self._window_ = {"cache": {}, "bytes": 0, "loads": 0,
                          "positions": None}
 
@@ -169,21 +171,23 @@ class ShardedBatchLoader(Loader):
             block = numpy.load(
                 os.path.join(self.path, self._shard_files[k]))
             w["loads"] += 1
+            # room first: the window never holds more than its budget,
+            # even while a load lands (a prefetch worker loads while the
+            # training thread may read the window's fill)
+            self._evict(incoming=block.nbytes)
             w["cache"][k] = block
             w["bytes"] += block.nbytes
-            self._evict(keep=k)
         return block
 
-    def _evict(self, keep):
-        """Shrink the window back under budget, dropping the cached
-        shard whose next use is farthest away (Belady — the epoch's
-        access sequence is fully known from ``shuffled_indices``)."""
+    def _evict(self, incoming):
+        """Make room for a shard of ``incoming`` bytes within the budget,
+        dropping the cached shard whose next use is farthest away (Belady
+        — the epoch's access sequence is fully known from
+        ``shuffled_indices``); a shard larger than the budget still
+        loads, alone."""
         w = self._window_
-        while w["bytes"] > self.window_bytes and len(w["cache"]) > 1:
-            victim = max((s for s in w["cache"] if s != keep),
-                         key=self._next_use, default=None)
-            if victim is None:
-                return
+        while w["bytes"] + incoming > self.window_bytes and w["cache"]:
+            victim = max(w["cache"], key=self._next_use)
             w["bytes"] -= w["cache"][victim].nbytes
             del w["cache"][victim]
 

@@ -4,7 +4,12 @@ The port of ``veles_tpu/observability/profiler.py``.  It wraps the two
 hot units of a workflow, the loader and the fused train step, and
 splits every step into:
 
-- **data-wait**: host-side minibatch preparation (the loader's run);
+- **data-wait**: host-side minibatch preparation (the loader's run).
+  With a :class:`~veles_tpu_torch.loader.prefetch.MinibatchPrefetcher`
+  attached (before the profiler), the loader's run only takes the next
+  item off the prefetch queue, so this phase is the time the step loop
+  is blocked on input, and :meth:`StepProfiler.summary` carries the
+  prefetcher's ``stats()`` as ``"prefetch"``;
 - **host**: Python and launch time of the step's ``run()`` (CUDA
   launches are asynchronous, so this is the enqueue cost, not the
   math);
@@ -293,4 +298,7 @@ class StepProfiler:
                     100 * self.snapshot_s / loop, 1)
         if self.peak_memory:
             out["device_peak_memory_bytes"] = dict(self.peak_memory)
+        prefetcher = getattr(self.loader, "prefetcher_", None)
+        if prefetcher is not None:
+            out["prefetch"] = prefetcher.stats()
         return out

@@ -11,8 +11,10 @@ The port's counterpart of ``veles_tpu/prng/random_generator.py``:
   stochastic pooling):
   ``jax.random``'s default threefry2x32 generator in torch integer ops,
   so the same key gives the JAX package's bits.  A key is a pair of
-  32-bit words held as Python ints (:func:`key`, :func:`fold_in`),
-  derived on the host; :func:`random_bits`, :func:`uniform`,
+  32-bit words (:func:`key`, :func:`fold_in`): Python ints derived on
+  the host, or 0-d int64 tensors derived on their device from a seed
+  held there (the epoch scan's per-minibatch seeds, the staged seed of
+  a prefetched step); the two give the same bits.  :func:`random_bits`, :func:`uniform`,
   :func:`bernoulli`, :func:`gumbel` and :func:`categorical` draw
   per-element bits on their ``device`` (the card unless the CPU is
   asked for; :func:`categorical` on its logits' device), in int64
@@ -139,8 +141,8 @@ def _rotl(v, r):
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
     the key words ``(k0, k1)``: Python ints in ``[0, 2**32)`` or int64
-    tensors holding such values (the key words are ints).  Returns the
-    two output words alike."""
+    tensors holding such values (0-d for the key words).  Returns the
+    two output words, tensors where any input is one."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -156,13 +158,18 @@ def threefry2x32(k0, k1, x0, x1):
 def key(seed):
     """``jax.random.key(seed)`` as its two words: ``(0, seed mod 2**32)``
     (the JAX package runs with 32-bit integers, so a seed's high word is
-    always 0)."""
+    always 0).  A seed held in a 0-d integer tensor gives the words as
+    0-d int64 tensors on its device, read nowhere on the host."""
+    if isinstance(seed, torch.Tensor):
+        low = seed.to(torch.int64) & _MASK
+        return (torch.zeros_like(low), low)
     return (0, int(seed) & _MASK)
 
 
 def fold_in(k, data):
     """``jax.random.fold_in(k, data)``: the key hashed with the counter
-    ``(0, data)``; ``data`` in ``[0, 2**32)`` as JAX requires."""
+    ``(0, data)``; ``data`` in ``[0, 2**32)`` as JAX requires.  A key of
+    tensor words gives tensor words."""
     data = int(data)
     if not 0 <= data <= _MASK:
         raise ValueError("fold_in data %d is out of the uint32 range" % data)

@@ -6,11 +6,11 @@ initialize in dependency order with deferred-init retries, run/stop
 lifecycle via StartPoint/EndPoint, aggregation of the IDistributable
 5-method protocol across member units (workflow.py:478-574), Graphviz
 graph generation (:628), results gathering (:827), checksum (:852),
-per-unit timing table (:788-825) and ``package_export`` (:401, the
-package zip of :mod:`.export`).
+per-unit timing table (:788-825), ``package_export`` (:401, the
+package zip of :mod:`.export`) and ``attach_prefetcher`` (a
+:class:`~.loader.prefetch.MinibatchPrefetcher` on the loader).
 
-Not ported yet (ROADMAP.md): the minibatch prefetcher and the graph
-compiler.
+Not ported yet (ROADMAP.md): the graph compiler.
 """
 
 import collections
@@ -262,6 +262,27 @@ class Workflow(Container):
             self.apply_data_from_slave(update)
         self.run()
         callback(self.generate_data_for_master())
+
+    # -- input pipeline ------------------------------------------------------
+    def attach_prefetcher(self, loader=None, **kwargs):
+        """Attach a :class:`~veles_tpu_torch.loader.prefetch
+        .MinibatchPrefetcher` to this workflow's loader
+        (``root.common.loader.prefetch_depth`` deep unless ``depth=`` is
+        given; 0 attaches none) and return it, or None.  Call after
+        ``initialize``; its ``device`` defaults to the one the workflow
+        was initialized on (none: the card).  Attach it before
+        ``attach_profiler``, so the profiler's data-wait phase is the
+        time blocked on the prefetch queue.  Stored transiently
+        (``prefetcher_``)."""
+        from .loader.prefetch import MinibatchPrefetcher
+        if loader is None:
+            loader = getattr(self, "loader", None)
+        if loader is None:
+            raise ValueError("no loader to prefetch for %r" % self)
+        kwargs.setdefault("device", getattr(self.device, "torch_device",
+                                            self.device))
+        self.prefetcher_ = MinibatchPrefetcher.attach(loader, **kwargs)
+        return self.prefetcher_
 
     # -- observability -------------------------------------------------------
     def attach_profiler(self, **kwargs):

@@ -328,6 +328,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
 flash_attention_fwd.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+for _fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv):
+    _build.counted(_fn)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -40,10 +40,23 @@ step, and the step's key is ``prng.key(counter)``; the stochastic
 forward at chain index ``i`` runs ``apply_train`` with ``fold_in(key,
 i)``, so its bits equal the JAX step's.  Eval steps run ``apply``.
 
+**The staged path.**  When a ``MinibatchPrefetcher`` staged the
+minibatch (the loader's ``prefetch_staged_``: the padded index vector
+and the size, already on the step's device), the step gathers with
+those and builds its mask from the size tensor, and a chain with
+stochastic forwards takes its seed as a 0-d tensor staged one step
+ahead (``_staged_seed_arg``, the JAX step's): the same values, so the
+same bits.  With nothing staged the step is the synchronous one above.  The
+epoch scan (:class:`~.scan_step.ScanEpochStep`) runs the same train and
+eval steps with the solver state written in place (``in_place``), so
+a captured CUDA graph reads and writes the same tensors at every
+replay; :meth:`_flush_metrics` zeroes the accumulator in place for the
+same reason.
+
 Not ported: bf16 compute, the persistent executable cache, the
-staged-seed path of stochastic units, the ``rng_impl`` switch and the
-whole-workflow graph compiler's face.  ``compute_dtype``,
-``root.common.engine.dtype`` and ``root.common.engine.rng_impl`` raise
+``rng_impl`` switch and the whole-workflow graph compiler's face.
+``compute_dtype``, ``root.common.engine.dtype`` and
+``root.common.engine.rng_impl`` raise
 ``NotImplementedError`` when set to anything but f32 / threefry2x32
 (ROADMAP queue A item 9).
 ``compute_confusion_matrix=False`` is accepted: the step always
@@ -214,6 +227,14 @@ class FusedTrainStep(Unit, IResultProvider):
                 torch.zeros((c, c), dtype=torch.int64, device=dev),
                 torch.zeros((), dtype=torch.float32, device=dev))
 
+    def _macc_reset(self):
+        """Set the accumulator back to :meth:`_macc_init`'s values in
+        place."""
+        for t in self._macc_:
+            t.zero_()
+        if not self._softmax:
+            self._macc_[2].fill_(numpy.inf)
+
     # -- the step ------------------------------------------------------------
     def _logits(self, x, seed=None):
         """The chain's logits (the output for MSE); ``seed`` (train
@@ -268,12 +289,17 @@ class FusedTrainStep(Unit, IResultProvider):
         torch.maximum(mx, err_rows.max(), out=mx)
         cm.index_put_((pred, y), valid.to(cm.dtype), accumulate=True)
 
-    def _train_step(self, x, y, mask):
+    def _train_step(self, x, y, mask, seed, in_place=False):
+        """One train step on ``x``, ``y`` under ``mask`` with the key of
+        ``seed`` (an int, or a 0-d tensor on the step's device); with
+        ``in_place`` the new solver state is copied into the old
+        tensors instead of replacing them."""
         flat = [p for layer in self._params_ for p in layer.values()]
-        self._seed_counter = (self._seed_counter + 1) % 0x7FFF0000
-        logits = self._logits(x, self._seed_counter)
+        logits = self._logits(x, seed)
         loss = self._loss(logits, y, mask)
         grads = iter(torch.autograd.grad(loss, flat))
+        # the host's product, as in the synchronous step: a captured
+        # graph bakes it in (ScanEpochStep captures again when it moves)
         lr_scale = float(self.lr_scale)
         with torch.no_grad():
             for gd, params, opt in zip(self.gd_units, self._params_,
@@ -282,9 +308,14 @@ class FusedTrainStep(Unit, IResultProvider):
                     decay, l1l2, ortho = gd.decay_for(name)
                     g = solvers.regularized_grad(next(grads), p, decay,
                                                  l1l2, ortho)
-                    delta, opt[name] = gd.solver.update(
+                    delta, state = gd.solver.update(
                         g, p, opt[name], gd.lr_for(name) * lr_scale)
                     p.add_(delta)
+                    if in_place:
+                        for old, new in zip(opt[name], state):
+                            old.copy_(new)
+                    else:
+                        opt[name] = state
             probs = self._observable(logits.detach())
             self._accumulate(probs, y, mask)
         return loss.detach(), probs
@@ -297,15 +328,52 @@ class FusedTrainStep(Unit, IResultProvider):
             self._accumulate(probs, y, mask)
         return loss, probs
 
-    def _minibatch(self):
+    def _gather(self, idx):
+        """(x, y) at the indices ``idx`` of the resident dataset."""
+        return (torch.index_select(self._data_dev_, 0, idx),
+                torch.index_select(self._y_dev_, 0, idx))
+
+    def _staged(self):
+        """The ``(indices, size)`` a MinibatchPrefetcher staged on the
+        device for this step, or None."""
+        if not self._use_gather_:
+            return None
+        return getattr(self.gather_loader, "prefetch_staged_", None)
+
+    def _seed_tensor(self, seed):
+        """``seed`` as a 0-d int64 tensor on the step's device (pinned
+        and asynchronous on the card)."""
+        t = torch.tensor(seed, dtype=torch.int64)
+        if self._dev_.type == "cuda":
+            t = t.pin_memory().to(self._dev_, non_blocking=True)
+        return t
+
+    def _staged_seed_arg(self):
+        """The train seed of the staged path, a 0-d tensor on the step's
+        device.  The NEXT seed is made right after this one is taken, on
+        the device (this one plus 1, as the counter moves), so it is
+        ready under the step in flight, as the JAX step stages it with a
+        ``device_put``; a seed staged for another counter (the first
+        step, a restored run) is copied from the host now."""
+        staged = getattr(self, "_staged_seed_", None)
+        if staged is not None and staged[0] == self._seed_counter:
+            arg = staged[1]
+        else:
+            arg = self._seed_tensor(self._seed_counter)
+        nxt = (self._seed_counter + 1) % 0x7FFF0000
+        self._staged_seed_ = (nxt, torch.remainder(arg + 1, 0x7FFF0000))
+        return arg
+
+    def _minibatch(self, staged=None):
         """(x, y) of the current minibatch on the step's device."""
+        if staged is not None:
+            return self._gather(staged[0])
         if self._use_gather_:
             idx = torch.from_numpy(self.gather_loader._padded_indices_)
             if self._dev_.type == "cuda":
                 # pinned and asynchronous: the host runs ahead of the card
                 idx = idx.pin_memory().to(self._dev_, non_blocking=True)
-            return (torch.index_select(self._data_dev_, 0, idx),
-                    torch.index_select(self._y_dev_, 0, idx))
+            return self._gather(idx)
         x = self.minibatch_data.devmem.to(self._dev_)
         if not self._softmax:
             return x, self.minibatch_targets.devmem.to(self._dev_)
@@ -314,13 +382,24 @@ class FusedTrainStep(Unit, IResultProvider):
         y = self.minibatch_labels.devmem.to(self._dev_, torch.int64)
         return x, y.clamp_min(0)
 
-    def run(self):
-        size = int(self.minibatch_size)
-        x, y = self._minibatch()
-        mask = (torch.arange(x.shape[0], device=self._dev_) < size).to(
+    def _mask(self, rows, size):
+        """1.0 on the first ``size`` (an int or a device scalar) of
+        ``rows`` rows, 0.0 on the padding."""
+        return (torch.arange(rows, device=self._dev_) < size).to(
             torch.float32)
+
+    def run(self):
+        staged = self._staged()
+        size = int(self.minibatch_size) if staged is None else staged[1]
+        x, y = self._minibatch(staged)
+        mask = self._mask(x.shape[0], size)
         if self.minibatch_class == loader_mod.TRAIN:
-            self.loss, probs = self._train_step(x, y, mask)
+            self._seed_counter = (self._seed_counter + 1) % 0x7FFF0000
+            # only stochastic forwards read the seed
+            seed = (self._staged_seed_arg() if staged is not None and
+                    any(f.stochastic for f in self.forwards)
+                    else self._seed_counter)
+            self.loss, probs = self._train_step(x, y, mask, seed)
             self.train_steps += 1
         else:
             self.loss, probs = self._eval_step(x, y, mask)
@@ -332,15 +411,16 @@ class FusedTrainStep(Unit, IResultProvider):
 
     def _flush_metrics(self):
         """Pull the device accumulator into the evaluator-compatible
-        Arrays: one transfer per class boundary, not per step.  The
-        confusion matrix stays on the device until someone reads it."""
+        Arrays: one transfer per class boundary, not per step, then zero
+        it in place.  The confusion matrix stays on the device until
+        someone reads it."""
         if not self._softmax:
             sse, mx, mn = torch.stack(self._macc_).double().tolist()
             m = self.metrics.map_write()
             m[0] += sse
             m[1] = max(m[1], mx)
             m[2] = min(m[2], mn)
-            self._macc_ = self._macc_init()
+            self._macc_reset()
             return
         n_err, cm, mx = self._macc_
         if self._cm_dev_ is None:
@@ -348,7 +428,7 @@ class FusedTrainStep(Unit, IResultProvider):
             # C12), as the JAX step seeds its total from the host
             host = self.confusion_matrix.map_read()
             self._cm_dev_ = cm + torch.as_tensor(host).to(cm) \
-                if host is not None and host.any() else cm
+                if host is not None and host.any() else cm.clone()
         else:
             self._cm_dev_ = self._cm_dev_ + cm
         self.confusion_matrix.devmem = self._cm_dev_
@@ -356,7 +436,7 @@ class FusedTrainStep(Unit, IResultProvider):
         self.n_err.map_write()[0] += int(n)
         self.max_err_output_sum.map_write()[0] = max(
             float(self.max_err_output_sum[0]), m)
-        self._macc_ = self._macc_init()
+        self._macc_reset()
 
     def sync_weights(self):
         """Copy the step's parameters into the forward units' Arrays (the

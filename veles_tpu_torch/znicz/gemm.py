@@ -169,6 +169,7 @@ def _quantized_launch(a, w_q, scales, plan):
 quantized_matmul.launches = 0
 #: of those, the calls that split K and launched the fold as well
 quantized_matmul.fold_launches = 0
+_build.counted(quantized_matmul, "launches", "fold_launches")
 
 _QMM_PLANS = {}
 
@@ -386,3 +387,4 @@ def precise_matmul(a, b, level=1):
 precise_matmul.launches = 0
 #: of those, the calls that split K and launched the fold as well
 precise_matmul.fold_launches = 0
+_build.counted(precise_matmul, "launches", "fold_launches")

@@ -179,6 +179,8 @@ def lrn_backward(x, g, n=5, alpha=1e-4, beta=0.75, k=2.0):
 #: kernel launches since the last reset (CPU calls do not count)
 lrn.launches = 0
 lrn_backward.launches = 0
+_build.counted(lrn)
+_build.counted(lrn_backward)
 
 
 class _LRNPair(torch.autograd.Function):

@@ -199,6 +199,7 @@ def kv_append_int8(q, s, blk, off, vals):
 
 #: kernel launches since the last reset (CPU calls do not count)
 kv_append_int8.launches = 0
+_build.counted(kv_append_int8)
 
 
 def _check_quant_args(k_pool, v_pool, k_scales, v_scales):
@@ -342,6 +343,7 @@ def _paged_launch(q, k_pool, v_pool, page_table, lengths, scale, k_scales,
 paged_attention.launches = 0
 #: of those, the calls that split the context and launched the merge too
 paged_attention.merge_launches = 0
+_build.counted(paged_attention, "launches", "merge_launches")
 
 
 class PagedPlan(collections.namedtuple(

@@ -45,18 +45,29 @@ moves the weights.  ``snapshotter.restore(path)`` gives the workflow
 back; its ``initialize`` rebuilds the gates, the loader keeps its
 shuffle order and normalizer, and the run goes on where it stopped.
 
-Not ported yet: the epoch scan, meshes, the status reporter, the graph
-compiler, the prefetcher and the ``mcdnnic_topology`` notation.  Each
-of their knobs raises ``NotImplementedError`` when it is set to
-anything but its default (:data:`REFUSED_KNOBS`), so a config that
-would scan or shard under the JAX package never trains differently
-here without a word.  ``web_status`` is accepted and ignored: the
-status reporter only watches a run.
+``epoch_scan=True`` (fused mode, a FullBatchLoader) trains a whole
+class per run of a :class:`~.scan_step.ScanEpochStep`, linked from the
+repeater; it drives the loader, which stays in the graph blocked
+(``gate_block``), so the decision sees the same class ends.  On the
+card a class is CUDA-graph replays of the step.  Otherwise, in fused
+mode, ``initialize`` attaches a
+:class:`~veles_tpu_torch.loader.prefetch.MinibatchPrefetcher`
+``prefetch_depth`` deep (a loader config key; default
+``root.common.loader.prefetch_depth``, 2; 0 serves synchronously) that
+stages each minibatch's indices on the card ahead of the step.
+
+Not ported yet: meshes, the status reporter, the graph compiler and the
+``mcdnnic_topology`` notation.  Each of their knobs raises
+``NotImplementedError`` when it is set to anything but its default
+(:data:`REFUSED_KNOBS`), so a config that would shard under the JAX
+package never trains differently here without a word.  ``web_status``
+is accepted and ignored: the status reporter only watches a run.
 """
 
 from ..backends import Device
 from ..config import root
 from ..loader.fullbatch import FullBatchLoader
+from ..mutable import Bool
 from ..plumbing import Repeater
 from ..registry import MappedObjectsRegistry, UnitRegistry
 from ..workflow import Workflow
@@ -66,6 +77,7 @@ from .nn_units import (ForwardBase, GenericVJPBackward,
 from .decision import DecisionGD, DecisionMSE
 from .evaluator import EvaluatorSoftmax, EvaluatorMSE
 from .fused import FusedTrainStep
+from .scan_step import ScanEpochStep
 # registers the layer MAPPINGs
 from . import (activation, all2all, attention, conv, dropout,  # noqa: F401
                gd, gd_conv, gd_pooling, lrn, misc_units, pooling)
@@ -75,7 +87,6 @@ __all__ = ["StandardWorkflow", "REFUSED_KNOBS"]
 #: knobs of the JAX workflow the port does not honour yet: name ->
 #: (the values that mean "off", the ROADMAP queue A item that ports it)
 REFUSED_KNOBS = {
-    "epoch_scan": ((False, None), "item 7, ScanEpochStep"),
     "mesh": ((None,), "item 11, distribution"),
     "model_axis": ((None,), "item 11, distribution"),
     "tp_mode": (("column",), "item 11, distribution"),
@@ -127,6 +138,8 @@ class StandardWorkflow(Workflow):
             raise NotImplementedError(
                 "mcdnnic_topology is not ported yet; pass layers=")
         self.fused = bool(kwargs.get("fused", True))
+        # one ScanEpochStep run a class instead of a step a minibatch
+        self.epoch_scan = bool(kwargs.get("epoch_scan", False))
         self.layers_config = list(kwargs.get("layers", ()))
         self.loss_function = kwargs.get("loss_function", "softmax")
         if self.loss_function not in ("softmax", "mse"):
@@ -134,6 +147,10 @@ class StandardWorkflow(Workflow):
                              % (self.loss_function,))
         self.decision_config = dict(kwargs.get("decision", {}))
         self.loader_config = dict(kwargs.get("loader", {}))
+        # the per-step path's prefetch lookahead; None follows
+        # root.common.loader.prefetch_depth (2; 0 serves synchronously)
+        self.prefetch_depth = self.loader_config.pop("prefetch_depth",
+                                                     None)
         self.trainer_config = dict(kwargs.get("trainer", {}))
         self.snapshotter_config = kwargs.get("snapshotter")  # dict | None
         self.snapshotter = None
@@ -232,14 +249,23 @@ class StandardWorkflow(Workflow):
                 raise ValueError(
                     "zero_filler is graph-mode only; use Conv(grouping=N) "
                     "in fused workflows (see ZeroFiller docstring)")
-        self.fused_step = FusedTrainStep(
-            self, self.forwards, self.gds, loss=self.loss_function,
-            **self.trainer_config)
-        self.fused_step.link_from(self.loader)
-        self.fused_step.link_loader(self.loader)
-        if isinstance(self.loader, FullBatchLoader):
-            # device-resident dataset: the gather rides inside the step
-            self.fused_step.link_fused_gather(self.loader)
+        if self.epoch_scan:
+            self.fused_step = ScanEpochStep(
+                self, self.forwards, self.gds, loss=self.loss_function,
+                **self.trainer_config)
+            # the scan step drives the loader; the loader stays linked
+            # (it initializes first) but never runs (_relink_gates)
+            self.fused_step.link_from(self.repeater)
+            self.fused_step.link_scan_loader(self.loader)
+        else:
+            self.fused_step = FusedTrainStep(
+                self, self.forwards, self.gds, loss=self.loss_function,
+                **self.trainer_config)
+            self.fused_step.link_from(self.loader)
+            self.fused_step.link_loader(self.loader)
+            if isinstance(self.loader, FullBatchLoader):
+                # device-resident dataset: the gather rides in the step
+                self.fused_step.link_fused_gather(self.loader)
         self.decision.link_from(self.fused_step)
         self.decision.link_loader(self.loader)
         self.decision.link_evaluator(self.fused_step)
@@ -284,17 +310,19 @@ class StandardWorkflow(Workflow):
     def _relink_gates(self):
         """The loop's gates from the live decision and loader: the
         repeater and the end point on ``complete``, the snapshotter's
-        ``skip`` (it shoots when validation ends on an improvement), and
-        in graph mode the GD units' train gate (``gate_skip`` on every
-        non-train minibatch).  Derived Bools flatten to constants on
-        pickle, so a restored workflow rebuilds them (JAX
-        ``_relink_gates``)."""
+        ``skip`` (it shoots when validation ends on an improvement), the
+        loader's block under the epoch scan, and in graph mode the GD
+        units' train gate (``gate_skip`` on every non-train minibatch).
+        Derived Bools flatten to constants on pickle, so a restored
+        workflow rebuilds them (JAX ``_relink_gates``)."""
         self.repeater.gate_block = self.decision.complete
         self.end_point.gate_block = ~self.decision.complete
         self.decision.complete <<= False
         if self.snapshotter is not None:
             self.snapshotter.skip = ~(self.decision.improved &
                                       self.loader.valid_ended)
+        if getattr(self, "epoch_scan", False):
+            self.loader.gate_block = Bool(True)
         if not self.fused:
             train_gate = self.make_train_gate(self.loader)
             for gd in self.gds:
@@ -307,7 +335,25 @@ class StandardWorkflow(Workflow):
             device = Device()
         if self.restored_from_snapshot:
             self._relink_gates()
-        return super().initialize(device=device, **kwargs)
+        result = super().initialize(device=device, **kwargs)
+        self._maybe_attach_prefetcher(device)
+        return result
+
+    def _maybe_attach_prefetcher(self, device):
+        """Serve the per-step fused path's minibatches ahead of the step
+        (:mod:`..loader.prefetch`), staged on the card (host copies on
+        the CPU).  Graph mode, the epoch scan (a class is one upload)
+        and a step that opts out (``_prefetch_unsupported_``) skip."""
+        if not self.fused or getattr(self, "epoch_scan", False) or \
+                self.fused_step is None or \
+                getattr(self.fused_step, "_prefetch_unsupported_", False):
+            return
+        dev = device.torch_device
+        # getattr: snapshots written before the knob existed restore
+        self.attach_prefetcher(loader=self.loader,
+                               depth=getattr(self, "prefetch_depth", None),
+                               stage_to_device=dev.type == "cuda",
+                               device=dev)
 
     def run(self):
         result = super().run()
