@@ -359,6 +359,33 @@ Phases (any failure raises and the script exits non-zero):
    equal, weights bit for bit, the staged indices on the card, images/s
    and the data-wait share of each.  The kernels line adds every run's
    K4-K9 launches.
+4j. The recurrent units, the SOM and the RBM (ROADMAP queue A item 9,
+   its first two bullets), after 4i.  (a) A ``ResizableAll2All`` at
+   MNIST's first-layer width (``RESIZE_SHAPE``: 60 x 784 -> 100) with
+   ``precise_gemm=1``: its forward launches K4 once, within
+   ``RESIZE_TOL`` of ``max(|a| @ |b|)`` of ``precise_matmul_reference``;
+   then ``resize`` to each of ``RESIZE_WIDTHS`` (150, 100): the kept
+   columns and bias bit for bit the old ones, ``output`` at the new
+   width, and the forward through K4 again.  (b) The SeqLSTM workflow
+   of tests/test_znicz_extra.py (600 sequences of 12 steps and 4
+   features, hidden 16, softmax 2) for ``SEQ_EPOCHS`` epochs fused, in
+   graph mode and with ``epoch_scan=True``, and SimpleRNN fused: each
+   under ``SEQ_GATE_PT`` best validation error (the JAX test's gate),
+   the scanned run bit for bit the fused one with its time loop
+   captured in the step's CUDA graphs, graph mode's distance from fused
+   mode printed.  (c) DemoKohonen at its defaults (8x8 map, 30 epochs):
+   the last epoch's quantization error under ``KOHONEN_GATE`` of the
+   first's, a (64, 2) codebook, the codebook after the first epoch
+   within ``KOHONEN_ATOL`` of the CPU's.  (d) The RBM of
+   tests/test_znicz_extra.py (64 visible, 32 hidden, 600 rows,
+   minibatch 50) for ``RBM_EPOCHS`` epochs: the last reconstruction
+   error under ``RBM_GATE`` of the first's; the first minibatch's
+   hidden draws card against CPU, the flips counted, each within
+   ``RBM_FLIP_ATOL`` of ``ph``, the uniforms bitwise.  Each part prints
+   its time and its sequences, samples or rows a second; one fused
+   SeqLSTM epoch and one DemoKohonen epoch run under ``torch.profiler``
+   for the card's busy share.  The kernels line adds (a)'s K4 launches
+   (and the softmax head's in (b), 0 at the default ``precise_gemm``).
 5. Where the time goes: each serving configuration's burst, one
    training epoch with ``precise_gemm=1``, one full-width attention
    epoch (no mask) and one AlexNet epoch with K5/K6 once
@@ -6165,6 +6192,409 @@ def scan_phase(torch, gemm, lrn_mod, fa, card):
     return out
 
 
+# -- phase 4j: the recurrent units, the SOM and the RBM (queue A item 9) ------
+
+#: (a) ResizableAll2All at MNIST's first layer: a minibatch of 60, 784
+#: inputs, 100 neurons, then resized to each of ``RESIZE_WIDTHS``
+RESIZE_SHAPE = (60, 784, 100)
+RESIZE_WIDTHS = (150, 100)
+#: K4's limit against its plain version, of max(|a| @ |b|) (phase 2's)
+RESIZE_TOL = 1e-6
+#: (b) the SeqLSTM task of tests/test_znicz_extra.py: 600 sequences of
+#: 12 steps and 4 features, hidden 16, softmax 2, and its gate
+SEQ_EPOCHS = 8
+SEQ_GATE_PT = 25.0
+SEQ_GD = {"learning_rate": 0.05, "gradient_moment": 0.9}
+#: (c) DemoKohonen's gate (the last epoch's quantization error under
+#: this share of the first's) and its first epoch card against CPU
+KOHONEN_GATE = 0.5
+KOHONEN_ATOL = 1e-5
+#: (d) the RBM of tests/test_znicz_extra.py: epochs and gate (the last
+#: epoch's reconstruction error under this share of the first's); a
+#: hidden draw that differs card against CPU must lie this close to ph
+RBM_EPOCHS = 6
+RBM_GATE = 0.7
+RBM_FLIP_ATOL = 1e-6
+
+def seq_loader():
+    """The SeqLSTM task's loader class (the class is the sign of the
+    mean of channel 0 over time; 500 train + 100 valid sequences)."""
+    from veles_tpu_torch.loader import FullBatchLoader, TEST, TRAIN, VALID
+
+    class SeqLoader(FullBatchLoader):
+        def load_data(self):
+            rng = numpy.random.RandomState(7)
+            data = rng.randn(600, 12, 4).astype(numpy.float32)
+            self.original_data.mem = data
+            self.original_labels = list(
+                (data[:, :, 0].mean(axis=1) > 0).astype(numpy.int32))
+            self.class_lengths[TEST] = 0
+            self.class_lengths[VALID] = 100
+            self.class_lengths[TRAIN] = 500
+    return SeqLoader
+
+
+def rbm_loader():
+    """The RBM test's loader class: 600 binary rows of 64, 8 prototypes
+    with 5 % of the bits flipped, train only."""
+    from veles_tpu_torch.loader import FullBatchLoader, TEST, TRAIN, VALID
+
+    class BinaryLoader(FullBatchLoader):
+        def load_data(self):
+            rng = numpy.random.RandomState(5)
+            protos = (rng.rand(8, 64) > 0.5).astype(numpy.float32)
+            data = protos[rng.randint(0, 8, 600)]
+            flip = rng.rand(*data.shape) < 0.05
+            data[flip] = 1.0 - data[flip]
+            self.original_data.mem = data
+            self.class_lengths[TEST] = 0
+            self.class_lengths[VALID] = 0
+            self.class_lengths[TRAIN] = 600
+            self.has_labels = False
+    return BinaryLoader
+
+
+def seq_workflow(kind="lstm", device="cuda", epochs=SEQ_EPOCHS, **kwargs):
+    """The SeqLSTM workflow with a ``kind`` layer ("lstm" or "rnn"),
+    weights from seed 42 and loader seed 3, initialized on ``device``;
+    ``kwargs`` (``fused``, ``epoch_scan``) go to ``StandardWorkflow``."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    prng.get().seed(42)
+    wf = StandardWorkflow(
+        None, name="SeqLSTM", loader_factory=seq_loader(),
+        loader={"minibatch_size": 50,
+                "prng": prng.RandomGenerator().seed(3)},
+        layers=[{"type": kind, "->": {"hidden": 16}, "<-": dict(SEQ_GD)},
+                {"type": "softmax", "->": {"output_sample_shape": 2},
+                 "<-": dict(SEQ_GD)}],
+        loss_function="softmax",
+        decision={"max_epochs": epochs, "silent": True}, **kwargs)
+    wf.initialize(device=Device(backend=device))
+    return wf
+
+
+def resize_part(torch, gemm, card, device="cuda"):
+    """(a): a ``ResizableAll2All`` with ``precise_gemm=1`` at
+    ``RESIZE_SHAPE``, its forward through K4 (one launch) held to
+    ``precise_matmul_reference``, then resized to each of
+    ``RESIZE_WIDTHS``: the kept columns and bias bit for bit the old
+    ones, ``output`` at the new width, and the forward through K4 again;
+    -> record."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.all2all import ResizableAll2All
+    m, k, n = RESIZE_SHAPE
+    x = numpy.random.RandomState(24).uniform(0, 1, (m, k)).astype(
+        numpy.float32)
+    unit = ResizableAll2All(Workflow(name="4j"), output_sample_shape=n,
+                            precise_gemm=1,
+                            prng=RandomGenerator().seed(24))
+    unit.input = Array(x)
+    unit.initialize(device=Device(backend=device))
+    steps, launches = [], 0
+
+    def forward():
+        before = gemm.precise_matmul.launches
+        unit.run()
+        out = unit.output.devmem
+        launched = gemm.precise_matmul.launches - before
+        a = unit.input.devmem
+        w, b = unit.weights.devmem, unit.bias.devmem
+        want = gemm.precise_matmul_reference(a, w, 1) + b
+        scale = float((a.abs() @ w.abs()).max())
+        err = float((out - want).abs().max()) / scale
+        width = int(w.shape[1])
+        if launched != 1 or tuple(out.shape) != (m, width) or \
+                not err <= RESIZE_TOL:
+            raise AssertionError(
+                "4j(a) %d neurons: K4 launched %d times, output %s, "
+                "%.3g of scale off the plain version (limit %g)"
+                % (width, launched, tuple(out.shape), err, RESIZE_TOL))
+        steps.append({"neurons": width, "k4_launches": launched,
+                      "err_of_scale": err})
+        return launched
+
+    launches += forward()
+    for width in RESIZE_WIDTHS:
+        old_w = numpy.array(unit.weights.map_read())
+        old_b = numpy.array(unit.bias.map_read())
+        unit.resize(width)
+        keep = min(old_w.shape[1], width)
+        w, b = unit.weights.map_read(), unit.bias.map_read()
+        if w.shape != (k, width) or unit.output.shape != (m, width) or \
+                w[:, :keep].tobytes() != old_w[:, :keep].tobytes() or \
+                b[:keep].tobytes() != old_b[:keep].tobytes():
+            raise AssertionError(
+                "4j(a) resize(%d): weights %s, output %s, the first %d "
+                "columns kept bit for bit: %s" % (
+                    width, w.shape, unit.output.shape, keep,
+                    w[:, :keep].tobytes() == old_w[:, :keep].tobytes()))
+        launches += forward()
+    _log("4j(a) ResizableAll2All %dx%d->%d precise_gemm=1: %s; the kept "
+         "columns bit for bit at each resize [%s]" % (
+             m, k, n, ", ".join(
+                 "%d neurons K4 x%d %.3g of scale" % (
+                     s["neurons"], s["k4_launches"], s["err_of_scale"])
+                 for s in steps), card))
+    return {"steps": steps, "k4_launches": launches}
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def seq_part(torch, gemm, card, device="cuda", epochs=SEQ_EPOCHS):
+    """(b): the SeqLSTM workflow fused, in graph mode and scanned, and
+    SimpleRNN fused, for ``epochs``: each under ``SEQ_GATE_PT`` best
+    validation error, the scanned run bit for bit the fused one (on the
+    card its time loop captured in the step's CUDA graphs), graph mode's
+    distance from fused mode printed; -> record with K4's launches (the
+    softmax head's, 0 unless ``root.common.engine.precise_gemm``)."""
+    runs, weights = {}, {}
+    for label, kind, kwargs in (
+            ("lstm fused", "lstm", {}),
+            ("lstm graph", "lstm", {"fused": False}),
+            ("lstm scanned", "lstm", {"epoch_scan": True}),
+            ("rnn fused", "rnn", {})):
+        wf = seq_workflow(kind, device, epochs, **kwargs)
+        before = gemm.precise_matmul.launches
+        t0 = time.perf_counter()
+        wf.run()
+        _sync(torch, device)
+        seconds = time.perf_counter() - t0
+        err = wf.gather_results()["best_validation_error_pt"]
+        rec = {"seconds": seconds,
+               "sequences_s": wf.loader.samples_served / seconds,
+               "best_validation_error_pt": err,
+               "epoch_n_err": list(wf.decision.epoch_n_err),
+               "k4_launches": gemm.precise_matmul.launches - before}
+        step = wf.fused_step
+        if kwargs.get("epoch_scan"):
+            rec.update(captures=step.captures, replays=step.replays,
+                       eager_rows=step.eager_rows)
+            if device == "cuda" and (step.captures < 1 or
+                                     not step.replays):
+                raise AssertionError("4j(b) %s: %d graphs captured, %d "
+                                     "replays" % (label, step.captures,
+                                                  step.replays))
+        if not err < SEQ_GATE_PT:
+            raise AssertionError("4j(b) %s missed its gate: %.2f %% best "
+                                 "validation error (gate %.1f %%)"
+                                 % (label, err, SEQ_GATE_PT))
+        weights[label] = host_weights(wf)
+        runs[label] = rec
+        _log("4j(b) %s: %d epochs in %.3f s, %.1f sequences/s, best "
+             "validation error %.2f %%%s [%s]" % (
+                 label, epochs, seconds, rec["sequences_s"], err,
+                 "" if "replays" not in rec else
+                 "; %d graphs, %d replays" % (rec["captures"],
+                                              rec["replays"]), card))
+        del wf
+    _bitwise("4j(b) lstm scanned", weights["lstm scanned"],
+             weights["lstm fused"])
+    if runs["lstm scanned"]["epoch_n_err"] != \
+            runs["lstm fused"]["epoch_n_err"]:
+        raise AssertionError("4j(b): n_err %r scanned, %r fused" % (
+            runs["lstm scanned"]["epoch_n_err"],
+            runs["lstm fused"]["epoch_n_err"]))
+    graph_diff = _max_rel_diff(weights["lstm graph"], weights["lstm fused"])
+    _log("4j(b): the scanned LSTM bit for bit the fused one; graph mode's "
+         "parameters within %.3g of their largest magnitude of fused "
+         "mode's [%s]" % (graph_diff, card))
+    return {"runs": runs, "graph_vs_fused_weight_rel_diff": graph_diff,
+            "k4_launches": sum(r["k4_launches"] for r in runs.values())}
+
+
+def kohonen_demo(device="cuda", epochs=None):
+    """DemoKohonen at its defaults (``epochs`` cuts it), its loader
+    shuffling with a generator seeded 3, initialized on ``device``."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.znicz.samples import kohonen
+    decision = {"silent": True}
+    if epochs is not None:
+        decision["max_epochs"] = epochs
+    wf = kohonen.create_workflow(
+        loader={"prng": RandomGenerator().seed(3)}, decision=decision)
+    wf.initialize(device=Device(backend=device))
+    return wf
+
+
+def kohonen_part(torch, card, device="cuda", epochs=None):
+    """(c): DemoKohonen on ``device``: the quantization error of the
+    last epoch under ``KOHONEN_GATE`` of the first's, a ``(64, 2)``
+    codebook, and the codebook after the first epoch within
+    ``KOHONEN_ATOL`` of the CPU's; -> record."""
+    from veles_tpu_torch.loader import TRAIN
+    wf = kohonen_demo(device, epochs)
+    first = []
+    decision = wf.decision
+    decision_run = decision.run
+
+    def run_decision():
+        decision_run()
+        if bool(decision.epoch_ended) and not first:
+            first.append(numpy.array(wf.trainer.weights.map_read()))
+    decision.run = _transient(run_decision)
+    t0 = time.perf_counter()
+    wf.run()
+    _sync(torch, device)
+    seconds = time.perf_counter() - t0
+    h = list(decision.qerror_history)
+    codebook = wf.trainer.weights.map_read()
+    cpu = kohonen_demo("cpu", 1)
+    cpu.run()
+    diff = float(numpy.abs(first[0] - cpu.trainer.weights.map_read()).max())
+    samples = len(h) * wf.loader.class_lengths[TRAIN]
+    if codebook.shape != (64, 2) or not h[-1] < KOHONEN_GATE * h[0] or \
+            not diff <= KOHONEN_ATOL:
+        raise AssertionError(
+            "4j(c) DemoKohonen: codebook %s, quantization error %.4f -> "
+            "%.4f (gate %.2f of the first), first epoch's codebook %.3g "
+            "off the CPU's (limit %g)" % (codebook.shape, h[0], h[-1],
+                                          KOHONEN_GATE, diff, KOHONEN_ATOL))
+    _log("4j(c) DemoKohonen: %d epochs in %.3f s, %.1f samples/s; "
+         "quantization error %.4f -> %.4f; first epoch's codebook %.3g off "
+         "the CPU's [%s]" % (len(h), seconds, samples / seconds, h[0],
+                             h[-1], diff, card))
+    return {"epochs": len(h), "seconds": seconds,
+            "samples_s": samples / seconds, "qerror_history": h,
+            "first_epoch_vs_cpu": diff}
+
+
+def rbm_workflow(device="cuda"):
+    """The RBM test's workflow (repeater -> binary loader -> RBMTrainer,
+    32 hidden, learning rate 0.2), initialized on ``device``; ->
+    (loader, trainer)."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.plumbing import Repeater
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.rbm import RBMTrainer
+    wf = Workflow(None)
+    rep = Repeater(wf)
+    rep.link_from(wf.start_point)
+    ld = rbm_loader()(wf, minibatch_size=50,
+                      prng=RandomGenerator().seed(2))
+    ld.link_from(rep)
+    rbm = RBMTrainer(wf, n_hidden=32, learning_rate=0.2)
+    rbm.link_from(ld)
+    rbm.link_loader(ld)
+    wf.initialize(device=Device(backend=device))
+    return ld, rbm
+
+
+def rbm_draws(torch, device="cuda"):
+    """The first train minibatch's hidden sample on ``device`` and on the
+    CPU from the same inputs: the flips counted, each within
+    ``RBM_FLIP_ATOL`` of the CPU's ``ph``; -> record."""
+    from veles_tpu_torch.znicz import rbm as rbm_mod
+    ld, rbm = rbm_workflow(device)
+    ld.run()
+    seed = (rbm._seed_counter + 1) % rbm_mod.SEED_WRAP
+    v = ld.minibatch_data.devmem
+    draws = []
+    for dev in (device, "cpu"):
+        ph, u, h = rbm_mod.hidden_draw(rbm._w_.to(dev), rbm._hb_.to(dev),
+                                       v.to(dev), seed)
+        draws.append([t.cpu().numpy() for t in (ph, u, h)])
+    (ph, u, h), (cph, cu, ch) = draws
+    flips = numpy.flatnonzero(h != ch)
+    gaps = numpy.abs(cu.ravel()[flips] - cph.ravel()[flips])
+    rec = {"draws": int(h.size), "flips": int(flips.size),
+           "largest_flip_gap": float(gaps.max(initial=0.0)),
+           "ph_max_diff": float(numpy.abs(ph - cph).max()),
+           "uniforms_bitwise": u.tobytes() == cu.tobytes()}
+    if not rec["uniforms_bitwise"] or \
+            not rec["largest_flip_gap"] <= RBM_FLIP_ATOL:
+        raise AssertionError("4j(d) RBM draws card against CPU: %r" % rec)
+    return rec
+
+
+def rbm_part(torch, card, device="cuda", epochs=RBM_EPOCHS):
+    """(d): the RBM for ``epochs`` epochs, its last reconstruction error
+    under ``RBM_GATE`` of the first's, and the first minibatch's hidden
+    draws card against CPU (``rbm_draws``); -> record."""
+    from veles_tpu_torch.loader import TRAIN
+    ld, rbm = rbm_workflow(device)
+    errors = []
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        while True:
+            ld.run()
+            rbm.run()
+            if bool(ld.last_minibatch):
+                break
+        errors.append(float(rbm.recon_error[0]))
+    _sync(torch, device)
+    seconds = time.perf_counter() - t0
+    if not errors[-1] < RBM_GATE * errors[0]:
+        raise AssertionError("4j(d) RBM missed its gate: reconstruction "
+                             "error %r (gate %.2f of the first)"
+                             % (errors, RBM_GATE))
+    draws = rbm_draws(torch, device)
+    rows = epochs * ld.class_lengths[TRAIN]
+    _log("4j(d) RBM 64x32: %d epochs in %.3f s, %.1f rows/s; "
+         "reconstruction error %.4f -> %.4f; first minibatch's hidden "
+         "draws card against CPU: %d of %d flipped (largest gap to ph "
+         "%.3g), ph within %.3g, uniforms bitwise [%s]" % (
+             epochs, seconds, rows / seconds, errors[0], errors[-1],
+             draws["flips"], draws["draws"], draws["largest_flip_gap"],
+             draws["ph_max_diff"], card))
+    return {"epochs": epochs, "seconds": seconds, "rows_s": rows / seconds,
+            "errors": errors, "draws": draws}
+
+
+def trace_recurrent(torch, card):
+    """One fused SeqLSTM epoch and one DemoKohonen epoch under
+    ``torch.profiler``: the card's busy share of each; None where the
+    trace holds no device time."""
+    out = {}
+    for name, make in (
+            ("train SeqLSTM fused", lambda: _epoch(seq_workflow(
+                "lstm", epochs=1))),
+            ("DemoKohonen", lambda: _epoch(kohonen_demo(epochs=1)))):
+        try:
+            out[name] = _traced(torch, name, card, make)
+        except TraceLost as e:
+            _log("4j: %s: its busy share not measured" % e)
+            out[name] = None
+    return out
+
+
+def recurrent_phase(torch, gemm, card, device="cuda", seq_epochs=SEQ_EPOCHS,
+                    kohonen_epochs=None, rbm_epochs=RBM_EPOCHS):
+    """Phase 4j: (a)-(d) and, on the card, the traces; -> record with
+    the phase's launches under the kernels line's names.  ``device`` and
+    the epochs cut it for a rehearsal on the CPU."""
+    out, times = {}, {}
+    for part, fn in (
+            ("resize", lambda: resize_part(torch, gemm, card, device)),
+            ("seq", lambda: seq_part(torch, gemm, card, device,
+                                     seq_epochs)),
+            ("kohonen", lambda: kohonen_part(torch, card, device,
+                                             kohonen_epochs)),
+            ("rbm", lambda: rbm_part(torch, card, device, rbm_epochs))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        times[part] = time.perf_counter() - t0
+    if device == "cuda":
+        t0 = time.perf_counter()
+        out["traces"] = trace_recurrent(torch, card)
+        times["traces"] = time.perf_counter() - t0
+    out["seconds"] = times
+    out["launches"] = {"precise_matmul_l1": out["resize"]["k4_launches"] +
+                       out["seq"]["k4_launches"]}
+    _log("4j: launches %s; parts %s s [%s]" % (
+        out["launches"], {k: round(v, 1) for k, v in times.items()}, card))
+    return out
+
+
 # -- phase 5: where the time goes ---------------------------------------------
 
 def trace_run(torch, card, label, kv_dtype, weight_dtype):
@@ -6651,6 +7081,11 @@ def main():
     for name, n in scan["launches"].items():
         launches[name] += n
     phase_done("4i epoch scan and prefetcher")
+    recurrent = recurrent_phase(torch, gemm, card)
+    record["recurrent_som_rbm"] = recurrent
+    for name, n in recurrent["launches"].items():
+        launches[name] += n
+    phase_done("4j recurrent, SOM and RBM")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (

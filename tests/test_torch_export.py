@@ -26,9 +26,17 @@ each trained by the JAX package and carried into the port
   ``test_deserialize_is_thread_safe`` (the chain is rebuilt once under
   two concurrent first calls) and ``test_native_cli_runner`` (the
   native binary and the port's runner, ``--device cpu``);
-- a class the port lacks raises naming its ROADMAP queue A item; a
-  ``misc_units`` class raises that the JAX package records no
-  configuration for it;
+- ``ResizableAll2All`` rebuilds from its inherited ``config``; a
+  ``misc_units``, recurrent or Kohonen class raises that the JAX
+  package records no configuration for it (their JAX units define no
+  ``export_params``), and an unknown class raises naming the classes
+  the chain rebuilds;
+- a net holding a resized ``ResizableAll2All`` (MNIST, 32 neurons grown
+  to 40, the softmax head drawn again at the new width; the JAX
+  workflow given the port's ``GenericVJPBackward`` for the layer,
+  which it refuses otherwise): its JAX package served by the port
+  within 1e-5 of the JAX ``PackageLoader``, fp32 and fp16, and the
+  port's ``package_export`` equal to the JAX one;
 - the stochastic pooling classes rebuild from their ``config`` (the
   JAX units' ``export_params``) into the JAX units' eval forward; a net
   holding ``StochasticPooling`` and ``StochasticAbsPoolingDepooling``
@@ -39,6 +47,7 @@ each trained by the JAX package and carried into the port
   for byte).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -46,6 +55,7 @@ import sys
 import threading
 import time
 import zipfile
+from unittest import mock
 
 import numpy
 import pytest
@@ -116,6 +126,43 @@ STOCHASTIC_LAYERS = [
      "<-": {"learning_rate": 0.01, "gradient_moment": 0.9}}]
 
 
+#: the resizable net: its first layer grows from 32 to RESIZED neurons
+RESIZABLE_LAYERS = [
+    {"type": "all2all_resizable", "->": {"output_sample_shape": 32},
+     "<-": {"learning_rate": 0.01}},
+    {"type": "softmax", "->": {"output_sample_shape": 10},
+     "<-": {"learning_rate": 0.01}}]
+RESIZED = 40
+
+
+@contextlib.contextmanager
+def _jax_generic_fallback():
+    """The JAX workflow given the port's rule: ``all2all_resizable``
+    without a GD unit of its own gets ``GenericVJPBackward`` (the JAX
+    ``StandardWorkflow`` refuses the layer otherwise)."""
+    from veles_tpu.znicz import standard_workflow as jsw
+    from veles_tpu.znicz.nn_units import GenericVJPBackward
+    find = jsw._find_pair
+
+    def find_pair(type_name):
+        fwd, gd = find(type_name)
+        if type_name == "all2all_resizable" and gd is None:
+            gd = GenericVJPBackward
+        return fwd, gd
+    with mock.patch.object(jsw, "_find_pair", find_pair):
+        yield
+
+
+def _resize(wf, device):
+    """Grow the first layer to ``RESIZED`` and draw the head again at the
+    new width (graph mode: the units hold their weights)."""
+    first, head = wf.forwards[0], wf.forwards[1]
+    first.resize(RESIZED)
+    head.weights.reset()
+    head.bias.reset()
+    head.initialize(device=device)
+
+
 def _create(pkg, net, fused=True, epochs=1):
     """``net``'s workflow in ``pkg`` (``veles_tpu`` or
     ``veles_tpu_torch``), weights from seed 42, not initialized."""
@@ -124,12 +171,19 @@ def _create(pkg, net, fused=True, epochs=1):
     rg = prng.RandomGenerator
     prng.get().seed(42)
     decision = {"max_epochs": epochs, "silent": True}
-    if net == "mnist":
+    if net in ("mnist", "resizable"):
         mod = importlib.import_module(pkg + ".znicz.samples.mnist")
-        return mod.create_workflow(
-            loader={"minibatch_size": 100, "n_train": 400,
-                    "n_valid": 100, "prng": rg().seed(3)},
-            decision=decision, fused=fused)
+        if net == "mnist":
+            return mod.create_workflow(
+                loader={"minibatch_size": 100, "n_train": 400,
+                        "n_valid": 100, "prng": rg().seed(3)},
+                decision=decision, fused=fused)
+        with _jax_generic_fallback() if pkg == "veles_tpu" else \
+                contextlib.nullcontext():
+            return mod.create_workflow(
+                loader={"minibatch_size": 100, "n_train": 200,
+                        "n_valid": 100, "prng": rg().seed(3)},
+                decision=decision, fused=False, layers=RESIZABLE_LAYERS)
     if net in ("convnet", "stochastic"):
         mod = importlib.import_module(pkg + ".znicz.samples.cifar")
         layers = {"layers": STOCHASTIC_LAYERS} if net == "stochastic" \
@@ -155,10 +209,15 @@ def _create(pkg, net, fused=True, epochs=1):
 
 
 def _jax_trained(net):
+    """``net`` trained by the JAX package; the resizable net initialized
+    and resized instead."""
     from veles_tpu.backends import Device
     wf = _create("veles_tpu", net, epochs=2 if net == "mnist" else 1)
     wf.initialize(device=Device(backend="cpu"))
-    wf.run()
+    if net == "resizable":
+        _resize(wf, Device(backend="cpu"))
+    else:
+        wf.run()
     return wf
 
 
@@ -168,6 +227,8 @@ def _port_carried(net, jax_wf):
     from veles_tpu_torch.convert import workflow_params_from_jax
     wf = _create("veles_tpu_torch", net)
     wf.initialize(device=Device(backend="cpu"))
+    if net == "resizable":
+        _resize(wf, Device(backend="cpu"))
     workflow_params_from_jax(
         wf, [{k: numpy.array(v) for k, v in f.host_params.items()}
              for f in jax_wf.forwards])
@@ -187,7 +248,7 @@ class Net:
         self.jax_wf = _jax_trained(name)
         self.wf = _port_carried(name, self.jax_wf)
         rows = {"mnist": 7, "convnet": 3, "attention": 4, "alexnet": 2,
-                "stochastic": 5}
+                "stochastic": 5, "resizable": 6}
         self.x = numpy.asarray(
             self.jax_wf.loader.original_data.map_read()[:rows[name]],
             numpy.float32)
@@ -468,15 +529,21 @@ def test_native_cli_runner(native_build, nets, tmp_path):
 # -- the chain's classes ------------------------------------------------------
 
 def test_a_class_the_port_lacks_raises_naming_its_item(nets):
-    """``ResizableAll2All`` waits for item 9 and raises naming it;
-    ``StochasticPooling`` is ported (item 6b) and builds."""
+    """Item 9's classes are ported: ``ResizableAll2All`` rebuilds from
+    the ``config`` it inherits (a linear All2All), ``StochasticPooling``
+    (item 6b) too, and a class nothing rebuilds raises naming the ones
+    the chain rebuilds; no refusal names a queue A item any more."""
     from veles_tpu_torch.export import build_forwards
+    from veles_tpu_torch.export import model
+    from veles_tpu_torch.znicz.all2all import ResizableAll2All
     from veles_tpu_torch.znicz.pooling import StochasticPooling
     meta = json.loads(_zip(nets("mnist").package("port"))["model.json"])
-    bad = dict(meta, forwards=[dict(meta["forwards"][0], **{
+    resized = dict(meta, forwards=[dict(meta["forwards"][0], **{
         "class": "ResizableAll2All"})])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_forwards(bad, device="cpu")
+    (unit,) = build_forwards(resized, device="cpu")
+    assert type(unit) is ResizableAll2All
+    assert unit.activation.name == "linear"
+    assert unit.export_params() == meta["forwards"][0]["config"]
     good = dict(meta, forwards=[{
         "unit": "pool", "class": "StochasticPooling", "params": [],
         "config": {"kx": 2, "ky": 2, "padding": [0, 0, 0, 0],
@@ -487,6 +554,76 @@ def test_a_class_the_port_lacks_raises_naming_its_item(nets):
                                     **{"class": "NoSuchUnit"})])
     with pytest.raises(ValueError, match="NoSuchUnit"):
         build_forwards(bad, device="cpu")
+    assert not any("item" in reason for reason in model._REFUSED.values())
+
+
+def test_recurrent_and_kohonen_classes_raise_that_no_configuration_is_recorded(
+        nets):
+    """``SimpleRNN``, ``LSTM`` and ``KohonenForward`` are ported, but the
+    JAX units record no ``config`` (no ``export_params`` of their own),
+    so a package holding one is refused with that reason."""
+    from veles_tpu.znicz import kohonen as jax_kohonen
+    from veles_tpu.znicz import rnn as jax_rnn
+    from veles_tpu.znicz.nn_units import ForwardBase as JaxForwardBase
+    from veles_tpu_torch.export import build_forwards
+    for cls in (jax_rnn.SimpleRNN, jax_rnn.LSTM):
+        assert cls.export_params is JaxForwardBase.export_params
+    assert not hasattr(jax_kohonen.KohonenForward, "export_params")
+    meta = json.loads(_zip(nets("mnist").package("port"))["model.json"])
+    for cls in ("SimpleRNN", "LSTM", "KohonenForward"):
+        bad = dict(meta, forwards=[dict(meta["forwards"][0], **{
+            "class": cls, "config": {}})])
+        with pytest.raises(NotImplementedError,
+                           match="%s cannot be served: the JAX package "
+                           "records no configuration for it" % cls):
+            build_forwards(bad, device="cpu")
+
+
+@pytest.mark.parametrize("precision", [32, 16])
+def test_port_serves_a_jax_resizable_package(nets, precision):
+    """A JAX package (StableHLO and ``model.json``) holding a resized
+    ``ResizableAll2All``: the port rebuilds the chain from ``model.json``
+    and answers within 1e-5 of the JAX ``PackageLoader``."""
+    from veles_tpu.export import PackageLoader as JaxLoader
+    from veles_tpu_torch.export import PackageLoader
+    n = nets("resizable")
+    assert [type(f).__name__ for f in n.jax_wf.forwards] == [
+        "ResizableAll2All", "All2AllSoftmax"]
+    assert n.jax_wf.forwards[0].weights.map_read().shape == (784, RESIZED)
+    path = n.package("jax", precision=precision)
+    want = numpy.asarray(JaxLoader(path).run(n.x))
+    pkg = PackageLoader(path)
+    got = pkg.run(n.x, device="cpu")
+    assert got.shape == want.shape == (6, 10)
+    assert numpy.abs(got - want).max() <= PARITY_TOL
+    assert [type(u).__name__ for u in pkg.forwards("cpu")] == [
+        "ResizableAll2All", "All2AllSoftmax"]
+    if precision == 32:
+        assert numpy.abs(got - n.live).max() <= PARITY_TOL
+
+
+@pytest.mark.parametrize("precision", [32, 16])
+def test_resizable_package_equals_the_jax_package(nets, precision):
+    """The port's ``package_export`` of the resized net equals the JAX
+    one (``contents.json`` as JSON, every ``.npy`` byte for byte; the
+    resize draws the JAX package's weights), and ``model.json`` the JAX
+    metadata but for ``format``."""
+    n = nets("resizable")
+    assert numpy.asarray(n.wf.forwards[0].weights.map_read()).tobytes() == \
+        numpy.asarray(n.jax_wf.forwards[0].weights.map_read()).tobytes()
+    want = _zip(n.package("jax", "package", precision))
+    got = _zip(n.package("port", "package", precision))
+    assert sorted(got) == sorted(want)
+    assert json.loads(got.pop("contents.json")) == \
+        json.loads(want.pop("contents.json"))
+    assert got, "no arrays exported"
+    for name, data in want.items():
+        assert got[name] == data, name
+    if precision == 32:
+        meta, jax_meta = (json.loads(_zip(n.package(side))["model.json"])
+                          for side in ("port", "jax"))
+        assert meta.pop("format") != jax_meta.pop("format")
+        assert meta == jax_meta
 
 
 STOCHASTIC_CLASSES = (

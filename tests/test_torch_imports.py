@@ -30,7 +30,10 @@
   Gumbel draws, where ``categorical`` draws on its logits' device; the
   ``MinibatchPrefetcher``, ``Workflow.attach_prefetcher`` on a workflow
   initialized nowhere and an ``epoch_scan`` workflow's ``initialize``
-  (slice 23).
+  (slice 23); the recurrent units and ``StandardWorkflow``s holding
+  them (fused, graph mode and scanned), ``ResizableAll2All``, the
+  Kohonen units and the DemoKohonen workflow, and the RBM trainer
+  (slice 24).
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -112,7 +115,8 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "export.loader", "export.native", "restful_api",
                  "snapshotter", "loader.shards", "znicz.misc_units",
                  "znicz.samples.stl10", "znicz.samples.video_ae",
-                 "loader.prefetch", "znicz.scan_step"):
+                 "loader.prefetch", "znicz.scan_step", "znicz.kohonen",
+                 "znicz.rbm", "znicz.rnn", "znicz.samples.kohonen"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
@@ -566,6 +570,101 @@ def test_slice23_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     assert pf.device == torch.device("cpu") and pf._stream is None
     pf.detach()
 
+
+
+def test_slice24_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """``SimpleRNN``, ``LSTM`` and ``ResizableAll2All`` units, a
+    ``StandardWorkflow`` holding an LSTM (fused, graph mode and
+    scanned), the DemoKohonen workflow, ``KohonenForward`` and the RBM
+    trainer initialize on the card without a device and raise without
+    one; told the CPU, each runs there."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.loader import FullBatchLoader, TEST, TRAIN, VALID
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.plumbing import Repeater
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.znicz.all2all import ResizableAll2All
+    from veles_tpu_torch.znicz.kohonen import KohonenForward
+    from veles_tpu_torch.znicz.rbm import RBMTrainer
+    from veles_tpu_torch.znicz.rnn import LSTM, SimpleRNN
+    from veles_tpu_torch.znicz.samples import kohonen
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    cpu = Device(backend="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = numpy.ones((2, 3, 4), numpy.float32)
+
+    def units():
+        yield SimpleRNN(Workflow(name="w"), hidden=5)
+        yield LSTM(Workflow(name="w"), hidden=5)
+        yield ResizableAll2All(Workflow(name="w"), output_sample_shape=5)
+    for unit in units():
+        unit.input = Array(x)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            unit.initialize()
+    for unit in units():
+        unit.input = Array(x)
+        unit.initialize(device=cpu)
+        unit.run()
+        assert unit.output.devmem.device == torch.device("cpu")
+
+    class Seq(FullBatchLoader):
+        def load_data(self):
+            self.original_data.mem = numpy.random.RandomState(1).randn(
+                8, 3, 2).astype(numpy.float32)
+            self.original_labels = [0, 1] * 4
+            self.class_lengths[TEST] = 0
+            self.class_lengths[VALID] = 4
+            self.class_lengths[TRAIN] = 4
+
+    def seq(**kw):
+        return StandardWorkflow(
+            None, loader_factory=Seq, loader={"minibatch_size": 4},
+            layers=[{"type": "lstm", "->": {"hidden": 3}},
+                    {"type": "softmax", "->": {"output_sample_shape": 2}}],
+            decision={"max_epochs": 1, "silent": True}, **kw)
+    for kw in ({}, {"fused": False}, {"epoch_scan": True}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            seq(**kw).initialize()
+        wf = seq(**kw)
+        wf.initialize(device=cpu)
+        wf.run()
+        assert wf.forwards[0].weights.devmem.device == torch.device("cpu")
+    demo = kohonen.create_workflow(loader={"n_train": 100},
+                                   decision={"max_epochs": 1,
+                                             "silent": True})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo.initialize()
+    demo = kohonen.create_workflow(loader={"n_train": 100},
+                                   decision={"max_epochs": 1,
+                                             "silent": True})
+    demo.initialize(device=cpu)
+    demo.run()
+    assert demo.trainer.weights.devmem.device == torch.device("cpu")
+    fwd = KohonenForward(Workflow(name="w"))
+    fwd.weights.mem = numpy.ones((64, 2), numpy.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fwd.initialize()
+    fwd.initialize(device=cpu)
+    fwd.minibatch_data = demo.loader.minibatch_data
+    fwd.run()
+    assert fwd.output.devmem.device == torch.device("cpu")
+    for device in (None, cpu):
+        wf = Workflow(name="w")
+        rep = Repeater(wf)
+        rep.link_from(wf.start_point)
+        ld = kohonen.KohonenLoader(wf, minibatch_size=20, n_train=40)
+        ld.link_from(rep)
+        rbm = RBMTrainer(wf, n_hidden=4)
+        rbm.link_from(ld)
+        rbm.link_loader(ld)
+        if device is None:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                wf.initialize()
+            continue
+        wf.initialize(device=device)
+        ld.run()
+        rbm.run()
+        assert rbm._w_.device == torch.device("cpu")
 
 def test_package_runner_subprocess_imports_no_jax(tmp_path):
     path = _mnist_package(tmp_path / "mnist.zip")

@@ -752,8 +752,10 @@ def test_decode_and_classifier_routes_stay_apart(mnist_wf):
 def test_unported_paths_refused_by_name(mnist_package, tmp_path):
     """Packages were refused naming ROADMAP queue A item 8 until they
     were ported: now a path and ``load_package`` serve one, a missing
-    path is a FileNotFoundError, and a package holding a unit the port
-    lacks is refused naming its item."""
+    path is a FileNotFoundError.  A package holding ``ResizableAll2All``
+    was refused naming item 9 until it was ported: now it serves (a
+    linear All2All); one holding a unit whose structure a package does
+    not record (``LSTM``) is refused saying so."""
     from veles_tpu_torch.serving import ModelRegistry
     with pytest.raises(FileNotFoundError):
         BucketScheduler("/no/pkg.zip", device="cpu")
@@ -769,14 +771,28 @@ def test_unported_paths_refused_by_name(mnist_package, tmp_path):
     with zipfile.ZipFile(mnist_package) as zf:
         files = {n: zf.read(n) for n in zf.namelist()}
     meta = json.loads(files["model.json"])
-    meta["forwards"][0]["class"] = "ResizableAll2All"
-    files["model.json"] = json.dumps(meta)
-    bad = str(tmp_path / "resizable.zip")
-    with zipfile.ZipFile(bad, "w") as zf:
-        for name, data in files.items():
-            zf.writestr(name, data)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BucketScheduler(bad, device="cpu")
+
+    def package_of(cls):
+        meta["forwards"][0]["class"] = cls
+        files["model.json"] = json.dumps(meta)
+        path = str(tmp_path / ("%s.zip" % cls))
+        with zipfile.ZipFile(path, "w") as zf:
+            for name, data in files.items():
+                zf.writestr(name, data)
+        return path
+    want = BucketScheduler(package_of("All2All"), device="cpu")
+    got = BucketScheduler(package_of("ResizableAll2All"), device="cpu")
+    try:
+        out = got.infer(X[:2])
+        assert out.shape == (2, 10)
+        assert numpy.array_equal(out, want.infer(X[:2]))
+    finally:
+        got.close()
+        want.close()
+    with pytest.raises(NotImplementedError,
+                       match="LSTM cannot be served: the JAX package "
+                       "records no configuration"):
+        BucketScheduler(package_of("LSTM"), device="cpu")
 
 
 def test_cache_and_manifest_are_taken(mnist_wf, tmp_path):

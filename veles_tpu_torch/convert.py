@@ -14,10 +14,17 @@ JAX.
 initialized) StandardWorkflow across: each layer's host params and its
 solver state, in the layout the port's units read, which is the JAX
 package's: ``{"weights": (in, out), "bias": (out,)}`` for an All2All
-layer, plus ``"proj"`` for the attention unit; 4-D HWIO weights
-``(ky, kx, C / grouping, K)`` and ``(K,)`` biases for a conv layer (no
-transpose to ``conv2d``'s OIHW); ``{}`` for a paramless layer (pooling,
-LRN, dropout, activation units).
+layer (``ResizableAll2All`` too), plus ``"proj"`` for the attention
+unit; 4-D HWIO weights ``(ky, kx, C / grouping, K)`` and ``(K,)``
+biases for a conv layer (no transpose to ``conv2d``'s OIHW); ``(F + H,
+H)`` and ``(H,)`` for SimpleRNN, ``(F + H, 4H)`` (gates ``i, f, g, o``)
+and ``(4H,)`` for LSTM (not ``torch.nn.LSTM``'s layout); ``{}`` for a
+paramless layer (pooling, LRN, dropout, activation units).
+
+:func:`trainer_params_from_jax` carries the arrays of a unit trained
+without gradients: the Kohonen codebook ``weights (neurons, F)`` of a
+``KohonenTrainer`` or ``KohonenForward``, and an ``RBMTrainer``'s
+``weights (visible, hidden)``, ``vbias`` and ``hbias``.
 """
 
 import numpy
@@ -25,7 +32,8 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_jax", "workflow_params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "trainer_params_from_jax",
+           "workflow_params_from_jax"]
 
 _FP8_NAME = "float8_e4m3fn"
 
@@ -110,3 +118,30 @@ def workflow_params_from_jax(wf, params, solver_state=None):
     if step is not None and step.is_initialized:
         step.load_state()
     return wf
+
+
+def trainer_params_from_jax(unit, arrays):
+    """Load a JAX unit's trained arrays into the port's ``unit`` (a
+    ``KohonenTrainer``, ``KohonenForward`` or ``RBMTrainer``).
+
+    ``arrays`` is ``{name: array}`` for every name of ``unit.PARAMS``
+    (``numpy.asarray`` of the JAX unit's ``weights.map_read()``, and so
+    on), in the JAX layout.  Before ``unit.initialize`` the unit then
+    skips its random init; after it, the unit's live state reloads (and
+    its accumulator restarts).  A missing or extra name, or a shape
+    other than the unit's, raises: nothing is transposed to fit."""
+    names = tuple(unit.PARAMS)
+    given = {k: numpy.array(v, numpy.float32) for k, v in arrays.items()}
+    if set(given) != set(names):
+        raise ValueError("%s takes %s, given %s"
+                         % (unit, sorted(names), sorted(given)))
+    for name in names:
+        have = getattr(unit, name)
+        if have and have.shape != given[name].shape:
+            raise ValueError("%s: %s %r, given %r" % (
+                unit, name, have.shape, given[name].shape))
+    for name in names:
+        getattr(unit, name).mem = given[name]
+    if unit.is_initialized:
+        unit.load_state()
+    return unit

@@ -27,10 +27,12 @@ FORMAT = "veles_tpu_torch/units"
 
 #: class name in ``model.json`` -> (module under ``veles_tpu_torch``,
 #: class): the native engine's list of classes it rebuilds
+#: (``ResizableAll2All``, as there, is the linear All2All, rebuilt from
+#: the ``config`` it inherits)
 _CLASSES = dict(
     [(name, ("znicz.all2all", name)) for name in (
         "All2All", "All2AllTanh", "All2AllSigmoid", "All2AllRELU",
-        "All2AllStrictRELU", "All2AllSoftmax")] +
+        "All2AllStrictRELU", "All2AllSoftmax", "ResizableAll2All")] +
     [(name, ("znicz.conv", name)) for name in (
         "Conv", "ConvTanh", "ConvSigmoid", "ConvRELU", "ConvStrictRELU")] +
     [(name, ("znicz.pooling", name)) for name in (
@@ -45,20 +47,19 @@ _CLASSES = dict(
         "ForwardStrictRELU")])
 
 #: forward classes of the JAX package whose packages the port refuses,
-#: and why: not ported yet (by their ROADMAP queue A item), or ported
-#: but not recorded in a package (the JAX units define no
-#: ``export_params``, so their ``model.json`` ``config`` is ``{}``)
-_UNPORTED = "the unit is not ported yet (ROADMAP queue A %s)"
+#: and why: ported, but not recorded in a package (the JAX units define
+#: no ``export_params``, so their ``model.json`` ``config`` is ``{}``:
+#: the structural units' crops, paddings and groups, the recurrent
+#: units' ``hidden``, ``return_sequences`` and activation, the Kohonen
+#: map's grid)
 _UNRECORDED = ("the JAX package records no configuration for it (the unit "
                "has no export_params; its model.json config is {}), so the "
                "chain cannot be rebuilt without model.stablehlo, which the "
                "port does not run")
 _REFUSED = dict(
-    [(name, _UNPORTED % "item 9") for name in (
-        "ResizableAll2All", "KohonenForward", "SimpleRNN", "LSTM")] +
-    [(name, _UNRECORDED) for name in (
+    (name, _UNRECORDED) for name in (
         "Cutter", "ChannelSplitter", "ChannelMerger", "ZeroFiller",
-        "Deconv", "Depooling")])
+        "Deconv", "Depooling", "SimpleRNN", "LSTM", "KohonenForward"))
 
 
 def forward_fn(forwards):

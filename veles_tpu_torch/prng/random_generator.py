@@ -11,10 +11,10 @@ The port's counterpart of ``veles_tpu/prng/random_generator.py``:
   stochastic pooling):
   ``jax.random``'s default threefry2x32 generator in torch integer ops,
   so the same key gives the JAX package's bits.  A key is a pair of
-  32-bit words (:func:`key`, :func:`fold_in`): Python ints derived on
-  the host, or 0-d int64 tensors derived on their device from a seed
-  held there (the epoch scan's per-minibatch seeds, the staged seed of
-  a prefetched step); the two give the same bits.  :func:`random_bits`, :func:`uniform`,
+  32-bit words (:func:`key`, :func:`fold_in`, :func:`split`): Python
+  ints derived on the host, or 0-d int64 tensors derived on their
+  device from a seed held there (the epoch scan's per-minibatch seeds,
+  the staged seed of a prefetched step); the two give the same bits.  :func:`random_bits`, :func:`uniform`,
   :func:`bernoulli`, :func:`gumbel` and :func:`categorical` draw
   per-element bits on their ``device`` (the card unless the CPU is
   asked for; :func:`categorical` on its logits' device), in int64
@@ -174,6 +174,16 @@ def fold_in(k, data):
     if not 0 <= data <= _MASK:
         raise ValueError("fold_in data %d is out of the uint32 range" % data)
     return threefry2x32(k[0], k[1], 0, data)
+
+
+def split(k, num=2):
+    """``jax.random.split(k, num)`` as a list of ``num`` keys: key ``i``
+    is the key hashed with the counter ``(i >> 32, i & mask)``, its two
+    words the two output words (the ``jax_threefry_partitionable``
+    split, jax 0.9's default).  A key of tensor words gives keys of
+    tensor words, derived on their device."""
+    return [threefry2x32(k[0], k[1], i >> 32, i & _MASK)
+            for i in range(int(num))]
 
 
 def random_bits(k, shape, device=None):

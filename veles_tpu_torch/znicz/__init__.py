@@ -3,10 +3,15 @@
 LRN, dropout, activation units, multi-head attention, and the
 structural units of ``misc_units``, whose classes this package exports
 as the JAX one does) with their gradient-descent units, solvers,
-evaluator, decision and fused train step; ``StandardWorkflow``; the
-kernel modules (paged attention, the quantized and compensated GEMMs,
-flash attention, LRN); and the samples."""
+evaluator, decision and fused train step; ``ResizableAll2All``; the
+recurrent units (SimpleRNN, LSTM) with their BPTT units; the training
+paths without gradients, the Kohonen map and the CD-1 RBM;
+``StandardWorkflow``; the kernel modules (paged attention, the
+quantized and compensated GEMMs, flash attention, LRN); and the
+samples."""
 
+from .all2all import ResizableAll2All  # noqa: F401
 from .misc_units import (Cutter, GDCutter, ChannelSplitter,  # noqa: F401
                          ChannelMerger, ZeroFiller, Deconv, GDDeconv,
                          Depooling)
+from . import kohonen, rbm, rnn  # noqa: F401,E402

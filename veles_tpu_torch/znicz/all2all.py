@@ -3,7 +3,9 @@
 The port's counterpart of ``veles_tpu/znicz/all2all.py`` (the Znicz
 All2All family): ``y = act(flatten(x) @ W + b)`` with the weights in
 the natural (in, out) layout; the linear, scaled-tanh, sigmoid, RELU
-(Znicz softplus), strict-RELU and softmax members.
+(Znicz softplus), strict-RELU and softmax members, and
+:class:`ResizableAll2All`, the linear member whose width changes
+mid-training.
 The matmul is ``torch.matmul`` (TF32
 off), or, with ``precise_gemm=N`` (default
 ``root.common.engine.precise_gemm``), the compensated GEMM
@@ -26,7 +28,7 @@ from . import activations
 from . import gemm
 
 __all__ = ["All2All", "All2AllTanh", "All2AllSigmoid", "All2AllRELU",
-           "All2AllStrictRELU", "All2AllSoftmax"]
+           "All2AllStrictRELU", "All2AllSoftmax", "ResizableAll2All"]
 
 
 class All2All(ForwardBase):
@@ -136,3 +138,46 @@ class All2AllSoftmax(All2All):
         super().run()
         self.max_idx.devmem = torch.argmax(self.output.devmem, dim=-1).to(
             torch.int32)
+
+
+class ResizableAll2All(All2All):
+    """All2All whose output width can grow or shrink mid-training,
+    keeping the learned weights (the reference's
+    resizable_all2all.ResizableAll2All).
+
+    The JAX ``StandardWorkflow`` registers no GD unit for its MAPPING
+    and refuses it as a parameterized layer without one; the port's
+    gives it :class:`~.nn_units.GenericVJPBackward`
+    (:attr:`GENERIC_BACKWARD`), whose backward is the vjp of ``apply``,
+    what the fused step differentiates."""
+
+    MAPPING = "all2all_resizable"
+    #: StandardWorkflow gives a layer of this class GenericVJPBackward
+    GENERIC_BACKWARD = True
+
+    def resize(self, new_neurons):
+        """Change the width to ``new_neurons``: new weights and bias
+        drawn with the unit's filling, the first ``min(old, new)``
+        columns copied back, ``output`` reset to the new width (units
+        downstream size themselves off its shape), and on an initialized
+        unit the arrays placed on its device again."""
+        new_neurons = int(new_neurons)
+        old_w = self.weights.map_read()
+        old_b = self.bias.map_read() if self.include_bias else None
+        old_n = self.neurons_number
+        self.output_sample_shape = (new_neurons,)
+        self.fill_array(self.weights, (old_w.shape[0], new_neurons),
+                        self.weights_stddev, self.weights_filling)
+        keep = min(old_n, new_neurons)
+        self.weights.map_write()[:, :keep] = old_w[:, :keep]
+        if self.include_bias:
+            self.fill_array(self.bias, (new_neurons,), self.bias_stddev,
+                            self.bias_filling)
+            self.bias.map_write()[:keep] = old_b[:keep]
+        if self.output:
+            # a stale old-width buffer must not survive a resize
+            self.output.reset(numpy.zeros(
+                (self.output.shape[0], new_neurons), numpy.float32))
+        if self.is_initialized and self.device is not None:
+            for arr in (self.weights, self.bias, self.output):
+                arr.initialize(self.device)

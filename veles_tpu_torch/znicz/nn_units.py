@@ -101,6 +101,10 @@ class ForwardBase(NNUnitBase):
     minibatch_class = None
     #: set by a GD unit whose backward is the vjp of ``apply``
     vjp_backward = False
+    #: True where StandardWorkflow gives the layer GenericVJPBackward
+    #: when no GD unit has its MAPPING (the paramless forwards,
+    #: ResizableAll2All); a layer without it raises there
+    GENERIC_BACKWARD = False
 
     def __init__(self, workflow, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -254,6 +258,7 @@ class ParamlessForward(ForwardBase):
     dropout, activations)."""
 
     hide_from_registry = True
+    GENERIC_BACKWARD = True
 
     def __init__(self, workflow, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -469,12 +474,17 @@ class VJPBackward(GradientDescentBase):
 
 
 class GenericVJPBackward(VJPBackward):
-    """Backward of a paramless forward: the vjp of its ``apply``, no
-    parameters to update.  For a stochastic forward without a GD unit of
-    its own (the stochastic depooling pair) that is the vjp of the eval
-    ``apply``, the expectation, though its train run drew a sample: the
-    JAX ``GenericVJPBackward`` differentiates ``fwd.apply`` (the fused
-    step differentiates the draw in both packages)."""
+    """Backward of a forward without a GD unit of its own: the vjp of
+    its ``apply`` (learning rate 0 unless given).  A paramless forward
+    (the structural units) has no parameters to update; the forwards
+    with parameters that take it (``ResizableAll2All``, and the
+    recurrent units through ``GDRNN`` / ``GDLSTM``) get their gradients
+    too, where the JAX unit hands the vjp no parameters and so fails on
+    them.  For a stochastic forward (the stochastic depooling pair) it
+    is the vjp of the eval ``apply``, the expectation, though its train
+    run drew a sample: the JAX ``GenericVJPBackward`` differentiates
+    ``fwd.apply`` (the fused step differentiates the draw in both
+    packages)."""
 
     hide_from_registry = True
     VJP_OF_DRAW = False
@@ -482,6 +492,3 @@ class GenericVJPBackward(VJPBackward):
     def __init__(self, workflow, **kwargs):
         kwargs.setdefault("learning_rate", 0.0)
         super().__init__(workflow, **kwargs)
-
-    def backward(self, params, x, y, err_output, n_valid=None):
-        return super().backward({}, x, y, err_output, n_valid)[0], {}

@@ -1,9 +1,10 @@
 """Sample models of the port (the counterpart of
-``veles_tpu.znicz.samples``): the flagship decode model (serving) and
-the StandardWorkflow training samples MNIST, AlexNet, the CIFAR and
-STL-10 convnets and the VideoAE conv autoencoder.  The JAX samples'
-``run(load, main)`` entries wait for the command line (ROADMAP queue A
-item 10)."""
+``veles_tpu.znicz.samples``): the flagship decode model (serving), the
+StandardWorkflow training samples MNIST, AlexNet, the CIFAR and STL-10
+convnets and the VideoAE conv autoencoder, and DemoKohonen (``kohonen``,
+the self-organizing map, trained without gradients).  DemoKohonen keeps
+the JAX sample's ``run(load, main)``; the other samples' entries, and
+the command line that calls them, wait for ROADMAP queue A item 10."""
 
 
 def build_standard(cfg, name, default_loader_factory, loss_function,

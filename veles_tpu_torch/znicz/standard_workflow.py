@@ -11,9 +11,13 @@ All2AllSoftmax head, :class:`~.decision.DecisionGD`) or "mse"
 (:class:`~.decision.DecisionMSE`, a FullBatchLoaderMSE's targets).
 A paramless layer type with no GD unit of its own (depooling, the
 channel splitter and merger, zero_filler) gets a
-:class:`~.nn_units.GenericVJPBackward`; a layer with parameters and no
-GD unit raises ``ValueError``, as does a ``zero_filler`` layer in a
-fused build (its masking runs only as a unit of graph mode).
+:class:`~.nn_units.GenericVJPBackward`, and so does
+``all2all_resizable``, which the JAX workflow refuses
+(``GENERIC_BACKWARD``); any other layer with parameters and no GD unit
+raises ``ValueError``, as does a ``zero_filler`` layer in a fused build
+(its masking runs only as a unit of graph mode).  The recurrent layers
+(``rnn``, ``lstm``) train by backprop through time: their GD units
+differentiate ``apply``'s time loop.
 
 Two modes, as in the JAX package:
 
@@ -73,14 +77,14 @@ from ..registry import MappedObjectsRegistry, UnitRegistry
 from ..workflow import Workflow
 from .all2all import All2AllSoftmax
 from .nn_units import (ForwardBase, GenericVJPBackward,
-                       GradientDescentBase, ParamlessForward)
+                       GradientDescentBase)
 from .decision import DecisionGD, DecisionMSE
 from .evaluator import EvaluatorSoftmax, EvaluatorMSE
 from .fused import FusedTrainStep
 from .scan_step import ScanEpochStep
 # registers the layer MAPPINGs
 from . import (activation, all2all, attention, conv, dropout,  # noqa: F401
-               gd, gd_conv, gd_pooling, lrn, misc_units, pooling)
+               gd, gd_conv, gd_pooling, lrn, misc_units, pooling, rnn)
 
 __all__ = ["StandardWorkflow", "REFUSED_KNOBS"]
 
@@ -208,11 +212,12 @@ class StandardWorkflow(Workflow):
         # fused step reads
         for (gd_cls, gd_kwargs), fwd in zip(gd_pairs, self.forwards):
             if gd_cls is None:
-                if not isinstance(fwd, ParamlessForward):
+                if not fwd.GENERIC_BACKWARD:
                     raise ValueError(
                         "no GD unit registered for parameterized layer %r"
                         % type(fwd).MAPPING)
-                gd_cls = GenericVJPBackward  # paramless structural layer
+                # a paramless structural layer, or ResizableAll2All
+                gd_cls = GenericVJPBackward
             self.gds.append(gd_cls(self, **gd_kwargs).link_forward(fwd))
         if self.snapshotter_config is not None:
             self._build_snapshotter(dict(self.snapshotter_config))
