@@ -373,7 +373,8 @@ Phases (any failure raises and the script exits non-zero):
    under ``SEQ_GATE_PT`` best validation error (the JAX test's gate),
    the scanned run bit for bit the fused one with its time loop
    captured in the step's CUDA graphs, graph mode's distance from fused
-   mode printed.  (c) DemoKohonen at its defaults (8x8 map, 30 epochs):
+   mode printed.  (c) DemoKohonen at its defaults (8x8 map) for
+   ``KOHONEN_EPOCHS`` epochs:
    the last epoch's quantization error under ``KOHONEN_GATE`` of the
    first's, a (64, 2) codebook, the codebook after the first epoch
    within ``KOHONEN_ATOL`` of the CPU's.  (d) The RBM of
@@ -386,6 +387,30 @@ Phases (any failure raises and the script exits non-zero):
    SeqLSTM epoch and one DemoKohonen epoch run under ``torch.profiler``
    for the card's busy share.  The kernels line adds (a)'s K4 launches
    (and the softmax head's in (b), 0 at the default ``precise_gemm``).
+4k. The training-control units and the last MLP and conv samples
+   (ROADMAP queue A item 9, bullets 3-4), after 4j, each with
+   ``precise_gemm=1`` and K4 counted from 0 in every part, held to
+   ``CONTROL_K4`` a train / eval step (row).  (a) MnistAE at the JAX
+   gate's settings (2000 + 500 digits, minibatch 100, 8 epochs) fused,
+   in graph mode and with ``epoch_scan=True``: each under the published
+   0.5478 validation rmse, the scanned run bit for bit the fused one,
+   graph mode's distance from fused mode printed.  (b) Kanji (400 +
+   100 glyphs, minibatch 50, 40 epochs) fused: rmse under 0.6 of the
+   targets' standard deviation.  (c) Lines from its mcdnnic string (200
+   + 60 images, minibatch 40, 12 epochs) fused and in graph mode: the
+   forwards ``LINES_MAPPINGS``, under 10 % error.  (d) Phase 4's MNIST
+   with a ``LearningRateAdjuster`` (``CONTROL_ADJUSTER``) and a
+   ``WeightsRollback`` (``CONTROL_ROLLBACK``) for ``CONTROL_EPOCHS``,
+   per step and scanned: one rollback or more, the scanned run bit for
+   bit the per-step one (weights, n_err, ``lr_scale`` by epoch,
+   rollbacks), the train graph captured once for each scale, the first
+   two epochs within ``FIRST_EPOCH_WEIGHT_ATOL`` of the CPU's.  (e) An
+   ``ImageSaver`` on phase 4's MNIST for two epochs at ``prefetch_depth``
+   0 and 2: the same PNG names and bytes, each PNG decoded by
+   ``read_png`` (the standard library) to the minibatch row its name
+   gives, at most ``SAVER_LIMIT`` an epoch.  Each part prints its time
+   and its images a second; the kernels line adds the phase's K4
+   launches.
 5. Where the time goes: each serving configuration's burst, one
    training epoch with ``precise_gemm=1``, one full-width attention
    epoch (no mask) and one AlexNet epoch with K5/K6 once
@@ -411,6 +436,7 @@ every number to PATH as well.
 """
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -3089,13 +3115,14 @@ FIRST_EPOCH_WEIGHT_ATOL = 1e-4
 
 
 def _mnist_workflow(precise, device="cuda", epochs=None, fused=True,
-                    **overrides):
+                    link=None, **overrides):
     """The gate's workflow with ``root.common.engine.precise_gemm`` set
     to ``precise``, initialized on ``device`` (the card unless the CPU
     is asked for, whatever ``$VELES_BACKEND`` says); ``fused=False``:
     graph mode; ``overrides`` go to ``create_workflow`` (a
     ``snapshotter``, a ``loader_factory``), a ``loader`` dict merged into
-    the gate's."""
+    the gate's; ``link(wf)`` adds units before the workflow
+    initializes."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
@@ -3115,6 +3142,8 @@ def _mnist_workflow(precise, device="cuda", epochs=None, fused=True,
             decision=decision, **overrides)
     finally:
         root.common.engine.precise_gemm = saved
+    if link is not None:
+        link(wf)
     wf.initialize(device=Device(backend=device))
     _on(wf, device)
     if [f.precise_gemm for f in wf.forwards] != [precise] * 2:
@@ -3286,8 +3315,9 @@ def first_epoch_on_the_cpu(card_run, gemm):
 #: the needle task at the unit's measured width (bench.py:543): T 2048,
 #: d_model 512, 8 heads, 4 classes
 ATTN_T, ATTN_D, ATTN_HEADS, ATTN_CLASSES = 2048, 512, 8, 4
-#: (5 epochs before phase 4i, cut for it: the full-width runs have no gate)
-ATTN_N, ATTN_MINIBATCH, ATTN_EPOCHS = 480, 8, 3
+#: (5 epochs before phase 4i, cut for it, and 3 before phase 4k: the
+#: full-width runs have no gate)
+ATTN_N, ATTN_MINIBATCH, ATTN_EPOCHS = 480, 8, 2
 #: sequences (and validation ones) of the first epoch held against the
 #: CPU
 ATTN_CPU_N, ATTN_CPU_VALID = 24, 8
@@ -3602,8 +3632,9 @@ def trace_train(torch, card, precise):
 #: defaults (2048 train + 256 valid images, 1.42 GB resident)
 ALEX_EPOCHS = 2
 #: the card-vs-CPU hold: the first train steps at minibatch 128 on a cut
-#: dataset (256 train + 128 valid images; widths untouched)
-ALEX_HOLD_STEPS = 2
+#: dataset (256 train + 128 valid images; widths untouched; 2 steps
+#: before phase 4k, whose time the CPU's second step, ~4.8 s, pays for)
+ALEX_HOLD_STEPS = 1
 ALEX_HOLD_LOADER = {"n_train": 256, "n_valid": 128}
 #: card vs CPU (and port vs JAX in the tests): each train step's loss
 #: within this relative tolerance, each parameter tensor within this
@@ -4560,12 +4591,13 @@ def _gd_launches(wf, counters):
     return inside
 
 
-def _want_launches(label, out, want):
+def _want_launches(label, out, want, mode="graph mode"):
     """Refuse per train / eval step launches other than ``want``."""
     if out["launches_per_train_eval_step"] != want:
-        raise AssertionError("%s (graph mode): launches per train / eval "
+        raise AssertionError("%s (%s): launches per train / eval "
                              "step %r, want %r" % (
-                                 label, out["launches_per_train_eval_step"],
+                                 label, mode,
+                                 out["launches_per_train_eval_step"],
                                  want))
 
 
@@ -5406,9 +5438,9 @@ def snapshot_phase(torch, card):
 
 #: STL-10 at its published widths on its synthetic twin's defaults (96x96x3,
 #: 5000 train + 800 valid images, minibatch 50), ``precise_gemm=1``; the
-#: epochs cut from the sample's 100 (to 5, then to 3 for phase 4i; the
-#: twin reads 0 % validation error from epoch 1 on)
-STL10_EPOCHS = 3
+#: epochs cut from the sample's 100 (to 5, then to 3 for phase 4i, to 2
+#: for phase 4k; the twin reads 0 % validation error from epoch 1 on)
+STL10_EPOCHS = 2
 #: the JAX gate (tests/test_samples_gates.py::test_stl10_sample_trains):
 #: best validation error under this, in percent
 STL10_GATE_PT = 50.0
@@ -5430,9 +5462,10 @@ VIDEO_AE_EPOCHS = 15
 #: reconstructs): best validation rmse under this fraction of the
 #: targets' standard deviation
 VIDEO_AE_GATE = 0.5
-#: the first train steps held card against CPU in each mode; STL-10 on
-#: the JAX gate test's 300 + 100 images (widths untouched)
-CONV_HOLD_STEPS = 2
+#: the first train steps held card against CPU in each mode (2 before
+#: phase 4k); STL-10 on the JAX gate test's 300 + 100 images (widths
+#: untouched)
+CONV_HOLD_STEPS = 1
 CONV_HOLD_LOADER = {"stl10": {"n_train": 300, "n_valid": 100},
                     "video_ae": {}}
 #: card against CPU: each step's loss relative, each parameter tensor
@@ -5467,18 +5500,22 @@ def stl10_twins_shared():
 
 
 def conv_sample_workflow(name, device="cuda", fused=True, epochs=1,
-                         precise=0, layers=None, **loader):
-    """The ``stl10`` or ``video_ae`` sample through ``create_workflow``
-    with ``root.common.engine.precise_gemm`` set to ``precise``, weights
-    from seed 42, loader seed 3, initialized on ``device`` (the card
-    unless the CPU is asked for); ``loader`` overrides the sample's
-    loader config, ``layers`` (unless None) replaces its layers."""
+                         precise=0, layers=None, epoch_scan=False, **loader):
+    """The ``stl10``, ``video_ae``, ``mnist_ae``, ``kanji`` or ``lines``
+    sample through ``create_workflow`` with
+    ``root.common.engine.precise_gemm`` set to ``precise``, weights from
+    seed 42, loader seed 3, initialized on ``device`` (the card unless
+    the CPU is asked for); ``loader`` overrides the sample's loader
+    config, ``layers`` (unless None) replaces its layers;
+    ``epoch_scan``: a class a run."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.config import root
     from veles_tpu_torch.prng import RandomGenerator
-    from veles_tpu_torch.znicz.samples import stl10, video_ae
-    mod = {"stl10": stl10, "video_ae": video_ae}[name]
+    from veles_tpu_torch.znicz.samples import (kanji, lines, mnist_ae,
+                                               stl10, video_ae)
+    mod = {"stl10": stl10, "video_ae": video_ae, "mnist_ae": mnist_ae,
+           "kanji": kanji, "lines": lines}[name]
     prng.get().seed(42)
     saved = root.common.engine.get("precise_gemm", 0)
     root.common.engine.precise_gemm = precise
@@ -5486,6 +5523,7 @@ def conv_sample_workflow(name, device="cuda", fused=True, epochs=1,
         wf = mod.create_workflow(
             fused=fused, loader=dict(loader, prng=RandomGenerator().seed(3)),
             decision={"max_epochs": epochs, "silent": True},
+            epoch_scan=epoch_scan,
             **({} if layers is None else {"layers": layers}))
     finally:
         root.common.engine.precise_gemm = saved
@@ -5865,8 +5903,9 @@ def trace_stochastic(torch, card):
 
 # -- phase 4i: the epoch scan and the prefetcher (queue A item 7) -------------
 
-#: MNIST epochs of (a)'s per-step, scanned and ``train_epochs`` runs
-SCAN_MNIST_EPOCHS = 3
+#: MNIST epochs of (a)'s per-step, scanned and ``train_epochs`` runs (3
+#: before phase 4k)
+SCAN_MNIST_EPOCHS = 2
 #: MNIST epochs of (d)'s two prefetch depths
 PREFETCH_EPOCHS = 2
 #: (c) AlexNet and the LRN convnet on 4f's 512 + 128 images
@@ -5875,8 +5914,9 @@ SCAN_CONV_LOADER = {"n_train": 512, "n_valid": 128}
 
 def _class_instrument(wf, counters):
     """Rows (minibatches) and kernel launches by class, each train
-    class's last loss and each epoch's n_err, of a fused workflow per
-    step or scanned (its class known after each step run); -> record."""
+    class's last loss and each epoch's n_err (rmse for MSE), of a fused
+    workflow per step or scanned (its class known after each step run);
+    -> record."""
     from veles_tpu_torch.loader import TRAIN, VALID
     step, decision = wf.fused_step, wf.decision
     rec = {"rows": {TRAIN: 0, VALID: 0}, "losses": [], "epoch_n_err": [],
@@ -5899,17 +5939,18 @@ def _class_instrument(wf, counters):
         ended = bool(decision.last_minibatch) and bool(decision.epoch_ended)
         decision_run()
         if ended:
-            rec["epoch_n_err"].append(list(decision.epoch_n_err))
+            rec["epoch_n_err"].append(_epoch_metric(wf))
 
     step.run, decision.run = _transient(run), _transient(run_decision)
     return rec
 
 
-def _scan_run(torch, wf, counters, label, card, run=None):
+def _scan_run(torch, wf, counters, label, card, run=None, phase="4i"):
     """Run ``wf`` (or ``run()``) with the kernels' counts from 0; ->
     record: seconds, images/s (every image served), rows and launches
-    by [train, eval], launches a row, losses, n_err by epoch, weights,
-    and the scan step's captures, replays and replay host time."""
+    by [train, eval], launches a row, losses, n_err (rmse) by epoch,
+    weights, and the scan step's captures, replays and replay host
+    time; logged under ``phase``."""
     from veles_tpu_torch.loader import TRAIN, VALID
     rec = _class_instrument(wf, counters)
     for fn in counters.values():
@@ -5917,7 +5958,7 @@ def _scan_run(torch, wf, counters, label, card, run=None):
     served = wf.loader.samples_served
     t0 = time.perf_counter()
     (run or wf.run)()
-    torch.cuda.synchronize()
+    _sync(torch, wf.fused_step._dev_.type)
     seconds = time.perf_counter() - t0
     step = wf.fused_step
     rows = [rec["rows"][TRAIN], rec["rows"][VALID]]
@@ -5942,9 +5983,9 @@ def _scan_run(torch, wf, counters, label, card, run=None):
                                           not step.replays):
             raise AssertionError("%s: %d graphs captured, %d replays"
                                  % (label, step.captures, step.replays))
-    _log("4i %s: %.3f s, %.0f images/s; [train, eval] rows %s, launches "
+    _log("%s %s: %.3f s, %.0f images/s; [train, eval] rows %s, launches "
          "%s (%s a row)%s [%s]" % (
-             label, seconds, out["images_s"], rows, out["launches"],
+             phase, label, seconds, out["images_s"], rows, out["launches"],
              {n: ["%.2f" % x for x in v] for n, v in out["per_row"].items()},
              "" if "replays" not in out else
              "; %d graphs, %d replays, %d eager rows, replay host %.4f ms "
@@ -6205,8 +6246,12 @@ RESIZE_TOL = 1e-6
 SEQ_EPOCHS = 8
 SEQ_GATE_PT = 25.0
 SEQ_GD = {"learning_rate": 0.05, "gradient_moment": 0.9}
-#: (c) DemoKohonen's gate (the last epoch's quantization error under
-#: this share of the first's) and its first epoch card against CPU
+#: (c) DemoKohonen's epochs (the JAX gate test's, tests/
+#: test_samples_gates.py::test_kohonen_som_organizes; cut from the
+#: sample's 30 for phase 4k), its gate (the last epoch's quantization
+#: error under this share of the first's) and its first epoch card
+#: against CPU
+KOHONEN_EPOCHS = 12
 KOHONEN_GATE = 0.5
 KOHONEN_ATOL = 1e-5
 #: (d) the RBM of tests/test_znicz_extra.py: epochs and gate (the last
@@ -6568,7 +6613,7 @@ def trace_recurrent(torch, card):
 
 
 def recurrent_phase(torch, gemm, card, device="cuda", seq_epochs=SEQ_EPOCHS,
-                    kohonen_epochs=None, rbm_epochs=RBM_EPOCHS):
+                    kohonen_epochs=KOHONEN_EPOCHS, rbm_epochs=RBM_EPOCHS):
     """Phase 4j: (a)-(d) and, on the card, the traces; -> record with
     the phase's launches under the kernels line's names.  ``device`` and
     the epochs cut it for a rehearsal on the CPU."""
@@ -6591,6 +6636,462 @@ def recurrent_phase(torch, gemm, card, device="cuda", seq_epochs=SEQ_EPOCHS,
     out["launches"] = {"precise_matmul_l1": out["resize"]["k4_launches"] +
                        out["seq"]["k4_launches"]}
     _log("4j: launches %s; parts %s s [%s]" % (
+        out["launches"], {k: round(v, 1) for k, v in times.items()}, card))
+    return out
+
+
+# -- phase 4k: the training-control units and the last samples (queue A 9) --
+
+#: K4 launches a (train, eval) step, by sample and fused (True) or graph
+#: mode (False).  Fused: both fully connected forwards, both weight
+#: gradients and the input gradient of each fully connected layer with
+#: a layer with parameters below it (MnistAE, Kanji and MNIST: the
+#: second's, 5 / 2; Lines: both, the first feeding its convolutions, 6
+#: / 2, as STL-10).  Graph mode: the two forwards (the GD units multiply
+#: with ``torch.matmul``), 2 / 2.  A scanned row launches what a step
+#: launches
+CONTROL_K4 = {"mnist_ae": {True: (5, 2), False: (2, 2)},
+              "kanji": {True: (5, 2), False: (2, 2)},
+              "lines": {True: (6, 2), False: (2, 2)},
+              "mnist": {True: (5, 2)}}
+#: (a) MnistAE at the JAX gate's settings (tests/test_samples_gates.py:
+#: 93-106) and its gate, the published validation RMSE
+MNIST_AE_LOADER = {"minibatch_size": 100, "n_train": 2000, "n_valid": 500}
+MNIST_AE_EPOCHS = 8
+MNIST_AE_GATE = 0.5478
+#: (b) Kanji at the JAX test's settings (tests/test_mcdnnic_samples.py:
+#: 66-82) and its gate, a share of the targets' standard deviation
+KANJI_LOADER = {"minibatch_size": 50, "n_train": 400, "n_valid": 100}
+KANJI_EPOCHS = 40
+KANJI_GATE = 0.6
+#: (c) Lines at the JAX test's settings (tests/test_mcdnnic_samples.py:
+#: 46-63), the forwards its string builds, and its gate
+LINES_LOADER = {"minibatch_size": 40, "n_train": 200, "n_valid": 60}
+LINES_EPOCHS = 12
+LINES_MAPPINGS = ["conv_str", "max_pooling", "conv_str", "max_pooling",
+                  "all2all_tanh", "softmax"]
+LINES_GATE_PT = 10.0
+#: (d) phase 4's MNIST (``precise_gemm=1``) with an ``arbitrary``
+#: adjuster, its scales no powers of two but 2.0 at epoch 2, a rate that
+#: makes the next validation worse so the rollback restores (0.9 from
+#: epoch 1, 2.0 at 2, 0.7 from 3, 0.5 from 5), and a rollback at every
+#: epoch without improvement, halving the rate; the per-step run's
+#: first ``CONTROL_CPU_EPOCHS`` held against the CPU's, epoch by epoch,
+#: within ``CONTROL_CPU_ATOL`` (the first: phase 4's limit; the second
+#: drifts further, 2.17e-4 on an H100 80GB HBM3 at 700 W)
+CONTROL_ADJUSTER = {"policy": "arbitrary",
+                    "points": [(1, 0.9), (2, 2.0), (3, 0.7), (5, 0.5)]}
+CONTROL_ROLLBACK = {"improvement_limit": 1, "lr_damping": 0.5}
+CONTROL_EPOCHS = 6
+CONTROL_CPU_EPOCHS = 2
+CONTROL_CPU_ATOL = (1e-4, 5e-4)
+#: (e) the image saver on phase 4's MNIST: epochs and files an epoch
+SAVER_EPOCHS = 2
+SAVER_LIMIT = 32
+
+
+def mnist_ae_part(torch, card, counters, device="cuda"):
+    """(a): MnistAE with ``precise_gemm=1`` fused, in graph mode and
+    scanned, each under ``MNIST_AE_GATE`` best validation rmse, K4 as
+    ``CONTROL_K4``, the scanned run bit for bit the fused one (weights
+    and each epoch's rmse), graph mode's distance printed; -> record."""
+    runs, weights, launches = {}, {}, 0
+    for label, fused, scan in (("fused", True, False),
+                               ("graph", False, False),
+                               ("scanned", True, True)):
+        t0 = time.perf_counter()
+        wf = conv_sample_workflow("mnist_ae", device, fused,
+                                  MNIST_AE_EPOCHS, precise=1,
+                                  epoch_scan=scan, **MNIST_AE_LOADER)
+        init_s = time.perf_counter() - t0
+        name = "MnistAE precise_gemm=1 " + label
+        if fused:
+            res = _scan_run(torch, wf, counters, name, card, phase="4k")
+            _want_per_row(name, res, {"k4": CONTROL_K4["mnist_ae"][True]})
+            weights[label] = res.pop("weights")
+            launches += res["launches_total"]["k4"]
+        else:
+            res = _train_record(torch, wf, counters, name, card, init_s,
+                                "images")
+            res.pop("first_epoch")
+            _want_launches(name, res, {"k4": CONTROL_K4["mnist_ae"][False]})
+            if res.pop("gd_launches")["k4"]:
+                raise AssertionError("4k(a) %s: K4 inside a GD unit" % name)
+            weights[label] = host_weights(wf)
+            launches += res["launches"]["k4"]
+        best = wf.gather_results()["best_validation_rmse"]
+        res["best_validation_rmse"] = best
+        if not best < MNIST_AE_GATE:
+            raise AssertionError("4k(a) %s missed its gate: rmse %.6f "
+                                 "(gate %g)" % (name, best, MNIST_AE_GATE))
+        runs[label] = res
+        del wf
+    _bitwise("4k(a) MnistAE scanned", weights["scanned"], weights["fused"])
+    if runs["scanned"]["epoch_n_err"] != runs["fused"]["epoch_n_err"]:
+        raise AssertionError("4k(a): rmse by epoch %r scanned, %r fused" % (
+            runs["scanned"]["epoch_n_err"], runs["fused"]["epoch_n_err"]))
+    graph_diff = _max_rel_diff(weights["graph"], weights["fused"])
+    _log("4k(a) MnistAE: best validation rmse fused %.6f graph %.6f "
+         "scanned %.6f (gate %g); the scanned run bit for bit the fused "
+         "one; graph mode's parameters within %.3g of their largest "
+         "magnitude of fused mode's [%s]" % (
+             runs["fused"]["best_validation_rmse"],
+             runs["graph"]["best_validation_rmse"],
+             runs["scanned"]["best_validation_rmse"], MNIST_AE_GATE,
+             graph_diff, card))
+    return {"runs": runs, "graph_vs_fused_weight_rel_diff": graph_diff,
+            "k4_launches": launches}
+
+
+def kanji_part(torch, card, counters, device="cuda"):
+    """(b): Kanji fused with ``precise_gemm=1``, best validation rmse
+    under ``KANJI_GATE`` of the targets' standard deviation, K4 as
+    ``CONTROL_K4``; -> record."""
+    t0 = time.perf_counter()
+    wf = conv_sample_workflow("kanji", device, True, KANJI_EPOCHS,
+                              precise=1, **KANJI_LOADER)
+    name = "Kanji precise_gemm=1"
+    res = _train_record(torch, wf, counters, name, card,
+                        time.perf_counter() - t0, "glyphs")
+    res.pop("first_epoch")
+    _want_launches(name, res, {"k4": CONTROL_K4["kanji"][True]}, "fused")
+    floor = float(wf.loader.original_targets.map_read().std())
+    res["targets_std"] = floor
+    if not res["best_validation_rmse"] < KANJI_GATE * floor:
+        raise AssertionError("4k(b) Kanji missed its gate: rmse %.6f, "
+                             "targets' std %.6f" % (
+                                 res["best_validation_rmse"], floor))
+    res["k4_launches"] = res["launches"]["k4"]
+    return res
+
+
+def lines_part(torch, card, counters, device="cuda"):
+    """(c): Lines from its mcdnnic string with ``precise_gemm=1``, fused
+    and in graph mode: the forwards ``LINES_MAPPINGS``, each run under
+    ``LINES_GATE_PT`` best validation error, K4 as ``CONTROL_K4``;
+    -> record."""
+    runs, launches = {}, 0
+    for fused in (True, False):
+        t0 = time.perf_counter()
+        wf = conv_sample_workflow("lines", device, fused, LINES_EPOCHS,
+                                  precise=1, **LINES_LOADER)
+        name = "Lines precise_gemm=1 %s" % ("fused" if fused else "graph")
+        if [type(f).MAPPING for f in wf.forwards] != LINES_MAPPINGS:
+            raise AssertionError("4k(c) %s: forwards %r" % (
+                name, [type(f).MAPPING for f in wf.forwards]))
+        res = _train_record(torch, wf, counters, name, card,
+                            time.perf_counter() - t0, "images")
+        res.pop("first_epoch")
+        _want_launches(name, res, {"k4": CONTROL_K4["lines"][fused]},
+                       "fused" if fused else "graph mode")
+        if not fused and res.pop("gd_launches")["k4"]:
+            raise AssertionError("4k(c) %s: K4 inside a GD unit" % name)
+        if not res["best_validation_error_pt"] < LINES_GATE_PT:
+            raise AssertionError("4k(c) %s missed its gate: %.2f %%" % (
+                name, res["best_validation_error_pt"]))
+        launches += res["launches"]["k4"]
+        runs["fused" if fused else "graph"] = res
+    return {"runs": runs, "k4_launches": launches}
+
+
+def control_workflow(device, epochs, epoch_scan=False):
+    """Phase 4's MNIST with ``precise_gemm=1``, a ``LearningRateAdjuster``
+    of ``CONTROL_ADJUSTER`` and a ``WeightsRollback`` of
+    ``CONTROL_ROLLBACK`` linked after the decision in that order; ->
+    (workflow, rollback, record): the record holds each epoch's
+    ``lr_scale`` (the one it trained at), rollbacks so far, weights and
+    n_err, and the train graphs' captures by scale."""
+    from veles_tpu_torch.znicz.lr_adjust import LearningRateAdjuster
+    from veles_tpu_torch.znicz.rollback import WeightsRollback
+    units = {}
+
+    def link(wf):
+        adj = LearningRateAdjuster(wf, **CONTROL_ADJUSTER)
+        adj.link_from(wf.decision)
+        adj.link_loader(wf.loader)
+        adj.link_fused(wf.fused_step)
+        rb = units["rollback"] = WeightsRollback(wf, **CONTROL_ROLLBACK)
+        rb.link_from(wf.decision)
+        rb.link_all(wf.fused_step, wf.decision, wf.loader)
+
+    wf = _mnist_workflow(1, device=device, epochs=epochs,
+                         epoch_scan=epoch_scan, link=link)
+    rb, step, decision = units["rollback"], wf.fused_step, wf.decision
+    rec = {"lr_scale": [], "rollbacks": [], "weights": [], "n_err": [],
+           "train_captures": []}
+    decision_run = decision.run
+
+    def run_decision():
+        ended = bool(decision.last_minibatch) and bool(decision.epoch_ended)
+        decision_run()
+        if ended:
+            rec["lr_scale"].append(float(step.lr_scale))
+            rec["rollbacks"].append(rb.rollbacks)
+            rec["weights"].append(host_weights(wf))
+            rec["n_err"].append(_epoch_metric(wf))
+    decision.run = _transient(run_decision)
+    if epoch_scan:
+        capture = step._capture
+
+        def counted_capture(buf, train):
+            if train:
+                rec["train_captures"].append(float(step.lr_scale))
+            return capture(buf, train)
+        step._capture = _transient(counted_capture)
+    return wf, rb, rec
+
+
+def control_part(torch, card, counters, device="cuda"):
+    """(d): ``control_workflow`` per step and scanned: K4 as
+    ``CONTROL_K4``, one rollback or more, the scanned run bit for bit
+    the per-step run (weights, each epoch's n_err, ``lr_scale`` and
+    rollbacks), on the card the train graph captured once for each
+    scale it trained at; the per-step run's first ``CONTROL_CPU_EPOCHS``
+    against the CPU's, epoch by epoch (n_err within 1, weights within
+    ``CONTROL_CPU_ATOL``, the same scales); -> record."""
+    epochs, cpu_epochs = CONTROL_EPOCHS, CONTROL_CPU_EPOCHS
+    runs, recs = {}, {}
+    for label, scan in (("per step", False), ("scanned", True)):
+        wf, rb, rec = control_workflow(device, epochs, scan)
+        name = "MNIST adjuster + rollback " + label
+        res = _scan_run(torch, wf, counters, name, card, phase="4k")
+        _want_per_row(name, res, {"k4": CONTROL_K4["mnist"][True]})
+        res.update(lr_scale=rec["lr_scale"], rollbacks=rb.rollbacks,
+                   final_lr_scale=float(wf.fused_step.lr_scale),
+                   train_captures=rec["train_captures"])
+        if rb.rollbacks < 1:
+            raise AssertionError("4k(d) %s: no rollback" % name)
+        runs[label], recs[label] = res, rec
+        del wf
+    step, scan = runs["per step"], runs["scanned"]
+    _bitwise("4k(d) scanned", scan.pop("weights"), step.pop("weights"))
+    for key in ("epoch_n_err", "lr_scale", "rollbacks", "final_lr_scale"):
+        if scan[key] != step[key]:
+            raise AssertionError("4k(d) %s: scanned %r, per step %r" % (
+                key, scan[key], step[key]))
+    scales = [s for i, s in enumerate(step["lr_scale"])
+              if i == 0 or s != step["lr_scale"][i - 1]]
+    if device == "cuda" and (scan["train_captures"] != scales or
+                             scan["captures"] != len(scales) + 1):
+        raise AssertionError(
+            "4k(d): train graphs captured at scales %r (%d graphs in "
+            "all), want one at each of %r and one eval graph" % (
+                scan["train_captures"], scan["captures"], scales))
+    cpu, _, cpu_rec = control_workflow("cpu", cpu_epochs)
+    t0 = time.perf_counter()
+    cpu.run()
+    cpu_s = time.perf_counter() - t0
+    w_diff = [_max_diff(card_w, cpu_w) for card_w, cpu_w in zip(
+        recs["per step"]["weights"], cpu_rec["weights"])]
+    n_err_diff = max(abs(a - b) for card_e, cpu_e in zip(
+        step["epoch_n_err"], cpu_rec["n_err"]) for a, b in zip(card_e,
+                                                               cpu_e))
+    hold = {"epochs": cpu_epochs, "max_weight_diff": w_diff,
+            "n_err_cpu": cpu_rec["n_err"], "cpu_seconds": cpu_s,
+            "lr_scale_cpu": cpu_rec["lr_scale"]}
+    _log("4k(d) MNIST adjuster + rollback: %d epochs, lr_scale by epoch "
+         "%s, final %r, %d rollbacks; scanned bit for bit per step; train "
+         "graphs captured at %s (%d graphs with the eval one); first %d "
+         "epochs card vs CPU: max|w_card - w_cpu| by epoch %s (limits "
+         "%s), n_err card %s cpu %s [%s]" % (
+             epochs, step["lr_scale"], step["final_lr_scale"],
+             step["rollbacks"], scan["train_captures"],
+             scan.get("captures", 0), cpu_epochs,
+             ["%.3g" % d for d in w_diff], CONTROL_CPU_ATOL,
+             step["epoch_n_err"][:cpu_epochs], hold["n_err_cpu"], card))
+    if len(w_diff) != cpu_epochs or n_err_diff > 1 or \
+            cpu_rec["lr_scale"] != step["lr_scale"][:cpu_epochs] or \
+            not all(d <= tol for d, tol in zip(w_diff, CONTROL_CPU_ATOL)):
+        raise AssertionError("4k(d): the first %d epochs on the card differ "
+                             "from the CPU: %r" % (cpu_epochs, hold))
+    return {"runs": runs, "cpu_hold": hold,
+            "k4_launches": sum(r["launches_total"]["k4"]
+                               for r in runs.values())}
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def read_png(path):
+    """An 8-bit grayscale or RGB PNG of unfiltered or filtered rows
+    (``ImageSaver``'s), decoded with the standard library; -> uint8
+    array (h, w) or (h, w, 3)."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != PNG_SIGNATURE:
+        raise AssertionError("%s is no PNG" % path)
+    pos, idat, header = 8, b"", None
+    while pos < len(blob):
+        n, = struct.unpack(">I", blob[pos:pos + 4])
+        kind, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", blob[pos + 8 + n:pos + 12 + n])[0] != \
+                zlib.crc32(kind + data) & 0xFFFFFFFF:
+            raise AssertionError("%s: chunk %r fails its CRC" % (path, kind))
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat += data
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in (0, 2) or interlace:
+        raise AssertionError("%s: header %r" % (path, header))
+    ch = 3 if color == 2 else 1
+    stride = w * ch
+    raw = numpy.frombuffer(zlib.decompress(idat), numpy.uint8).reshape(
+        h, stride + 1)
+    out = numpy.zeros((h, stride), numpy.int32)
+    prev = numpy.zeros(stride, numpy.int32)
+    for r in range(h):
+        ftype, cur = int(raw[r, 0]), raw[r, 1:].astype(numpy.int32)
+        if ftype == 0:
+            row = cur
+        elif ftype == 2:
+            row = (cur + prev) & 0xFF
+        else:       # filters 1, 3, 4 predict from the row's own left
+            row = numpy.zeros(stride, numpy.int32)
+            for i in range(stride):
+                a = row[i - ch] if i >= ch else 0
+                b, c = prev[i], prev[i - ch] if i >= ch else 0
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) // 2
+                else:
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else \
+                        b if pb <= pc else c
+                row[i] = (cur[i] + pred) & 0xFF
+        out[r], prev = row, row
+    img = out.astype(numpy.uint8)
+    return img.reshape(h, w, 3) if ch == 3 else img
+
+
+def saver_run(torch, card, counters, directory, depth, device="cuda"):
+    """Phase 4's MNIST (``precise_gemm=1``) for ``SAVER_EPOCHS`` at
+    ``prefetch_depth`` ``depth`` with an ``ImageSaver`` (``SAVER_LIMIT``
+    an epoch) into ``directory``: each file it writes decodes
+    (``read_png``) to a row of the minibatch just run whose label and
+    prediction its name gives, at most ``SAVER_LIMIT`` files an epoch,
+    K4 as ``CONTROL_K4``; -> (record, {relative name: PNG bytes})."""
+    from veles_tpu_torch.znicz.image_saver import ImageSaver
+    units = {}
+
+    def link(wf):
+        saver = units["saver"] = ImageSaver(
+            wf, directory=directory, limit=SAVER_LIMIT,
+            sample_shape=(28, 28))
+        saver.link_all(wf.fused_step, wf.loader)
+        saver.link_from(wf.fused_step)
+
+    wf = _mnist_workflow(1, device=device, epochs=SAVER_EPOCHS,
+                         loader={"prefetch_depth": depth}, link=link)
+    if (wf.loader.prefetcher_ is None) != (depth == 0):
+        raise AssertionError("4k(e): depth %d, prefetcher %r" % (
+            depth, wf.loader.prefetcher_))
+    saver = units["saver"]
+    checked = []
+    run_saver = saver.run
+
+    def run_and_check():
+        before = saver.saved
+        run_saver()
+        if saver.saved == before:
+            return
+        epoch_dir = os.path.join(directory, "epoch_%d" % saver.epoch_number)
+        size = int(saver.minibatch_size)
+        data = saver.minibatch_data.map_read()[:size].reshape(size, 28, 28)
+        labels = saver.minibatch_labels.map_read()[:size]
+        pred = numpy.asarray(saver.output.map_read())[:size].argmax(-1)
+        lo = data.min(axis=(1, 2), keepdims=True)
+        hi = data.max(axis=(1, 2), keepdims=True)
+        scaled = ((data - lo) / (hi - lo + 1e-12) * 255).astype("uint8")
+        for k in range(saver._epoch_saved - (saver.saved - before),
+                       saver._epoch_saved):
+            names = [n for n in os.listdir(epoch_dir)
+                     if n.endswith("_%d.png" % k)]
+            true, rest = names[0].split("_as_")
+            img = read_png(os.path.join(epoch_dir, names[0]))
+            rows = [i for i in range(size)
+                    if labels[i] == int(true) and
+                    pred[i] == int(rest.split("_")[0]) and
+                    scaled[i].tobytes() == img.tobytes()]
+            if len(names) != 1 or not rows:
+                raise AssertionError("4k(e) %s: no row of the minibatch "
+                                     "decodes to it" % names)
+            checked.append(names[0])
+    saver.run = _transient(run_and_check)
+    name = "MNIST image saver prefetch_depth=%d" % depth
+    res = _scan_run(torch, wf, counters, name, card, phase="4k")
+    res.pop("weights")
+    _want_per_row(name, res, {"k4": CONTROL_K4["mnist"][True]})
+    files = {}
+    for top, _, names in os.walk(directory):
+        for n in names:
+            with open(os.path.join(top, n), "rb") as f:
+                files[os.path.relpath(os.path.join(top, n),
+                                      directory)] = f.read()
+    per_epoch = collections.Counter(n.split(os.sep)[0] for n in files)
+    if not files or len(files) != saver.saved or \
+            len(checked) != saver.saved or \
+            max(per_epoch.values()) > SAVER_LIMIT:
+        raise AssertionError("4k(e) %s: %d files, %d saved, %d checked, "
+                             "by epoch %r" % (name, len(files), saver.saved,
+                                              len(checked), per_epoch))
+    res.update(saved=saver.saved, by_epoch=dict(per_epoch))
+    return res, files
+
+
+def saver_part(torch, card, counters, device="cuda"):
+    """(e): ``saver_run`` at ``prefetch_depth`` 0 and 2: the same file
+    names and PNG bytes; -> record."""
+    tmp = tempfile.mkdtemp(prefix="veles-4k-saver-")
+    try:
+        runs, files = {}, {}
+        for depth in (0, 2):
+            runs[depth], files[depth] = saver_run(
+                torch, card, counters, os.path.join(tmp, str(depth)), depth,
+                device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if files[0] != files[2]:
+        raise AssertionError("4k(e): depth 0 wrote %d files, depth 2 %d; "
+                             "the names or bytes differ" % (
+                                 len(files[0]), len(files[2])))
+    _log("4k(e) ImageSaver: %d PNGs (%s by epoch) at prefetch_depth 0 and "
+         "2, the same names and bytes, each the minibatch row it names "
+         "[%s]" % (runs[0]["saved"], runs[0]["by_epoch"], card))
+    return {"runs": {str(d): r for d, r in runs.items()},
+            "k4_launches": sum(r["launches_total"]["k4"]
+                               for r in runs.values())}
+
+
+def control_phase(torch, gemm, card, device="cuda", counters=None):
+    """Phase 4k: (a)-(e) with K4 (``counters["k4"]``, by default the
+    wrapper) counted from 0 in each; -> record with the phase's K4
+    launches under the kernels line's name.  ``device`` and a stand-in
+    counter rehearse it on the CPU (the sizes are the module's
+    constants)."""
+    if counters is None:
+        counters = {"k4": gemm.precise_matmul}
+    out, times = {}, {}
+    for part, fn in (
+            ("mnist_ae", lambda: mnist_ae_part(torch, card, counters,
+                                               device)),
+            ("kanji", lambda: kanji_part(torch, card, counters, device)),
+            ("lines", lambda: lines_part(torch, card, counters, device)),
+            ("control", lambda: control_part(torch, card, counters,
+                                             device)),
+            ("saver", lambda: saver_part(torch, card, counters, device))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        times[part] = time.perf_counter() - t0
+    out["seconds"] = times
+    out["launches"] = {"precise_matmul_l1": sum(
+        out[part]["k4_launches"] for part in times)}
+    _log("4k: launches %s; parts %s s [%s]" % (
         out["launches"], {k: round(v, 1) for k, v in times.items()}, card))
     return out
 
@@ -6661,9 +7162,12 @@ def device_rows(events):
 
 #: tries of a traced run before a trace with no device time fails it.  The
 #: tracer has kept no device record of a run that launched work (an
-#: AlexNet epoch's trace, whose same epoch other runs traced in full); a
-#: run that launches nothing on the card fails every try.
-TRACE_TRIES = 3
+#: AlexNet epoch's trace, whose same epoch other runs traced in full), or
+#: part of them (phase 2's K4 profiles: 0, 0 and then 17 of 20 launches
+#: in three tries on an H100 80GB HBM3 at 700 W, and 0 then 38 of 40); a
+#: run that launches nothing on the card fails every try (3 before phase
+#: 4k)
+TRACE_TRIES = 6
 
 
 class TraceLost(AssertionError):
@@ -7086,6 +7590,11 @@ def main():
     for name, n in recurrent["launches"].items():
         launches[name] += n
     phase_done("4j recurrent, SOM and RBM")
+    control = control_phase(torch, gemm, card)
+    record["control_units_samples"] = control
+    for name, n in control["launches"].items():
+        launches[name] += n
+    phase_done("4k training control, MnistAE, Kanji and Lines")
     line = kernels_line(kernels, k4, launches)
     record["kernels"] = line["kernels"]
     record["traces"] = (

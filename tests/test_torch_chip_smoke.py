@@ -784,7 +784,8 @@ def _phase_names():
 def test_phase3e_is_in_mains_order():
     names = [n.split()[0] for n in _phase_names()]
     assert names == ["2", "3", "3b", "3c", "4", "3d", "3e", "4b", "4c",
-                     "4d", "3f", "4e", "4f", "4g", "4h", "4i", "4j", "5"]
+                     "4d", "3f", "4e", "4f", "4g", "4h", "4i", "4j", "4k",
+                     "5"]
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         src = f.read()
     # 3d's fleet and 3e share one fresh build cache, removed after

@@ -33,7 +33,11 @@
   (slice 23); the recurrent units and ``StandardWorkflow``s holding
   them (fused, graph mode and scanned), ``ResizableAll2All``, the
   Kohonen units and the DemoKohonen workflow, and the RBM trainer
-  (slice 24).
+  (slice 24); the MnistAE, Kanji and Lines samples' workflows in both
+  modes and a workflow with the learning-rate adjuster, the weights
+  rollback and the image saver (slice 25).
+- No module of the port imports PIL: the image saver writes its PNGs
+  with the standard library.
 - A fleet replica run as a subprocess (``python -X importtime -m
   veles_tpu_torch.fleet.replica --device cpu``, serving ``sleep:`` and
   ``toydecode:``, answering both routes) imports neither, read from the
@@ -116,13 +120,39 @@ def test_package_imports_no_jax_and_nothing_of_veles_tpu():
                  "snapshotter", "loader.shards", "znicz.misc_units",
                  "znicz.samples.stl10", "znicz.samples.video_ae",
                  "loader.prefetch", "znicz.scan_step", "znicz.kohonen",
-                 "znicz.rbm", "znicz.rnn", "znicz.samples.kohonen"):
+                 "znicz.rbm", "znicz.rnn", "znicz.samples.kohonen",
+                 "znicz.lr_adjust", "znicz.rollback", "znicz.image_saver",
+                 "znicz.samples.mnist_ae", "znicz.samples.kanji",
+                 "znicz.samples.lines"):
         assert "veles_tpu_torch." + name in report["imported"], name
     assert report["fixture"] == os.path.join(ROOT, "veles_tpu", "fixtures",
                                              "digits")
     assert report["provenance"] == "fixture"
     assert report["valid_images"] == 60
     assert [m for m in report["modules"] if _foreign(m)] == []
+    # the image saver writes its PNGs with the standard library
+    assert [m for m in report["modules"]
+            if m == "PIL" or m.startswith("PIL.")] == []
+
+
+def test_no_port_module_names_pil():
+    """No module of the port, and not ``chip_smoke.py``, imports PIL
+    (read from the sources: an import inside a function counts too)."""
+    found = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for top, _, files in os.walk(os.path.join(ROOT, "veles_tpu_torch")):
+        paths += [os.path.join(top, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            found += [(path, n) for n in names
+                      if n == "PIL" or n.startswith("PIL.")]
+    assert len(paths) > 100 and found == []
 
 
 def test_chip_smoke_imports_no_jax_and_nothing_of_veles_tpu():
@@ -665,6 +695,58 @@ def test_slice24_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         ld.run()
         rbm.run()
         assert rbm._w_.device == torch.device("cpu")
+
+def test_slice25_entry_points_need_a_card_unless_told_cpu(monkeypatch,
+                                                          tmp_path):
+    """The MnistAE, Kanji and Lines samples' workflows, fused and in
+    graph mode, and an MNIST workflow carrying a learning-rate adjuster,
+    a weights rollback and an image saver, initialize on the card
+    without a device and raise without one; told the CPU, each runs
+    there."""
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.znicz.image_saver import ImageSaver
+    from veles_tpu_torch.znicz.lr_adjust import LearningRateAdjuster
+    from veles_tpu_torch.znicz.rollback import WeightsRollback
+    from veles_tpu_torch.znicz.samples import kanji, lines, mnist, mnist_ae
+    cpu = Device(backend="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = {"n_train": 40, "n_valid": 40}
+    for mod in (mnist_ae, kanji, lines):
+        for fused in (True, False):
+            kwargs = dict(fused=fused, loader=small,
+                          decision={"max_epochs": 1, "silent": True})
+            with pytest.raises(RuntimeError, match="CUDA"):
+                mod.create_workflow(**kwargs).initialize()
+            wf = mod.create_workflow(**kwargs)
+            wf.initialize(device=cpu)
+            wf.run()
+            assert wf.forwards[-1].output.devmem.device == \
+                torch.device("cpu")
+
+    def controlled():
+        wf = mnist.create_workflow(loader={"n_train": 60, "n_valid": 60},
+                                   decision={"max_epochs": 2,
+                                             "silent": True})
+        adj = LearningRateAdjuster(wf, policy="exp", gamma=0.9)
+        adj.link_from(wf.decision)
+        adj.link_loader(wf.loader)
+        adj.link_fused(wf.fused_step)
+        rb = WeightsRollback(wf)
+        rb.link_from(wf.decision)
+        rb.link_all(wf.fused_step, wf.decision, wf.loader)
+        saver = ImageSaver(wf, directory=str(tmp_path),
+                           sample_shape=(28, 28))
+        saver.link_all(wf.fused_step, wf.loader)
+        saver.link_from(wf.fused_step)
+        return wf
+    with pytest.raises(RuntimeError, match="CUDA"):
+        controlled().initialize()
+    wf = controlled()
+    wf.initialize(device=cpu)
+    wf.run()
+    assert wf.fused_step.lr_scale == 0.9
+    assert wf.fused_step._dev_ == torch.device("cpu")
+
 
 def test_package_runner_subprocess_imports_no_jax(tmp_path):
     path = _mnist_package(tmp_path / "mnist.zip")

@@ -6,7 +6,9 @@ as the JAX one does) with their gradient-descent units, solvers,
 evaluator, decision and fused train step; ``ResizableAll2All``; the
 recurrent units (SimpleRNN, LSTM) with their BPTT units; the training
 paths without gradients, the Kohonen map and the CD-1 RBM;
-``StandardWorkflow``; the kernel modules (paged attention, the
+the training-control units (``LearningRateAdjuster``,
+``WeightsRollback``, ``ImageSaver``); ``StandardWorkflow`` and its
+MCDNN string notation; the kernel modules (paged attention, the
 quantized and compensated GEMMs, flash attention, LRN); and the
 samples."""
 
@@ -14,4 +16,5 @@ from .all2all import ResizableAll2All  # noqa: F401
 from .misc_units import (Cutter, GDCutter, ChannelSplitter,  # noqa: F401
                          ChannelMerger, ZeroFiller, Deconv, GDDeconv,
                          Depooling)
-from . import kohonen, rbm, rnn  # noqa: F401,E402
+from . import (image_saver, kohonen, lr_adjust, rbm,  # noqa: F401,E402
+               rnn, rollback)

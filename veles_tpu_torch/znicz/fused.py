@@ -9,8 +9,9 @@ graph mode would use); at run time one step runs per minibatch:
     loss = masked cross-entropy(chain of apply(params, x), y)
            (MSE: masked 0.5 * squared error against the targets)
     grads = autograd.grad(loss, params)
-    per parameter: g = regularized_grad(g); delta, state = solver(g)
-                   param += delta * (lr * lr_scale)
+    per parameter: g = regularized_grad(g)
+                   delta, state = solver(g, f32(lr) * f32(lr_scale))
+                   param += delta
 
 With a FullBatchLoader the dataset is resident on the device and
 gathered inside the step (``link_fused_gather``).  Any other loader (a
@@ -298,9 +299,11 @@ class FusedTrainStep(Unit, IResultProvider):
         logits = self._logits(x, seed)
         loss = self._loss(logits, y, mask)
         grads = iter(torch.autograd.grad(loss, flat))
-        # the host's product, as in the synchronous step: a captured
-        # graph bakes it in (ScanEpochStep captures again when it moves)
-        lr_scale = float(self.lr_scale)
+        # the JAX step's f32 product f32(lr) * f32(lr_scale) (its scale
+        # is an f32 argument of the jitted step; fault C16), made on the
+        # host: a captured graph bakes it in (ScanEpochStep captures
+        # again when the scale moves)
+        lr_scale = numpy.float32(self.lr_scale)
         with torch.no_grad():
             for gd, params, opt in zip(self.gd_units, self._params_,
                                        self._opt_):
@@ -309,7 +312,8 @@ class FusedTrainStep(Unit, IResultProvider):
                     g = solvers.regularized_grad(next(grads), p, decay,
                                                  l1l2, ortho)
                     delta, state = gd.solver.update(
-                        g, p, opt[name], gd.lr_for(name) * lr_scale)
+                        g, p, opt[name],
+                        float(numpy.float32(gd.lr_for(name)) * lr_scale))
                     p.add_(delta)
                     if in_place:
                         for old, new in zip(opt[name], state):

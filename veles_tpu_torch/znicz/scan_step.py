@@ -45,6 +45,7 @@ at class granularity; ``StandardWorkflow(epoch_scan=True)`` blocks the
 loader and links this unit from the repeater.
 """
 
+import gc
 import time
 
 import numpy
@@ -176,11 +177,20 @@ class ScanEpochStep(FusedTrainStep):
     def _capture(self, buf, train):
         """One CUDA graph of :meth:`_row`; -> (graph, the launches one
         replay makes).  Capturing runs nothing: its counts are taken
-        back."""
+        back.  Python's cyclic collector is off during the capture: a
+        dead workflow's graphs collected there would reset on the
+        capturing stream, which CUDA refuses (fault C17); what it would
+        have collected waits for its next run."""
         before = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._row(buf, train)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._row(buf, train)
+        finally:
+            if collecting:
+                gc.enable()
         delta = _build.launch_delta(before)
         _build.add_launches(delta, -1)
         self.captures += 1

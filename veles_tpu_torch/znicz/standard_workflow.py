@@ -60,13 +60,20 @@ mode, ``initialize`` attaches a
 ``root.common.loader.prefetch_depth``, 2; 0 serves synchronously) that
 stages each minibatch's indices on the card ahead of the step.
 
-Not ported yet: meshes, the status reporter, the graph compiler and the
-``mcdnnic_topology`` notation.  Each of their knobs raises
-``NotImplementedError`` when it is set to anything but its default
-(:data:`REFUSED_KNOBS`), so a config that would shard under the JAX
-package never trains differently here without a word.  ``web_status``
-is accepted and ignored: the status reporter only watches a run.
+``mcdnnic_topology="1x32x32-8C5-MP2-64N-4N"`` (with
+``mcdnnic_parameters``) builds the layers from the MCDNN string notation
+instead of ``layers=`` (:func:`parse_mcdnnic_topology`; both raise
+``ValueError``).
+
+Not ported yet: meshes, the status reporter and the graph compiler.
+Each of their knobs raises ``NotImplementedError`` when it is set to
+anything but its default (:data:`REFUSED_KNOBS`), so a config that
+would shard under the JAX package never trains differently here without
+a word.  ``web_status`` is accepted and ignored: the status reporter
+only watches a run.
 """
+
+import re
 
 from ..backends import Device
 from ..config import root
@@ -86,7 +93,7 @@ from .scan_step import ScanEpochStep
 from . import (activation, all2all, attention, conv, dropout,  # noqa: F401
                gd, gd_conv, gd_pooling, lrn, misc_units, pooling, rnn)
 
-__all__ = ["StandardWorkflow", "REFUSED_KNOBS"]
+__all__ = ["StandardWorkflow", "REFUSED_KNOBS", "parse_mcdnnic_topology"]
 
 #: knobs of the JAX workflow the port does not honour yet: name ->
 #: (the values that mean "off", the ROADMAP queue A item that ports it)
@@ -102,6 +109,63 @@ _GD_KEYS = {"learning_rate", "learning_rate_bias", "weights_decay",
             "weights_decay_bias", "l1_vs_l2", "l1_vs_l2_bias",
             "gradient_moment", "solver", "solver_parameters",
             "factor_ortho"}
+
+
+def parse_mcdnnic_topology(topology, parameters=None):
+    """MCDNN string notation -> a ``layers`` config list (the JAX
+    package's, token for token).
+
+    Dash-separated tokens, as in the reference's Lines sample
+    (manualrst_veles_workflow_creation.rst:41-47), e.g.
+    ``12x256x256-32C5-MP2-64C5-MP2-1024N-10N``:
+
+    - ``CxHxW`` (first token, optional): the input spec, informational;
+    - ``<n>C<k>``: conv, n kernels of k x k (strict ReLU);
+    - ``MP<k>`` / ``AP<k>``: max / avg pooling k x k, stride k;
+    - ``<n>N``: fully connected with n neurons, tanh for a hidden
+      layer, softmax for the last.
+
+    ``parameters`` ({"->": {...}, "<-": {...}} or flat) seeds every
+    conv and fully connected layer's config (``mcdnnic_parameters``)."""
+    params = dict(parameters or {})
+    fwd_base = dict(params.get("->", {}))
+    gd_base = dict(params.get("<-", {}))
+    flat = {k: v for k, v in params.items() if k not in ("->", "<-")}
+    tokens = [t for t in str(topology).split("-") if t]
+    if tokens and re.fullmatch(r"\d+(x\d+)+", tokens[0]):
+        tokens = tokens[1:]  # input spec: shapes come from the loader
+    layers = []
+    for i, tok in enumerate(tokens):
+        last = i == len(tokens) - 1
+        m = re.fullmatch(r"(\d+)C(\d+)", tok)
+        if m:
+            n, k = int(m.group(1)), int(m.group(2))
+            layers.append({"type": "conv_str",
+                           "->": {"n_kernels": n, "kx": k, "ky": k,
+                                  **fwd_base},
+                           "<-": dict(gd_base), **flat})
+            continue
+        m = re.fullmatch(r"(M|A)P(\d+)", tok)
+        if m:
+            k = int(m.group(2))
+            layers.append({"type": ("max_pooling" if m.group(1) == "M"
+                                    else "avg_pooling"),
+                           "->": {"kx": k, "ky": k, "sliding": (k, k)}})
+            continue
+        m = re.fullmatch(r"(\d+)N", tok)
+        if m:
+            n = int(m.group(1))
+            layers.append({"type": "softmax" if last else "all2all_tanh",
+                           "->": {"output_sample_shape": n, **fwd_base},
+                           "<-": dict(gd_base), **flat})
+            continue
+        raise ValueError(
+            "unrecognized mcdnnic token %r in %r (expected <n>C<k>, "
+            "MP<k>/AP<k>, <n>N or an CxHxW input spec)"
+            % (tok, topology))
+    if not layers:
+        raise ValueError("mcdnnic_topology %r has no layers" % topology)
+    return layers
 
 
 def _find_pair(type_name):
@@ -139,12 +203,17 @@ class StandardWorkflow(Workflow):
                     "StandardWorkflow(%s=%r) is not ported yet (ROADMAP "
                     "queue A %s)" % (knob, value, item))
         if kwargs.get("mcdnnic_topology"):
-            raise NotImplementedError(
-                "mcdnnic_topology is not ported yet; pass layers=")
+            if kwargs.get("layers"):
+                raise ValueError(
+                    "pass layers= OR mcdnnic_topology=, not both")
+            self.layers_config = parse_mcdnnic_topology(
+                kwargs["mcdnnic_topology"],
+                kwargs.get("mcdnnic_parameters"))
+        else:
+            self.layers_config = list(kwargs.get("layers", ()))
         self.fused = bool(kwargs.get("fused", True))
         # one ScanEpochStep run a class instead of a step a minibatch
         self.epoch_scan = bool(kwargs.get("epoch_scan", False))
-        self.layers_config = list(kwargs.get("layers", ()))
         self.loss_function = kwargs.get("loss_function", "softmax")
         if self.loss_function not in ("softmax", "mse"):
             raise ValueError("unknown loss_function %r (softmax or mse)"
